@@ -1,0 +1,1 @@
+"""Solvers and the hand-written CUDA kernels with their plain versions."""
