@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 2. build the CUDA kernels from spark_sklearn_tpu_torch/csrc/ with nvcc;
 3. kernel check: K2 (glm_loss_grad) and K4 (glm_trial_loss) against their
    plain PyTorch versions at the headline shapes (n=1797 samples,
-   B=5000 lanes, k=10 and k=2), with times and bounds;
+   B=5000 lanes, k=10 and k=2), with times, bounds, launch plans, ptxas'
+   registers and spills, and a check that two launches on the same
+   inputs give the same bits;
 4. main path: the headline search — GridSearchCV(LogisticRegression(
    max_iter=100), 1000 C values, StratifiedKFold(5), refit=False) on
    digits-shaped data made from --seed — on cuda, cold then warm, with
@@ -30,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -92,9 +95,9 @@ def op_counts(k: int, B: int, T: int = 16):
         # per trial: fma (2) + the loss (10)
         k4_ops, k4_sfu = T * rows * 12, T * rows * 2
     else:
-        # per logit: max, sub, exp, add; sub, exp, mul, sub, mul (9);
-        # per row: log, add, sub, mul, add (5)
-        k2_ops, k2_sfu = rows * (9 * k + 5), rows * (2 * k + 1)
+        # per logit: max, sub, exp, add; mul, sub, mul (7); per row:
+        # log, add, sub, mul, add, reciprocal (6)
+        k2_ops, k2_sfu = rows * (7 * k + 6), rows * (k + 2)
         # per trial and logit: fma, max; fma, sub, exp, add (8); per row 5
         k4_ops, k4_sfu = T * rows * (8 * k + 5), T * rows * (k + 1)
     return (k2_ops, k2_sfu), (k4_ops, k4_sfu)
@@ -107,7 +110,36 @@ def bound(nbytes: int, ops: int):
                                  "operations")
 
 
-def phase_kernels(seed: int, n_sm: int, sm_mhz: float):
+def ptxas_table(log: str):
+    """{mangled kernel name: (registers, spilled bytes)} from nvcc's
+    ``-Xptxas -v`` report."""
+    table, fn, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            table[fn] = (int(m.group(1)), spill)
+    return table
+
+
+def kernel_symbol(name: str, k: int) -> str:
+    """The part of the mangled name of the CUDA kernel that `name` runs
+    at k classes (k == 2: the binary loss)."""
+    base = {"glm_loss_grad": "loss_grad", "glm_trial_loss": "trial_loss"}
+    if k == 2:
+        return f"{base[name]}_directILb1E"
+    if k <= 16:
+        return f"{base[name]}_stagedILi{k}E"
+    return f"{base[name]}_directILb0E"
+
+
+def phase_kernels(seed: int, n_sm: int, sm_mhz: float, ptxas: dict):
     """K2 and K4 against their plain versions at the headline shapes."""
     import torch
 
@@ -129,6 +161,17 @@ def phase_kernels(seed: int, n_sm: int, sm_mhz: float):
             "glm_loss_grad": [(loss, loss_p, 1e-5, 1e-6), (G, G_p, 0, 1e-6)],
             "glm_trial_loss": [(trials, trials_p, 1e-5, 1e-6)],
         }
+        # two launches on the same inputs must give the same bits (the
+        # kernels add their partial sums in a fixed order, no atomics)
+        again = {"glm_loss_grad": gk.glm_loss_grad(Z, wT, y),
+                 "glm_trial_loss": (gk.glm_trial_loss(Z, Zp, wT, y, alphas),)}
+        first = {"glm_loss_grad": (loss, G), "glm_trial_loss": (trials,)}
+        for name in first:
+            if not all(torch.equal(a, b)
+                       for a, b in zip(first[name], again[name])):
+                raise AssertionError(f"{name} (k={k}): two launches on the "
+                                     "same inputs differ")
+        del again
         (k2_ops, k2_sfu), (k4_ops, k4_sfu) = op_counts(k, Z.shape[1])
         io = {
             "glm_loss_grad": (Z.nbytes + wT.nbytes + y.nbytes + G.nbytes
@@ -159,14 +202,26 @@ def phase_kernels(seed: int, n_sm: int, sm_mhz: float):
             bound_ms, bound_by = bound(nbytes, ops)
             ms = cuda_ms(timed[name][0])
             plain_ms = cuda_ms(timed[name][1], reps=5, warmup=1)
+            plan = gk.launch_plan(N, Z.shape[1], n_sm,
+                                  alphas.shape[0] if name == "glm_trial_loss"
+                                  else 0)
+            sym = kernel_symbol(name, k)
+            regs, spill = next((v for f, v in ptxas.items() if sym in f),
+                               (None, None))
             rows[(name, k)] = {
                 "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "sfu_bound_ms": sfu / sfu_per_ms, "bytes": nbytes,
-                "ops": ops}
+                "ops": ops, "plan": plan, "registers": regs,
+                "spill_bytes": spill}
             print(f"  {name:15s} k={k:2d}: {ms:.4f} ms (plain {plain_ms:.4f}"
                   f" ms, bound {bound_ms:.4f} ms by {bound_by}, SFU "
-                  f"{sfu / sfu_per_ms:.4f} ms), max abs err {max_abs:.3g}")
+                  f"{sfu / sfu_per_ms:.4f} ms, bound/time "
+                  f"{bound_ms / ms:.3f}, SFU/time {sfu / sfu_per_ms / ms:.3f}"
+                  f"), max abs err {max_abs:.3g}, bitwise repeatable")
+            print(f"    plan grid {plan['grid']} block {plan['block']} "
+                  f"S {plan['splits']} scratch {plan['scratch']}; {sym}: "
+                  f"{regs} registers, {spill} bytes spilled")
         del Z, Zp, wT, y, alphas, loss, G, trials, loss_p, G_p, trials_p
         torch.cuda.empty_cache()
     return rows
@@ -304,14 +359,15 @@ def main() -> int:
 
     print("[2] build")
     report = _build.build(["glm_epilogue"])
+    ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.2f} s")
-        for line in str(r["log"]).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
+        ptxas.update(ptxas_table(str(r["log"])))
+    for fn, (regs, spill) in sorted(ptxas.items()):
+        print(f"    {regs:4d} registers {spill:5d} bytes spilled  {fn}")
 
     print("[3] kernels at the headline shapes")
-    rows = phase_kernels(args.seed, n_sm, sm_mhz)
+    rows = phase_kernels(args.seed, n_sm, sm_mhz, ptxas)
 
     print("[4] main path: 1000 C x 5 folds on cuda")
     X, y = digits_like(args.seed)
@@ -338,12 +394,15 @@ def main() -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,
             "sfu_bound_ms": head["sfu_bound_ms"],
+            "plan": head["plan"], "registers": head["registers"],
+            "spill_bytes": head["spill_bytes"],
             "tolerance": ("loss rtol 1e-5, G atol 1e-6"
                           if name == "glm_loss_grad" else "rtol 1e-5"),
             "shape": {"n": N, "B": N_C * N_FOLDS, "k": K},
             "binary": {k: binary[k] for k in
                        ("ms", "plain_ms", "bound_ms", "bound_by",
-                        "max_abs_err")},
+                        "sfu_bound_ms", "max_abs_err", "plan", "registers",
+                        "spill_bytes")},
         })
     main_run["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -63,13 +63,16 @@ def build(names: Sequence[str]) -> Dict[str, Dict[str, object]]:
     """Compile every named source that is not built yet, one ``nvcc``
     per source, all started together.  Returns, per name, the build's
     seconds (0.0 when it was already built) and nvcc's output (ptxas'
-    register and spill report)."""
+    register and spill report, kept beside the library)."""
     t0 = time.perf_counter()
     running = {}
     report: Dict[str, Dict[str, object]] = {}
     for name in names:
-        if library_path(name).exists():
-            report[name] = {"seconds": 0.0, "log": ""}
+        lib = library_path(name)
+        if lib.exists():
+            log = lib.with_suffix(".log")
+            report[name] = {"seconds": 0.0,
+                            "log": log.read_text() if log.exists() else ""}
         else:
             running[name] = _start(name)
     for name, (proc, tmp, out) in running.items():
@@ -77,6 +80,7 @@ def build(names: Sequence[str]) -> Dict[str, Dict[str, object]]:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)      # atomic: a reader never sees half a file
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
     return report

@@ -17,6 +17,10 @@ wT (n, B) float32 fold weights; y (n,) int32 encoded labels.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — it never falls back.  `LAUNCHES` counts
 kernel launches (plain runs are not counted).
+
+On the card both kernels run on a grid of lane tiles x S row splits and
+add the splits' partial sums in a second, fixed-order launch;
+`launch_plan` picks S and the scratch shape (see the source's note).
 """
 
 from __future__ import annotations
@@ -33,6 +37,20 @@ LAUNCHES = {"glm_loss_grad": 0, "glm_trial_loss": 0}
 
 #: most line-search trials one K4 launch evaluates
 MAX_TRIALS = 16
+
+#: lanes of one block (one per thread of a warp) and warps of one block,
+#: as `kLanes` and `kWarps` in csrc/glm_epilogue.cu
+LANE_TILE, WARPS = 32, 4
+#: blocks an SM holds at once at k <= 12, the launch bounds' minimum
+#: (`__launch_bounds__(128, 8)` for K2, `(128, 6)` for K4)
+RESIDENT_BLOCKS = {"glm_loss_grad": 8, "glm_trial_loss": 6}
+#: the grid aims at about this many waves of resident blocks: enough
+#: that no SM idles for long at the end, few enough that the partial sums
+#: stay small; a whole number, so the last wave is (nearly) full
+WAVES = 4
+#: fewest rows a split gets where n allows: each warp walks several rows,
+#: which amortises the block's set-up and its copy pipeline's first load
+MIN_SPLIT_ROWS = 16
 
 
 def reset_launches() -> None:
@@ -84,6 +102,40 @@ def glm_trial_loss_plain(Z, Zp, wT, y, alphas):
 
 
 # ---------------------------------------------------------------------------
+# launch plan (host arithmetic, no card needed)
+# ---------------------------------------------------------------------------
+
+def row_splits(n: int, B: int, n_sm: int, resident: int) -> int:
+    """S, the row splits of the grid: about `WAVES` waves of (lane tile x
+    split) blocks at `resident` blocks per SM, but no split under
+    `MIN_SPLIT_ROWS` rows (and so S <= n)."""
+    tiles = -(-B // LANE_TILE)
+    want = WAVES * resident * n_sm // tiles
+    return max(1, min(want, -(-n // MIN_SPLIT_ROWS)))
+
+
+def split_rows(n: int, S: int):
+    """The rows of each split, as the kernel computes them
+    (`split_begin`): split s is rows [s*n // S, (s+1)*n // S)."""
+    return [range(s * n // S, (s + 1) * n // S) for s in range(S)]
+
+
+def launch_plan(n: int, B: int, n_sm: int, trials: int = 0) -> dict:
+    """Grid, block, row splits and scratch shape of one launch: K4's with
+    `trials` > 0, K2's otherwise."""
+    kernel = "glm_trial_loss" if trials else "glm_loss_grad"
+    S = row_splits(n, B, n_sm, RESIDENT_BLOCKS[kernel])
+    return {"grid": (-(-B // LANE_TILE), S), "block": LANE_TILE * WARPS,
+            "splits": S,
+            "scratch": (S, trials, B) if trials else (S, B)}
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -91,9 +143,9 @@ def glm_trial_loss_plain(Z, Zp, wT, y, alphas):
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("glm_epilogue")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.glm_loss_grad.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.glm_loss_grad.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.glm_loss_grad.restype = i
-    lib.glm_trial_loss.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.glm_trial_loss.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.glm_trial_loss.restype = i
     return lib
 
@@ -136,13 +188,15 @@ def glm_loss_grad(Z, wT, y):
     if Z.device.type != "cuda":
         raise ValueError(f"unsupported device {Z.device}")
     n, B, k, binary = _check_common(Z, wT, y)
+    plan = launch_plan(n, B, _sm_count(Z.device.index))
     G = torch.empty_like(Z)
     loss = torch.empty(B, dtype=Z.dtype, device=Z.device)
+    part = torch.empty(plan["scratch"], dtype=Z.dtype, device=Z.device)
     with torch.cuda.device(Z.device):
         rc = _lib().glm_loss_grad(
             Z.data_ptr(), wT.data_ptr(), y.data_ptr(), G.data_ptr(),
-            loss.data_ptr(), n, B, k, int(binary),
-            torch.cuda.current_stream(Z.device).cuda_stream)
+            loss.data_ptr(), part.data_ptr(), n, B, k, int(binary),
+            plan["splits"], torch.cuda.current_stream(Z.device).cuda_stream)
     _raise_on(rc, "glm_loss_grad")
     LAUNCHES["glm_loss_grad"] += 1
     return loss, G
@@ -167,11 +221,14 @@ def glm_trial_loss(Z, Zp, wT, y, alphas):
     if alphas.dtype != torch.float32 or alphas.device != Z.device or \
             not alphas.is_contiguous():
         raise ValueError("alphas must be contiguous float32 on Z's device")
+    plan = launch_plan(n, B, _sm_count(Z.device.index), T)
     out = torch.empty((T, B), dtype=Z.dtype, device=Z.device)
+    part = torch.empty(plan["scratch"], dtype=Z.dtype, device=Z.device)
     with torch.cuda.device(Z.device):
         rc = _lib().glm_trial_loss(
             Z.data_ptr(), Zp.data_ptr(), wT.data_ptr(), y.data_ptr(),
-            alphas.data_ptr(), out.data_ptr(), n, B, k, T, int(binary),
+            alphas.data_ptr(), out.data_ptr(), part.data_ptr(), n, B, k, T,
+            int(binary), plan["splits"],
             torch.cuda.current_stream(Z.device).cuda_stream)
     _raise_on(rc, "glm_trial_loss")
     LAUNCHES["glm_trial_loss"] += 1

@@ -34,26 +34,55 @@ def _inputs(k, device, n=301, B=77, seed=0):
             for a in (Z, Zp, wT, y, alphas.astype(np.float32))]
 
 
+# (k, n, B, forced row splits or None for the wrapper's own plan)
+SHAPES = [(k, 301, 77, None) for k in (2, 3, 10, 16, 17, 40)] + [
+    (10, 301, 64, None),              # B a multiple of the lane tile
+    (10, 50, 1, None),                # one lane
+    (10, 1, 77, None), (2, 1, 77, None), (40, 1, 5, None),   # n = 1
+    (10, 5, 77, 8), (2, 5, 77, 8), (40, 3, 40, 8),  # n < S: empty splits
+    (10, 301, 77, 7),                 # S does not divide n
+    (11, 301, 97, None), (1, 64, 33, None),          # odd k, odd B
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [2, 3, 10, 16, 17, 40])
-def test_kernels_match_plain(cuda_device, k):
+@pytest.mark.parametrize("k,n,B,splits", SHAPES)
+def test_kernels_match_plain(cuda_device, monkeypatch, k, n, B, splits):
     """Tolerance: rtol 1e-5 on per-lane loss sums and atol 1e-6 on G —
     the kernels sum rows in another order than torch's reductions.  k=17
-    and k=40 take the kernels' path for logits not cached in registers."""
-    Z, Zp, wT, y, alphas = _inputs(k, cuda_device)
+    and k=40 take the kernels' path for logits not cached in registers;
+    `splits` forces the grid's row-split count past the wrapper's plan."""
+    if splits is not None:
+        monkeypatch.setattr(gk, "row_splits", lambda *args: splits)
+    Z, Zp, wT, y, alphas = _inputs(k, cuda_device, n=n, B=B)
     n0 = dict(gk.LAUNCHES)
     loss, G = gk.glm_loss_grad(Z, wT, y)
     trials = gk.glm_trial_loss(Z, Zp, wT, y, alphas)
     trials5 = gk.glm_trial_loss(Z, Zp, wT, y, alphas[:5].contiguous())
+    trials1 = gk.glm_trial_loss(Z, Zp, wT, y, alphas[:1].contiguous())
     torch.cuda.synchronize()
     assert gk.LAUNCHES["glm_loss_grad"] == n0["glm_loss_grad"] + 1
-    assert gk.LAUNCHES["glm_trial_loss"] == n0["glm_trial_loss"] + 2
+    assert gk.LAUNCHES["glm_trial_loss"] == n0["glm_trial_loss"] + 3
     loss_p, G_p = gk.glm_loss_grad_plain(Z, wT, y)
     trials_p = gk.glm_trial_loss_plain(Z, Zp, wT, y, alphas)
     torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(G, G_p, rtol=0, atol=1e-6)
     torch.testing.assert_close(trials, trials_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(trials5, trials_p[:5], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(trials1, trials_p[:1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 10, 40])
+def test_kernels_are_bitwise_deterministic(cuda_device, k):
+    """No atomics: two launches on the same inputs give the same bits."""
+    Z, Zp, wT, y, alphas = _inputs(k, cuda_device, n=1000, B=333)
+    first = gk.glm_loss_grad(Z, wT, y) + (
+        gk.glm_trial_loss(Z, Zp, wT, y, alphas),)
+    second = gk.glm_loss_grad(Z, wT, y) + (
+        gk.glm_trial_loss(Z, Zp, wT, y, alphas),)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -123,3 +123,52 @@ def test_wrapper_checks_reject_bad_inputs():
     assert gk._check_common(Zt, wt, yt) == (N, B, 10, False)
     assert gk._check_common(Zt[..., 0].contiguous(), wt, yt) == \
         (N, B, 2, True)
+
+
+# (n, B, n_sm): the headline shape on a 132-SM card, small and ragged
+# shapes, n below the split count a wide grid would want, n = 1
+PLAN_SHAPES = [(1797, 5000, 132), (1797, 5000, 114), (301, 77, 132),
+               (97, 23, 132), (17, 1, 132), (1, 5, 132), (40, 33, 8),
+               (1000, 100000, 132)]
+
+
+@pytest.mark.parametrize("n,B,n_sm", PLAN_SHAPES)
+@pytest.mark.parametrize("trials", [0, 1, 16])
+def test_launch_plan_covers_every_row_once(n, B, n_sm, trials):
+    """The row splits of the card's grid (computed on the host, no card
+    needed): every row in exactly one split, in order, no split under
+    MIN_SPLIT_ROWS rows unless n forces it, the lane tiles cover B, and
+    the scratch holds one partial sum per (split[, trial], lane)."""
+    plan = gk.launch_plan(n, B, n_sm, trials)
+    S = plan["splits"]
+    assert 1 <= S <= n
+    assert plan["grid"] == (-(-B // gk.LANE_TILE), S)
+    assert (plan["grid"][0] - 1) * gk.LANE_TILE < B <= \
+        plan["grid"][0] * gk.LANE_TILE
+    assert plan["block"] == gk.LANE_TILE * gk.WARPS
+    assert plan["scratch"] == ((S, trials, B) if trials else (S, B))
+    rows = [i for r in gk.split_rows(n, S) for i in r]
+    assert rows == list(range(n))
+    if S > 1:
+        assert min(len(r) for r in gk.split_rows(n, S)) >= \
+            min(gk.MIN_SPLIT_ROWS, n // S)
+        # no more blocks than the target number of waves needs
+        resident = gk.RESIDENT_BLOCKS[
+            "glm_trial_loss" if trials else "glm_loss_grad"]
+        assert plan["grid"][0] * S <= gk.WAVES * resident * n_sm
+
+
+@pytest.mark.parametrize("n,S", [(3, 8), (10, 4), (9, 4), (1, 1), (1, 3),
+                                 (1797, 27), (64, 64)])
+def test_split_rows_cover_every_row_once_for_any_split_count(n, S):
+    """The kernel's split arithmetic also holds where S > n (empty
+    splits) and where S does not divide n; warp w of a block then takes
+    rows r0 + w, r0 + w + WARPS, ..., which again cover the split once."""
+    splits = gk.split_rows(n, S)
+    assert len(splits) == S
+    assert [i for r in splits for i in r] == list(range(n))
+    assert max(map(len, splits)) - min(map(len, splits)) <= 1
+    for r in splits:
+        by_warp = sorted(i for w in range(gk.WARPS)
+                         for i in range(r.start + w, r.stop, gk.WARPS))
+        assert by_warp == list(r)
