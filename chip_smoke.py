@@ -19,7 +19,20 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the kernels' launch counts, and a profiled run for the device's
    busy share;
 5. device agreement: the same search over 20 C values (every 50th of the
-   grid) and a binary search (classes 0 and 1) on cuda and on the CPU.
+   grid) and a binary search (classes 0 and 1) on cuda and on the CPU;
+6. regressors at full width on California-Housing-shaped data made from
+   --seed (n=20640, d=8): GridSearchCV of Ridge (1000 alphas, float64),
+   LinearRegression (fit_intercept True/False) and ElasticNet(max_iter=
+   1000) (100 alphas x 5 l1_ratios), KFold(5), four regression scorers,
+   refit on r2 on the device; cold and warm walls, fits/s, peak memory,
+   and cuda against the CPU on a subsample of each grid;
+7. the l1 path at full width: RandomizedSearchCV(LogisticRegression(
+   penalty="l1", max_iter=100), C ~ loguniform(1e-2, 1e2), n_iter=200,
+   StratifiedKFold(5)) on phase 4's data, fitted by FISTA through K2, and
+   the same candidates with penalty="elasticnet", l1_ratio=0.5; walls,
+   FISTA iterations, K2 launches, the profiler's idle share and kernel
+   list, FISTA's per-iteration split, and cuda against the CPU on 20 of
+   the candidates.
 
 It prints one JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -42,9 +55,17 @@ import numpy as np
 OUT_DIR = "chiprun_out"
 N, D, K = 1797, 64, 10                 # digits: samples, features, classes
 N_C, N_FOLDS = 1000, 5                 # the headline grid
+N_REG, D_REG = 20640, 8                # California Housing: samples, features
+REG_SCORING = ["r2", "neg_mean_squared_error", "neg_mean_absolute_error",
+               "neg_median_absolute_error"]
+N_L1 = 200                             # the l1 path's RandomizedSearchCV
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12                  # H100 SXM float32, non-tensor-core
 SFU_PER_CLOCK_PER_SM = 16              # exp2/log2 results (CUDA guide, 9.0)
+
+
+def header(title: str, t_start: float) -> None:
+    print(f"{title} ({time.perf_counter() - t_start:.1f} s in)")
 
 
 def nvidia_smi(query: str) -> str:
@@ -247,6 +268,53 @@ def search(X, y, Cs, device):
         config=TorchConfig(device=device)).fit(X, y)
 
 
+def profile_busy(run, warm: float, iters: int, out_name: str) -> float:
+    """Profile one `run()` and print the device's busy time against the
+    warm wall `warm` (idle share), per solver iteration where `iters` > 1,
+    and the largest kernels; the time and count of every kernel go to
+    chiprun_out/`out_name`.  Returns the kernels' busy seconds.
+
+    The device events are summed from the profiler's raw records: the
+    profiler's own per-op tables take tens of seconds to build over the
+    ~10^5 events of a 1000-iteration solve."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, count = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), count + 1)
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    busy_s = sum(ns for ns, _ in by_name.values()) / 1e9
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
+        for name, (ns, count) in kernels:
+            f.write(f"{ns / 1e6:12.3f} ms {count:8d}x  {name}\n")
+    if busy_s > 0:
+        per_iter = (f"; per iteration {busy_s / iters * 1e3:.3f} ms busy, "
+                    f"{(warm - busy_s) / iters * 1e3:.3f} ms idle"
+                    if iters > 1 else "")
+        print(f"  profiled: kernels busy {busy_s:.4f} s against the warm "
+              f"wall {warm:.4f} s: idle share {1 - busy_s / warm:.4f}"
+              f"{per_iter}")
+    else:
+        print("  profiled: no device time recorded (idle share not "
+              "measured)")
+    for name, (ns, count) in kernels[:12]:
+        print(f"    {ns / 1e6:10.3f} ms  {count:6d}x  {name[:90]}")
+    print(f"    (profiled run {t_run:.1f} s, whole profile "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return busy_s
+
+
 def phase_main(X, y, Cs):
     """The headline search on cuda: cold, then warm, then profiled."""
     import torch
@@ -281,36 +349,8 @@ def phase_main(X, y, Cs):
           f"{peak / 2**20:.1f} MiB, best_score_ {gs.best_score_:.4f}, "
           f"launches {launches}")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        search(X, y, Cs, "cuda")
-        torch.cuda.synchronize()
-    # device time from the kernels alone: an aten op's row repeats the
-    # time of the kernels it launched
-    from torch.autograd import DeviceType
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy_s = sum(dev_us(e) for e in kernels) / 1e6
-    iters = sum(n_iter)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
-        f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
-    if busy_s > 0:
-        print(f"  profiled: kernels busy {busy_s:.4f} s against the warm "
-              f"wall {warm:.4f} s: idle share {1 - busy_s / warm:.4f}; per "
-              f"iteration {busy_s / iters * 1e3:.3f} ms busy, "
-              f"{(warm - busy_s) / iters * 1e3:.3f} ms idle")
-    else:
-        print("  profiled: no device time recorded (idle share not "
-              "measured)")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-        print(f"    {dev_us(e) / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    busy_s = profile_busy(lambda: search(X, y, Cs, "cuda"), warm,
+                          sum(n_iter), "chip_smoke_profile.txt")
     return {"cold_s": cold, "warm_s": warm, "fits_per_s": fits / warm,
             "n_iter": n_iter, "peak_bytes": peak, "launches": launches,
             "device_busy_s": busy_s, "best_score": float(gs.best_score_)}
@@ -335,6 +375,267 @@ def phase_agreement(X, y, Cs):
             raise AssertionError(f"{label}: best_params_ differ")
 
 
+def california_like(seed: int):
+    """California-Housing-shaped data: n=20640, d=8 features at the
+    dataset's spread of scales (means and spreads of MedInc, HouseAge,
+    AveRooms, AveBedrms, Population in thousands, AveOccup, Latitude,
+    Longitude), float32, and a target linear in X plus noise (mean ~2,
+    in units of $100k).  The rows come in five blocks of regions, as the
+    real rows are grouped by place, so KFold(5) without shuffling is a
+    split by region; AveOccup's effect changes sign between regions,
+    which makes shrinkage pay on the held-out region and gives the
+    searches a well-separated best candidate rather than a near-tie."""
+    rng = np.random.default_rng(seed)
+    mean = np.array([3.87, 28.6, 5.43, 1.10, 1.4255, 3.07, 35.63, -119.57])
+    std = np.array([1.90, 12.59, 2.47, 0.47, 1.1325, 1.39, 2.14, 2.00])
+    X = mean + std * rng.standard_normal((N_REG, D_REG))
+    coef = np.array([0.44, 0.0097, -0.107, 0.645, -0.004, -0.0038, -0.42,
+                     -0.43])
+    region = np.arange(N_REG) * N_FOLDS // N_REG
+    flip = np.array([1.0, -1.0, 1.0, -1.0, 0.0])[region]
+    y = (-36.9 + X @ coef + 0.3 * flip * (X[:, 5] - mean[5])
+         + 0.72 * rng.standard_normal(N_REG))
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+def regressor_searches():
+    """(label, estimator, full grid, the subsample checked against the
+    CPU, r2 tolerance of that check)."""
+    from spark_sklearn_tpu_torch import ElasticNet, LinearRegression, Ridge
+    alphas = np.logspace(-3, 3, 1000)
+    en = {"alpha": np.logspace(-4, 0, 100),
+          "l1_ratio": [0.1, 0.5, 0.7, 0.9, 1.0]}
+    return [
+        ("Ridge", Ridge(), {"alpha": alphas}, {"alpha": alphas[::50]},
+         1e-6),
+        ("LinearRegression", LinearRegression(),
+         {"fit_intercept": [True, False]},
+         {"fit_intercept": [True, False]}, 1e-6),
+        ("ElasticNet", ElasticNet(max_iter=1000), en,
+         {"alpha": en["alpha"][::10], "l1_ratio": en["l1_ratio"]}, 1e-3),
+    ]
+
+
+def reg_search(est, grid, X, y, device):
+    from spark_sklearn_tpu_torch import GridSearchCV, KFold, TorchConfig
+    return GridSearchCV(est, grid, cv=KFold(N_FOLDS), scoring=REG_SCORING,
+                        refit="r2", config=TorchConfig(device=device)
+                        ).fit(X, y)
+
+
+def phase_regressors(seed: int):
+    """Each regressor search on cuda, cold then warm, refit on r2 on the
+    device; then cuda against the CPU on a subsample of its grid:
+    mean_test_r2 within the stated tolerance (1e-6 in float64, 1e-3 for
+    the float32 ElasticNet) and equal best_params_."""
+    import torch
+
+    X, y = california_like(seed)
+    out = {}
+    for label, est, grid, sub, tol in regressor_searches():
+        n_cand = int(np.prod([len(v) for v in grid.values()]))
+        t0 = time.perf_counter()
+        gs = reg_search(est, grid, X, y, "cuda")
+        cold = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gs = reg_search(est, grid, X, y, "cuda")
+        warm = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for s in REG_SCORING:
+            v = gs.cv_results_[f"mean_test_{s}"]
+            if v.shape != (n_cand,) or not np.all(np.isfinite(v)):
+                raise AssertionError(f"{label}: mean_test_{s} is not "
+                                     f"{n_cand} finite values")
+        best = gs.best_estimator_
+        pred = best.predict(X[:100])
+        if best.device != "cuda" or pred.shape != (100,) or \
+                not np.all(np.isfinite(pred)):
+            raise AssertionError(f"{label}: refit on the device failed")
+        if not gs.best_score_ > 0.5:
+            raise AssertionError(f"{label}: best r2 {gs.best_score_}")
+        fits = n_cand * N_FOLDS
+        print(f"  {label}: {n_cand} candidates x {N_FOLDS} folds, cold "
+              f"{cold:.3f} s, warm {warm:.3f} s, {fits / warm:.1f} fits/s, "
+              f"peak memory {peak / 2**20:.1f} MiB, chunks "
+              f"{[c['lanes'] for c in gs.chunks_]}, best {gs.best_params_} "
+              f"r2 {gs.best_score_:.6f}, refit {gs.refit_time_:.3f} s")
+        busy = profile_busy(lambda: reg_search(est, grid, X, y, "cuda"),
+                            warm, est.get_params().get("max_iter", 1),
+                            f"chip_smoke_{label}.txt")
+        g = reg_search(est, sub, X, y, "cuda")
+        t0 = time.perf_counter()
+        c = reg_search(est, sub, X, y, "cpu")
+        cpu_s = time.perf_counter() - t0
+        diff = float(np.abs(g.cv_results_["mean_test_r2"]
+                            - c.cv_results_["mean_test_r2"]).max())
+        top = np.sort(c.cv_results_["mean_test_r2"])[::-1]
+        gap = float(top[0] - top[1]) if len(top) > 1 else None
+        print(f"    cuda against cpu on {len(c.cv_results_['params'])} "
+              f"candidates: max |d mean_test_r2| {diff:.3g} (tolerance "
+              f"{tol:g}), best_params_ {g.best_params_} / {c.best_params_}"
+              f", gap to the second best {gap}; the CPU run {cpu_s:.1f} s")
+        if not diff <= tol:
+            raise AssertionError(f"{label}: cuda and cpu r2 differ by {diff}")
+        if g.best_params_ != c.best_params_:
+            raise AssertionError(f"{label}: best_params_ differ")
+        out[label] = {"cold_s": cold, "warm_s": warm,
+                      "fits_per_s": fits / warm, "peak_bytes": peak,
+                      "device_busy_s": busy,
+                      "best_params": {k: float(v) for k, v in
+                                      gs.best_params_.items()},
+                      "best_r2": float(gs.best_score_),
+                      "cuda_cpu_max_abs_r2": diff, "cpu_best_gap": gap}
+    return out
+
+
+def l1_search(X, y, penalty, device, n_iter=N_L1, seed=0, scoring=None):
+    from scipy.stats import loguniform
+
+    from spark_sklearn_tpu_torch import (
+        LogisticRegression, RandomizedSearchCV, StratifiedKFold,
+        TorchConfig)
+    est = (LogisticRegression(penalty="l1", max_iter=100)
+           if penalty == "l1" else
+           LogisticRegression(penalty="elasticnet", l1_ratio=0.5,
+                              max_iter=100))
+    return RandomizedSearchCV(
+        est, {"C": loguniform(1e-2, 1e2)}, n_iter=n_iter, scoring=scoring,
+        cv=StratifiedKFold(N_FOLDS), random_state=seed, refit=False,
+        config=TorchConfig(device=device)).fit(X, y)
+
+
+def phase_l1(X, y, seed: int):
+    """The l1 and elasticnet searches on cuda (cold, warm, profiled),
+    with K2's launches on this path; FISTA's per-iteration split; then
+    cuda against the CPU on the first 20 candidates (the same draws),
+    scored by accuracy and neg_log_loss: neg_log_loss within 5e-3 on
+    every candidate, accuracy within 5e-3 and the same best candidate
+    by accuracy.
+
+    Accuracy is held only where the model is well posed: at the
+    smallest C an l1 model is (nearly) all zeros and predicts by its
+    intercepts, which are tied between classes of equal count, so float
+    rounding breaks those ties and its accuracy (chance: 1/K) flips
+    between devices.  The JAX package and the port's CPU path differ by
+    the same amount there.  Such candidates (accuracy below 1.5/K) are
+    held by their log loss alone."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+
+    out = {}
+    for penalty in ("l1", "elasticnet"):
+        gk.reset_launches()
+        t0 = time.perf_counter()
+        rs = l1_search(X, y, penalty, "cuda", seed=seed)
+        cold = time.perf_counter() - t0
+        launches = dict(gk.LAUNCHES)
+        if launches["glm_loss_grad"] == 0:
+            raise AssertionError(f"{penalty}: K2 never launched on the "
+                                 "FISTA path")
+        scores = rs.cv_results_["mean_test_score"]
+        if scores.shape != (N_L1,) or not np.all(np.isfinite(scores)):
+            raise AssertionError(f"{penalty}: scores not {N_L1} finite")
+        if not rs.best_score_ > 0.5:                 # chance is 0.1
+            raise AssertionError(f"{penalty}: best_score_ {rs.best_score_}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rs = l1_search(X, y, penalty, "cuda", seed=seed)
+        warm = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        iters = [c["n_iter_exec"] for c in rs.chunks_]
+        fits = N_L1 * N_FOLDS
+        print(f"  {penalty}: cold {cold:.3f} s, warm {warm:.3f} s, "
+              f"{fits / warm:.1f} fits/s, FISTA iterations per chunk "
+              f"{iters}, lanes {[c['lanes'] for c in rs.chunks_]}, peak "
+              f"memory {peak / 2**20:.1f} MiB, launches {launches}, best "
+              f"{rs.best_params_} score {rs.best_score_:.4f}")
+        busy = profile_busy(lambda: l1_search(X, y, penalty, "cuda",
+                                              seed=seed),
+                            warm, sum(iters), f"chip_smoke_{penalty}.txt")
+        out[penalty] = {"cold_s": cold, "warm_s": warm,
+                        "fits_per_s": fits / warm, "fista_iters": iters,
+                        "peak_bytes": peak, "launches": launches,
+                        "device_busy_s": busy,
+                        "best_score": float(rs.best_score_)}
+
+    # FISTA's per-iteration split at this path's shapes: K1 (Ax), K2 on
+    # the extrapolated logits, K3 (AT); the rest of the busy time per
+    # iteration is the torch-op tail
+    B = N_L1 * N_FOLDS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Xd = torch.rand((N, D), generator=g, device="cuda")
+    W = torch.randn((B * K, D), generator=g, device="cuda")
+    bias = torch.randn((1, B * K), generator=g, device="cuda")
+    Z, _, wT, yk, _ = kernel_inputs(K, seed, B=B)
+    G2 = Z.reshape(N, B * K)
+    split = {"K1_ms": cuda_ms(lambda: torch.addmm(bias, Xd, W.T)),
+             "K2_ms": cuda_ms(lambda: gk.glm_loss_grad(Z, wT, yk)),
+             "K3_ms": cuda_ms(lambda: (G2.T @ Xd, G2.sum(dim=0)))}
+    loss, G = gk.glm_loss_grad(Z, wT, yk)
+    loss_p, G_p = gk.glm_loss_grad_plain(Z, wT, yk)
+    split["K2_max_abs_err"] = max(float((loss - loss_p).abs().max()),
+                                  float((G - G_p).abs().max()))
+    (k2_ops, _), _ = op_counts(K, B)
+    split["K2_bound_ms"], split["K2_bound_by"] = bound(
+        Z.nbytes + wT.nbytes + yk.nbytes + G.nbytes + loss.nbytes, k2_ops)
+    split["K1_tflops"] = 2 * N * D * B * K / split["K1_ms"] / 1e9
+    if not (torch.allclose(loss, loss_p, rtol=1e-5, atol=1e-6)
+            and torch.allclose(G, G_p, rtol=0, atol=1e-6)):
+        raise AssertionError("K2 disagrees with its plain version at the "
+                             "FISTA path's shape")
+    for penalty in ("l1", "elasticnet"):
+        r = out[penalty]
+        per_it = r["device_busy_s"] / sum(r["fista_iters"]) * 1e3
+        tail = per_it - split["K1_ms"] - split["K2_ms"] - split["K3_ms"]
+        r["busy_ms_per_iter"] = per_it
+        r["tail_ms_per_iter"] = tail
+        print(f"  {penalty} per FISTA iteration: busy {per_it:.3f} ms = K1 "
+              f"{split['K1_ms']:.3f} + K2 {split['K2_ms']:.3f} + K3 "
+              f"{split['K3_ms']:.3f} + torch-op tail {tail:.3f} ms")
+    print(f"  K1 {split['K1_tflops']:.1f} TFLOP/s; K2 at B={B}: bound "
+          f"{split['K2_bound_ms']:.4f} ms by {split['K2_bound_by']}, "
+          f"bound/time {split['K2_bound_ms'] / split['K2_ms']:.3f}, max abs "
+          f"err {split['K2_max_abs_err']:.3g}")
+    out["split"] = split
+    del Xd, W, bias, Z, wT, yk, G2, loss, G, loss_p, G_p
+    torch.cuda.empty_cache()
+
+    for penalty in ("l1", "elasticnet"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = l1_search(X, y, penalty, dev, n_iter=20, seed=seed,
+                                 scoring=["accuracy", "neg_log_loss"]
+                                 ).cv_results_
+            cpu_s = time.perf_counter() - t0
+        acc = {d: r["mean_test_accuracy"] for d, r in res.items()}
+        d_acc = np.abs(acc["cuda"] - acc["cpu"])
+        d_ll = np.abs(res["cuda"]["mean_test_neg_log_loss"]
+                      - res["cpu"]["mean_test_neg_log_loss"])
+        posed = acc["cpu"] >= 1.5 / K
+        best = {d: r["params"][int(r["rank_test_accuracy"].argmin())]
+                for d, r in res.items()}
+        diff = float(d_acc[posed].max())
+        print(f"  {penalty}: cuda against cpu on 20 candidates: max |d "
+              f"mean_test_accuracy| {diff:.3g} on the {int(posed.sum())} "
+              f"well-posed ones ({float(d_acc.max()):.3g} on all), max |d "
+              f"mean_test_neg_log_loss| {float(d_ll.max()):.3g}, best "
+              f"{best['cuda']} / {best['cpu']}; the CPU run {cpu_s:.1f} s")
+        if not (diff <= 5e-3 and d_ll.max() <= 5e-3):
+            raise AssertionError(f"{penalty}: cuda and cpu differ by "
+                                 f"{diff} (accuracy), {d_ll.max()} (log "
+                                 "loss)")
+        if best["cuda"] != best["cpu"]:
+            raise AssertionError(f"{penalty}: best candidates differ")
+        out[penalty].update(cuda_cpu_max_abs=diff,
+                            cuda_cpu_max_abs_all=float(d_acc.max()),
+                            cuda_cpu_max_abs_log_loss=float(d_ll.max()),
+                            n_well_posed=int(posed.sum()))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -357,7 +658,7 @@ def main() -> int:
           f"{n_sm} SMs, max SM clock {sm_mhz:.0f} MHz, "
           f"{torch.cuda.device_count()} visible")
 
-    print("[2] build")
+    header("[2] build", t_start)
     report = _build.build(["glm_epilogue"])
     ptxas = {}
     for name, r in report.items():
@@ -366,16 +667,23 @@ def main() -> int:
     for fn, (regs, spill) in sorted(ptxas.items()):
         print(f"    {regs:4d} registers {spill:5d} bytes spilled  {fn}")
 
-    print("[3] kernels at the headline shapes")
+    header("[3] kernels at the headline shapes", t_start)
     rows = phase_kernels(args.seed, n_sm, sm_mhz, ptxas)
 
-    print("[4] main path: 1000 C x 5 folds on cuda")
+    header("[4] main path: 1000 C x 5 folds on cuda", t_start)
     X, y = digits_like(args.seed)
     Cs = np.logspace(-4, 3, N_C)
     main_run = phase_main(X, y, Cs)
 
-    print("[5] cuda against cpu")
+    header("[5] cuda against cpu", t_start)
     phase_agreement(X, y, Cs[::50])
+
+    header("[6] regressors: California-Housing-shaped, n=20640, d=8", t_start)
+    regressors = phase_regressors(args.seed)
+
+    header("[7] the l1 path: RandomizedSearchCV, 200 C x 5 folds by FISTA",
+           t_start)
+    l1_run = phase_l1(X, y, args.seed)
 
     meta = {
         "glm_loss_grad": "spark_sklearn_tpu/models/linear.py:221",
@@ -389,6 +697,10 @@ def main() -> int:
             "source": "spark_sklearn_tpu_torch/csrc/glm_epilogue.cu",
             "replaces": replaces,
             "launches": main_run["launches"][name],
+            "launches_by_path": {
+                "headline": main_run["launches"][name],
+                "l1": l1_run["l1"]["launches"][name],
+                "elasticnet": l1_run["elasticnet"]["launches"][name]},
             "max_abs_err": max(head["max_abs_err"], binary["max_abs_err"]),
             "ms": head["ms"], "kernel_ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -408,6 +720,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "main": main_run,
+                   "regressors": regressors, "l1": l1_run,
                    "card": nvidia_smi("name,power.limit")}, f, indent=1)
     print(f"  total {main_run['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -9,22 +9,44 @@ sklearn estimators and splitters are accepted where sklearn is installed.
 Entry points run on ``cuda`` unless the caller passes
 ``TorchConfig(device="cpu")``.
 
-Public API of this slice:
-  - GridSearchCV        (compiled LogisticRegression search)
+Public API so far:
+  - GridSearchCV, RandomizedSearchCV  (compiled linear-family searches)
   - TorchConfig
-  - LogisticRegression  (sklearn-free estimator)
-  - StratifiedKFold, KFold
+  - LogisticRegression, Ridge, LinearRegression, ElasticNet, Lasso
+    (sklearn-free estimators)
+  - ParameterGrid, ParameterSampler, StratifiedKFold, KFold
 """
 
-from spark_sklearn_tpu_torch.models.estimators import LogisticRegression
+from spark_sklearn_tpu_torch.models.estimators import (
+    ElasticNet,
+    Lasso,
+    LinearRegression,
+    LogisticRegression,
+    Ridge,
+)
 from spark_sklearn_tpu_torch.parallel.device import TorchConfig
-from spark_sklearn_tpu_torch.search.cv import KFold, StratifiedKFold
-from spark_sklearn_tpu_torch.search.grid import GridSearchCV
+from spark_sklearn_tpu_torch.search.cv import (
+    KFold,
+    ParameterGrid,
+    ParameterSampler,
+    StratifiedKFold,
+)
+from spark_sklearn_tpu_torch.search.grid import (
+    GridSearchCV,
+    RandomizedSearchCV,
+)
 
 __all__ = [
     "GridSearchCV",
+    "RandomizedSearchCV",
     "TorchConfig",
     "LogisticRegression",
+    "Ridge",
+    "LinearRegression",
+    "ElasticNet",
+    "Lasso",
+    "ParameterGrid",
+    "ParameterSampler",
     "StratifiedKFold",
     "KFold",
 ]

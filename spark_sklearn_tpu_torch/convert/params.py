@@ -1,9 +1,9 @@
 """Carry fitted models between the JAX package and the port.
 
-The JAX family's model dict, as numpy arrays (`coef` (T, k, d),
-`intercept` (T, k), `n_iter`, `converged`, ...), becomes the port's
-tensors with `params_from_jax`; going back is ``t.cpu().numpy()`` per
-entry.
+The JAX family's model dict, as numpy arrays (logistic regression:
+`coef` (T, k, d), `intercept` (T, k), `n_iter`, `converged`, ...;
+regressors: `coef` (T, d), `intercept` (T,)), becomes the port's tensors
+with `params_from_jax`; going back is ``t.cpu().numpy()`` per entry.
 """
 
 from __future__ import annotations
@@ -15,12 +15,8 @@ import torch
 
 
 def params_from_jax(tree: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """{name: array} -> {name: tensor on `device`}; floating arrays become
-    float32, integer and bool arrays keep their kind."""
-    out = {}
-    for name, value in tree.items():
-        arr = np.asarray(value)
-        if arr.dtype.kind == "f":
-            arr = arr.astype(np.float32)
-        out[name] = torch.tensor(arr, device=device)
-    return out
+    """{name: array} -> {name: tensor on `device`}, each keeping its
+    dtype: the JAX package fits Ridge and LinearRegression in float64 and
+    the other families in float32."""
+    return {name: torch.tensor(np.asarray(value), device=device)
+            for name, value in tree.items()}

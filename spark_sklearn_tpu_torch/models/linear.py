@@ -1,10 +1,18 @@
-"""Logistic regression as a lane-batched family.
+"""The linear families, lane-batched: logistic regression, Ridge,
+LinearRegression and ElasticNet/Lasso.
 
-Counterpart of `spark_sklearn_tpu/models/linear.py`
-`LogisticRegressionFamily` (:46-396) for the l2 and unpenalised lbfgs
-fits, binary and multinomial.  Numerics follow sklearn: minimise
-sum-logloss + 0.5/C * ||coef||^2 (intercept unpenalised), tol on
-max|grad|.
+Counterpart of `spark_sklearn_tpu/models/linear.py` (:46-676).  Numerics
+follow sklearn, as the reference's do:
+
+- LogisticRegression: minimise sum-logloss + 0.5/C * ||coef||^2
+  (intercept unpenalised), lbfgs, tol on max|grad|; l1 and elasticnet by
+  proximal FISTA (`_fista_elasticnet`), binary and multinomial.
+- Ridge: weighted normal equations with an unpenalised intercept, in
+  float64 (`wants_float64`).
+- LinearRegression: the minimum-norm weighted least-squares solution, in
+  float64.
+- ElasticNet/Lasso: exactly `max_iter` FISTA steps on 1/(2n) LSQ +
+  alpha*(l1_ratio*L1 + (1-l1_ratio)/2*L2), centred intercept, float32.
 
 All (candidate x fold) lanes of a chunk fit as ONE batched problem: the
 logits of every lane come from one GEMM of width B*k (`Ax`, K1), the
@@ -12,6 +20,13 @@ gradient pull-back is one GEMM (`AT`, K3), and the elementwise passes
 between them are the hand-written kernels K2 (`glm_loss_grad`) and K4
 (`glm_trial_loss`).  The lane axis sits at position 1 — Z is (n, B) or
 (n, B, k) — so the kernels' loads coalesce over lanes.
+
+The reference writes the regressors as a per-task `fit` under
+`jax.vmap`.  Here every lane of a fold has the same fold weights, so the
+weighted means, centred Gram matrices and decompositions are computed
+once per fold and each lane solves its own small problem, gathering its
+fold's by ``t % n_folds`` (lanes are candidate-major; the search passes
+the fold count as ``static["__n_folds__"]``).
 """
 
 from __future__ import annotations
@@ -31,27 +46,39 @@ from spark_sklearn_tpu_torch.ops.glm_kernels import (
     glm_loss_grad,
     glm_trial_loss,
 )
-from spark_sklearn_tpu_torch.ops.solvers import glm_lbfgs_batched
+from spark_sklearn_tpu_torch.ops.solvers import (
+    fista_momentum,
+    glm_fista_batched,
+    glm_lbfgs_batched,
+    soft_threshold,
+)
 
 
 def resolve_penalty(static: Dict[str, Any]):
-    """The penalty this slice fits: "l2" or None.  l1 and elasticnet
-    raise NotImplementedError (the reference fits them by FISTA)."""
+    """(penalty, l1_ratio) as the reference resolves them
+    (`linear.py:183-193`): penalty is "l2", "elasticnet" or None; "l1" is
+    elasticnet with l1_ratio 1, and elasticnet with l1_ratio 0 is l2."""
     penalty = static.get("penalty", "l2")
     l1_ratio = static.get("l1_ratio", 0.0) or 0.0
     if penalty == "deprecated":
         # sklearn >= 1.8 sentinel: l2 unless l1_ratio mixes in l1
         penalty = "l2" if not l1_ratio else "elasticnet"
+    if penalty == "l1":
+        penalty, l1_ratio = "elasticnet", 1.0
     if penalty == "elasticnet" and not l1_ratio:
-        penalty = "l2"
-    if penalty in ("l1", "elasticnet"):
-        raise NotImplementedError(
-            f"penalty={penalty!r} is not implemented in the PyTorch port")
-    if penalty in (None, "none"):
-        return None
-    if penalty != "l2":
+        penalty = "l2"   # pure l2: quasi-Newton is far cheaper
+    if penalty == "none":
+        penalty = None
+    if penalty not in ("l2", "elasticnet", None):
         raise ValueError(f"penalty={penalty!r} is not supported")
-    return "l2"
+    return penalty, float(l1_ratio)
+
+
+def _lane_param(dynamic, static, name, default, B, like):
+    """A hyperparameter as a (B,) tensor of `like`'s dtype and device:
+    the lanes' own values if it is dynamic, else the shared one."""
+    v = dynamic.get(name, static.get(name, default))
+    return torch.as_tensor(v, device=like.device).to(like.dtype).expand(B)
 
 
 class LogisticRegressionFamily(Family):
@@ -69,27 +96,26 @@ class LogisticRegressionFamily(Family):
 
     @classmethod
     def fit_task_batched(cls, dynamic, static, data, train_w, meta):
-        """All B lanes of a chunk as one batched L-BFGS.
+        """All B lanes of a chunk as one batched problem: L-BFGS for the
+        l2 or no penalty, FISTA for l1 and elasticnet.
 
         `dynamic` holds (B,) tensors, `train_w` (B, n) fold weights and
         `data` the device tensors X (n, d) float32 and y (n,) int32.
         Returns a model dict with leading axis B: coef (B, k', d),
-        intercept (B, k'), converged, n_iter (k' = 1 when binary)."""
+        intercept (B, k'), converged, n_iter (FISTA's rescaled onto
+        max_iter) and n_iter_exec (the iterations run); k' = 1 when
+        binary."""
         X, y = data["X"], data["y"]
         n, d = X.shape
         k = meta["n_classes"]
         B = train_w.shape[0]
         dev, dt = X.device, X.dtype
 
-        def lane_param(name, default):
-            v = dynamic.get(name, static.get(name, default))
-            return torch.as_tensor(v, dtype=dt, device=dev).expand(B)
-
-        C = lane_param("C", 1.0)
-        tol = lane_param("tol", 1e-4)
+        C = _lane_param(dynamic, static, "C", 1.0, B, X)
+        tol = _lane_param(dynamic, static, "tol", 1e-4, B, X)
         max_iter = int(static.get("max_iter", 100))
         fit_intercept = bool(static.get("fit_intercept", True))
-        penalty = resolve_penalty(static)
+        penalty, l1_ratio = resolve_penalty(static)
         train_w = apply_class_weight(
             train_w, y, meta, static.get("class_weight"))
         inv_C = 1.0 / C if penalty == "l2" else torch.zeros_like(C)
@@ -127,16 +153,22 @@ class LogisticRegressionFamily(Family):
                               torch.zeros((B, kk), dtype=dt, device=dev)],
                              dim=1)
 
-        res = glm_lbfgs_batched(
-            Ax, loss_grad, trial_loss, AT, reg_loss, reg_grad,
-            torch.zeros((B, kd + kk), dtype=dt, device=dev),
-            max_iter=max_iter, tol=tol)
+        if penalty == "elasticnet":
+            res, n_exec = _fista_elasticnet(
+                Ax, loss_grad, AT, 1.0 / C, l1_ratio, kd + kk, kd,
+                max_iter, tol)
+        else:
+            res = glm_lbfgs_batched(
+                Ax, loss_grad, trial_loss, AT, reg_loss, reg_grad,
+                torch.zeros((B, kd + kk), dtype=dt, device=dev),
+                max_iter=max_iter, tol=tol)
+            n_exec = res.n_iter
         W = res.x[:, :kd].reshape(B, kk, d)
         b = res.x[:, kd:]
         if not fit_intercept:
             b = torch.zeros_like(b)
-        return {"coef": W, "intercept": b,
-                "converged": res.converged, "n_iter": res.n_iter}
+        return {"coef": W, "intercept": b, "converged": res.converged,
+                "n_iter": res.n_iter, "n_iter_exec": n_exec}
 
     @classmethod
     def decision(cls, model, static, X, meta):
@@ -204,9 +236,240 @@ class LogisticRegressionFamily(Family):
         return attrs
 
 
+def _fista_elasticnet(Ax, loss_grad, AT, inv_C, l1_ratio, D, n_pen,
+                      max_iter, tol):
+    """Elastic-net logistic regression by proximal FISTA (the reference's
+    `_fista_elasticnet`, `linear.py:399-430`): per-coefficient l1/l2
+    weights on the first `n_pen` entries (the coefficients), unpenalised
+    intercepts.  The internal budget is max(10*max_iter, 1000) steps
+    (cheaper than saga's epochs, which sklearn caps at max_iter), and
+    the reported n_iter is rescaled onto max_iter so that sklearn's
+    "n_iter_ >= max_iter means not converged" holds.  Returns (result
+    with the rescaled n_iter, the iterations actually run)."""
+    B = inv_C.shape[0]
+    dt, dev = inv_C.dtype, inv_C.device
+    l1r = torch.as_tensor(l1_ratio, dtype=dt, device=dev)
+    pen = torch.zeros((B, D), dtype=dt, device=dev)
+    pen[:, :n_pen] = 1.0
+    res = glm_fista_batched(
+        Ax, loss_grad, AT,
+        l1=(inv_C * l1r)[:, None] * pen,
+        l2=(inv_C * (1.0 - l1r))[:, None] * pen,
+        x0=torch.zeros((B, D), dtype=dt, device=dev),
+        max_iter=max(10 * max_iter, 1000), tol=tol)
+    n_rep = torch.where(res.converged,
+                        torch.clamp_max(res.n_iter, max_iter - 1),
+                        max_iter).to(res.n_iter.dtype)
+    return res._replace(n_iter=n_rep), res.n_iter
+
+
+# ----------------------------------------------------------------------------
+# Ridge / LinearRegression / ElasticNet
+# ----------------------------------------------------------------------------
+
+def _fold_problems(static, X, y, train_w):
+    """The per-fold preamble shared by the regressors (the reference's
+    `_centered_problem`, `linear.py:441-450`, once per fold): the
+    positive= guard, each lane's fold f (B,) — lane t is fold
+    t % n_folds, and lanes 0..n_folds-1 carry each fold's weights once —
+    the folds' weights wF (F, n) and, with an intercept, their weighted
+    centring.  Returns (f, wF, Xc (F, n, d), yc (F, n), xm (F, d),
+    ym (F,))."""
+    if static.get("positive", False):
+        raise ValueError("positive=True is not compiled")
+    B, (n, d) = train_w.shape[0], X.shape
+    n_folds = int(static.get("__n_folds__", B))
+    if B % n_folds:
+        raise ValueError(f"{B} lanes are not a whole number of "
+                         f"{n_folds}-fold candidates")
+    f = torch.arange(B, device=X.device) % n_folds
+    wF = train_w[:n_folds]
+    if not bool(static.get("fit_intercept", True)):
+        zeros = torch.zeros((n_folds,), dtype=X.dtype, device=X.device)
+        return (f, wF, X.expand(n_folds, n, d), y.expand(n_folds, n),
+                zeros[:, None].expand(n_folds, d), zeros)
+    wsum = wF.sum(dim=1) + torch.finfo(X.dtype).eps
+    xm = (wF @ X) / wsum[:, None]
+    ym = (wF * y).sum(dim=1) / wsum
+    return f, wF, X - xm[:, None, :], y - ym[:, None], xm, ym
+
+
+class RidgeFamily(Family):
+    name = "ridge"
+    is_classifier = False
+    dynamic_params = {"alpha": np.float32}
+    # closed-form normal equations: the Gram's conditioning amplifies
+    # float32 rounding far past sklearn's float64 answers, so the search
+    # runs this family in float64 (d x d solves: negligible cost)
+    wants_float64 = True
+
+    @classmethod
+    def prepare_data(cls, X, y, dtype=np.float32):
+        data = {"X": np.ascontiguousarray(X, dtype=dtype),
+                "y": np.ascontiguousarray(y, dtype=dtype)}
+        meta = {"n_features": int(X.shape[1])}
+        return data, meta
+
+    @classmethod
+    def fit_task_batched(cls, dynamic, static, data, train_w, meta):
+        """(A + alpha*I) w = b per lane, A = Xcᵀ W Xc and b = Xcᵀ W yc of
+        its fold, by a batched Cholesky factor and solve.  A lane whose
+        matrix is not positive definite gets NaN coefficients (the
+        reference's `solve(assume_a="pos")` does the same), which the
+        search reports as a failed fit."""
+        X, y = data["X"], data["y"]
+        B, d = train_w.shape[0], X.shape[1]
+        alpha = _lane_param(dynamic, static, "alpha", 1.0, B, X)
+        f, wF, Xc, yc, xm, ym = _fold_problems(static, X, y, train_w)
+        Xw = Xc * wF[:, :, None]
+        A = Xw.transpose(1, 2) @ Xc                          # (F, d, d)
+        b = Xw.transpose(1, 2) @ yc[:, :, None]              # (F, d, 1)
+        eye = torch.eye(d, dtype=X.dtype, device=X.device)
+        factor, info = torch.linalg.cholesky_ex(
+            A[f] + alpha[:, None, None] * eye)
+        w = torch.cholesky_solve(b[f], factor)[:, :, 0]
+        w = torch.where((info == 0)[:, None], w, torch.nan)
+        return {"coef": w, "intercept": ym[f] - (xm[f] * w).sum(dim=1)}
+
+    @classmethod
+    def predict(cls, model, static, X, meta):
+        return X @ model["coef"] + model["intercept"]
+
+    @classmethod
+    def views_task_batched(cls, models, static, data, meta, needed):
+        """All T tasks' predictions from ONE (T, d) @ (d, n) GEMM:
+        "pred" (T, n)."""
+        if "pred" not in needed:
+            return {}
+        return {"pred": torch.addmm(models["intercept"][:, None],
+                                    models["coef"], data["X"].T)}
+
+    @classmethod
+    def sklearn_attrs(cls, model, static, meta):
+        return {"coef_": model["coef"].cpu().numpy(),
+                "intercept_": float(model["intercept"]),
+                "n_features_in_": meta["n_features"]}
+
+
+class LinearRegressionFamily(RidgeFamily):
+    name = "linear_regression"
+
+    @classmethod
+    def fit_task_batched(cls, dynamic, static, data, train_w, meta):
+        """Weighted OLS as the minimum-norm least-squares solution, per
+        fold: the SVD of Xc*sqrt(w) on the device, singular values below
+        eps*max(n, d)*s_max counted as zero (the cut-off of the
+        reference's `jnp.linalg.lstsq`).  On rank-deficient X this is
+        sklearn's answer; a QR-based solver (`gels`, the only method of
+        torch's `lstsq` on CUDA) assumes full rank and is not."""
+        X, y = data["X"], data["y"]
+        n, d = X.shape
+        f, wF, Xc, yc, xm, ym = _fold_problems(static, X, y, train_w)
+        sw = torch.sqrt(wF)
+        U, S, Vh = torch.linalg.svd(Xc * sw[:, :, None], full_matrices=False)
+        rcond = torch.finfo(X.dtype).eps * max(n, d)
+        keep = (S > 0) & (S >= rcond * S[:, :1])
+        s_inv = torch.where(keep, 1.0 / torch.where(keep, S, 1.0), 0.0)
+        uTb = U.transpose(1, 2) @ (yc * sw)[:, :, None]      # (F, r, 1)
+        w = (Vh.transpose(1, 2) @ (s_inv[:, :, None] * uTb))[:, :, 0][f]
+        return {"coef": w, "intercept": ym[f] - (xm[f] * w).sum(dim=1)}
+
+
+class ElasticNetFamily(Family):
+    name = "elastic_net"
+    is_classifier = False
+    dynamic_params = {"alpha": np.float32, "l1_ratio": np.float32}
+
+    prepare_data = RidgeFamily.prepare_data
+
+    @classmethod
+    def extract_params(cls, estimator):
+        params = dict(estimator.get_params(deep=False))
+        if type(estimator).__name__ == "Lasso":
+            params["l1_ratio"] = 1.0
+        return params
+
+    @classmethod
+    def fit_task_batched(cls, dynamic, static, data, train_w, meta):
+        """Exactly `max_iter` FISTA steps per lane (the reference's
+        `lax.scan` has no early stop and never reads `tol`), step 1/L with
+        L from 30 power iterations on the fold's Gram G = Xwᵀ Xc / n_eff
+        plus alpha*(1 - l1_ratio) + 1e-6.
+
+        The gradient is the reference's residual form
+        Xwᵀ(Xc z - yc)/n_eff + lam2*z, lane-batched without a (B, n, d)
+        centred copy: Xc z = X zᵀ - xm·z is one (n, B) GEMM, and
+        Xcᵀ(w ⊙ r) = Xᵀ(w ⊙ r) - xm Σ(w ⊙ r) one (B, n) @ (n, d) GEMM."""
+        X, y = data["X"], data["y"]
+        B, d = train_w.shape[0], X.shape[1]
+        dt, dev = X.dtype, X.device
+        alpha = _lane_param(dynamic, static, "alpha", 1.0, B, X)
+        l1r = _lane_param(dynamic, static, "l1_ratio", 0.5, B, X)
+        max_iter = int(static.get("max_iter", 1000))
+        f, wF, Xc, _, xm, ym = _fold_problems(static, X, y, train_w)
+        eps = torch.finfo(dt).eps
+        n_eff = wF.sum(dim=1) + eps                          # (F,)
+        Xw = Xc * wF[:, :, None]
+        G = Xw.transpose(1, 2) @ Xc / n_eff[:, None, None]
+        v = torch.full((G.shape[0], d, 1),
+                       float(np.float32(1.0) / np.sqrt(np.float32(d))),
+                       dtype=dt, device=dev)
+        for _ in range(30):
+            v = G @ v
+            v = v / (torch.linalg.vector_norm(v, dim=1, keepdim=True) + eps)
+        L_fold = (v * (G @ v)).sum(dim=(1, 2))               # (F,)
+
+        L = L_fold[f] + alpha * (1.0 - l1r) + 1e-6
+        lam1, lam2 = alpha * l1r, alpha * (1.0 - l1r)
+        xm_l, ym_l, n_l = xm[f], ym[f], n_eff[f]
+        wT = train_w.T.contiguous()                          # (n, B)
+        L_col, thresh = L[:, None], (lam1 / L)[:, None]
+
+        def grad(z):                                         # z (B, d)
+            R = torch.addmm((ym_l - (xm_l * z).sum(dim=1))[None, :], X,
+                            z.T) - y[:, None]                # Xc z - yc
+            WR = wT * R                                      # (n, B)
+            g = WR.T @ X - xm_l * WR.sum(dim=0)[:, None]
+            return g / n_l[:, None] + lam2[:, None] * z
+
+        w = z = torch.zeros((B, d), dtype=dt, device=dev)
+        t = np.float32(1.0)
+        for _ in range(max_iter):
+            w_new = soft_threshold(z - grad(z) / L_col, thresh)
+            t, beta = fista_momentum(t)
+            z = w_new + beta * (w_new - w)
+            w = w_new
+        return {"coef": w, "intercept": ym_l - (xm_l * w).sum(dim=1)}
+
+    predict = RidgeFamily.predict
+    views_task_batched = RidgeFamily.views_task_batched
+    sklearn_attrs = RidgeFamily.sklearn_attrs
+
+
 register_family(
     LogisticRegressionFamily,
     "sklearn.linear_model._logistic.LogisticRegression",
     "sklearn.linear_model.LogisticRegression",
     "spark_sklearn_tpu_torch.models.estimators.LogisticRegression",
+)
+register_family(
+    RidgeFamily,
+    "sklearn.linear_model._ridge.Ridge",
+    "sklearn.linear_model.Ridge",
+    "spark_sklearn_tpu_torch.models.estimators.Ridge",
+)
+register_family(
+    LinearRegressionFamily,
+    "sklearn.linear_model._base.LinearRegression",
+    "sklearn.linear_model.LinearRegression",
+    "spark_sklearn_tpu_torch.models.estimators.LinearRegression",
+)
+register_family(
+    ElasticNetFamily,
+    "sklearn.linear_model._coordinate_descent.ElasticNet",
+    "sklearn.linear_model.ElasticNet",
+    "sklearn.linear_model._coordinate_descent.Lasso",
+    "sklearn.linear_model.Lasso",
+    "spark_sklearn_tpu_torch.models.estimators.ElasticNet",
+    "spark_sklearn_tpu_torch.models.estimators.Lasso",
 )

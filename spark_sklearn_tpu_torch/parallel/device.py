@@ -25,7 +25,9 @@ class TorchConfig:
 
     - `device`: ``None`` means ``"cuda"``; ``"cpu"`` runs every kernel's
       plain PyTorch version (what the CPU tests use).
-    - `dtype`: compute dtype; float32 only (``None`` means float32).
+    - `dtype`: ``None`` means each family's own (float32; float64 for
+      Ridge and LinearRegression, as the reference runs them); float32
+      forces float32 everywhere; nothing else is implemented.
     - `max_tasks_per_batch`: most (candidate x fold) lanes fitted in one
       chunk; bounds device memory for big grids.
     - `bf16_matmul`: bf16 GEMM operands; not implemented in this slice.
@@ -44,8 +46,8 @@ class TorchConfig:
                 "bf16_matmul=True is not implemented in the PyTorch port")
         if self.dtype is not None and np.dtype(self.dtype) != np.float32:
             raise NotImplementedError(
-                f"dtype={self.dtype!r}: the PyTorch port computes in "
-                "float32 only")
+                f"dtype={self.dtype!r}: the PyTorch port takes None (each "
+                "family's own) or float32")
         if int(self.max_tasks_per_batch) < 1:
             raise ValueError("max_tasks_per_batch must be >= 1")
 

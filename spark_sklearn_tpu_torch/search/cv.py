@@ -1,11 +1,13 @@
-"""Candidate grids and CV splitters without scikit-learn.
+"""Candidate grids, candidate samplers and CV splitters without
+scikit-learn.
 
 The card's machine has no sklearn, so the port carries its own
-`ParameterGrid`, `KFold`, `StratifiedKFold` and `check_cv`.  Each gives
-the same candidates and folds as sklearn 1.9's class of the same name
-(without shuffling).  `cv` may also be any object with
-``.split(X, y)`` — an sklearn splitter where sklearn is installed — or an
-iterable of (train, test) index pairs.
+`ParameterGrid`, `ParameterSampler`, `KFold`, `StratifiedKFold` and
+`check_cv`.  Each gives the same candidates and folds as sklearn 1.9's
+class of the same name (splitters without shuffling; the sampler draws
+the same numbers from the same `random_state`).  `cv` may also be any
+object with ``.split(X, y)`` — an sklearn splitter where sklearn is
+installed — or an iterable of (train, test) index pairs.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import itertools
 import numbers
 import warnings
+from collections.abc import Iterable
 from typing import Any, Dict, Iterator, Mapping, Sequence, Tuple, Union
 
 import numpy as np
@@ -57,6 +60,148 @@ class ParameterGrid:
     def __len__(self) -> int:
         return sum(int(np.prod([len(v) for v in p.values()])) if p else 1
                    for p in self.param_grid)
+
+    def __getitem__(self, ind: int) -> Dict[str, Any]:
+        """``list(self)[ind]`` without building the list (sklearn's
+        mixed-radix decoding, last sorted key cycling fastest)."""
+        for sub_grid in self.param_grid:
+            if not sub_grid:
+                if ind == 0:
+                    return {}
+                ind -= 1
+                continue
+            keys, values_lists = zip(*sorted(sub_grid.items())[::-1])
+            sizes = [len(v_list) for v_list in values_lists]
+            total = np.prod(sizes)
+            if ind >= total:
+                ind -= total
+            else:
+                out = {}
+                for key, v_list, n in zip(keys, values_lists, sizes):
+                    ind, offset = divmod(ind, n)
+                    out[key] = v_list[offset]
+                return out
+        raise IndexError("ParameterGrid index out of range")
+
+
+def check_random_state(seed) -> np.random.RandomState:
+    """sklearn's `check_random_state`: None -> numpy's global
+    RandomState, an int -> a new RandomState, a RandomState -> itself."""
+    if seed is None or seed is np.random:
+        return np.random.mtrand._rand
+    if isinstance(seed, numbers.Integral):
+        return np.random.RandomState(seed)
+    if isinstance(seed, np.random.RandomState):
+        return seed
+    raise ValueError(
+        f"{seed!r} cannot be used to seed a numpy.random.RandomState "
+        "instance")
+
+
+def sample_without_replacement(n_population: int, n_samples: int,
+                               random_state=None) -> np.ndarray:
+    """`n_samples` distinct integers of [0, n_population), drawing the
+    same numbers as sklearn's `sample_without_replacement` with
+    method="auto" (`sklearn/utils/_random.pyx`): a permutation where
+    0.01 < n_samples / n_population < 0.99, else tracking selection
+    (ratio < 0.2) or reservoir sampling."""
+    if n_population < 0:
+        raise ValueError(
+            f"n_population should be greater than 0, got {n_population}.")
+    if n_samples > n_population:
+        raise ValueError(
+            "n_population should be greater or equal than n_samples, got "
+            f"n_samples > n_population ({n_samples} > {n_population})")
+    rng = check_random_state(random_state)
+    ratio = n_samples / n_population if n_population != 0 else 1.0
+    if 0.01 < ratio < 0.99:
+        return rng.permutation(n_population)[:n_samples]
+    out = np.empty(n_samples, dtype=int)
+    if ratio < 0.2:                                   # tracking selection
+        selected = set()
+        for i in range(n_samples):
+            j = rng.randint(n_population)
+            while j in selected:
+                j = rng.randint(n_population)
+            selected.add(j)
+            out[i] = j
+        return out
+    out[:] = np.arange(n_samples)                     # reservoir sampling
+    for i in range(n_samples, n_population):
+        j = rng.randint(0, i + 1)
+        if j < n_samples:
+            out[j] = i
+    return out
+
+
+class ParameterSampler:
+    """`n_iter` candidates drawn from `param_distributions` (a dict or a
+    list of dicts of value lists or objects with ``rvs``), as sklearn's
+    `ParameterSampler`: all lists -> sampling without replacement from
+    the grid; otherwise, per candidate, a dict by ``rng.choice``, then
+    its keys in sorted order, each by ``v.rvs(random_state=rng)`` or
+    ``v[rng.randint(len(v))]``."""
+
+    def __init__(self, param_distributions, n_iter: int, *,
+                 random_state=None):
+        if not isinstance(param_distributions, (Mapping, Iterable)):
+            raise TypeError(
+                "Parameter distribution is not a dict or a list, got: "
+                f"{param_distributions!r} of type "
+                f"{type(param_distributions).__name__}")
+        if isinstance(param_distributions, Mapping):
+            param_distributions = [param_distributions]
+        for dist in param_distributions:
+            if not isinstance(dist, dict):
+                raise TypeError(
+                    f"Parameter distribution is not a dict ({dist!r})")
+            for key in dist:
+                if not isinstance(dist[key], Iterable) and \
+                        not hasattr(dist[key], "rvs"):
+                    raise TypeError(
+                        f"Parameter grid for parameter {key!r} is not "
+                        f"iterable or a distribution (value={dist[key]})")
+        self.n_iter = n_iter
+        self.random_state = random_state
+        self.param_distributions = param_distributions
+
+    def _is_all_lists(self) -> bool:
+        return all(not hasattr(v, "rvs")
+                   for dist in self.param_distributions
+                   for v in dist.values())
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        rng = check_random_state(self.random_state)
+        if self._is_all_lists():
+            param_grid = ParameterGrid(self.param_distributions)
+            grid_size = len(param_grid)
+            n_iter = self.n_iter
+            if grid_size < n_iter:
+                warnings.warn(
+                    f"The total space of parameters {grid_size} is smaller "
+                    f"than n_iter={self.n_iter}. Running {grid_size} "
+                    "iterations. For exhaustive searches, use "
+                    "GridSearchCV.", UserWarning)
+                n_iter = grid_size
+            for i in sample_without_replacement(grid_size, n_iter,
+                                                random_state=rng):
+                yield param_grid[i]
+            return
+        for _ in range(self.n_iter):
+            dist = rng.choice(self.param_distributions)
+            params = {}
+            for k, v in sorted(dist.items()):
+                if hasattr(v, "rvs"):
+                    params[k] = v.rvs(random_state=rng)
+                else:
+                    params[k] = v[rng.randint(len(v))]
+            yield params
+
+    def __len__(self) -> int:
+        if self._is_all_lists():
+            return min(self.n_iter,
+                       len(ParameterGrid(self.param_distributions)))
+        return self.n_iter
 
 
 def _target_type(y) -> str:

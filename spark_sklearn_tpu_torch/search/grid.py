@@ -1,18 +1,19 @@
-"""GridSearchCV on the compiled, lane-batched path.
+"""GridSearchCV and RandomizedSearchCV on the compiled, lane-batched path.
 
 Counterpart of `spark_sklearn_tpu/search/grid.py`: `_fit_impl` (:554),
-`_fit_compiled_impl` (:1150), the sequential per-chunk core of
-`_run_groups` (:1928; `fit_batch_tb` / `score_batch_wide`, :2622-2756)
-and `_format_results` (:4414).  For each compile group the
+`_fit_compiled_dispatch` (:1035, float64 families), `_fit_compiled_impl`
+(:1150), the sequential per-chunk core of `_run_groups` (:1928;
+`fit_batch_tb` / `score_batch_wide`, :2622-2756), `_format_results`
+(:4414) and `RandomizedSearchCV` (:4635).  For each compile group the
 (candidate x fold) tasks are laid out candidate-major (task t is fold
 t % n_folds) and cut into chunks of at most `max_tasks_per_batch` lanes;
-each chunk is fitted as one batched L-BFGS and then scored from one wide
+each chunk is fitted as one batched problem and then scored from one wide
 GEMM.  `cv_results_` follows sklearn's schema.
 
-Not ported in this slice: RandomizedSearchCV, the host fallback for
-estimators without a family, and the speed knobs of the reference
-(sorted chunking, the pipelined executor, the chunk scan, fused
-fit+score).
+Not ported in this slice: the host fallback for estimators without a
+family, `fit_params`/`sample_weight` routing, `groups`, a callable
+`refit`, `verbose`, and the speed knobs of the reference (sorted
+chunking, the pipelined executor, the chunk scan, fused fit+score).
 """
 
 from __future__ import annotations
@@ -26,15 +27,22 @@ import numpy as np
 import torch
 
 from spark_sklearn_tpu_torch.models.base import resolve_family
-from spark_sklearn_tpu_torch.models.estimators import LogisticRegression
+from spark_sklearn_tpu_torch.models.estimators import _Estimator
 from spark_sklearn_tpu_torch.parallel.device import TorchConfig, resolve_device
 from spark_sklearn_tpu_torch.parallel.taskgrid import (
     build_compile_groups,
     build_fold_masks,
     pad_chunk,
 )
-from spark_sklearn_tpu_torch.search.cv import ParameterGrid, check_cv
-from spark_sklearn_tpu_torch.search.scorers import resolve_scoring
+from spark_sklearn_tpu_torch.search.cv import (
+    ParameterGrid,
+    ParameterSampler,
+    check_cv,
+)
+from spark_sklearn_tpu_torch.search.scorers import (
+    check_scoring_target,
+    resolve_scoring,
+)
 
 
 def _sync(device: torch.device) -> None:
@@ -45,34 +53,46 @@ def _sync(device: torch.device) -> None:
 def _clone(estimator):
     """An unfitted copy with the same params: the port's own estimators
     copy themselves; anything else goes through sklearn's `clone`."""
-    if isinstance(estimator, LogisticRegression):
+    if isinstance(estimator, _Estimator):
         return type(estimator)(**estimator.get_params())
     from sklearn.base import clone
     return clone(estimator)
 
 
-class GridSearchCV:
-    """Exhaustive search over `param_grid` with cross-validation.
+def _lane_finite(model, B: int) -> torch.Tensor:
+    """(B,) True where every floating leaf of the lane's model is finite,
+    whatever each leaf's shape."""
+    return torch.stack([torch.isfinite(leaf.reshape(B, -1)).all(dim=1)
+                        for leaf in model.values()
+                        if leaf.is_floating_point()]).all(dim=0)
+
+
+class _BaseSearch:
+    """The search core shared by `GridSearchCV` and `RandomizedSearchCV`,
+    which differ only in `_get_candidates`.
 
     Runs on `config.device` (default ``cuda``; see `TorchConfig`).  The
-    estimator must resolve to a ported family (the port's or sklearn's
-    `LogisticRegression`).  `scoring` is None, ``"accuracy"``,
-    ``"neg_log_loss"`` or a list of those; `cv` is None, an int, a
-    splitter with ``.split(X, y)`` or an iterable of (train, test)
-    index pairs.
+    estimator must resolve to a ported family: the port's or sklearn's
+    `LogisticRegression`, `Ridge`, `LinearRegression`, `ElasticNet` or
+    `Lasso`.  `scoring` is None (accuracy for classifiers, r2 for
+    regressors), one of the scorer names of `search/scorers.py` or a list
+    of them; `cv` is None, an int, a splitter with ``.split(X, y)`` or an
+    iterable of (train, test) index pairs.
     """
 
-    def __init__(self, estimator, param_grid, *, scoring=None, refit=True,
-                 cv=None, error_score=np.nan, return_train_score=False,
+    def __init__(self, estimator, *, scoring=None, refit=True, cv=None,
+                 error_score=np.nan, return_train_score=False,
                  config: Optional[TorchConfig] = None):
         self.estimator = estimator
-        self.param_grid = param_grid
         self.scoring = scoring
         self.refit = refit
         self.cv = cv
         self.error_score = error_score
         self.return_train_score = return_train_score
         self.config = config
+
+    def _get_candidates(self) -> List[Dict[str, Any]]:
+        raise NotImplementedError
 
     # -- fit --------------------------------------------------------------
 
@@ -81,8 +101,7 @@ class GridSearchCV:
         if family is None:
             raise NotImplementedError(
                 f"{type(self.estimator).__name__} has no family in the "
-                "PyTorch port (only LogisticRegression is ported, and the "
-                "host fallback is not)")
+                "PyTorch port (the host fallback is not ported)")
         scorers, single = resolve_scoring(self.scoring, family)
         scorer_names = list(scorers)
         self.multimetric_ = single is None
@@ -102,7 +121,7 @@ class GridSearchCV:
         splits = [(np.asarray(tr), np.asarray(te))
                   for tr, te in cv.split(X, y)]
         self.n_splits_ = len(splits)
-        candidates = list(ParameterGrid(self.param_grid))
+        candidates = self._get_candidates()
         if not splits or not candidates:
             raise ValueError(
                 "No fits were performed. Was the CV iterator empty? "
@@ -125,7 +144,7 @@ class GridSearchCV:
             self.best_params_ = results["params"][self.best_index_]
         if self.refit:
             best = _clone(self.estimator).set_params(**self.best_params_)
-            if isinstance(best, LogisticRegression) and best.device is None:
+            if isinstance(best, _Estimator) and best.device is None:
                 best.set_params(device=str(device))
             t0 = time.perf_counter()
             best.fit(X, y)
@@ -137,14 +156,24 @@ class GridSearchCV:
                       config, device):
         """Fit and score every (candidate x fold) task, chunk by chunk.
         Returns per-scorer (n_candidates, n_folds) test (and train)
-        scores and the fit/score times per task."""
-        data_np, meta = family.prepare_data(X, y)
+        scores and the fit/score times per task.
+
+        A family that sets `wants_float64` runs with float64 data, fold
+        masks and dynamic parameters (the reference runs it under x64;
+        its dynamic parameters are float32 arrays cast to float64, and
+        so are these)."""
+        use_f64 = bool(getattr(family, "wants_float64", False)) and \
+            config.dtype is None
+        dtype = np.float64 if use_f64 else np.float32
+        data_np, meta = family.prepare_data(X, y, dtype=dtype)
+        check_scoring_target(self.scoring, family, meta)
         # sklearn's log_loss clips at its proba dtype's eps, and sklearn's
         # LogisticRegression returns float64 probabilities whatever X's
         # dtype (the reference resolves the same, grid.py:1251)
         meta["logloss_clip_eps"] = float(np.finfo(np.float64).eps)
         n_samples = X.shape[0]
-        train_masks, test_masks = build_fold_masks(splits, n_samples)
+        train_masks, test_masks = build_fold_masks(splits, n_samples,
+                                                   dtype=dtype)
         data = {k: torch.as_tensor(v, device=device)
                 for k, v in data_np.items()}
         train_dev = torch.as_tensor(train_masks, device=device)
@@ -167,7 +196,8 @@ class GridSearchCV:
             candidates, dynamic_names=list(family.dynamic_params),
             dynamic_dtypes=family.dynamic_params)
         for group in groups:
-            static = {**base_params, **group.static_params}
+            static = {**base_params, **group.static_params,
+                      "__n_folds__": n_folds}
             nc = group.n_candidates
             width = max(1, min(nc, config.max_tasks_per_batch // n_folds))
             lanes = width * n_folds
@@ -176,10 +206,12 @@ class GridSearchCV:
             w_test = test_dev[fold_idx]
             for lo in range(0, nc, width):
                 hi = min(lo + width, nc)
-                dyn = {k: torch.as_tensor(
-                           pad_chunk(v, lo, hi, width, repeat=n_folds),
-                           device=device)
-                       for k, v in group.dynamic_params.items()}
+                dyn = {}
+                for k, v in group.dynamic_params.items():
+                    arr = pad_chunk(v, lo, hi, width, repeat=n_folds)
+                    if use_f64 and arr.dtype.kind == "f":
+                        arr = arr.astype(np.float64)
+                    dyn[k] = torch.as_tensor(arr, device=device)
                 _sync(device)
                 t0 = time.perf_counter()
                 model = family.fit_task_batched(dyn, static, data, w_fit,
@@ -193,8 +225,7 @@ class GridSearchCV:
                 tr = ({s: sc.core(views, data["y"], w_fit, meta)
                        for s, sc in scorers.items()} if return_train
                       else {})
-                bad = ~(torch.isfinite(model["coef"]).flatten(1).all(1)
-                        & torch.isfinite(model["intercept"]).all(1))
+                bad = ~_lane_finite(model, lanes)
                 te = {s: v.cpu().numpy() for s, v in te.items()}
                 tr = {s: v.cpu().numpy() for s, v in tr.items()}
                 t2 = time.perf_counter()
@@ -212,10 +243,14 @@ class GridSearchCV:
                 # charge each launch's wall to the real tasks in it
                 fit_times[idx] = (t1 - t0) / (n_real * n_folds)
                 score_times[idx] = (t2 - t1) / (n_real * n_folds)
-                self.chunks_.append({
-                    "candidates": (int(lo), int(hi)), "lanes": lanes,
-                    "n_iter": int(model["n_iter"][0]),
-                    "fit_s": t1 - t0, "score_s": t2 - t1})
+                chunk = {"candidates": (int(lo), int(hi)), "lanes": lanes,
+                         "fit_s": t1 - t0, "score_s": t2 - t1}
+                # the solver's iteration count, where the family has one
+                # (the closed-form regressors have none)
+                for key in ("n_iter", "n_iter_exec"):
+                    if key in model:
+                        chunk[key] = int(model[key][0])
+                self.chunks_.append(chunk)
             for arr in group.dynamic_params.values():
                 if np.issubdtype(arr.dtype, np.floating):
                     fit_failed[group.candidate_indices[np.isnan(arr)]] = \
@@ -320,3 +355,42 @@ class GridSearchCV:
 
     def predict_proba(self, X):
         return self.best_estimator_.predict_proba(X)
+
+
+class GridSearchCV(_BaseSearch):
+    """Exhaustive search over `param_grid` (a dict or list of dicts of
+    value lists) with cross-validation; see `_BaseSearch`."""
+
+    def __init__(self, estimator, param_grid, *, scoring=None, refit=True,
+                 cv=None, error_score=np.nan, return_train_score=False,
+                 config: Optional[TorchConfig] = None):
+        super().__init__(estimator, scoring=scoring, refit=refit, cv=cv,
+                         error_score=error_score,
+                         return_train_score=return_train_score,
+                         config=config)
+        self.param_grid = param_grid
+
+    def _get_candidates(self):
+        return list(ParameterGrid(self.param_grid))
+
+
+class RandomizedSearchCV(_BaseSearch):
+    """Search over `n_iter` candidates drawn from `param_distributions`
+    by the port's `ParameterSampler` (the candidates sklearn's draws from
+    the same `random_state`); see `_BaseSearch`."""
+
+    def __init__(self, estimator, param_distributions, *, n_iter=10,
+                 scoring=None, refit=True, cv=None, random_state=None,
+                 error_score=np.nan, return_train_score=False,
+                 config: Optional[TorchConfig] = None):
+        super().__init__(estimator, scoring=scoring, refit=refit, cv=cv,
+                         error_score=error_score,
+                         return_train_score=return_train_score,
+                         config=config)
+        self.param_distributions = param_distributions
+        self.n_iter = n_iter
+        self.random_state = random_state
+
+    def _get_candidates(self):
+        return list(ParameterSampler(self.param_distributions, self.n_iter,
+                                     random_state=self.random_state))

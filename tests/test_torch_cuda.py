@@ -1,6 +1,8 @@
 """Tests of the PyTorch port that need an NVIDIA GPU: the CUDA kernels
-against their plain versions, and a small search on cuda against the
-same search on the CPU.  They skip where no card is visible.
+against their plain versions, and small searches, fits and scorer cores
+on cuda against the same on the CPU (logistic regression by L-BFGS and
+by FISTA, Ridge and LinearRegression in float64, ElasticNet, the 17
+scorers).  They skip where no card is visible.
 
 This file imports neither JAX nor sklearn, so it also runs on a machine
 that has only PyTorch:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -11,7 +13,9 @@ import pytest
 import torch
 
 import spark_sklearn_tpu_torch as port
+from spark_sklearn_tpu_torch.models.linear import LogisticRegressionFamily
 from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+from spark_sklearn_tpu_torch.search.scorers import SCORERS
 
 
 @pytest.fixture
@@ -123,3 +127,133 @@ def test_search_on_cuda_matches_cpu(cuda_device, binary):
                                atol=5e-3)
     assert runs["cuda"].best_params_ == runs["cpu"].best_params_
     assert runs["cuda"].best_estimator_.device == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the rest of the linear families, FISTA and the scorers: cuda against
+# the CPU path (the plain versions) on the same inputs
+# ---------------------------------------------------------------------------
+
+def _class_problem(k, n=300, d=20, seed=0):
+    rng = np.random.default_rng(seed)
+    y = rng.permutation(np.arange(n) % k)
+    X = (rng.uniform(0, 1, (k, d))[y]
+         + 0.8 * rng.standard_normal((n, d))).astype(np.float32)
+    return X, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 10])
+def test_fista_on_cuda_matches_cpu(cuda_device, k):
+    """The l1 LogisticRegression fit (FISTA through K2) on both devices:
+    coefficients of the lanes both converged within atol 1e-4, equal
+    iteration counts within 2, K2 launched only on the card."""
+    X, y = _class_problem(k)
+    rng = np.random.default_rng(1)
+    w = (rng.random((6, len(y))) < 0.7).astype(np.float32)
+    C = np.array([0.05, 0.2, 1.0, 0.05, 0.2, 1.0], np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        data, meta = LogisticRegressionFamily.prepare_data(X, y)
+        gk.reset_launches()
+        out[dev] = LogisticRegressionFamily.fit_task_batched(
+            {"C": torch.as_tensor(C, device=dev)},
+            {"penalty": "l1", "max_iter": 30},
+            {n: torch.as_tensor(v, device=dev) for n, v in data.items()},
+            torch.as_tensor(w, device=dev), meta)
+        assert (gk.LAUNCHES["glm_loss_grad"] > 0) == (dev == "cuda")
+        assert gk.LAUNCHES["glm_trial_loss"] == 0
+    conv = (out["cuda"]["converged"].cpu() & out["cpu"]["converged"]).numpy()
+    assert conv.any()
+    for key in ("coef", "intercept"):
+        np.testing.assert_allclose(out["cuda"][key].cpu().numpy()[conv],
+                                   out["cpu"][key].numpy()[conv], atol=1e-4)
+    assert abs(int(out["cuda"]["n_iter_exec"][0])
+               - int(out["cpu"]["n_iter_exec"][0])) <= 2
+
+
+def _reg_problem(n=400, d=8, seed=0, rank_deficient=False):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)) * np.linspace(0.5, 12.0, d)
+    if rank_deficient:
+        X[:, -2:] = X[:, :2]
+    y = X @ rng.normal(size=d) + 0.5 * rng.normal(size=n)
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+def _reg_search(est, grid, X, y, dev):
+    return port.GridSearchCV(
+        est, grid, cv=port.KFold(4),
+        scoring=["r2", "neg_median_absolute_error",
+                 "neg_mean_squared_error"], refit="r2",
+        config=port.TorchConfig(device=dev)).fit(X, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["ridge", "linear_regression",
+                                   "elasticnet"])
+def test_regressor_search_on_cuda_matches_cpu(cuda_device, label):
+    """Ridge and LinearRegression run in float64 on the card (r2 within
+    1e-10 of the CPU's); ElasticNet in float32 (within 1e-5).  The
+    refit runs on the card."""
+    est, grid, tol = {
+        "ridge": (port.Ridge(), {"alpha": [0.01, 1.0, 100.0]}, 1e-10),
+        "linear_regression": (port.LinearRegression(),
+                              {"fit_intercept": [True, False]}, 1e-10),
+        "elasticnet": (port.ElasticNet(max_iter=300),
+                       {"alpha": [0.01, 0.1], "l1_ratio": [0.3, 1.0]},
+                       1e-5),
+    }[label]
+    X, y = _reg_problem()
+    runs = {dev: _reg_search(est, grid, X, y, dev)
+            for dev in ("cuda", "cpu")}
+    for s in ("r2", "neg_median_absolute_error", "neg_mean_squared_error"):
+        np.testing.assert_allclose(
+            runs["cuda"].cv_results_[f"mean_test_{s}"],
+            runs["cpu"].cv_results_[f"mean_test_{s}"], rtol=tol, atol=tol)
+    assert runs["cuda"].best_params_ == runs["cpu"].best_params_
+    best = runs["cuda"].best_estimator_
+    assert best.device == "cuda"
+    want_dtype = np.float32 if label == "elasticnet" else np.float64
+    assert best.coef_.dtype == want_dtype
+
+
+@pytest.mark.cuda
+def test_min_norm_least_squares_on_cuda(cuda_device):
+    """On rank-deficient X the card's answer is the minimum-norm one
+    (numpy's SVD-based lstsq on the centred data), which a QR-based
+    `gels` solve would not give."""
+    X, y = _reg_problem(rank_deficient=True)
+    est = port.LinearRegression(device="cuda").fit(X, y)
+    Xc = X.astype(np.float64) - X.mean(0)
+    want = np.linalg.lstsq(Xc, y - y.astype(np.float64).mean(),
+                           rcond=None)[0]
+    np.testing.assert_allclose(est.coef_, want, atol=1e-8)
+    np.testing.assert_allclose(est.coef_[:2], est.coef_[-2:], atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCORERS))
+def test_scorer_cores_on_cuda_match_cpu(cuda_device, name):
+    rng = np.random.default_rng(3)
+    T, n, k = 9, 101, 2
+    w = (rng.random((T, n)) < 0.6).astype(np.float64)
+    w[4] = 0.0                                       # a zero-weight fold
+    logits = rng.standard_normal((T, n, k))
+    views = {"pred": logits.argmax(-1),
+             "proba": np.exp(logits) / np.exp(logits).sum(-1, keepdims=True),
+             "decision": logits[..., 1] - logits[..., 0]}
+    y = rng.integers(0, k, n)
+    if name not in ("accuracy", "balanced_accuracy", "neg_log_loss", "f1",
+                    "f1_macro", "precision", "recall", "roc_auc"):
+        y = rng.uniform(0.0, 3.0, n)
+        views = {"pred": y[None, :] + rng.standard_normal((T, n))}
+    meta = {"n_classes": k}
+    got = {}
+    for dev in ("cuda", "cpu"):
+        got[dev] = SCORERS[name].core(
+            {v: torch.as_tensor(a, device=dev) for v, a in views.items()},
+            torch.as_tensor(y, device=dev), torch.as_tensor(w, device=dev),
+            meta).cpu().numpy()
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-10,
+                               atol=1e-12)

@@ -153,9 +153,22 @@ def test_class_weight_multiplier_matches_reference(digits):
 
 
 def test_family_resolution_by_qualified_name():
+    from sklearn.linear_model import (
+        ElasticNet, Lasso, LinearRegression, Ridge)
+
+    from spark_sklearn_tpu_torch.models.linear import (
+        ElasticNetFamily, LinearRegressionFamily, RidgeFamily)
     assert resolve_family(SkLogReg()) is LogisticRegressionFamily
     assert resolve_family(port.LogisticRegression()) is \
         LogisticRegressionFamily
+    for family, ours, theirs in (
+            (RidgeFamily, port.Ridge(), Ridge()),
+            (LinearRegressionFamily, port.LinearRegression(),
+             LinearRegression()),
+            (ElasticNetFamily, port.ElasticNet(), ElasticNet()),
+            (ElasticNetFamily, port.Lasso(), Lasso())):
+        assert resolve_family(ours) is resolve_family(theirs) is family
+    assert ElasticNetFamily.extract_params(port.Lasso())["l1_ratio"] == 1.0
 
     class LogisticRegression:          # a third-party namesake
         pass
@@ -168,7 +181,9 @@ def test_unported_knobs_raise():
         resolve_device(TorchConfig(device="cpu", bf16_matmul=True))
     with pytest.raises(NotImplementedError):
         resolve_device(TorchConfig(device="cpu", dtype=np.float64))
-    for scoring in ("roc_auc", ["accuracy", "f1"], {"a": "accuracy"}):
+    # scorer objects, callables and dicts need sklearn to resolve
+    for scoring in ("not_a_scorer", ["accuracy", len], {"a": "accuracy"},
+                    len):
         with pytest.raises(NotImplementedError):
             resolve_scoring(scoring, LogisticRegressionFamily)
     assert list(resolve_scoring(

@@ -150,10 +150,12 @@ def test_chunking_does_not_change_scores(digits):
 
 
 @pytest.mark.parametrize("est,err", [
-    (SkLogReg(l1_ratio=0.5, solver="saga"), NotImplementedError),
-    (port.LogisticRegression(penalty="l1"), NotImplementedError),
+    (SkLogReg(penalty="l3"), ValueError),
+    (port.LogisticRegression(penalty="l3"), ValueError),
 ])
 def test_unported_penalties_raise(digits, est, err):
+    """l1 and elasticnet are fitted by FISTA now; a penalty neither
+    package knows raises."""
     X, y = digits
     with pytest.raises(err):
         port.GridSearchCV(est, {"C": [1.0]}, cv=3, config=CPU).fit(
