@@ -10,10 +10,11 @@ Entry points run on ``cuda`` unless the caller passes
 ``TorchConfig(device="cpu")``.
 
 Public API so far:
-  - GridSearchCV, RandomizedSearchCV  (compiled linear-family searches)
+  - GridSearchCV, RandomizedSearchCV  (compiled linear-family and
+    SVC/NuSVC searches)
   - TorchConfig
-  - LogisticRegression, Ridge, LinearRegression, ElasticNet, Lasso
-    (sklearn-free estimators)
+  - LogisticRegression, Ridge, LinearRegression, ElasticNet, Lasso, SVC,
+    NuSVC (sklearn-free estimators)
   - ParameterGrid, ParameterSampler, StratifiedKFold, KFold
 """
 
@@ -22,7 +23,9 @@ from spark_sklearn_tpu_torch.models.estimators import (
     Lasso,
     LinearRegression,
     LogisticRegression,
+    NuSVC,
     Ridge,
+    SVC,
 )
 from spark_sklearn_tpu_torch.parallel.device import TorchConfig
 from spark_sklearn_tpu_torch.search.cv import (
@@ -45,6 +48,8 @@ __all__ = [
     "LinearRegression",
     "ElasticNet",
     "Lasso",
+    "SVC",
+    "NuSVC",
     "ParameterGrid",
     "ParameterSampler",
     "StratifiedKFold",

@@ -2,16 +2,22 @@
 
 Counterpart of `spark_sklearn_tpu/models/estimators.py` (:63-145):
 `LogisticRegression`, `Ridge`, `LinearRegression`, `ElasticNet` and
-`Lasso`.  The reference subclasses sklearn's `BaseEstimator`; the card's
-machine has no sklearn, so `_Estimator` carries the small part of that
-contract the search uses (`get_params`/`set_params`, `fit`, `predict`,
-`predict_proba`) itself.  Each class is registered to its family, and its
-`fit` is one lane of the same batched fit the search runs, on `device`
-(None means ``cuda``; pass ``"cpu"`` for the CPU).  Families that want
-float64 (Ridge, LinearRegression) fit in float64 here too.
+`Lasso`; and of `spark_sklearn_tpu/models/standalone.py` (:18-115):
+`SVC`, with `NuSVC` beside it.  The reference subclasses sklearn's
+`BaseEstimator`; the card's machine has no sklearn, so `_Estimator`
+carries the small part of that contract the search uses
+(`get_params`/`set_params`, `fit`, `predict`, `predict_proba`) itself.
+Each class is registered to its family, and its `fit` is one lane of the
+same batched fit the search runs, on `device` (None means ``cuda``; pass
+``"cpu"`` for the CPU).  Families that want float64 (Ridge,
+LinearRegression) fit in float64 here too.
 
 `LogisticRegression` also takes ``penalty="l1"``/``"elasticnet"`` and
 `l1_ratio` (fitted by FISTA) and `class_weight`, as sklearn's does.
+
+`SVC` and `NuSVC` fit the full data with the search's dual solver and
+keep the representer form (training X, signed alphas, intercepts), so
+they predict new X with one kernel matrix.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from spark_sklearn_tpu_torch.models.linear import (
     LogisticRegressionFamily,
     RidgeFamily,
 )
+from spark_sklearn_tpu_torch.models.svm import NuSVCFamily, SVCFamily
 from spark_sklearn_tpu_torch.parallel.device import TorchConfig, resolve_device
 
 
@@ -165,3 +172,79 @@ class Lasso(ElasticNet):
         super().__init__(alpha=alpha, l1_ratio=1.0,
                          fit_intercept=fit_intercept, max_iter=max_iter,
                          tol=tol, random_state=random_state, device=device)
+
+
+class SVC(_Estimator):
+    """Kernel SVM, one-vs-one for k > 2 classes, fitted by projected
+    Nesterov ascent on libsvm's dual (`models/svm.py`)."""
+
+    _family = SVCFamily
+
+    def __init__(self, C=1.0, kernel="rbf", gamma="scale", degree=3,
+                 coef0=0.0, max_iter=-1, tol=1e-3, class_weight=None,
+                 random_state=None, device=None):
+        self.C = C
+        self.kernel = kernel
+        self.gamma = gamma
+        self.degree = degree
+        self.coef0 = coef0
+        self.max_iter = max_iter
+        self.tol = tol
+        self.class_weight = class_weight
+        self.random_state = random_state
+        self.device = device
+
+    def fit(self, X, y):
+        dev = resolve_device(TorchConfig(device=self.device))
+        data_np, meta = self._family.prepare_data(
+            np.asarray(X, np.float32), np.asarray(y))
+        static = self._family.extract_params(self)
+        X_t = torch.as_tensor(data_np["X"], device=dev)
+        y_t = torch.as_tensor(data_np["y"], device=dev)
+        return self._set_fitted(
+            self._family.fit_representer(X_t, y_t, static, meta), meta, dev)
+
+    def _set_fitted(self, model, meta, dev):
+        self._model = model
+        self._meta = meta
+        self._static = self._family.extract_params(self)
+        self._device = dev
+        for k, v in self._family.sklearn_attrs(
+                model, self._static, meta).items():
+            setattr(self, k, v)
+        return self
+
+    def _X(self, X):
+        return torch.as_tensor(np.asarray(X, np.float32),
+                               device=self._device)
+
+    def decision_function(self, X):
+        return self._family.decision(
+            self._model, self._static, self._X(X), self._meta).cpu().numpy()
+
+    def predict(self, X):
+        idx = self._family.predict(
+            self._model, self._static, self._X(X), self._meta)
+        return self.classes_[idx.cpu().numpy()]
+
+
+class NuSVC(SVC):
+    """nu-SVC: `nu` bounds the fraction of margin errors and support
+    vectors in place of C; raises ValueError in fit where nu is
+    infeasible, as sklearn's does."""
+
+    _family = NuSVCFamily
+
+    def __init__(self, nu=0.5, kernel="rbf", gamma="scale", degree=3,
+                 coef0=0.0, max_iter=-1, tol=1e-3, class_weight=None,
+                 random_state=None, device=None):
+        self.nu = nu
+        self.kernel = kernel
+        self.gamma = gamma
+        self.degree = degree
+        self.coef0 = coef0
+        self.max_iter = max_iter
+        self.tol = tol
+        self.class_weight = class_weight
+        self.random_state = random_state
+        self.device = device

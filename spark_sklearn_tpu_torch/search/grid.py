@@ -73,11 +73,11 @@ class _BaseSearch:
 
     Runs on `config.device` (default ``cuda``; see `TorchConfig`).  The
     estimator must resolve to a ported family: the port's or sklearn's
-    `LogisticRegression`, `Ridge`, `LinearRegression`, `ElasticNet` or
-    `Lasso`.  `scoring` is None (accuracy for classifiers, r2 for
-    regressors), one of the scorer names of `search/scorers.py` or a list
-    of them; `cv` is None, an int, a splitter with ``.split(X, y)`` or an
-    iterable of (train, test) index pairs.
+    `LogisticRegression`, `Ridge`, `LinearRegression`, `ElasticNet`,
+    `Lasso`, `SVC` or `NuSVC`.  `scoring` is None (accuracy for classifiers,
+    r2 for regressors), one of the scorer names of `search/scorers.py` or a
+    list of them; `cv` is None, an int, a splitter with ``.split(X, y)`` or
+    an iterable of (train, test) index pairs.
     """
 
     def __init__(self, estimator, *, scoring=None, refit=True, cv=None,
@@ -192,6 +192,13 @@ class _BaseSearch:
         self.chunks_: List[Dict[str, Any]] = []
 
         base_params = family.extract_params(self.estimator)
+        # bound the chunk: at most max_tasks_per_batch lanes, and fewer
+        # where the family asks (SVC's kernel matrix and decision caches),
+        # as the reference does (grid.py:1666-1671)
+        max_tasks = config.max_tasks_per_batch
+        hint = getattr(family, "max_tasks_hint", None)
+        if hint is not None:
+            max_tasks = min(max_tasks, max(n_folds, hint(n_samples, meta)))
         groups = build_compile_groups(
             candidates, dynamic_names=list(family.dynamic_params),
             dynamic_dtypes=family.dynamic_params)
@@ -199,13 +206,14 @@ class _BaseSearch:
             static = {**base_params, **group.static_params,
                       "__n_folds__": n_folds}
             nc = group.n_candidates
-            width = max(1, min(nc, config.max_tasks_per_batch // n_folds))
+            width = max(1, min(nc, max_tasks // n_folds))
             lanes = width * n_folds
             fold_idx = torch.arange(lanes, device=device) % n_folds
             w_fit = train_dev[fold_idx]                       # (lanes, n)
             w_test = test_dev[fold_idx]
             for lo in range(0, nc, width):
                 hi = min(lo + width, nc)
+                n_real = hi - lo
                 dyn = {}
                 for k, v in group.dynamic_params.items():
                     arr = pad_chunk(v, lo, hi, width, repeat=n_folds)
@@ -214,8 +222,11 @@ class _BaseSearch:
                     dyn[k] = torch.as_tensor(arr, device=device)
                 _sync(device)
                 t0 = time.perf_counter()
-                model = family.fit_task_batched(dyn, static, data, w_fit,
-                                                meta)
+                # the real candidates of the chunk, for a family that can
+                # skip its padding (SVC solves candidate by candidate)
+                model = family.fit_task_batched(
+                    dyn, {**static, "__n_real__": n_real}, data, w_fit,
+                    meta)
                 _sync(device)
                 t1 = time.perf_counter()
                 views = family.views_task_batched(model, static, data,
@@ -231,7 +242,6 @@ class _BaseSearch:
                 t2 = time.perf_counter()
 
                 idx = group.candidate_indices[lo:hi]
-                n_real = hi - lo
                 for s in scorers:
                     test_scores[s][idx] = \
                         te[s].reshape(width, n_folds)[:n_real]
@@ -245,11 +255,13 @@ class _BaseSearch:
                 score_times[idx] = (t2 - t1) / (n_real * n_folds)
                 chunk = {"candidates": (int(lo), int(hi)), "lanes": lanes,
                          "fit_s": t1 - t0, "score_s": t2 - t1}
-                # the solver's iteration count, where the family has one
-                # (the closed-form regressors have none)
-                for key in ("n_iter", "n_iter_exec"):
-                    if key in model:
-                        chunk[key] = int(model[key][0])
+                # the iterations the chunk ran, where the family has a
+                # solver (the closed-form regressors have none): the max
+                # over its lanes of n_iter_exec, else n_iter, as the
+                # reference records it (grid.py:2800)
+                it = model.get("n_iter_exec", model.get("n_iter"))
+                if it is not None:
+                    chunk["n_iter_exec"] = int(it.max())
                 self.chunks_.append(chunk)
             for arr in group.dynamic_params.values():
                 if np.issubdtype(arr.dtype, np.floating):

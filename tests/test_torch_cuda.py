@@ -2,7 +2,7 @@
 against their plain versions, and small searches, fits and scorer cores
 on cuda against the same on the CPU (logistic regression by L-BFGS and
 by FISTA, Ridge and LinearRegression in float64, ElasticNet, the 17
-scorers).  They skip where no card is visible.
+scorers, SVC and NuSVC).  They skip where no card is visible.
 
 This file imports neither JAX nor sklearn, so it also runs on a machine
 that has only PyTorch:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -15,6 +15,7 @@ import torch
 import spark_sklearn_tpu_torch as port
 from spark_sklearn_tpu_torch.models.linear import LogisticRegressionFamily
 from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+from spark_sklearn_tpu_torch.ops import svm_kernels as svk
 from spark_sklearn_tpu_torch.search.scorers import SCORERS
 
 
@@ -257,3 +258,153 @@ def test_scorer_cores_on_cuda_match_cpu(cuda_device, name):
             meta).cpu().numpy()
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-10,
                                atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the SVMs: S1 (Gram epilogue) and S2 (projected dual step) against their
+# plain versions, and SVC/NuSVC searches on cuda against the CPU
+# ---------------------------------------------------------------------------
+
+def _gram_inputs(device, n1=300, n2=257, d=50, seed=0):
+    rng = np.random.default_rng(seed)
+    X1 = (rng.uniform(0, 1, (n1, d)) * (rng.random((n1, d)) < 0.3))
+    X2 = (rng.uniform(0, 1, (n2, d)) * (rng.random((n2, d)) < 0.3))
+    return [torch.as_tensor(a.astype(np.float32), device=device)
+            for a in (X1, X2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("kind", ["rbf", "poly", "sigmoid", "linear"])
+def test_gram_epilogue_matches_plain(cuda_device, kind, same):
+    """Tolerance: rtol 1e-5, atol 1e-6 — the kernel takes the norms of
+    X X^T from the product's diagonal and sums the others in another
+    order than torch's, and expf/powf/tanhf round differently from
+    torch's kernels by a few ulp.  The rbf diagonal of X X^T is exactly
+    1."""
+    X1, X2 = _gram_inputs(cuda_device)
+    if same:
+        X2 = X1
+    G = X1 @ X2.T
+    want = svk.gram_epilogue_plain(G.clone(), X1, X2, kind, 0.07, 3.0, 0.5)
+    n0 = svk.LAUNCHES["svm_gram_epilogue"]
+    got = svk.gram_epilogue(G.clone(), X1, X2, kind, 0.07, 3.0, 0.5)
+    torch.cuda.synchronize()
+    assert svk.LAUNCHES["svm_gram_epilogue"] == n0 + (kind != "linear")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    if kind == "rbf" and same:
+        assert torch.all(got.diagonal() == 1.0)
+
+
+def _step_inputs(device, M, n, seed=0):
+    rng = np.random.default_rng(seed)
+    yb = rng.choice([-1.0, 0.0, 1.0], size=(M, n), p=[0.45, 0.1, 0.45])
+    bound = (rng.uniform(0.5, 2.0, (M, n)) * (rng.random((M, n)) < 0.8)
+             * (yb != 0))
+    z = rng.uniform(0, 1, (M, n)) * bound
+    x = rng.uniform(0, 1, (M, n)) * bound
+    V = rng.standard_normal((M, n))
+    target = 0.3 * bound.sum(axis=1) + 0.1
+    arrs = [torch.as_tensor(a.astype(np.float32), device=device)
+            for a in (V, z, x, yb, bound, target)]
+    return arrs + [torch.tensor(0.25, device=device)]
+
+
+# (M, n, forced staged limit or None): one row of one element, ragged
+# rows, the largest staged row, the streamed plan forced at a small n and
+# taken at a real one
+STEP_SHAPES = [(7, 300, None), (3, 1, None), (5, 777, None),
+               (2, svk.STAGED_MAX_N, None), (5, 777, 256),
+               (2, svk.STAGED_MAX_N + 1, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n,staged_max", STEP_SHAPES)
+@pytest.mark.parametrize("mode", ["svc", "nu", "project"])
+def test_dual_step_matches_plain(cuda_device, monkeypatch, mode, M, n,
+                                 staged_max):
+    """Tolerance: atol 1e-5 on x', z', w' and 1e-5/step on the residual —
+    the bisection's block sums add in another order than torch's, which
+    moves the multiplier by rounding only where enough elements are
+    free.  `staged_max` forces the streamed plan below its limit."""
+    if staged_max is not None:
+        monkeypatch.setattr(svk, "STAGED_MAX_N", staged_max)
+    V, z, x, yb, bound, target, step = _step_inputs(cuda_device, M, n)
+    V = None if mode == "project" else V
+    target = None if mode == "svc" else target
+    want = svk.dual_step_plain(V, z, x, yb, bound, step, 0.4, target)
+    n0 = svk.LAUNCHES["svm_dual_step"]
+    got = svk.dual_step(V, z, x, yb, bound, step, 0.4, target)
+    torch.cuda.synchronize()
+    assert svk.LAUNCHES["svm_dual_step"] == n0 + 1
+    for a, b, atol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-5 / 0.25)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+    assert bool((got[0] >= 0).all() and (got[0] <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["svc", "nu"])
+def test_dual_step_plans_and_repeats_agree_bitwise(cuda_device, mode):
+    """No atomics: two launches give the same bits, and the staged and
+    streamed plans add in the same order, so they agree bitwise too."""
+    V, z, x, yb, bound, target, step = _step_inputs(cuda_device, 33, 3001)
+    target = None if mode == "svc" else target
+    first = svk.dual_step(V, z, x, yb, bound, step, 0.4, target)
+    second = svk.dual_step(V, z, x, yb, bound, step, 0.4, target)
+    streamed = svk.dual_step(V, z, x, yb, bound, step, 0.4, target,
+                             plan="streamed")
+    for a, b, c in zip(first, second, streamed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    X1, _ = _gram_inputs(cuda_device)
+    G = X1 @ X1.T
+    assert torch.equal(svk.gram_epilogue(G.clone(), X1, X1, "rbf", 0.1, 3, 0),
+                       svk.gram_epilogue(G.clone(), X1, X1, "rbf", 0.1, 3, 0))
+
+
+@pytest.mark.cuda
+def test_svm_wrappers_raise_instead_of_falling_back(cuda_device):
+    V, z, x, yb, bound, target, step = _step_inputs(cuda_device, 4, 50)
+    with pytest.raises(ValueError):
+        svk.dual_step(V, z.T.contiguous().T, x, yb, bound, step, 0.4)
+    with pytest.raises(ValueError):
+        svk.dual_step(V, z, x, yb.cpu(), bound, step, 0.4)
+    with pytest.raises(TypeError):
+        svk.dual_step(V, z, x, yb, bound.double(), step, 0.4)
+    with pytest.raises(ValueError):
+        svk.dual_step(V, z, x, yb, bound, step, 0.4, target[:2])
+    with pytest.raises(ValueError):
+        svk.dual_step(V, z, x, yb, bound, step, 0.4, plan="shared")
+    X1, X2 = _gram_inputs(cuda_device)
+    with pytest.raises(ValueError):
+        svk.gram_epilogue(X1 @ X2.T, X1, X1, "rbf", 0.1, 3, 0)
+    with pytest.raises(ValueError):
+        svk.gram_epilogue(X1 @ X2.T, X1, X2, "precomputed", 0.1, 3, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["svc", "binary", "nusvc"])
+def test_svm_search_on_cuda_matches_cpu(cuda_device, label):
+    """SVC (3 classes, and binary) and NuSVC searches on both devices:
+    mean_test_score within 5e-3 (the repo's oracle bound) and the same
+    best candidate; S1 and S2 launched on the card only; the refit
+    estimator predicts on the card as on the CPU."""
+    k = 2 if label == "binary" else 3
+    X, y = _class_problem(k, n=240)
+    est, grid = ((port.NuSVC(), {"nu": [0.2, 0.5]}) if label == "nusvc"
+                 else (port.SVC(), {"C": [0.5, 5.0], "gamma": [0.02, 0.1]}))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        svk.reset_launches()
+        runs[dev] = port.GridSearchCV(
+            est, grid, cv=port.StratifiedKFold(3),
+            config=port.TorchConfig(device=dev)).fit(X, y)
+        launched = all(v > 0 for v in svk.LAUNCHES.values())
+        assert launched == (dev == "cuda")
+    np.testing.assert_allclose(runs["cuda"].cv_results_["mean_test_score"],
+                               runs["cpu"].cv_results_["mean_test_score"],
+                               atol=5e-3)
+    assert runs["cuda"].best_params_ == runs["cpu"].best_params_
+    best = runs["cuda"].best_estimator_
+    assert best.device == "cuda"
+    agree = (best.predict(X) == runs["cpu"].best_estimator_.predict(X))
+    assert agree.mean() >= 0.99

@@ -87,7 +87,7 @@ def test_multiclass_matches_jax_and_sklearn(digits):
     assert type(ours.best_estimator_) is SkLogReg
     np.testing.assert_array_equal(ours.predict(X[:50]),
                                   sk.best_estimator_.predict(X[:50]))
-    assert all(c["n_iter"] <= 100 for c in ours.chunks_)
+    assert all(c["n_iter_exec"] <= 100 for c in ours.chunks_)
 
 
 def test_binary_balanced_matches_jax_and_sklearn(digits):
