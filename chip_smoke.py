@@ -43,11 +43,33 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    stratified 2000-row subset (2 candidates, 3 folds, and at C=0.1, where
    the residual exit ends the solve before its 300-step budget).
 
+9. gradient boosting, BASELINE config #4, on phase 6's data:
+   GridSearchCV(GradientBoostingRegressor(random_state=0), learning_rate
+   {0.05, 0.1, 0.2} x subsample {1.0, 0.8} x n_estimators {100, 200} x
+   max_depth {3, 5}, KFold(5), r2 and neg_mean_squared_error,
+   refit=False): 120 fits in two groups; then GradientBoostingClassifier(
+   n_estimators=50, max_depth=3) over learning_rate {0.1, 0.3} on phase
+   4's data, 5 folds; each cold, warm and profiled (trees grown, busy ms
+   a tree, idle share, peak memory, best candidate), and cuda against the
+   CPU on at most 2000 rows (2 candidates, 3 folds);
+10. random forest, BASELINE config #3, on covtype-shaped data made from
+   --seed (d=54: 10 quantitative columns in covtype's ranges, 4
+   wilderness and 40 soil one-hot columns, 7 classes at covtype's
+   shares; rows cut from 581012 to 100000 to keep the phase near a
+   minute): RandomizedSearchCV(RandomForestClassifier(random_state=0),
+   n_estimators {20, 30, 40, 50} x max_depth {6, 8, 10}, n_iter=4,
+   StratifiedKFold(3), random_state=0, refit=False); a
+   RandomForestRegressor at one candidate on phase 6's data; as phase 9's
+   record, and cuda against the CPU on 2000 stratified rows.
+
 Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
 whose norms are summed apart) and S2 (SVC and NuSVC projections; the
 staged plan, and the streamed one forced for its time) against their
 plain versions at phase 8's shapes (n=10000, d=784; 225 subproblem rows
-of 10000).
+of 10000), and the tree grower's T1 (level histogram), T2 (split
+choice), T3 (routing and the walk) and T4 (leaf values) at phase 9's
+(60 lanes, n=20640, d=8, depth 5) and phase 10's (6 lanes, n=100000,
+d=54, depth 10) shapes, with `index_add_` timed beside T1 and T4.
 
 It prints one JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -81,6 +103,11 @@ SVM_NU = [0.1, 0.3]
 SVM_C_EXIT = 0.1                       # a C whose dual exits before 300 steps
 N_SVM_CHECK = 2000                     # rows of the cuda-against-cpu check
 SVM_ROWS = N_FOLDS * K_SVM * (K_SVM - 1) // 2   # 225 subproblems a candidate
+N_RF, D_RF, K_RF = 100000, 54, 7       # covtype, rows cut from 581012
+N_TREE_CHECK = 2000                    # rows of the trees' cuda/cpu checks
+GB_GRID = {"learning_rate": [0.05, 0.1, 0.2], "subsample": [1.0, 0.8],
+           "n_estimators": [100, 200], "max_depth": [3, 5]}
+RF_GRID = {"n_estimators": [20, 30, 40, 50], "max_depth": [6, 8, 10]}
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12                  # H100 SXM float32, non-tensor-core
 SFU_PER_CLOCK_PER_SM = 16              # exp2/log2 results (CUDA guide, 9.0)
@@ -1044,6 +1071,491 @@ def phase_svm(seed: int, kernel_rows: dict):
     return out
 
 
+# --- tree ensembles: data, the kernel check and phases 9 and 10 ----------
+
+def covtype_like(seed: int, n: int = N_RF):
+    """Covertype-shaped data (UCI covtype.info): d=54 columns, the 10
+    quantitative ones in covtype's ranges (elevation 1859-3858 m, aspect
+    0-360, slope 0-66, the hydrology, road and fire-point distances, the
+    three hillshades 0-254), then 4 wilderness-area and 40 soil-type
+    one-hot columns, and 7 cover types at covtype's shares (36.5, 48.8,
+    6.2, 0.5, 1.6, 3.0, 3.5 %).  A type shifts the elevation (as it does
+    in covtype, its strongest feature), the distances and the slope, and
+    draws its wilderness area and soil type from its own distributions,
+    so a forest separates the types well but not perfectly.  float32."""
+    rng = np.random.default_rng(seed)
+    share = np.array([36.5, 48.8, 6.2, 0.5, 1.6, 3.0, 3.5])
+    y = rng.choice(K_RF, size=n, p=share / share.sum())
+    elev_mu = np.array([3130, 2920, 2390, 2220, 2790, 2590, 3360])
+    X = np.empty((n, D_RF), np.float32)
+    X[:, 0] = np.clip(elev_mu[y] + 150 * rng.standard_normal(n), 1859, 3858)
+    X[:, 1] = rng.uniform(0, 360, n)
+    X[:, 2] = np.clip(14 + 3 * (y == 2) + 7.5 * rng.standard_normal(n), 0,
+                      66)
+    X[:, 3] = np.clip(rng.gamma(1.6, 170, n) * (1 + 0.2 * (y == 0)), 0, 1397)
+    X[:, 4] = np.clip(46 + 58 * rng.standard_normal(n), -173, 601)
+    X[:, 5] = np.clip(rng.gamma(2.3, 1020, n) * (1 + 0.3 * (y == 6)), 0,
+                      7117)
+    X[:, 6] = np.clip(212 + 27 * rng.standard_normal(n), 0, 254)
+    X[:, 7] = np.clip(223 + 20 * rng.standard_normal(n), 0, 254)
+    X[:, 8] = np.clip(143 + 38 * rng.standard_normal(n), 0, 254)
+    X[:, 9] = np.clip(rng.gamma(2.2, 900, n) * (1 + 0.2 * (y == 1)), 0,
+                      7173)
+    X[:, 10:] = 0.0
+    wild_p = rng.dirichlet(np.full(4, 0.7), K_RF)
+    soil_p = rng.dirichlet(np.full(40, 0.3), K_RF)
+    for c in range(K_RF):
+        m = np.flatnonzero(y == c)
+        X[m, 10 + (rng.random(len(m))[:, None]
+                   > np.cumsum(wild_p[c])[None, :]).sum(1)] = 1.0
+        X[m, 14 + np.minimum((rng.random(len(m))[:, None]
+                              > np.cumsum(soil_p[c])[None, :]).sum(1),
+                             39)] = 1.0
+    return X, y
+
+
+def tree_level_inputs(codes, lanes: int, n_nodes: int, stats_kind: str,
+                      seed: int):
+    """One level's T1/T3 inputs on the card at a path's shape: each of
+    `lanes` lanes takes about 2/3 of the rows (a fold) with forest stats
+    (Poisson(1) counts x the fold, one-hot targets of 7 classes: S = 8,
+    integers) or boosting stats (the fold, continuous gradients: S = 2),
+    the rows spread over `n_nodes` nodes."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = codes.shape[0]
+    fold = (torch.rand((lanes, n), generator=g, device="cuda") < 2 / 3
+            ).float()
+    if stats_kind == "forest":
+        w = torch.poisson(torch.ones((lanes, n), device="cuda"),
+                          generator=g) * fold
+        y = torch.randint(0, K_RF, (n,), generator=g, device="cuda")
+        t = torch.nn.functional.one_hot(y, K_RF).float()
+        stats = torch.cat([w[..., None], -w[..., None] * t[None]], dim=2)
+    else:
+        w = fold
+        grad = torch.randn((lanes, n), generator=g, device="cuda")
+        stats = torch.stack([w, w * grad], dim=2)
+    local = torch.randint(0, n_nodes, (lanes, n), generator=g,
+                          device="cuda", dtype=torch.int32)
+    local = torch.where(w > 0, local, torch.full_like(local, -1))
+    return local, stats.contiguous()
+
+
+def tree_symbol(name: str) -> str:
+    return {"tree_level_hist": "level_hist", "tree_best_split": "best_split",
+            "tree_route": "route_rows", "tree_leaf_values": "leaf_sums"
+            }[name]
+
+
+def phase_tree_kernels(seed: int, ptxas: dict):
+    """T1-T4 against their plain versions at phase 9's (boosting,
+    n=20640, d=8, 60 lanes, depth 5) and phase 10's (forest, n=100000,
+    d=54, 6 lanes, depth 10) shapes, each a chunk's lanes as the searches
+    run them: the root and the deepest level.
+    Integer (forest) stats: equal; boosting stats: rtol 1e-5 on sums, and
+    T2's feature and bin equal where the two best gains differ by more
+    than 1e-5 relative.  Two launches give the same bits.  Times (CUDA
+    events), plain times, `index_add_` times (T1, T4: one call a stat)
+    and byte bounds.  Returns {(name, shape label): row}."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import tree_kernels as tk
+    from spark_sklearn_tpu_torch.utils.binning import quantile_bin
+
+    rows = {}
+    shapes = {
+        "rf": (quantile_bin(covtype_like(seed)[0])[1], 2 * 3, 10, "forest"),
+        "gb": (quantile_bin(california_like(seed)[0])[1], 12 * N_FOLDS, 5,
+               "boosting"),
+    }
+
+    def record(name, label, got, want, exact, ms, plain_ms, lib_ms, nbytes,
+               ops, extra=None, rtol=1e-5, atol=1e-5):
+        errs = [float(torch.nan_to_num(a.float() - b.float()).abs().max())
+                if a.numel() else 0.0 for a, b in zip(got, want)]
+        for a, b in zip(got, want):
+            if exact:
+                ok = torch.equal(a, b)
+            else:
+                a, b = a.float(), b.float()
+                fin = torch.isfinite(b)
+                ok = torch.equal(fin, torch.isfinite(a)) and bool((
+                    (a[fin] - b[fin]).abs()
+                    <= atol + rtol * b[fin].abs()).all())
+            if not ok:
+                raise AssertionError(f"{name} ({label}) disagrees with its "
+                                     f"plain version: max abs err {errs}")
+        bound_ms, bound_by = bound(nbytes, ops)
+        regs, spill = next((v for f, v in ptxas.items()
+                            if tree_symbol(name) in f), (None, None))
+        rows[(name, label)] = {
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+            "registers": regs, "spill_bytes": spill, **(extra or {})}
+        lib = f", index_add_ {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"  {name:16s} {label:10s}: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms by "
+              f"{bound_by}, bound/time {bound_ms / ms:.3f}), max abs err "
+              f"{max(errs):.3g}, bitwise repeatable; {regs} registers, "
+              f"{spill} bytes spilled")
+
+    def repeat(fn, name):
+        a, b = fn(), fn()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: two launches differ")
+        return a
+
+    def index_add_ms(local, stats, n_seg, ids_fn):
+        """One `index_add_` a stat into a zeroed (n_seg,) vector."""
+        live = local >= 0
+        ids = ids_fn(live)
+        vals = [stats[..., s][live] for s in range(stats.shape[2])]
+        if ids.numel() != vals[0].numel():
+            vals = [v[:, None].expand(-1, ids.numel() // v.numel()
+                                      ).reshape(-1) for v in vals]
+
+        def run():
+            for v in vals:
+                torch.zeros(n_seg, device="cuda").index_add_(0, ids, v)
+        return cuda_ms(run, reps=5, warmup=1)
+
+    for label, (codes_np, L, depth, kind) in shapes.items():
+        codes = torch.as_tensor(codes_np, device="cuda")
+        n, d = codes.shape
+        exact = kind == "forest"
+        for n_nodes in (1, 2 ** (depth - 1)):
+            local, stats = tree_level_inputs(codes, L, n_nodes, kind,
+                                             seed + n_nodes)
+            S = stats.shape[2]
+            lab = f"{label}/{n_nodes}"
+            hist = repeat(lambda: tk.level_histogram(codes, local, stats,
+                                                     n_nodes),
+                          "tree_level_hist")[0]
+            want = tk.level_histogram_plain(codes, local, stats, n_nodes)
+            m = int((local >= 0).sum())
+            lane = torch.arange(L, device="cuda")[:, None]
+
+            def hist_ids(live):
+                seg = (lane * n_nodes + local.long())[live]
+                rows_ = torch.nonzero(live)[:, 1]
+                return ((seg[:, None] * d + torch.arange(d, device="cuda"))
+                        * 256 + codes[rows_].long()).reshape(-1)
+            record("tree_level_hist", lab, (hist,), (want,), exact,
+                   cuda_ms(lambda: tk.level_histogram(codes, local, stats,
+                                                      n_nodes), reps=10),
+                   cuda_ms(lambda: tk.level_histogram_plain(
+                       codes, local, stats, n_nodes), reps=3, warmup=1),
+                   index_add_ms(local, stats, L * n_nodes * d * 256,
+                                hist_ids),
+                   codes.nbytes + local.nbytes + stats.nbytes + hist.nbytes,
+                   m * d * S, {"entries": m * d, "lanes": L,
+                               "n_nodes": n_nodes, "S": S,
+                               "plan": tk.hist_plan(d, S, 256, L, n_nodes,
+                                                    132)})
+            del want
+            fmask = None
+            if kind == "forest" and n_nodes > 1:
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                sc = torch.rand((n_nodes, d), generator=g, device="cuda")
+                fmask = sc <= torch.sort(sc, dim=1).values[:, 6:7]
+            got = repeat(lambda: tk.best_splits(hist, fmask, 1e-9 if exact
+                                                else 1e-6, 1.0),
+                         "tree_best_split")
+            want = tk.best_splits_plain(hist, fmask, 1e-9 if exact else 1e-6,
+                                        1.0)
+            keep = torch.ones_like(want[3])
+            if not exact:
+                # nodes whose two best gains are apart (else a tie that
+                # rounding may break either way)
+                gains = []
+                for f in range(d):
+                    one = hist[:, :, f:f + 1]
+                    gains.append(_gain_table(one, 1e-6, 1.0))
+                top = torch.topk(torch.cat(gains, dim=2), 2, dim=2).values
+                keep = (top[..., 0] - top[..., 1]) > 1e-5 * top[..., 0].abs()
+            # tolerance: boosting gains rtol 1e-4 (differences of sums
+            # added in another order), on the nodes with a clear best
+            record("tree_best_split", lab,
+                   (got[0][keep], got[1][keep], got[3][keep],
+                    got[2][keep]),
+                   (want[0][keep], want[1][keep], want[3][keep],
+                    want[2][keep]),
+                   exact, cuda_ms(lambda: tk.best_splits(hist, fmask, 1e-6,
+                                                         1.0)),
+                   cuda_ms(lambda: tk.best_splits_plain(hist, fmask, 1e-6,
+                                                        1.0), reps=3,
+                           warmup=1), None,
+                   hist.nbytes + 13 * L * n_nodes,
+                   L * n_nodes * d * 256 * (2 + 10 * (S - 1)),
+                   {"nodes_compared": int(keep.sum()),
+                    "nodes": L * n_nodes}, rtol=1e-4)
+            del hist
+            # T3: route this level's rows by the splits just chosen
+            node = (local.clamp_min(0) + (n_nodes - 1)).to(torch.int32)
+            frozen = local < 0
+            sf = torch.where(got[3], got[0], torch.full_like(got[0], -1))
+            outs = []
+            for _ in range(2):
+                nd, fr = node.clone(), frozen.clone()
+                tk.route(codes, nd, fr, sf, got[1], n_nodes - 1)
+                outs.append((nd, fr))
+            nd_p, fr_p = node.clone(), frozen.clone()
+            tk.route_plain(codes, nd_p, fr_p, sf, got[1], n_nodes - 1)
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError("tree_route: two launches differ")
+            # a routed row leaves the level: each timed launch starts
+            # from copies of the level's state, whose own time is taken
+            # off
+            nd, fr = node.clone(), frozen.clone()
+
+            def restore():
+                nd.copy_(node)
+                fr.copy_(frozen)
+
+            def routed():
+                restore()
+                tk.route(codes, nd, fr, sf, got[1], n_nodes - 1)
+            record("tree_route", lab, outs[0], (nd_p, fr_p), True,
+                   cuda_ms(routed) - cuda_ms(restore),
+                   cuda_ms(lambda: tk.route_plain(
+                       codes, node.clone(), frozen.clone(), sf, got[1],
+                       n_nodes - 1), reps=5, warmup=1), None,
+                   codes.nbytes + 2 * (node.nbytes + frozen.nbytes)
+                   + sf.nbytes + got[1].nbytes, 3 * L * n)
+            del got, want
+        # T4 at the final level and T3's walk of a whole tree
+        M = 2 ** (depth + 1) - 1
+        local, stats = tree_level_inputs(codes, L, M, kind, seed + 7)
+        lam = 1e-9 if exact else 1e-6
+        val = repeat(lambda: tk.leaf_values(local, stats, M, lam),
+                     "tree_leaf_values")[0]
+        val_p = tk.leaf_values_plain(local, stats, M, lam)
+        lane = torch.arange(L, device="cuda")[:, None]
+        record("tree_leaf_values", f"{label}/{M}", (val,), (val_p,), exact,
+               cuda_ms(lambda: tk.leaf_values(local, stats, M, lam)),
+               cuda_ms(lambda: tk.leaf_values_plain(local, stats, M, lam),
+                       reps=5, warmup=1),
+               index_add_ms(local, stats, L * M,
+                            lambda live: (lane * M + local.long())[live]),
+               local.nbytes + stats.nbytes + val.nbytes,
+               L * n * stats.shape[2])
+        g = torch.Generator(device="cuda").manual_seed(seed + 9)
+        feat = torch.randint(0, d, (L, M), generator=g, device="cuda",
+                             dtype=torch.int32)
+        thr = torch.randint(0, 256, (L, M), generator=g, device="cuda",
+                            dtype=torch.int32)
+        leaf = torch.zeros((L, M), dtype=torch.bool, device="cuda")
+        leaf[:, M // 2:] = True
+        out0 = torch.zeros((L, n, val.shape[2]), device="cuda")
+        scale = torch.full((L,), 0.1, device="cuda")
+        got = repeat(lambda: tk.walk(codes, feat, thr, leaf, val, depth,
+                                     out0.clone(), scale), "tree_walk")
+        want = tk.walk_plain(codes, feat, thr, leaf, val, depth, out0.clone(),
+                             scale)
+        work = out0.clone()
+        record("tree_route", f"{label}/walk", got, (want,), True,
+               cuda_ms(lambda: tk.walk(codes, feat, thr, leaf, val, depth,
+                                       work, scale)),
+               cuda_ms(lambda: tk.walk_plain(codes, feat, thr, leaf, val,
+                                             depth, out0.clone(), scale),
+                       reps=5, warmup=1), None,
+               codes.nbytes + feat.nbytes + thr.nbytes + leaf.nbytes
+               + val.nbytes + 2 * out0.nbytes, L * n * (2 * depth + 2))
+        del codes, local, stats, val, val_p, out0, work
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _gain_table(hist, lam, mcw):
+    """(L, N, d·B) masked gains of a one-output histogram (no feature
+    mask), by torch ops: for the check's tie test only."""
+    import torch
+    cum = torch.cumsum(hist, dim=3)
+    lh, lg = cum[..., 0], cum[..., 1]
+    th, tg = lh[..., -1:], lg[..., -1:]
+    gain = (lg * lg / (lh + lam) + (tg - lg) ** 2 / (th - lh + lam)
+            - tg * tg / (th + lam))
+    gain = torch.where((lh >= mcw) & (th - lh >= mcw), gain,
+                       torch.full_like(gain, float("-inf")))
+    gain[..., -1] = float("-inf")
+    return gain.reshape(gain.shape[0], gain.shape[1], -1)
+
+
+def tree_search(est, grid, X, y, device, cv, scoring=None, n_iter=None,
+                seed=0):
+    from spark_sklearn_tpu_torch import (
+        GridSearchCV, RandomizedSearchCV, TorchConfig)
+    config = TorchConfig(device=device)
+    if n_iter is not None:
+        return RandomizedSearchCV(est, grid, n_iter=n_iter, cv=cv,
+                                  scoring=scoring, random_state=seed,
+                                  refit=False, config=config).fit(X, y)
+    return GridSearchCV(est, grid, cv=cv, scoring=scoring, refit=False,
+                        config=config).fit(X, y)
+
+
+def trees_grown(gs, n_folds: int, default: int) -> int:
+    """Trees the search grew: each (candidate, fold) lane grows its
+    n_estimators (k a stage for a k-class booster, counted once)."""
+    return n_folds * sum(int(p.get("n_estimators", default))
+                         for p in gs.cv_results_["params"])
+
+
+def run_tree_search(label, run, n_fits, n_trees_of, key, min_score):
+    """A tree search on cuda: cold (with T1-T4's launches), warm, then
+    profiled; checks its scores are finite and above `min_score`.
+    Returns the row for the record."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import tree_kernels as tk
+
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    gs = run()
+    cold = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{label}: {name} never launched")
+    scores = gs.cv_results_[f"mean_test_{key}"]
+    if not np.all(np.isfinite(scores)):
+        raise AssertionError(f"{label}: non-finite scores {scores}")
+    best = int(gs.cv_results_[f"rank_test_{key}"].argmin())
+    best_score = float(scores[best])
+    if not best_score > min_score:
+        raise AssertionError(f"{label}: best {key} {best_score}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gs = run()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    trees = n_trees_of(gs)
+    print(f"  {label}: cold {cold:.3f} s, warm {warm:.3f} s, "
+          f"{n_fits / warm:.2f} fits/s, {trees} trees, chunks "
+          f"{[(c['lanes'], c['n_iter_exec']) for c in gs.chunks_]} (lanes, "
+          f"trees), peak memory {peak / 2**20:.1f} MiB, launches {launches}"
+          f"; best {gs.cv_results_['params'][best]} {key} "
+          f"{best_score:.4f}")
+    busy = profile_busy(run, warm, 1, f"chip_smoke_{label}.txt")
+    print(f"    busy {busy / trees * 1e3:.4f} ms a tree, idle share "
+          f"{1 - busy / warm:.4f}")
+    return {"cold_s": cold, "warm_s": warm, "fits_per_s": n_fits / warm,
+            "trees": trees, "busy_ms_per_tree": busy / trees * 1e3,
+            "device_busy_s": busy, "idle_share": 1 - busy / warm,
+            "peak_bytes": peak, "launches": launches,
+            "best_params": gs.cv_results_["params"][best],
+            "best_score": best_score}
+
+
+def cuda_cpu_check(label, est, grid, X, y, cv, tol):
+    """The same small search on cuda and on the CPU: mean_test_score
+    within `tol` and the same best candidate."""
+    res, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = tree_search(est, grid, X, y, dev, cv)
+        secs[dev] = time.perf_counter() - t0
+    diff = float(np.abs(res["cuda"].cv_results_["mean_test_score"]
+                        - res["cpu"].cv_results_["mean_test_score"]).max())
+    print(f"  {label} cuda against cpu, {len(y)} rows, "
+          f"{len(res['cpu'].cv_results_['params'])} candidates x "
+          f"{res['cpu'].n_splits_} folds: max |d mean_test_score| "
+          f"{diff:.3g} (tolerance {tol:g}), best {res['cuda'].best_params_}"
+          f" / {res['cpu'].best_params_}; cuda {secs['cuda']:.1f} s, cpu "
+          f"{secs['cpu']:.1f} s")
+    if not diff <= tol:
+        raise AssertionError(f"{label}: cuda and cpu differ by {diff}")
+    if res["cuda"].best_params_ != res["cpu"].best_params_:
+        raise AssertionError(f"{label}: best_params_ differ")
+    return {"max_abs": diff, "cpu_s": secs["cpu"]}
+
+
+def phase_gb(seed: int):
+    """BASELINE config #4: GridSearchCV(GradientBoostingRegressor(
+    random_state=0), learning_rate x subsample x n_estimators x
+    max_depth = 24 candidates, KFold(5), r2 and neg_mean_squared_error,
+    refit=False) on phase 6's data (n=20640, d=8): 120 fits in two groups
+    (the depths), each growing its lanes' n_estimators; then a
+    GradientBoostingClassifier(n_estimators=50, max_depth=3) over two
+    learning rates on phase 4's data, 5 folds; then cuda against the CPU
+    on 2000 rows of each."""
+    from spark_sklearn_tpu_torch import (
+        GradientBoostingClassifier, GradientBoostingRegressor, KFold,
+        StratifiedKFold)
+
+    X, y = california_like(seed)
+    n_cand = int(np.prod([len(v) for v in GB_GRID.values()]))
+    out = {"regressor": run_tree_search(
+        "gb_regressor",
+        lambda: tree_search(GradientBoostingRegressor(random_state=0),
+                            GB_GRID, X, y, "cuda", KFold(N_FOLDS),
+                            scoring=["r2", "neg_mean_squared_error"]),
+        n_cand * N_FOLDS, lambda gs: trees_grown(gs, N_FOLDS, 100), "r2",
+        0.3)}
+    Xd, yd = digits_like(seed)
+    out["classifier"] = run_tree_search(
+        "gb_classifier",
+        lambda: tree_search(GradientBoostingClassifier(
+            n_estimators=50, max_depth=3), {"learning_rate": [0.1, 0.3]},
+            Xd, yd, "cuda", StratifiedKFold(N_FOLDS), scoring=["accuracy"]),
+        2 * N_FOLDS, lambda gs: K * trees_grown(gs, N_FOLDS, 50),
+        "accuracy", 0.3)
+    out["regressor"]["check"] = cuda_cpu_check(
+        "gb_regressor", GradientBoostingRegressor(
+            n_estimators=50, max_depth=3, random_state=0),
+        {"learning_rate": [0.1, 0.2]}, X[:N_TREE_CHECK], y[:N_TREE_CHECK],
+        KFold(3), 1e-3)
+    out["classifier"]["check"] = cuda_cpu_check(
+        "gb_classifier", GradientBoostingClassifier(
+            n_estimators=20, max_depth=3), {"learning_rate": [0.1, 0.3]},
+        Xd, yd, StratifiedKFold(3), 1e-3)
+    return out
+
+
+def phase_rf(seed: int):
+    """BASELINE config #3: RandomizedSearchCV(RandomForestClassifier(
+    random_state=0), n_estimators in {20, 30, 40, 50} x max_depth in {6,
+    8, 10}, n_iter=4, StratifiedKFold(3), random_state=0, refit=False) on
+    covtype-shaped data (rows cut from 581012 to 100000); a
+    RandomForestRegressor at one candidate on phase 6's data; then cuda
+    against the CPU on 2000 stratified rows."""
+    from spark_sklearn_tpu_torch import (
+        KFold, RandomForestClassifier, RandomForestRegressor,
+        StratifiedKFold)
+
+    X, y = covtype_like(seed)
+    out = {"classifier": run_tree_search(
+        "rf_classifier",
+        lambda: tree_search(RandomForestClassifier(random_state=0), RF_GRID,
+                            X, y, "cuda", StratifiedKFold(3),
+                            scoring=["accuracy"], n_iter=4, seed=0),
+        4 * 3, lambda gs: trees_grown(gs, 3, 100), "accuracy", 0.5)}
+    Xr, yr = california_like(seed)
+    out["regressor"] = run_tree_search(
+        "rf_regressor",
+        lambda: tree_search(RandomForestRegressor(random_state=0),
+                            {"n_estimators": [30], "max_depth": [8]}, Xr,
+                            yr, "cuda", KFold(N_FOLDS), scoring=["r2"]),
+        N_FOLDS, lambda gs: trees_grown(gs, N_FOLDS, 30), "r2", 0.3)
+    per = {c: max(1, int(round(N_TREE_CHECK * float(np.mean(y == c)))))
+           for c in range(K_RF)}
+    idx = np.concatenate([np.flatnonzero(y == c)[:per[c]]
+                          for c in range(K_RF)])
+    out["classifier"]["check"] = cuda_cpu_check(
+        "rf_classifier", RandomForestClassifier(max_depth=6, random_state=0),
+        {"n_estimators": [10, 20]}, X[idx], y[idx], StratifiedKFold(3),
+        1e-4)
+    out["regressor"]["check"] = cuda_cpu_check(
+        "rf_regressor", RandomForestRegressor(max_depth=6, random_state=0),
+        {"n_estimators": [10, 20]}, Xr[:N_TREE_CHECK], yr[:N_TREE_CHECK],
+        KFold(3), 1e-4)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1067,7 +1579,7 @@ def main() -> int:
           f"{torch.cuda.device_count()} visible")
 
     header("[2] build", t_start)
-    report = _build.build(["glm_epilogue", "svm_dual"])
+    report = _build.build(["glm_epilogue", "svm_dual", "tree_hist"])
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.2f} s")
@@ -1075,9 +1587,10 @@ def main() -> int:
     for fn, (regs, spill) in sorted(ptxas.items()):
         print(f"    {regs:4d} registers {spill:5d} bytes spilled  {fn}")
 
-    header("[3] kernels at the headline and phase-8 shapes", t_start)
+    header("[3] kernels at the headline and phase-8/9/10 shapes", t_start)
     rows = phase_kernels(args.seed, n_sm, sm_mhz, ptxas)
     svm_rows = phase_svm_kernels(args.seed, ptxas)
+    tree_rows = phase_tree_kernels(args.seed, ptxas)
 
     header("[4] main path: 1000 C x 5 folds on cuda", t_start)
     X, y = digits_like(args.seed)
@@ -1097,6 +1610,15 @@ def main() -> int:
     header("[8] kernel SVMs: SVC(rbf) 3 C x 3 gamma x 5 folds, n=10000, "
            "d=784", t_start)
     svm_run = phase_svm(args.seed, svm_rows)
+
+    header("[9] gradient boosting: GridSearchCV(GradientBoostingRegressor)"
+           " 24 candidates x 5 folds, n=20640, d=8", t_start)
+    gb_run = phase_gb(args.seed)
+
+    header(f"[10] random forest: RandomizedSearchCV(RandomForestClassifier)"
+           f" 4 candidates x 3 folds on covtype-shaped data, n={N_RF} "
+           f"(rows cut from 581012), d={D_RF}", t_start)
+    rf_run = phase_rf(args.seed)
 
     meta = {
         "glm_loss_grad": "spark_sklearn_tpu/models/linear.py:221",
@@ -1166,12 +1688,47 @@ def main() -> int:
                if name == "svm_dual_step" else
                {"rbf_predict": svm_rows[(name, "rbf_predict")]}),
         })
+    tree_meta = {
+        "tree_level_hist": ("spark_sklearn_tpu/ops/trees.py:70", "rf/512"),
+        "tree_best_split": ("spark_sklearn_tpu/ops/trees.py:85", "rf/512"),
+        "tree_route": ("spark_sklearn_tpu/ops/trees.py:129", "rf/512"),
+        "tree_leaf_values": ("spark_sklearn_tpu/ops/trees.py:142",
+                             "rf/2047"),
+    }
+    tree_paths = {"rf_classifier": rf_run["classifier"],
+                  "rf_regressor": rf_run["regressor"],
+                  "gb_regressor": gb_run["regressor"],
+                  "gb_classifier": gb_run["classifier"]}
+    for name, (replaces, main_shape) in tree_meta.items():
+        head = tree_rows[(name, main_shape)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "spark_sklearn_tpu_torch/csrc/tree_hist.cu",
+            "replaces": replaces,
+            "launches": rf_run["classifier"]["launches"][name],
+            "launches_by_path": {p: r["launches"][name]
+                                 for p, r in tree_paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for key, r in
+                               tree_rows.items() if key[0] == name),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "registers": head["registers"],
+            "spill_bytes": head["spill_bytes"],
+            "tolerance": ("forest stats equal; boosting sums rtol 1e-5, "
+                          "gains rtol 1e-4 and the same split where the "
+                          "two best gains differ by > 1e-5 relative"),
+            "shape": main_shape,
+            "by_shape": {key[1]: {k: v for k, v in r.items()
+                                  if k not in ("plan",)}
+                         for key, r in tree_rows.items() if key[0] == name},
+        })
     main_run["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "main": main_run,
                    "regressors": regressors, "l1": l1_run,
-                   "svm": svm_run,
+                   "svm": svm_run, "gb": gb_run, "rf": rf_run,
                    "card": nvidia_smi("name,power.limit")}, f, indent=1)
     print(f"  total {main_run['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))

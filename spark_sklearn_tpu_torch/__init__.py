@@ -10,11 +10,14 @@ Entry points run on ``cuda`` unless the caller passes
 ``TorchConfig(device="cpu")``.
 
 Public API so far:
-  - GridSearchCV, RandomizedSearchCV  (compiled linear-family and
-    SVC/NuSVC searches)
+  - GridSearchCV, RandomizedSearchCV  (compiled linear-family,
+    SVC/NuSVC and tree-ensemble searches)
   - TorchConfig
   - LogisticRegression, Ridge, LinearRegression, ElasticNet, Lasso, SVC,
     NuSVC (sklearn-free estimators)
+  - GradientBoostingRegressor, GradientBoostingClassifier,
+    RandomForestClassifier, RandomForestRegressor (parameter holders a
+    search resolves without sklearn; refit needs sklearn's estimators)
   - ParameterGrid, ParameterSampler, StratifiedKFold, KFold
 """
 
@@ -26,6 +29,12 @@ from spark_sklearn_tpu_torch.models.estimators import (
     NuSVC,
     Ridge,
     SVC,
+)
+from spark_sklearn_tpu_torch.models.trees import (
+    GradientBoostingClassifier,
+    GradientBoostingRegressor,
+    RandomForestClassifier,
+    RandomForestRegressor,
 )
 from spark_sklearn_tpu_torch.parallel.device import TorchConfig
 from spark_sklearn_tpu_torch.search.cv import (
@@ -50,6 +59,10 @@ __all__ = [
     "Lasso",
     "SVC",
     "NuSVC",
+    "GradientBoostingRegressor",
+    "GradientBoostingClassifier",
+    "RandomForestClassifier",
+    "RandomForestRegressor",
     "ParameterGrid",
     "ParameterSampler",
     "StratifiedKFold",

@@ -8,6 +8,9 @@ with `params_from_jax`; going back is ``t.cpu().numpy()`` per entry.
 A fitted standalone SVC of the JAX package (`models/standalone.py`:
 training X `_X_train`, signed alphas `_alphas` (P, n), `_intercepts` (P,)
 and `classes_`) becomes the port's `SVC` with `svc_from_jax`.
+
+A tree grown by the JAX package's histogram grower (`ops/trees.py`
+`Tree`) becomes the port's, lane axis and all, with `tree_from_jax`.
 """
 
 from __future__ import annotations
@@ -52,3 +55,28 @@ def svc_from_jax(est, device=None):
              for name, value in (("sv_X", X), ("alphas", est._alphas),
                                  ("intercepts", est._intercepts))}
     return svc._set_fitted(model, meta, dev)
+
+
+def tree_from_jax(tree, device=None):
+    """The port's `Tree` (ops/trees.py) from a JAX package `Tree`
+    (spark_sklearn_tpu/ops/trees.py: feat, thresh, value, is_leaf as jax
+    or numpy arrays), one tree (M,) or a stack (L, M); the port's always
+    has the lane axis.  `device` None means ``cuda``."""
+    from spark_sklearn_tpu_torch.ops.trees import Tree
+    from spark_sklearn_tpu_torch.parallel.device import (
+        TorchConfig,
+        resolve_device,
+    )
+
+    dev = resolve_device(TorchConfig(device=device))
+    feat = np.asarray(tree.feat, np.int32)
+    lanes = feat.ndim == 1
+
+    def conv(a, dtype):
+        a = np.array(a, dtype)
+        return torch.as_tensor(a[None] if lanes else a, device=dev)
+
+    return Tree(feat=conv(tree.feat, np.int32),
+                thresh=conv(tree.thresh, np.int32),
+                value=conv(tree.value, np.float32),
+                is_leaf=conv(tree.is_leaf, np.bool_))

@@ -74,7 +74,8 @@ class _BaseSearch:
     Runs on `config.device` (default ``cuda``; see `TorchConfig`).  The
     estimator must resolve to a ported family: the port's or sklearn's
     `LogisticRegression`, `Ridge`, `LinearRegression`, `ElasticNet`,
-    `Lasso`, `SVC` or `NuSVC`.  `scoring` is None (accuracy for classifiers,
+    `Lasso`, `SVC`, `NuSVC`, `GradientBoostingRegressor`/`Classifier` or
+    `RandomForestClassifier`/`Regressor`.  `scoring` is None (accuracy for classifiers,
     r2 for regressors), one of the scorer names of `search/scorers.py` or a
     list of them; `cv` is None, an int, a splitter with ``.split(X, y)`` or
     an iterable of (train, test) index pairs.
@@ -192,6 +193,11 @@ class _BaseSearch:
         self.chunks_: List[Dict[str, Any]] = []
 
         base_params = family.extract_params(self.estimator)
+        if hasattr(family, "observe_candidates"):
+            # the tree families read the grid's largest n_estimators (the
+            # trees a chunk may grow) and warn once on capped depths, as
+            # the reference does (grid.py:1357-1361)
+            family.observe_candidates(candidates, base_params, meta)
         # bound the chunk: at most max_tasks_per_batch lanes, and fewer
         # where the family asks (SVC's kernel matrix and decision caches),
         # as the reference does (grid.py:1666-1671)

@@ -16,6 +16,7 @@ import spark_sklearn_tpu_torch as port
 from spark_sklearn_tpu_torch.models.linear import LogisticRegressionFamily
 from spark_sklearn_tpu_torch.ops import glm_kernels as gk
 from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+from spark_sklearn_tpu_torch.ops import tree_kernels as tk
 from spark_sklearn_tpu_torch.search.scorers import SCORERS
 
 
@@ -408,3 +409,204 @@ def test_svm_search_on_cuda_matches_cpu(cuda_device, label):
     assert best.device == "cuda"
     agree = (best.predict(X) == runs["cpu"].best_estimator_.predict(X))
     assert agree.mean() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# the tree grower's kernels (T1-T4) and the tree searches
+# ---------------------------------------------------------------------------
+
+def _tree_inputs(device, kind, L=3, n=700, d=9, n_nodes=8, seed=0):
+    """Bin codes (n, d) uint8, local node ids (L, n) with ~20% of rows
+    taking no part, and stats (L, n, S): integer (forest: Poisson counts
+    times one-hot targets, S = 1 + 4) or continuous (boosting, S = 2)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (n, d)).astype(np.uint8)
+    codes[:, :3] = rng.integers(0, 2, (n, 3))         # one-hot-like columns
+    local = rng.integers(0, n_nodes, (L, n)).astype(np.int32)
+    local[rng.random((L, n)) < 0.2] = -1
+    if kind == "forest":
+        w = rng.poisson(1.0, (L, n)).astype(np.float32)
+        t = np.eye(4, dtype=np.float32)[rng.integers(0, 4, n)]
+        stats = np.concatenate([w[..., None], -w[..., None] * t], axis=2)
+    else:
+        w = (rng.random((L, n)) < 0.8).astype(np.float32)
+        g = rng.standard_normal((L, n)).astype(np.float32)
+        stats = np.stack([w, w * g], axis=2)
+    return [torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (codes, local, stats)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["forest", "boosting"])
+@pytest.mark.parametrize("n_nodes", [1, 8, 64])
+def test_tree_hist_and_leaves_match_plain(cuda_device, kind, n_nodes):
+    """T1 and T4 against their plain versions: equal for integer stats
+    (exact in any order below 2**24), rtol 1e-5 for continuous ones;
+    two launches give the same bits."""
+    codes, local, stats = _tree_inputs(cuda_device, kind, n_nodes=n_nodes)
+    hist = tk.level_histogram(codes, local, stats, n_nodes)
+    want = tk.level_histogram_plain(codes, local, stats, n_nodes)
+    assert torch.equal(hist, tk.level_histogram(codes, local, stats,
+                                                n_nodes))
+    val = tk.leaf_values(local, stats, n_nodes, 1e-6)
+    val_p = tk.leaf_values_plain(local, stats, n_nodes, 1e-6)
+    assert torch.equal(val, tk.leaf_values(local, stats, n_nodes, 1e-6))
+    if kind == "forest":
+        assert torch.equal(hist, want)
+        assert torch.equal(val, val_p)
+    else:
+        torch.testing.assert_close(hist, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(val, val_p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["forest", "boosting"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_tree_best_split_matches_plain(cuda_device, kind, masked):
+    """T2 on one histogram against its plain version: on integer stats
+    the same feature, bin and split everywhere and gains within rounding;
+    on continuous ones the same where the two best gains are apart."""
+    codes, local, stats = _tree_inputs(cuda_device, kind, n_nodes=16)
+    hist = tk.level_histogram_plain(codes, local, stats, 16)
+    fmask = None
+    if masked:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        fmask = torch.rand((16, codes.shape[1]), generator=g,
+                           device="cuda") < 0.4
+    got = tk.best_splits(hist, fmask, 1e-6, 1.0)
+    want = tk.best_splits_plain(hist, fmask, 1e-6, 1.0)
+    again = tk.best_splits(hist, fmask, 1e-6, 1.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = torch.ones_like(got[3])
+    if kind == "boosting":
+        flat = _plain_gains(hist, fmask)
+        top2 = torch.topk(flat, 2, dim=2).values
+        ok = (top2[..., 0] - top2[..., 1]) > 1e-5 * top2[..., 0].abs()
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a[ok], b[ok])
+    assert torch.equal(got[3], want[3])
+    fin = torch.isfinite(want[2])
+    assert torch.equal(fin, torch.isfinite(got[2]))
+    torch.testing.assert_close(got[2][fin], want[2][fin], rtol=1e-5,
+                               atol=1e-5)
+
+
+def _plain_gains(hist, fmask):
+    """The masked (L, N, d*B) gains of the plain T2, for tie checks."""
+    L, N, d, B, _ = hist.shape
+    cum_h = torch.cumsum(hist[..., 0], 3)
+    cum_g = torch.cumsum(hist[..., 1], 3)
+    lh, lg = cum_h, cum_g
+    th, tg = cum_h[..., -1:], cum_g[..., -1:]
+    gain = (lg * lg / (lh + 1e-6) + (tg - lg) ** 2 / (th - lh + 1e-6)
+            - tg * tg / (th + 1e-6))
+    ok = (lh >= 1.0) & (th - lh >= 1.0)
+    gain = torch.where(ok, gain, torch.tensor(float("-inf"), device="cuda"))
+    gain[..., -1] = float("-inf")
+    if fmask is not None:
+        gain = torch.where(fmask[None, :, :, None], gain,
+                           torch.tensor(float("-inf"), device="cuda"))
+    return gain.reshape(L, N, d * B)
+
+
+@pytest.mark.cuda
+def test_tree_route_and_walk_match_plain(cuda_device):
+    """T3: routing one level and walking whole trees, against their plain
+    versions: the same nodes, frozen flags and values, bit for bit."""
+    rng = np.random.default_rng(2)
+    L, n, d, depth = 3, 500, 7, 4
+    codes = torch.as_tensor(rng.integers(0, 256, (n, d)).astype(np.uint8),
+                            device="cuda")
+    M = 2 ** (depth + 1) - 1
+    feat = torch.as_tensor(rng.integers(-1, d, (L, M)).astype(np.int32),
+                           device="cuda")
+    thr = torch.as_tensor(rng.integers(0, 256, (L, M)).astype(np.int32),
+                          device="cuda")
+    leaf = torch.as_tensor(rng.random((L, M)) < 0.2, device="cuda")
+    value = torch.as_tensor(rng.standard_normal((L, M, 3)).astype(
+        np.float32), device="cuda")
+    got = tk.walk(codes, feat, thr, leaf, value, depth)
+    assert torch.equal(got, tk.walk_plain(codes, feat, thr, leaf, value,
+                                          depth))
+    out = torch.ones((L, n, 3), device="cuda")
+    scale = torch.tensor([0.1, 0.0, 3.0], device="cuda")
+    tk.walk(codes, feat, thr, leaf, value, depth, out, scale)
+    want = tk.walk_plain(codes, feat, thr, leaf, value, depth,
+                         torch.ones((L, n, 3), device="cuda"), scale)
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+
+    N = 4                                        # level 2: nodes 3 .. 6
+    node = torch.as_tensor(rng.integers(3, 7, (L, n)).astype(np.int32),
+                           device="cuda")
+    frozen = torch.as_tensor(rng.random((L, n)) < 0.3, device="cuda")
+    sf = torch.as_tensor(rng.integers(-1, d, (L, N)).astype(np.int32),
+                         device="cuda")
+    sb = torch.as_tensor(rng.integers(0, 256, (L, N)).astype(np.int32),
+                         device="cuda")
+    node_p, frozen_p = node.clone(), frozen.clone()
+    tk.route(codes, node, frozen, sf, sb, 3)
+    tk.route_plain(codes, node_p, frozen_p, sf, sb, 3)
+    assert torch.equal(node, node_p) and torch.equal(frozen, frozen_p)
+
+
+@pytest.mark.cuda
+def test_tree_wrappers_raise_instead_of_falling_back(cuda_device):
+    codes, local, stats = _tree_inputs(cuda_device, "forest")
+    with pytest.raises(TypeError):
+        tk.level_histogram(codes.int(), local, stats, 8)
+    with pytest.raises(ValueError):
+        tk.level_histogram(codes, local.cpu(), stats, 8)
+    with pytest.raises(TypeError):
+        tk.leaf_values(local.long(), stats, 8, 1e-6)
+    hist = tk.level_histogram(codes, local, stats, 8)
+    with pytest.raises(ValueError):
+        tk.best_splits(hist[..., :100, :], None, 1e-6, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["gb_regressor", "gb_classifier",
+                                   "rf_classifier", "rf_regressor"])
+def test_tree_search_on_cuda_matches_cpu(cuda_device, label):
+    """The four tree families on both devices: mean_test_score within
+    1e-4 for the forests and the boosted regressor, the same best
+    candidate, and T1-T4 launched on the card only.  T1, T2 and T4 add in
+    the plain versions' order, so the trees differ only where a torch op
+    rounds differently on the two devices (the Poisson draws' log, the
+    classifier's softmax).  The boosted classifier's softmax (exp) rounds
+    differently on the two devices, which can turn a near-tied split and
+    move a few of the 300 predictions: within 0.01 (three predictions of
+    a 100-row fold)."""
+    rng = np.random.default_rng(4)
+    n = 300
+    X = rng.standard_normal((n, 6)).astype(np.float32)
+    if label in ("gb_classifier", "rf_classifier"):
+        y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(int) + (X[:, 2] > 1)
+        cv = port.StratifiedKFold(3)
+    else:
+        y = (X[:, 0] * 2 + X[:, 1] ** 2 + 0.3 * rng.standard_normal(n)
+             ).astype(np.float32)
+        cv = port.KFold(3)
+    est, grid, tol = {
+        "gb_regressor": (port.GradientBoostingRegressor(
+            max_depth=3, random_state=0), {"n_estimators": [5, 10],
+                                           "subsample": [0.8]}, 1e-4),
+        "gb_classifier": (port.GradientBoostingClassifier(
+            n_estimators=6, max_depth=2), {"learning_rate": [0.1, 0.3]},
+                          0.01),
+        "rf_classifier": (port.RandomForestClassifier(
+            max_depth=5, random_state=0), {"n_estimators": [4, 6]}, 1e-4),
+        "rf_regressor": (port.RandomForestRegressor(
+            max_depth=5, max_features=0.5), {"n_estimators": [4, 6]},
+                         1e-4),
+    }[label]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tk.reset_launches()
+        runs[dev] = port.GridSearchCV(
+            est, grid, cv=cv, refit=False,
+            config=port.TorchConfig(device=dev)).fit(X, y)
+        assert all(v > 0 for v in tk.LAUNCHES.values()) == (dev == "cuda")
+    np.testing.assert_allclose(runs["cuda"].cv_results_["mean_test_score"],
+                               runs["cpu"].cv_results_["mean_test_score"],
+                               rtol=0, atol=tol)
+    assert runs["cuda"].best_params_ == runs["cpu"].best_params_

@@ -257,6 +257,15 @@ def test_port_imports_no_jax_and_no_module_level_sklearn(path):
             assert in_func, f"{path}: module-level import of {name}"
 
 
+def test_import_scan_walks_every_module():
+    """The scan reaches the subpackages added since it was written (the
+    binning helpers, the threefry draws, the tree grower and families)."""
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for rel in ("utils/__init__.py", "utils/binning.py", "ops/random.py",
+                "ops/trees.py", "ops/tree_kernels.py", "models/trees.py"):
+        assert f"spark_sklearn_tpu_torch/{rel}" in names, rel
+
+
 def test_import_scan_catches_violations():
     bad = ast.parse("import jax\nfrom spark_sklearn_tpu.models import base\n"
                     "from sklearn.base import clone\n"

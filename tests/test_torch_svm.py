@@ -19,6 +19,7 @@ package on these inputs and stated where it is used:
 
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -439,3 +440,66 @@ def test_standalone_nusvc_is_its_search_fit(digits):
                                model["pair_dec"][0, :, 0].numpy(), rtol=0,
                                atol=1e-4)
     assert (est.predict(X) == y).mean() > 0.95
+
+
+def test_small_c_intercept_is_a_float_sensitivity_of_the_reference():
+    """At C=0.1 on data shaped as chip_smoke.py phase 8's (here 600 rows
+    of it, 3 folds) the dual exits after a few steps with nearly every
+    alpha at its bound C, and the KKT intercept turns on a 1e-6 band: an
+    alpha counts as free (then b is the mean E over free SVs) unless it
+    lies within C*1e-6 of 0 or C (then b is the midpoint of the feasible
+    interval).  The port and the JAX package reach the same alphas to
+    rounding (atol 5e-6, C = 0.1), yet an alpha that one side leaves
+    1e-6 inside the box the other puts on the bound, so whole intercepts
+    differ by more than 0.5 and the search scores above 0.4 on the
+    port's CPU path against below 0.15 (chance, 0.1) in the JAX package.
+    Where both sides find the same free set the intercepts agree (atol
+    1e-4), and every alpha that only one side calls free sits within
+    2e-5 x C of the bound: the split comes from rounding, not from a
+    different rule."""
+    import chip_smoke
+
+    X, y = chip_smoke.mnist_like(0)
+    idx = np.concatenate([np.where(y == c)[0][:60] for c in range(10)])
+    X, y = X[idx], y[idx]
+    n, C = len(y), 0.1
+    gamma = 1.0 / (X.shape[1] * float(np.var(X)))
+    train = np.zeros((3, n), np.float32)
+    for f, (tr, _) in enumerate(port.StratifiedKFold(3).split(X, y)):
+        train[f, tr] = 1.0
+    pairs = jsvm._pairs(10)
+    ypos = y[None] == pairs[:, 0][:, None]
+    yneg = y[None] == pairs[:, 1][:, None]
+    yb = np.tile(ypos.astype(np.float32) - yneg.astype(np.float32), (3, 1))
+    bound = C * (train[:, None, :] * (ypos | yneg)[None]).reshape(-1, n)
+    K = jsvm._kernel(jnp.asarray(X), jnp.asarray(X), "rbf", gamma, 3, 0)
+    step = jsvm._power_step(K, n, K.dtype)
+    A_j, b_j, it_j = jax.jit(lambda K, s: jsvm.fista_dual_ascent(
+        K, jnp.asarray(yb), jnp.asarray(bound), s, 300, 1e-3))(K, step)
+    Kt = psvm._kernel(_t(X), _t(X), "rbf", gamma, 3, 0)
+    A_p, b_p, it_p = psvm.fista_dual_ascent(
+        Kt, _t(yb), _t(bound), psvm._power_step(Kt), 300, 1e-3)
+    A_j, b_j, A_p, b_p = map(np.asarray, (A_j, b_j, A_p, b_p))
+    assert int(it_j) == int(it_p) < 300
+    np.testing.assert_allclose(A_p, A_j, rtol=0, atol=5e-6)
+
+    def free(A):
+        inb = bound > 0
+        return inb & (A > bound * 1e-6) & (A < bound * (1.0 - 1e-6))
+
+    f_j, f_p = free(A_j), free(A_p)
+    same = (f_j == f_p).all(axis=1)
+    assert (~same).any()                   # the effect is present here
+    np.testing.assert_allclose(b_p[same], b_j[same], rtol=0, atol=1e-4)
+    assert np.abs(b_p[~same] - b_j[~same]).max() > 0.5
+    only_one = f_j != f_p
+    near = np.minimum(np.abs(A_j - bound), np.abs(A_p - bound))
+    assert (near[only_one] <= 2e-5 * C).all()
+    # and so the searches' scores part far
+    grid = {"C": [C], "gamma": [gamma]}
+    ref = sst.GridSearchCV(SkSVC(kernel="rbf"), grid, cv=3, refit=False,
+                           backend="tpu").fit(X, y)
+    ours = port.GridSearchCV(port.SVC(kernel="rbf"), grid, cv=3,
+                             refit=False, config=CPU).fit(X, y)
+    assert ref.cv_results_["mean_test_score"][0] < 0.15
+    assert ours.cv_results_["mean_test_score"][0] > 0.4

@@ -1,0 +1,348 @@
+"""The port's tree ensembles against the JAX package's, on the CPU:
+binning, the lane-batched histogram grower and `predict_tree`, the four
+families' searches, the n_estimators group, the depth warning and
+`tree_from_jax`.
+
+Tolerances, each measured against the JAX package on these inputs:
+- binning: edges and codes equal;
+- the grower on integer (forest-style) stats: identical feat, thresh
+  and is_leaf, leaf values atol 1e-6 (measured: equal); on continuous
+  (boosting-style) stats, on a seed with no near-tied split, the same
+  structure and values rtol 1e-5.  The plain T2 adds its cumulative
+  sums in the order XLA's CPU backend does (`cumsum_bins`, held bitwise
+  here), so ties between features that induce one partition break as
+  the reference breaks them;
+- searches (subsets of diabetes and digits, <= 300 rows, 2 candidates,
+  cv=3): mean_test_score atol 1e-5 for the forests (sums of integer
+  stats are exact) and 1e-4 for boosting (measured <= 4e-8), and equal
+  best_params_.
+"""
+
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from sklearn.ensemble import GradientBoostingClassifier as SkGBC
+from sklearn.ensemble import GradientBoostingRegressor as SkGBR
+from sklearn.ensemble import RandomForestClassifier as SkRFC
+from sklearn.ensemble import RandomForestRegressor as SkRFR
+
+import spark_sklearn_tpu as sst
+import spark_sklearn_tpu_torch as port
+from spark_sklearn_tpu.models import trees as jmodels
+from spark_sklearn_tpu.ops import trees as jt
+from spark_sklearn_tpu.utils import native
+from spark_sklearn_tpu_torch.convert.params import tree_from_jax
+from spark_sklearn_tpu_torch.models import trees as pmodels
+from spark_sklearn_tpu_torch.models.base import resolve_family
+from spark_sklearn_tpu_torch.ops import random as jr
+from spark_sklearn_tpu_torch.ops import tree_kernels as tk
+from spark_sklearn_tpu_torch.ops import trees as pt
+from spark_sklearn_tpu_torch.parallel.taskgrid import build_compile_groups
+from spark_sklearn_tpu_torch.utils.binning import quantile_bin
+
+CPU = port.TorchConfig(device="cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager torch ops run faster on one thread than on many
+    contending ones; restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _u8(codes):
+    return torch.as_tensor(np.ascontiguousarray(codes, np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# binning
+# ---------------------------------------------------------------------------
+
+def _binning_inputs(which, digits, diabetes):
+    if which == "digits":
+        return digits[0][:300]
+    if which == "diabetes":
+        return diabetes[0]
+    rng = np.random.default_rng(0)      # few distinct values: tied edges
+    return rng.integers(0, 5, (200, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("which", ["digits", "diabetes", "ties"])
+def test_binning_matches_reference(which, digits, diabetes):
+    X = _binning_inputs(which, digits, diabetes)
+    assert native._load() is None      # the reference's numpy path
+    e_ref, c_ref = native.quantile_bin(X, 256)
+    e, c = quantile_bin(X, 256)
+    np.testing.assert_array_equal(e, e_ref)
+    np.testing.assert_array_equal(c, c_ref)
+    assert e.dtype == np.float32 and c.dtype == np.uint8
+    _, codes_ref = jmodels._prep_codes(X, np.float32)
+    _, codes = pmodels._prep_codes(X, np.float32)
+    assert codes.dtype == np.int32
+    np.testing.assert_array_equal(codes, codes_ref)
+    with pytest.raises(ValueError):
+        quantile_bin(X, 257)
+
+
+# ---------------------------------------------------------------------------
+# the grower and predict_tree
+# ---------------------------------------------------------------------------
+
+def _reference_trees(codes, g, h, w, depth, nb, mcw, lam, key, mf, n_out):
+    """The JAX grower vmapped over lanes, with one static key."""
+    def one(g_l, h_l, w_l):
+        return jt.grow_tree(jnp.asarray(codes), g_l, h_l, w_l, depth, nb,
+                            mcw, lam, feat_mask_key=key, max_features=mf,
+                            n_out=n_out)
+    return jax.jit(jax.vmap(one))(jnp.asarray(g), jnp.asarray(h),
+                                  jnp.asarray(w))
+
+
+def _grower_case(kind):
+    rng = np.random.default_rng(5 if kind == "forest" else 3)
+    n, d, depth, nb, L = 400, 6, 4, 256, 3
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    codes = quantile_bin(X, nb)[1]
+    if kind == "forest":
+        # integer stats: Poisson counts x a fold mask, one-hot targets
+        k = 3
+        t = np.eye(k, dtype=np.float32)[rng.integers(0, k, n)]
+        g = np.broadcast_to(-t, (L, n, k)).copy()
+        h = np.ones((L, n), np.float32)
+        w = (rng.poisson(1.0, (L, n))
+             * (rng.random((L, n)) < 0.7)).astype(np.float32)
+        return dict(codes=codes, g=g, h=h, w=w, depth=depth, nb=nb,
+                    mcw=1.0, lam=1e-9, seed=3, mf=3, n_out=k)
+    # continuous stats: gradients, softmax-like hessians, a fold mask
+    g = rng.standard_normal((L, n, 1)).astype(np.float32)
+    p = rng.uniform(0.05, 0.95, (L, n)).astype(np.float32)
+    h = (p * (1 - p)).astype(np.float32)
+    w = (rng.random((L, n)) < 0.7).astype(np.float32)
+    return dict(codes=codes, g=g, h=h, w=w, depth=depth, nb=nb, mcw=1.0,
+                lam=1e-6, seed=None, mf=None, n_out=1)
+
+
+@pytest.mark.parametrize("kind", ["forest", "boosting"])
+def test_grow_and_predict_match_reference(kind):
+    c = _grower_case(kind)
+    key_j = key_p = None
+    if c["seed"] is not None:
+        key_j = jax.random.fold_in(jax.random.PRNGKey(c["seed"]), 7)
+        key_p = jr.fold_in(jr.PRNGKey(c["seed"]), 7)
+    ref = _reference_trees(c["codes"].astype(np.int32), c["g"], c["h"],
+                           c["w"], c["depth"], c["nb"], c["mcw"], c["lam"],
+                           key_j, c["mf"], c["n_out"])
+    codes = _u8(c["codes"])
+    got = pt.grow_tree(codes, torch.as_tensor(c["g"]),
+                       torch.as_tensor(c["h"]), torch.as_tensor(c["w"]),
+                       c["depth"], c["nb"], c["mcw"], c["lam"],
+                       feat_mask_key=key_p, max_features=c["mf"],
+                       n_out=c["n_out"])
+    np.testing.assert_array_equal(got.feat.numpy(), np.asarray(ref.feat))
+    np.testing.assert_array_equal(got.thresh.numpy(), np.asarray(ref.thresh))
+    np.testing.assert_array_equal(got.is_leaf.numpy(),
+                                  np.asarray(ref.is_leaf))
+    assert (got.feat >= 0).sum() > 10          # real trees, not stumps
+    if kind == "forest":
+        np.testing.assert_allclose(got.value.numpy(), np.asarray(ref.value),
+                                   rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got.value.numpy(), np.asarray(ref.value),
+                                   rtol=1e-5, atol=1e-7)
+    want = jax.vmap(lambda tr: jt.predict_tree(
+        tr, jnp.asarray(c["codes"].astype(np.int32)), c["depth"]))(ref)
+    pred = pt.predict_tree(got, codes, c["depth"])
+    np.testing.assert_allclose(pred.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    # the families' update: out + scale * prediction, in place
+    out = torch.ones_like(pred)
+    scale = torch.tensor([0.5, 0.0, 2.0])
+    pt.accumulate_tree(got, codes, c["depth"], out, scale)
+    np.testing.assert_allclose(out.numpy(), 1.0 + scale.numpy()[:, None,
+                                                                None]
+                               * pred.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_grow_tree_in_lane_passes_gives_the_same_trees():
+    c = _grower_case("forest")
+    args = (_u8(c["codes"]), torch.as_tensor(c["g"]), torch.as_tensor(
+        c["h"]), torch.as_tensor(c["w"]), c["depth"], c["nb"], c["mcw"],
+            c["lam"])
+    key = jr.fold_in(jr.PRNGKey(1), 7)
+    one = pt.grow_tree(*args, feat_mask_key=key, max_features=2, n_out=3)
+    per_lane = pt.hist_bytes(c["depth"], c["codes"].shape[1], c["nb"], 4)
+    passes = pt.grow_tree(*args, feat_mask_key=key, max_features=2, n_out=3,
+                          max_hist_bytes=per_lane)
+    for a, b in zip(one, passes):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("length", [5, 16, 17, 100, 256])
+def test_plain_cumsum_adds_in_xla_cpu_order(length):
+    x = (np.random.default_rng(length).standard_normal((3, 7, length))
+         * 100).astype(np.float32)
+    np.testing.assert_array_equal(
+        tk.cumsum_bins(torch.as_tensor(x)).numpy(),
+        np.asarray(jnp.cumsum(jnp.asarray(x), axis=2)))
+
+
+def test_segments_group_rows_by_node_in_row_order():
+    local = torch.tensor([[1, -1, 0, 1, 0, 2],
+                          [2, 2, -1, -1, 0, 1]], dtype=torch.int32)
+    perm, offs = tk.segments(local, 3)
+    width = 4
+    for lane in range(2):
+        for node in range(3):
+            lo, hi = offs[lane * width + node], offs[lane * width + node + 1]
+            rows = (perm[lo:hi] - lane * 6).tolist()
+            assert rows == [i for i in range(6)
+                            if int(local[lane, i]) == node]
+    assert int(offs[-1]) == 12
+
+
+def test_hist_plan_stays_inside_a_block():
+    # covtype-shaped forest (d=54, 7 classes), a boosting lane (d=8),
+    # digits-shaped forest (d=64, 10 classes)
+    for d, S, L, nodes in ((54, 8, 6, 1), (54, 8, 6, 512), (8, 2, 60, 1),
+                           (64, 11, 6, 16)):
+        plan = tk.hist_plan(d, S, 256, L, nodes, 132)
+        assert plan["threads"] <= 1024
+        assert plan["threads"] >= plan["ft"] * S + tk.HIST_LOADERS
+        assert plan["smem"] <= tk.MAX_SMEM
+        assert plan["grid"] == (L * nodes, -(-d // plan["ft"]))
+    # few nodes: one feature a block; many: the tiles the budget holds
+    assert tk.hist_plan(54, 8, 256, 6, 1, 132)["ft"] == 1
+    assert tk.hist_plan(54, 8, 256, 6, 512, 132)["ft"] == 8
+    with pytest.raises(ValueError):
+        tk.hist_plan(4, 300, 256, 1, 1, 132)
+
+
+def test_tree_from_jax_predicts_as_the_reference():
+    c = _grower_case("boosting")
+    codes = c["codes"].astype(np.int32)
+    ref = jax.jit(jt.grow_tree, static_argnums=(4, 5))(
+        jnp.asarray(codes), jnp.asarray(c["g"][0]), jnp.asarray(c["h"][0]),
+        jnp.asarray(c["w"][0]), 3, c["nb"], 1.0, 1e-6)
+    tree = tree_from_jax(ref, device="cpu")
+    assert tree.feat.shape == (1, 15) and tree.feat.dtype == torch.int32
+    assert tree.is_leaf.dtype == torch.bool
+    np.testing.assert_array_equal(
+        pt.predict_tree(tree, _u8(c["codes"]), 3)[0].numpy(),
+        np.asarray(jt.predict_tree(ref, jnp.asarray(codes), 3)))
+    stacked = jax.tree_util.tree_map(lambda a: jnp.stack([a, a]), ref)
+    assert tree_from_jax(stacked, device="cpu").value.shape == (2, 15, 1)
+
+
+# ---------------------------------------------------------------------------
+# the families' searches against the JAX package's
+# ---------------------------------------------------------------------------
+
+def _four_classes(digits, n=200):
+    X, y = digits
+    m = y < 4
+    return X[m][:n], y[m][:n]
+
+
+def _search_case(label, digits, diabetes):
+    Xr, yr = diabetes[0][:300], diabetes[1][:300]
+    if label == "gb_regressor":
+        return (SkGBR(max_depth=3, learning_rate=0.2, random_state=0),
+                {"n_estimators": [5, 10], "subsample": [0.8]}, Xr, yr, 1e-4)
+    if label == "gb_classifier":
+        return (SkGBC(n_estimators=5, max_depth=2, random_state=0),
+                {"learning_rate": [0.1, 0.3]}, *_four_classes(digits, 300),
+                1e-4)
+    if label == "rf_classifier":
+        return (SkRFC(max_depth=3, random_state=0),
+                {"n_estimators": [4, 6]}, *_four_classes(digits), 1e-5)
+    return (SkRFR(max_depth=4, random_state=0), {"n_estimators": [5, 8]},
+            Xr, yr, 1e-5)
+
+
+@pytest.mark.parametrize("label", ["gb_regressor", "gb_classifier",
+                                   "rf_classifier", "rf_regressor"])
+def test_search_matches_the_jax_package(label, digits, diabetes):
+    est, grid, X, y, atol = _search_case(label, digits, diabetes)
+    ref = sst.GridSearchCV(est, grid, cv=3, backend="tpu",
+                           refit=False).fit(X, y)
+    got = port.GridSearchCV(est, grid, cv=3, refit=False,
+                            config=CPU).fit(X, y)
+    np.testing.assert_allclose(got.cv_results_["mean_test_score"],
+                               ref.cv_results_["mean_test_score"], rtol=0,
+                               atol=atol)
+    assert got.best_params_ == ref.best_params_
+    # one group for every n_estimators value; a chunk grows its lanes'
+    # largest count
+    n_est = grid.get("n_estimators", [est.get_params()["n_estimators"]])
+    assert len(got.chunks_) == 1
+    assert got.chunks_[0]["n_iter_exec"] == max(n_est)
+
+
+def test_n_estimators_is_one_compile_group():
+    fam = resolve_family(SkGBR())
+    cands = [{"n_estimators": v} for v in (10, 50, 100)]
+    assert len(build_compile_groups(cands, list(fam.dynamic_params),
+                                    fam.dynamic_params)) == 1
+    meta = {}
+    fam.observe_candidates(cands, {"n_estimators": 7}, meta)
+    assert meta["max_estimators"] == 100
+    # the base value counts only where no candidate overrides it
+    fam.observe_candidates([{"learning_rate": 0.1}], {"n_estimators": 7},
+                           meta)
+    assert meta["max_estimators"] == 7
+
+
+def test_depth_warning_once_a_search(digits):
+    X, y = _four_classes(digits, 60)
+    X = X[:, 20:23]          # three features keep the depth-10 fit small
+    with pytest.warns(UserWarning, match="exceed") as rec:
+        port.GridSearchCV(SkRFC(n_estimators=2, random_state=0),
+                          {"max_depth": [None, 12]}, cv=2, refit=False,
+                          config=CPU).fit(X, y)
+    assert sum("exceed" in str(r.message) for r in rec) == 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        port.GridSearchCV(SkRFC(n_estimators=2, random_state=0),
+                          {"max_depth": [2, 3]}, cv=2, refit=False,
+                          config=CPU).fit(X, y)
+
+
+@pytest.mark.parametrize("mf", ["sqrt", "log2", None, 0.5, 1.0, 1, 3])
+def test_max_features_rules_match_reference(mf):
+    for ours, ref in ((pmodels.RandomForestClassifierFamily,
+                       jmodels.RandomForestClassifierFamily),
+                      (pmodels.RandomForestRegressorFamily,
+                       jmodels.RandomForestRegressorFamily)):
+        assert ours._max_features({"max_features": mf}, 54) == \
+            ref._max_features({"max_features": mf}, 54)
+    assert pmodels.RandomForestRegressorFamily._max_features(
+        {"max_features": 1}, 8) == 1
+    assert pmodels.RandomForestRegressorFamily._max_features(
+        {"max_features": 1.0}, 8) == 8
+
+
+def test_port_parameter_holders_resolve_and_refuse_to_refit(diabetes):
+    pairs = ((port.GradientBoostingRegressor, SkGBR),
+             (port.GradientBoostingClassifier, SkGBC),
+             (port.RandomForestClassifier, SkRFC),
+             (port.RandomForestRegressor, SkRFR))
+    for ours, theirs in pairs:
+        assert resolve_family(ours()) is resolve_family(theirs())
+        sk_params = theirs().get_params()
+        for name, value in ours().get_params().items():
+            if name != "device":
+                assert sk_params[name] == value, (ours, name)
+    X, y = diabetes[0][:90], diabetes[1][:90]
+    gs = port.GridSearchCV(port.GradientBoostingRegressor(n_estimators=3),
+                           {"max_depth": [2]}, cv=3, refit=False,
+                           config=CPU).fit(X, y)
+    assert np.isfinite(gs.cv_results_["mean_test_score"]).all()
+    with pytest.raises(NotImplementedError, match="refit"):
+        port.GradientBoostingRegressor().fit(X, y)
