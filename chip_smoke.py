@@ -60,16 +60,35 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    n_estimators {20, 30, 40, 50} x max_depth {6, 8, 10}, n_iter=4,
    StratifiedKFold(3), random_state=0, refit=False); a
    RandomForestRegressor at one candidate on phase 6's data; as phase 9's
-   record, and cuda against the CPU on 2000 stratified rows.
+   record, and cuda against the CPU on 2000 stratified rows;
+11. the MLP pipeline, BASELINE config #5, with the port's own classes:
+   GridSearchCV(Pipeline([("scale", StandardScaler()), ("mlp",
+   MLPClassifier(hidden_layer_sizes=(64,), max_iter=60, random_state=0))]),
+   mlp__alpha in {1e-4, 1e-3, 1e-2, 1e-1}, cv=3, refit=True) on phase 4's
+   data (12 lanes, batch 200, through M1-M3), cold, warm and profiled
+   (epochs, busy ms and launches a minibatch step, idle share, peak
+   memory, best alpha and score, the refit pipeline predicting on the
+   card); then Pipeline(StandardScaler + MLPRegressor(hidden_layer_sizes=
+   (64,), max_iter=20, random_state=0)) over 2 alphas x KFold(3) on phase
+   6's data (M1's regressor variant) and Pipeline(StandardScaler + SVC)
+   over 2 C x 3 folds on 2000 rows of phase 8's data (S1 and S2 on
+   per-fold inputs); each with its kernels' launches and cuda against
+   the CPU (the same best candidate, scores within 5e-3).
 
 Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
 whose norms are summed apart) and S2 (SVC and NuSVC projections; the
 staged plan, and the streamed one forced for its time) against their
 plain versions at phase 8's shapes (n=10000, d=784; 225 subproblem rows
-of 10000), and the tree grower's T1 (level histogram), T2 (split
+of 10000) and on a fold of phase 11's scaler + SVC path (n=2000, 45
+rows), and the tree grower's T1 (level histogram), T2 (split
 choice), T3 (routing and the walk) and T4 (leaf values) at phase 9's
 (60 lanes, n=20640, d=8, depth 5) and phase 10's (6 lanes, n=100000,
-d=54, depth 10) shapes, with `index_add_` timed beside T1 and T4.
+d=54, depth 10) shapes, with `index_add_` timed beside T1 and T4, and
+the MLP step's M1 (loss and cotangent), M2 (adam step; `torch.
+_fused_adam_` timed beside it) and M3 (bias and activation, forward and
+backward) at every shape phase 11 gives them: the BASELINE #5 step
+(12 lanes, 200 rows, k=10, h=64) and the MLPRegressor's (6 lanes, k=1,
+d=8), timed; the refit's one lane and the views' whole folds, checked.
 
 It prints one JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -108,6 +127,9 @@ N_TREE_CHECK = 2000                    # rows of the trees' cuda/cpu checks
 GB_GRID = {"learning_rate": [0.05, 0.1, 0.2], "subsample": [1.0, 0.8],
            "n_estimators": [100, 200], "max_depth": [3, 5]}
 RF_GRID = {"n_estimators": [20, 30, 40, 50], "max_depth": [6, 8, 10]}
+MLP_ALPHAS = [1e-4, 1e-3, 1e-2, 1e-1]  # BASELINE #5's grid
+MLP_HIDDEN, MLP_BATCH, MLP_FOLDS = 64, 200, 3
+MLP_LANES = len(MLP_ALPHAS) * MLP_FOLDS
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12                  # H100 SXM float32, non-tensor-core
 SFU_PER_CLOCK_PER_SM = 16              # exp2/log2 results (CUDA guide, 9.0)
@@ -121,6 +143,33 @@ def nvidia_smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Mean device time of `fn()` without its host cost: `reps` calls
+    captured in one CUDA graph, replayed between CUDA events.  For the
+    small launches of the MLP step, whose wrappers take longer on the
+    host than their kernels on the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -522,6 +571,105 @@ def phase_svm_kernels(seed: int, ptxas: dict):
     return rows
 
 
+def phase_pipeline_svm_kernels(seed: int, ptxas: dict):
+    """S1 and S2 against their plain versions at phase 11's StandardScaler
+    + SVC path's shapes, on its data: the first StratifiedKFold(3) fold
+    of 2000 MNIST-shaped rows, scaled by the port's StandardScaler step
+    fitted on the fold's training rows (the fold's X_folds row), its
+    kernel matrix at the fold's gamma="scale", and one S2 step of its 45
+    pair subproblems at C=1 from iterates drawn inside the box.  Same
+    tolerances as phase 8's rows.  Returns {(name, variant): row}."""
+    import torch
+
+    from spark_sklearn_tpu_torch.models import preprocessing as prep
+    from spark_sklearn_tpu_torch.models import svm as svm_family
+    from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+    from spark_sklearn_tpu_torch.search.cv import StratifiedKFold
+
+    rows = {}
+    Xs, ys = mnist_like(seed, N_SVM_CHECK)
+    train, _ = next(StratifiedKFold(3).split(Xs, ys))
+    X = torch.as_tensor(Xs, device="cuda")
+    w = torch.zeros((1, N_SVM_CHECK), device="cuda")
+    w[0, torch.as_tensor(train, device="cuda")] = 1.0
+    scaler = prep.StandardScalerStep
+    X_folds = scaler.apply({}, scaler.fit({}, X, w), X)
+    gamma = svm_family._fold_scale_gamma(X_folds, w)[0]
+    Xf = X_folds[0]
+    G = Xf @ Xf.T
+
+    def check(name, variant, got, again, want, atols, nbytes, ops, fn,
+              plain, sym, shape):
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} ({variant}): two launches differ")
+        errs = []
+        for a, b, atol in zip(got, want, atols):
+            err = (a - b).abs()
+            errs.append(float(err.max()))
+            if not bool((err <= atol + 1e-5 * b.abs()).all()):
+                raise AssertionError(
+                    f"{name} ({variant}) disagrees with its plain version: "
+                    f"max abs err {errs[-1]}, atol {atol}, rtol 1e-5")
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        bound_ms, bound_by = bound(nbytes, ops)
+        regs, spill = next((v for f, v in ptxas.items() if sym in f),
+                           (None, None))
+        rows[(name, variant)] = {
+            "max_abs_err": max(errs[:3]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "registers": regs, "spill_bytes": spill,
+            "shape": shape}
+        if len(errs) > 3:
+            rows[(name, variant)]["resid_max_abs_err"] = errs[3]
+        print(f"  {name} {variant} {shape}: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+              f"bound/time {bound_ms / ms:.3f}), max abs err {errs}, "
+              f"bitwise repeatable; {regs} registers, {spill} bytes spilled")
+
+    def s1(g0):
+        return [svk.gram_epilogue(g0.clone(), Xf, Xf, "rbf", gamma, 3, 0.0)]
+
+    work = G.clone()
+    check("svm_gram_epilogue", "rbf_pipeline", s1(G), s1(G),
+          [svk.gram_epilogue_plain(G.clone(), Xf, Xf, "rbf", gamma, 3, 0.0)],
+          [1e-6], 2 * G.nbytes, svm_ops("rbf", n=N_SVM_CHECK),
+          lambda: svk.gram_epilogue(work, Xf, Xf, "rbf", gamma, 3, 0.0),
+          lambda: svk.gram_epilogue_plain(G, Xf, Xf, "rbf", gamma, 3, 0.0),
+          svm_symbol("svm_gram_epilogue", svk.KINDS["rbf"]),
+          {"n": N_SVM_CHECK, "d": D_SVM, "gamma": gamma})
+    K = s1(G)[0]
+    del work, G
+
+    pairs = torch.as_tensor(svm_family._pairs(K_SVM), device="cuda").long()
+    yb, in_pair = svm_family._pair_labels(
+        torch.as_tensor(ys, device="cuda"), pairs, K_SVM, torch.float32)
+    bnd = w * in_pair                                        # C = 1
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.rand(bnd.shape, generator=gen, device="cuda") * bnd
+    x = torch.rand(bnd.shape, generator=gen, device="cuda") * bnd
+    V = (z * yb) @ K
+    step = svm_family._power_step(K)
+    M = bnd.shape[0]
+
+    def s2():
+        return svk.dual_step(V, z, x, yb, bnd, step, 0.4)
+
+    check("svm_dual_step", "svc_pipeline", s2(), s2(),
+          svk.dual_step_plain(V, z, x, yb, bnd, step, 0.4),
+          (1e-5, 1e-5, 1e-5, 1e-5 / float(step)),
+          8 * z.nbytes + 4 * M + step.nbytes,
+          svm_ops("svc", M=M, n=N_SVM_CHECK), s2,
+          lambda: svk.dual_step_plain(V, z, x, yb, bnd, step, 0.4),
+          svm_symbol("svm_dual_step", 0),
+          {"M": M, "n": N_SVM_CHECK, "mode": "svc",
+           "plan": svk.step_plan(N_SVM_CHECK)})
+    del K, V, z, x, yb, bnd
+    torch.cuda.empty_cache()
+    return rows
+
+
 def digits_like(seed: int):
     """Digits-shaped data: n=1797, d=64, 10 balanced classes, float32 in
     [0, 1] on a 1/16 grid (like sklearn's digits / 16)."""
@@ -542,11 +690,13 @@ def search(X, y, Cs, device):
         config=TorchConfig(device=device)).fit(X, y)
 
 
-def profile_busy(run, warm: float, iters: int, out_name: str) -> float:
+def profile_busy(run, warm: float, iters: int, out_name: str,
+                 with_kernels: bool = False):
     """Profile one `run()` and print the device's busy time against the
     warm wall `warm` (idle share), per solver iteration where `iters` > 1,
     and the largest kernels; the time and count of every kernel go to
-    chiprun_out/`out_name`.  Returns the kernels' busy seconds.
+    chiprun_out/`out_name`.  Returns the kernels' busy seconds (and, with
+    `with_kernels`, {kernel name: (device ns, launches)}).
 
     The device events are summed from the profiler's raw records: the
     profiler's own per-op tables take tens of seconds to build over the
@@ -586,6 +736,8 @@ def profile_busy(run, warm: float, iters: int, out_name: str) -> float:
         print(f"    {ns / 1e6:10.3f} ms  {count:6d}x  {name[:90]}")
     print(f"    (profiled run {t_run:.1f} s, whole profile "
           f"{time.perf_counter() - t0:.1f} s)")
+    if with_kernels:
+        return busy_s, by_name
     return busy_s
 
 
@@ -1556,6 +1708,434 @@ def phase_rf(seed: int):
     return out
 
 
+# --- the MLP pipeline: the kernel check and phase 11 ----------------------
+
+def mlp_symbol(log_table: dict, part: str, variant: str = ""):
+    """(registers, spilled bytes) of the mlp_step kernel whose mangled
+    name holds `part` (and `variant`, e.g. ILb0E for a false template
+    flag)."""
+    return next((v for f, v in log_table.items()
+                 if part in f and variant in f), (None, None))
+
+
+def mlp_step_inputs(seed: int, B: int = MLP_LANES, R: int = MLP_BATCH,
+                    k: int = K, h: int = MLP_HIDDEN, d: int = D,
+                    alphas=MLP_ALPHAS):
+    """One minibatch step's operands at a path's shape (phase 11's
+    classifier by default): logits, fold weights, labels and targets, a
+    hidden layer's pre-activations and cotangent, the flat parameters
+    (P = d·h + h + h·k + k) with adam's state after a few steps, each
+    lane's alpha from `alphas` repeated over the folds."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    P = d * h + h + h * k + k
+    t = {
+        "Z": 3.0 * torch.randn((B, R, k), generator=g, device="cuda"),
+        "w": (torch.rand((B, R), generator=g, device="cuda") < 0.67).float(),
+        "y": torch.randint(0, k, (R,), generator=g, device="cuda",
+                           dtype=torch.int32),
+        "Yt": torch.randn((R, k), generator=g, device="cuda"),
+        "A": torch.randn((B, R, h), generator=g, device="cuda"),
+        "dH": torch.randn((B, R, h), generator=g, device="cuda"),
+        "p": 0.2 * torch.randn((B, P), generator=g, device="cuda"),
+        "g": 0.01 * torch.randn((B, P), generator=g, device="cuda"),
+        "m": 0.01 * torch.randn((B, P), generator=g, device="cuda"),
+        "v": 1e-4 * torch.rand((B, P), generator=g, device="cuda"),
+        "t": torch.full((B,), 3.0, device="cuda"),
+        "alpha": torch.tensor(np.repeat(alphas, MLP_FOLDS)[:B],
+                              dtype=torch.float32, device="cuda"),
+        "wsum": 130.0 + torch.rand(B, generator=g, device="cuda"),
+        "lr": torch.full((B,), 1e-3, device="cuda"),
+        "loss": 300.0 * torch.rand(B, generator=g, device="cuda"),
+        "acc": torch.zeros(B, device="cuda"),
+        "active": torch.ones(B, dtype=torch.bool, device="cuda"),
+    }
+    wmask = torch.zeros(P, dtype=torch.bool, device="cuda")
+    wmask[:d * h] = True
+    wmask[d * h + h:d * h + h + h * k] = True
+    t["wmask"] = wmask
+    t["b"] = t["p"][:, d * h:d * h + h]      # the hidden bias, strided
+    return t
+
+
+#: M1 loss sums rtol 1e-5, G atol 1e-6, wsum equal; M2 p, m, v rtol 1e-5
+#: atol 1e-7, acc rtol 1e-5; M3 forward rtol 1e-6 atol 1e-6, backward
+#: atol 1e-6
+MLP_TOLS = {"mlp_loss_grad": [(1e-5, 1e-6), (0.0, 0.0), (0.0, 1e-6)],
+            "mlp_opt_step": [(1e-5, 1e-7)] * 3 + [(1e-5, 0.0)],
+            "mlp_act_forward": [(1e-6, 1e-6)],
+            "mlp_act_backward": [(0.0, 1e-6)]}
+MLP_REG_ALPHAS = [1e-4, 1.0]           # phase 11's MLPRegressor grid
+
+
+def mlp_disagreement(name, variant, got, want):
+    """Max abs error of a kernel's outputs against its plain version's;
+    raises where one is outside its tolerance (MLP_TOLS)."""
+    max_abs = 0.0
+    for a, b, (rtol, atol) in zip(got, want, MLP_TOLS[name]):
+        err = (a - b).abs()
+        max_abs = max(max_abs, float(err.max()))
+        if not bool((err <= atol + rtol * b.abs()).all()):
+            raise AssertionError(
+                f"{name} ({variant}) disagrees with its plain version: max "
+                f"abs err {float(err.max())}, rtol {rtol}, atol {atol}")
+    return max_abs
+
+
+def mlp_step_calls(t, classifier: bool, adam: bool = True):
+    """The kernels of one minibatch step on the inputs `t` (relu): {name:
+    (kernel call, plain call, bytes, operations)}.  Each call returns the
+    outputs it wrote; M2 runs on copies of the state, so that a call can
+    be repeated, and `state_in_place` below times it in place."""
+    from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
+
+    B, R, k = t["Z"].shape
+    h, P = t["A"].shape[2], t["p"].shape[1]
+    kw = {"y": t["y"]} if classifier else {"Yt": t["Yt"]}
+
+    def opt(fn):
+        s = {n: t[n].clone() for n in ("p", "m", "v", "t", "acc")}
+        fn(s["p"], t["g"], s["m"], s["v"] if adam else None,
+           s["t"] if adam else None, t["wmask"], t["alpha"], t["wsum"],
+           t["lr"], t["active"], t["loss"], s["acc"], adam=adam)
+        return (s["p"], s["m"]) + ((s["v"],) if adam else ()) + (s["acc"],)
+
+    H = mk.mlp_act_forward_plain(t["A"], t["b"], "relu")
+    per_row = 7 * k + 6 if classifier else 4 * k + 3
+    return {
+        "mlp_loss_grad": (
+            lambda: mk.mlp_loss_grad(t["Z"], t["w"], **kw),
+            lambda: mk.mlp_loss_grad_plain(t["Z"], t["w"], kw.get("y"),
+                                           kw.get("Yt")),
+            2 * t["Z"].nbytes + t["w"].nbytes + 8 * B
+            + (t["y"].nbytes if classifier else t["Yt"].nbytes),
+            B * R * per_row),
+        "mlp_opt_step": (lambda: opt(mk.mlp_opt_step),
+                         lambda: opt(mk.mlp_opt_step_plain),
+                         (7 if adam else 5) * t["p"].nbytes + P + 30 * B,
+                         B * P * (22 if adam else 8)),
+        "mlp_act_forward": (
+            lambda: [mk.mlp_act_forward(t["A"], t["b"], "relu")],
+            lambda: [mk.mlp_act_forward_plain(t["A"], t["b"], "relu")],
+            2 * t["A"].nbytes + B * h * 4, 2 * B * R * h),
+        "mlp_act_backward": (
+            lambda: [mk.mlp_act_backward(t["dH"], H, "relu")],
+            lambda: [mk.mlp_act_backward_plain(t["dH"], H, "relu")],
+            3 * t["A"].nbytes, B * R * h),
+    }
+
+
+def state_in_place(t, fn, adam: bool):
+    """M2 (or its plain version) in place on one copy of the state: the
+    call that is timed (a copy a call would be timed with it)."""
+    s = {n: t[n].clone() for n in ("p", "m", "v", "t", "acc")}
+    return lambda: fn(s["p"], t["g"], s["m"], s["v"] if adam else None,
+                      s["t"] if adam else None, t["wmask"], t["alpha"],
+                      t["wsum"], t["lr"], t["active"], t["loss"], s["acc"],
+                      adam=adam)
+
+
+def phase_mlp_kernels(seed: int, ptx: dict):
+    """M1-M3 against their plain versions at every shape phase 11's paths
+    give them.  At the searches' minibatch step (BASELINE #5: 12 lanes,
+    k=10, P=4810; the MLPRegressor path: 6 lanes, k=1, d=8, P=641):
+    times, bounds, registers and spills, a bitwise repeat check, and
+    `torch._fused_adam_` (the adam core without the per-lane alpha, rate
+    and mask) on the same buffers beside M2; sgd's M2 at BASELINE #5's
+    shape.  At the refit's one lane and the views' whole folds: the
+    agreement.  Returns {(name, variant): row}."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
+
+    rows = {}
+    steps = {
+        "baseline5": (dict(B=MLP_LANES), True),
+        "regressor": (dict(B=len(MLP_REG_ALPHAS) * MLP_FOLDS, k=1, d=D_REG,
+                           alphas=MLP_REG_ALPHAS), False),
+    }
+    # the mangled-name parts of each kernel's instantiation
+    syms = {"mlp_loss_grad": "loss_grad", "mlp_opt_step": "opt_step",
+            "mlp_act_forward": "act_forward",
+            "mlp_act_backward": "act_backward"}
+
+    def same_twice(label, fn):
+        a, b = fn(), fn()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{label}: two launches on the same inputs "
+                                 "differ")
+
+    def record(name, variant, call, timed=None, library=None, sym="",
+               shape=None):
+        fn, plain, nbytes, ops = call
+        max_abs = mlp_disagreement(name, variant, fn(), plain())
+        same_twice(f"{name} ({variant})", fn)
+        fn, plain = timed or (fn, plain)
+        bound_ms, bound_by = bound(nbytes, ops)
+        # device times from graph replays; the wrapper's eager time (host
+        # cost included) beside them
+        ms, plain_ms = graph_ms(fn), graph_ms(plain, reps=20)
+        lib_ms = graph_ms(library) if library else None
+        wrapper_ms = cuda_ms(fn, reps=50, warmup=5)
+        regs, spill = mlp_symbol(ptx, syms[name], sym)
+        rows[(name, variant)] = {
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "wrapper_ms": wrapper_ms, "bytes": nbytes, "ops": ops,
+            "registers": regs, "spill_bytes": spill, "shape": shape}
+        lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"  {name:16s} {variant:9s} {shape}: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.5f} ms by "
+              f"{bound_by}, bound/time {bound_ms / ms:.4f}; eager wrapper "
+              f"{wrapper_ms:.4f} ms), max abs err {max_abs:.3g}, {regs} "
+              f"registers, {spill} bytes spilled, bitwise repeatable")
+
+    for path, (shape, classifier) in steps.items():
+        t = mlp_step_inputs(seed, **shape)
+        B, R, k = t["Z"].shape
+        dims = {"B": B, "R": R, "k": k, "h": MLP_HIDDEN,
+                "P": t["p"].shape[1]}
+        fused = {"p": [t["p"].clone()], "m": [t["m"].clone()],
+                 "v": [t["v"].clone()],
+                 "step": [torch.tensor(3.0, device="cuda")]}
+
+        def fused_adam(fused=fused, g=t["g"]):
+            torch._fused_adam_(fused["p"], [g], fused["m"], fused["v"], [],
+                               fused["step"], lr=1e-3, beta1=0.9,
+                               beta2=0.999, weight_decay=0.0, eps=1e-8,
+                               amsgrad=False, maximize=False)
+
+        for name, call in mlp_step_calls(t, classifier).items():
+            opt = name == "mlp_opt_step"
+            record(name, path, call,
+                   timed=((state_in_place(t, mk.mlp_opt_step, True),
+                           state_in_place(t, mk.mlp_opt_step_plain, True))
+                          if opt else None),
+                   library=fused_adam if opt else None,
+                   sym=("ILb1E" if opt else
+                        ("ILb0E" if classifier else "ILb1E")
+                        if name == "mlp_loss_grad" else ""),
+                   shape=dims)
+        if classifier:
+            # sgd with momentum, the family's other solver
+            record("mlp_opt_step", "sgd",
+                   mlp_step_calls(t, True, adam=False)["mlp_opt_step"],
+                   timed=(state_in_place(t, mk.mlp_opt_step, False),
+                          state_in_place(t, mk.mlp_opt_step_plain, False)),
+                   sym="ILb0E", shape={"B": B, "P": dims["P"]})
+            tanh = mk.mlp_act_forward(t["A"], t["b"], "tanh")
+            for a, b in ((tanh, mk.mlp_act_forward_plain(t["A"], t["b"],
+                                                         "tanh")),
+                         (mk.mlp_act_backward(t["dH"], tanh, "tanh"),
+                          mk.mlp_act_backward_plain(t["dH"], tanh, "tanh"))):
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        del t
+
+    # the agreement alone at the other shapes of phase 11's paths: the
+    # refit's one lane on BASELINE #5, and each search's views (M3
+    # forward over every lane's whole fold)
+    reg = dict(B=len(MLP_REG_ALPHAS) * MLP_FOLDS, k=1, d=D_REG,
+               alphas=MLP_REG_ALPHAS)
+    agree = [("baseline5_refit", dict(B=1), True, None),
+             ("baseline5_views", dict(R=N), True, ("mlp_act_forward",)),
+             ("regressor_views", dict(reg, R=N_REG), False,
+              ("mlp_act_forward",))]
+    for i, (label, shape, classifier, which) in enumerate(agree):
+        t = mlp_step_inputs(seed + 1 + i, **shape)
+        calls = mlp_step_calls(t, classifier)
+        errs = {name: mlp_disagreement(name, label, calls[name][0](),
+                                       calls[name][1]())
+                for name in (which or calls)}
+        dims = {"B": t["Z"].shape[0], "R": t["Z"].shape[1],
+                "k": t["Z"].shape[2], "P": t["p"].shape[1]}
+        rows[("agreement", label)] = {"shape": dims, "max_abs_err": errs}
+        print(f"  agreement at {label} {dims}: max abs err {errs}")
+        del t, calls
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mlp_pipeline(final, device):
+    from spark_sklearn_tpu_torch import Pipeline, StandardScaler
+    return Pipeline([("scale", StandardScaler()), ("f", final)],
+                    device=device)
+
+
+def mlp_search(final, grid, X, y, device, cv, refit=True):
+    from spark_sklearn_tpu_torch import GridSearchCV, TorchConfig
+    return GridSearchCV(mlp_pipeline(final, device), grid, cv=cv,
+                        refit=refit,
+                        config=TorchConfig(device=device)).fit(X, y)
+
+
+def check_cuda_cpu(label, run, key="score"):
+    """`run(device)` on cuda and on the CPU: mean_test_score within 5e-3
+    (the repo's oracle bound) and the same best candidate."""
+    res, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = run(dev)
+        secs[dev] = time.perf_counter() - t0
+    a = res["cuda"].cv_results_[f"mean_test_{key}"]
+    b = res["cpu"].cv_results_[f"mean_test_{key}"]
+    diff = float(np.abs(a - b).max())
+    top = np.sort(b)[::-1]
+    gap = float(top[0] - top[1]) if len(top) > 1 else None
+    print(f"  {label} cuda against cpu: max |d mean_test_score| {diff:.3g} "
+          f"(tolerance 5e-3), best {res['cuda'].best_params_} / "
+          f"{res['cpu'].best_params_}, cpu gap to the second best {gap}; "
+          f"cuda {secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s")
+    if not diff <= 5e-3:
+        raise AssertionError(f"{label}: cuda and cpu differ by {diff}")
+    if res["cuda"].best_params_ != res["cpu"].best_params_:
+        raise AssertionError(f"{label}: best_params_ differ")
+    return {"max_abs": diff, "cpu_s": secs["cpu"], "cpu_best_gap": gap}
+
+
+def phase_mlp(seed: int):
+    """BASELINE config #5 on cuda with the port's own classes (cold with
+    M1-M3's launches, warm, profiled), the refit pipeline predicting on
+    the card, cuda against the CPU; then the MLPRegressor pipeline on
+    phase 6's data and the StandardScaler + SVC pipeline on 2000 rows of
+    phase 8's data, each with its launches and a cuda/cpu check."""
+    import torch
+
+    from spark_sklearn_tpu_torch import (
+        KFold, MLPClassifier, MLPRegressor, SVC, StratifiedKFold)
+    from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
+    from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+
+    X, y = digits_like(seed)
+    grid = {"f__alpha": MLP_ALPHAS}
+    clf = MLPClassifier(hidden_layer_sizes=(MLP_HIDDEN,), max_iter=60,
+                        random_state=0)
+
+    def run(device="cuda", refit=True):
+        return mlp_search(clf, grid, X, y, device, MLP_FOLDS, refit)
+
+    out = {}
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    gs = run()
+    cold = time.perf_counter() - t0
+    launches = dict(mk.LAUNCHES)
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} never launched on the MLP path")
+    scores = gs.cv_results_["mean_test_score"]
+    if scores.shape != (len(MLP_ALPHAS),) or not np.all(np.isfinite(scores)):
+        raise AssertionError(f"MLP: scores {scores}")
+    if not gs.best_score_ > 0.3:                     # chance is 0.1
+        raise AssertionError(f"MLP: best_score_ {gs.best_score_}")
+    best = gs.best_estimator_
+    pred = best.predict(X)
+    refit_acc = float((pred == y).mean())
+    proba = best.predict_proba(X[:100])
+    if best.device != "cuda" or pred.shape != y.shape or \
+            not refit_acc > 0.3 or not np.allclose(proba.sum(1), 1.0,
+                                                    atol=1e-5):
+        raise AssertionError(f"MLP refit on the card: accuracy {refit_acc}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gs_w = run(refit=False)
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    epochs = gs_w.chunks_[0]["n_iter_exec"]
+    steps = epochs * -(-N // MLP_BATCH)
+    fits = MLP_LANES
+    print(f"  BASELINE #5: StandardScaler + MLPClassifier(({MLP_HIDDEN},), "
+          f"max_iter=60), {len(MLP_ALPHAS)} alphas x {MLP_FOLDS} folds = "
+          f"{fits} lanes: cold {cold:.3f} s (with refit {gs.refit_time_:.3f}"
+          f" s), warm {warm:.3f} s (refit=False), {fits / warm:.2f} fits/s,"
+          f" {epochs} epochs ({steps} minibatch steps), chunks "
+          f"{[(c['lanes'], c['n_iter_exec']) for c in gs_w.chunks_]}, peak "
+          f"memory {peak / 2**20:.1f} MiB, launches {launches}")
+    print(f"    best {gs.best_params_} score {gs.best_score_:.4f}; scores "
+          f"{np.round(scores, 4).tolist()}; refit pipeline on the card: "
+          f"accuracy {refit_acc:.4f} on the training rows")
+    busy, by_name = profile_busy(lambda: run(refit=False), warm, steps,
+                                 "chip_smoke_mlp.txt", with_kernels=True)
+    n_kernels = sum(count for _, count in by_name.values())
+    per_step = busy / steps * 1e3
+    # each kernel's device time a launch on this path, from the profile
+    path_ms = {}
+    for name, part in (("mlp_loss_grad", "loss_grad"),
+                       ("mlp_opt_step", "opt_step"),
+                       ("mlp_act", "act_")):
+        ns, count = map(sum, zip(*[v for k, v in by_name.items()
+                                   if part in k and "anonymous" in k]))
+        path_ms[name] = ns / count / 1e6
+    print(f"    busy {per_step:.4f} ms and {n_kernels / steps:.1f} kernel "
+          f"launches a minibatch step ({n_kernels} in all), idle share "
+          f"{1 - busy / warm:.4f}; M1/M2/M3 launches a step "
+          f"{launches['mlp_loss_grad'] / steps:.2f} / "
+          f"{launches['mlp_opt_step'] / steps:.2f} / "
+          f"{launches['mlp_act'] / steps:.2f} (cold run, refit included);"
+          f" device ms a launch in the search {path_ms}")
+    out["classifier"] = {
+        "cold_s": cold, "warm_s": warm, "fits_per_s": fits / warm,
+        "epochs": epochs, "steps": steps, "peak_bytes": peak,
+        "launches": launches, "device_busy_s": busy,
+        "busy_ms_per_step": per_step, "kernels_per_step": n_kernels / steps,
+        "path_ms": path_ms,
+        "idle_share": 1 - busy / warm, "best_params": gs.best_params_,
+        "best_score": float(gs.best_score_), "refit_accuracy": refit_acc,
+        "check": check_cuda_cpu("BASELINE #5",
+                                lambda dev: run(dev, refit=False))}
+
+    Xr, yr = california_like(seed)
+    reg = MLPRegressor(hidden_layer_sizes=(MLP_HIDDEN,), max_iter=20,
+                       random_state=0)
+    reg_grid = {"f__alpha": [1e-4, 1.0]}
+
+    def run_reg(device="cuda"):
+        return mlp_search(reg, reg_grid, Xr, yr, device, KFold(3),
+                          refit=False)
+
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    gr = run_reg()
+    wall = time.perf_counter() - t0
+    r_launch = dict(mk.LAUNCHES)
+    r_scores = gr.cv_results_["mean_test_score"]
+    if min(r_launch.values()) == 0 or not np.all(np.isfinite(r_scores)):
+        raise AssertionError(f"MLP regressor: launches {r_launch}, scores "
+                             f"{r_scores}")
+    r_epochs = gr.chunks_[0]["n_iter_exec"]
+    print(f"  MLPRegressor(({MLP_HIDDEN},), max_iter=20) pipeline, 2 alphas "
+          f"x KFold(3), n={N_REG}: {wall:.3f} s (first run), {r_epochs} "
+          f"epochs, r2 {np.round(r_scores, 4).tolist()}, launches "
+          f"{r_launch}")
+    out["regressor"] = {"wall_s": wall, "epochs": r_epochs,
+                        "scores": r_scores.tolist(), "launches": r_launch,
+                        "check": check_cuda_cpu("MLP regressor", run_reg)}
+
+    Xs, ys = mnist_like(seed, N_SVM_CHECK)
+
+    def run_svc(device="cuda"):
+        return mlp_search(SVC(), {"f__C": [1.0, 10.0]}, Xs, ys, device,
+                          StratifiedKFold(3), refit=False)
+
+    svk.reset_launches()
+    t0 = time.perf_counter()
+    gv = run_svc()
+    wall = time.perf_counter() - t0
+    v_launch = dict(svk.LAUNCHES)
+    v_scores = gv.cv_results_["mean_test_score"]
+    if min(v_launch.values()) == 0 or not np.all(np.isfinite(v_scores)) \
+            or not v_scores.max() > 0.3:
+        raise AssertionError(f"SVC pipeline: launches {v_launch}, scores "
+                             f"{v_scores}")
+    print(f"  StandardScaler + SVC pipeline, 2 C x 3 folds, n={N_SVM_CHECK},"
+          f" d={D_SVM}: {wall:.3f} s, steps "
+          f"{[c['n_iter_exec'] for c in gv.chunks_]}, accuracy "
+          f"{np.round(v_scores, 4).tolist()}, launches {v_launch}")
+    out["svc_pipeline"] = {"wall_s": wall, "scores": v_scores.tolist(),
+                           "launches": v_launch,
+                           "check": check_cuda_cpu("SVC pipeline", run_svc)}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1579,7 +2159,8 @@ def main() -> int:
           f"{torch.cuda.device_count()} visible")
 
     header("[2] build", t_start)
-    report = _build.build(["glm_epilogue", "svm_dual", "tree_hist"])
+    report = _build.build(["glm_epilogue", "svm_dual", "tree_hist",
+                           "mlp_step"])
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.2f} s")
@@ -1587,10 +2168,14 @@ def main() -> int:
     for fn, (regs, spill) in sorted(ptxas.items()):
         print(f"    {regs:4d} registers {spill:5d} bytes spilled  {fn}")
 
-    header("[3] kernels at the headline and phase-8/9/10 shapes", t_start)
+    header("[3] kernels at the headline and phase-8/9/10/11 shapes",
+           t_start)
     rows = phase_kernels(args.seed, n_sm, sm_mhz, ptxas)
     svm_rows = phase_svm_kernels(args.seed, ptxas)
+    svm_rows.update(phase_pipeline_svm_kernels(args.seed, ptxas))
     tree_rows = phase_tree_kernels(args.seed, ptxas)
+    mlp_rows = phase_mlp_kernels(
+        args.seed, ptxas_table(str(report["mlp_step"]["log"])))
 
     header("[4] main path: 1000 C x 5 folds on cuda", t_start)
     X, y = digits_like(args.seed)
@@ -1619,6 +2204,11 @@ def main() -> int:
            f" 4 candidates x 3 folds on covtype-shaped data, n={N_RF} "
            f"(rows cut from 581012), d={D_RF}", t_start)
     rf_run = phase_rf(args.seed)
+
+    header("[11] the MLP pipeline, BASELINE #5: GridSearchCV(Pipeline("
+           "StandardScaler, MLPClassifier)) 4 alphas x 3 folds, n=1797, "
+           "d=64", t_start)
+    mlp_run = phase_mlp(args.seed)
 
     meta = {
         "glm_loss_grad": "spark_sklearn_tpu/models/linear.py:221",
@@ -1658,8 +2248,11 @@ def main() -> int:
                           "atol 1e-5 (x', z', w'; max_abs_err), 1e-5/step "
                           "(residual; resid_max_abs_err), rtol 1e-5"),
     }
+    svm_pipeline = {"svm_gram_epilogue": "rbf_pipeline",
+                    "svm_dual_step": "svc_pipeline"}
     for name, (replaces, main_v, other_v, tol) in svm_meta.items():
         head, other = svm_rows[(name, main_v)], svm_rows[(name, other_v)]
+        pipe = svm_rows[(name, svm_pipeline[name])]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "spark_sklearn_tpu_torch/csrc/svm_dual.cu",
@@ -1667,7 +2260,8 @@ def main() -> int:
             "launches": svm_run["svc"]["launches"][name],
             "launches_by_path": {
                 "svc": svm_run["svc"]["launches"][name],
-                "nusvc": svm_run["nusvc"]["launches"][name]},
+                "nusvc": svm_run["nusvc"]["launches"][name],
+                "svc_pipeline": mlp_run["svc_pipeline"]["launches"][name]},
             "max_abs_err": max(svm_rows[key]["max_abs_err"]
                                for key in svm_rows if key[0] == name),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -1681,8 +2275,10 @@ def main() -> int:
             other_v: {k: other[k] for k in
                       ("ms", "plain_ms", "bound_ms", "bound_by",
                        "max_abs_err", "plan", "registers", "spill_bytes")},
+            "svc_pipeline": pipe,
             **({"resid_max_abs_err": max(head["resid_max_abs_err"],
-                                         other["resid_max_abs_err"]),
+                                         other["resid_max_abs_err"],
+                                         pipe["resid_max_abs_err"]),
                 "streamed_ms": {v: svm_rows[(name, v)]["streamed_ms"]
                                 for v in (main_v, other_v)}}
                if name == "svm_dual_step" else
@@ -1723,12 +2319,59 @@ def main() -> int:
                                   if k not in ("plan",)}
                          for key, r in tree_rows.items() if key[0] == name},
         })
+    mlp_meta = {
+        "mlp_loss_grad": ("spark_sklearn_tpu/models/mlp.py:155",
+                          ("mlp_loss_grad",),
+                          "loss rtol 1e-5, G atol 1e-6, wsum equal"),
+        "mlp_opt_step": ("spark_sklearn_tpu/models/mlp.py:167",
+                         ("mlp_opt_step",), "p, m, v rtol 1e-5 atol 1e-7; "
+                         "acc rtol 1e-5"),
+        "mlp_act": ("spark_sklearn_tpu/models/mlp.py:60",
+                    ("mlp_act_forward", "mlp_act_backward"),
+                    "forward rtol 1e-6 atol 1e-6, backward atol 1e-6"),
+    }
+    mlp_paths = {"baseline5": mlp_run["classifier"],
+                 "regressor": mlp_run["regressor"]}
+    agreement = {key[1]: r for key, r in mlp_rows.items()
+                 if key[0] == "agreement"}
+    for name, (replaces, parts, tol) in mlp_meta.items():
+        head = mlp_rows[(parts[0], "baseline5")]
+        by_shape = {f"{part}/{key[1]}": {
+            k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "max_abs_err", "registers",
+                              "spill_bytes", "shape")}
+            for part in parts for key, r in mlp_rows.items()
+            if key[0] == part}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "spark_sklearn_tpu_torch/csrc/mlp_step.cu",
+            "replaces": replaces,
+            "launches": mlp_run["classifier"]["launches"][name],
+            "launches_by_path": {p: r["launches"][name]
+                                 for p, r in mlp_paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in by_shape.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "wrapper_ms": head["wrapper_ms"],
+            "path_ms": mlp_run["classifier"]["path_ms"][name],
+            **({"library": "torch._fused_adam_ (the adam core alone)"}
+               if name == "mlp_opt_step" else
+               {"library": "none: no single torch call computes it"}),
+            "registers": head["registers"],
+            "spill_bytes": head["spill_bytes"], "tolerance": tol,
+            "shape": head["shape"], "by_shape": by_shape,
+            "agreement": {label: a["max_abs_err"][part]
+                          for label, a in agreement.items()
+                          for part in parts if part in a["max_abs_err"]},
+        })
     main_run["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "main": main_run,
                    "regressors": regressors, "l1": l1_run,
                    "svm": svm_run, "gb": gb_run, "rf": rf_run,
+                   "mlp": mlp_run,
                    "card": nvidia_smi("name,power.limit")}, f, indent=1)
     print(f"  total {main_run['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,10 +11,14 @@ Entry points run on ``cuda`` unless the caller passes
 
 Public API so far:
   - GridSearchCV, RandomizedSearchCV  (compiled linear-family,
-    SVC/NuSVC and tree-ensemble searches)
+    SVC/NuSVC, tree-ensemble, MLP and Pipeline searches)
   - TorchConfig
   - LogisticRegression, Ridge, LinearRegression, ElasticNet, Lasso, SVC,
     NuSVC (sklearn-free estimators)
+  - MLPClassifier, MLPRegressor (sklearn-free estimators)
+  - Pipeline, StandardScaler, MinMaxScaler, MaxAbsScaler, Normalizer,
+    PCA (sklearn-free; a search over a Pipeline of these steps and a
+    ported final refits on the device)
   - GradientBoostingRegressor, GradientBoostingClassifier,
     RandomForestClassifier, RandomForestRegressor (parameter holders a
     search resolves without sklearn; refit needs sklearn's estimators)
@@ -26,8 +30,16 @@ from spark_sklearn_tpu_torch.models.estimators import (
     Lasso,
     LinearRegression,
     LogisticRegression,
+    MaxAbsScaler,
+    MinMaxScaler,
+    MLPClassifier,
+    MLPRegressor,
+    Normalizer,
     NuSVC,
+    PCA,
+    Pipeline,
     Ridge,
+    StandardScaler,
     SVC,
 )
 from spark_sklearn_tpu_torch.models.trees import (
@@ -59,6 +71,14 @@ __all__ = [
     "Lasso",
     "SVC",
     "NuSVC",
+    "MLPClassifier",
+    "MLPRegressor",
+    "Pipeline",
+    "StandardScaler",
+    "MinMaxScaler",
+    "MaxAbsScaler",
+    "Normalizer",
+    "PCA",
     "GradientBoostingRegressor",
     "GradientBoostingClassifier",
     "RandomForestClassifier",

@@ -11,6 +11,13 @@ and `classes_`) becomes the port's `SVC` with `svc_from_jax`.
 
 A tree grown by the JAX package's histogram grower (`ops/trees.py`
 `Tree`) becomes the port's, lane axis and all, with `tree_from_jax`.
+
+An MLP family's model (`models/mlp.py`: ``{"layers": [{"W", "b"}, ...],
+"n_iter"}``, one fit or a lane stack) becomes the port's ``{"params":
+flat (P,) or (B, P), "n_iter"}`` with `mlp_from_jax`, and one fit of a
+fused pipeline (``{"steps": [state, ...], "final": model}``) becomes
+step states with the port's leading fold axis and the final's model
+with `pipeline_from_jax`.
 """
 
 from __future__ import annotations
@@ -80,3 +87,51 @@ def tree_from_jax(tree, device=None):
                 thresh=conv(tree.thresh, np.int32),
                 value=conv(tree.value, np.float32),
                 is_leaf=conv(tree.is_leaf, np.bool_))
+
+
+def mlp_from_jax(model, device=None):
+    """{"params", "n_iter"} of the port's MLP families from the JAX
+    family's model: each layer's W (.., fi, fo) and b (.., fo) laid out
+    W then b, layer by layer, in one flat row per lane.  `device` None
+    means ``cuda``."""
+    from spark_sklearn_tpu_torch.parallel.device import (
+        TorchConfig,
+        resolve_device,
+    )
+
+    dev = resolve_device(TorchConfig(device=device))
+    parts = []
+    for layer in model["layers"]:
+        W = np.asarray(layer["W"], np.float32)
+        parts += [W.reshape(*W.shape[:-2], -1),
+                  np.asarray(layer["b"], np.float32)]
+    out = {"params": torch.as_tensor(np.concatenate(parts, axis=-1),
+                                     device=dev)}
+    if "n_iter" in model:
+        out["n_iter"] = torch.as_tensor(np.array(model["n_iter"],
+                                                   np.int32), device=dev)
+    return out
+
+
+def pipeline_from_jax(model, device=None):
+    """{"steps": [state, ...], "final": model} of one fit of the JAX
+    package's fused pipeline as the port's: each step state's arrays
+    with the leading fold axis (of 1) that the port's steps
+    (`models/preprocessing.py`) apply with, and the final model by
+    `mlp_from_jax`.  `device` None means ``cuda``."""
+    from spark_sklearn_tpu_torch.parallel.device import (
+        TorchConfig,
+        resolve_device,
+    )
+
+    dev = resolve_device(TorchConfig(device=device))
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        return torch.as_tensor(a[None], device=dev)
+
+    steps = [{k: conv(v) for k, v in state.items()}
+             for state in model["steps"]]
+    return {"steps": steps, "final": mlp_from_jax(model["final"], device)}

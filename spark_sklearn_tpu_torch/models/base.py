@@ -25,6 +25,10 @@ import numpy as np
 import torch
 
 _FAMILIES_BY_CLASSNAME: Dict[str, Any] = {}
+#: Pipeline classes: each instance gets a family of its own
+#: (`models/pipeline.py` `make_pipeline_family`)
+_PIPELINES = ("sklearn.pipeline.Pipeline",
+              "spark_sklearn_tpu_torch.models.estimators.Pipeline")
 
 
 def register_family(family, *qualified_names: str):
@@ -42,13 +46,20 @@ def _qualname(cls: Type) -> str:
 def resolve_family(estimator) -> Optional[Any]:
     """The family for an estimator instance, or None.
 
-    Matching is by qualified class name, then — for sklearn classes only —
-    by bare class name, robust to sklearn's private-module shuffling.  A
+    A Pipeline (sklearn's or the port's) gets a family built for it, or
+    None when a step has no counterpart.  Otherwise matching is by
+    qualified class name, then — for sklearn classes only — by bare class
+    name, robust to sklearn's private-module shuffling.  A
     third-party class that happens to be named "LogisticRegression" does
     not get the compiled fit.
     """
     cls = type(estimator)
     qn = _qualname(cls)
+    if qn in _PIPELINES:
+        from spark_sklearn_tpu_torch.models.pipeline import (
+            make_pipeline_family,
+        )
+        return make_pipeline_family(estimator)
     if qn in _FAMILIES_BY_CLASSNAME:
         return _FAMILIES_BY_CLASSNAME[qn]
     if qn.startswith("sklearn."):

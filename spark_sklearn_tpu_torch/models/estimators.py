@@ -18,6 +18,16 @@ LinearRegression) fit in float64 here too.
 `SVC` and `NuSVC` fit the full data with the search's dual solver and
 keep the representer form (training X, signed alphas, intercepts), so
 they predict new X with one kernel matrix.
+
+`MLPClassifier` and `MLPRegressor` (the reference's `models/
+standalone.py:117-168`, with the stopping and schedule knobs its family
+reads) fit one lane of the batched minibatch fit.  `StandardScaler`,
+`MinMaxScaler`, `MaxAbsScaler`, `Normalizer` and `PCA` hold sklearn's
+parameters and fit one fold of their step (`models/preprocessing.py`)
+with all-ones weights.  `Pipeline` chains them as sklearn's does:
+`named_steps`, ``step__param`` keys in `get_params`/`set_params`, and
+`fit`, `predict`, `predict_proba`.  A search over
+any of these refits on the card, where there is no sklearn.
 """
 
 from __future__ import annotations
@@ -33,6 +43,11 @@ from spark_sklearn_tpu_torch.models.linear import (
     LogisticRegressionFamily,
     RidgeFamily,
 )
+from spark_sklearn_tpu_torch.models.mlp import (
+    MLPClassifierFamily,
+    MLPRegressorFamily,
+)
+from spark_sklearn_tpu_torch.models import preprocessing as prep
 from spark_sklearn_tpu_torch.models.svm import NuSVCFamily, SVCFamily
 from spark_sklearn_tpu_torch.parallel.device import TorchConfig, resolve_device
 
@@ -62,6 +77,14 @@ class _Estimator:
                     f"{sorted(valid)!r}.")
             setattr(self, name, value)
         return self
+
+    def clone(self):
+        """An unfitted copy with the same parameters."""
+        return type(self)(**self.get_params(deep=False))
+
+    def can_refit(self) -> bool:
+        """Whether a search can refit this estimator here."""
+        return True
 
     def __repr__(self):
         args = ", ".join(f"{k}={v!r}" for k, v in self.get_params().items())
@@ -248,3 +271,221 @@ class NuSVC(SVC):
         self.class_weight = class_weight
         self.random_state = random_state
         self.device = device
+
+
+class _MLP(_Estimator):
+    def _X(self, X):
+        return torch.as_tensor(np.asarray(X, np.float32),
+                               device=self._device)
+
+    def predict(self, X):
+        out = self._family.predict(self._model, self._static, self._X(X),
+                                   self._meta).cpu().numpy()
+        return self.classes_[out] if self._family.is_classifier else out
+
+
+class MLPClassifier(_MLP):
+    """Multi-layer perceptron classifier: softmax output, adam or sgd
+    with momentum, sklearn's stopping rules (`models/mlp.py`)."""
+
+    _family = MLPClassifierFamily
+
+    def __init__(self, hidden_layer_sizes=(100,), activation="relu",
+                 solver="adam", alpha=1e-4, batch_size="auto",
+                 learning_rate="constant", learning_rate_init=1e-3,
+                 power_t=0.5, max_iter=200, random_state=None, tol=1e-4,
+                 momentum=0.9, early_stopping=False,
+                 validation_fraction=0.1, beta_1=0.9, beta_2=0.999,
+                 epsilon=1e-8, n_iter_no_change=10, device=None):
+        self.hidden_layer_sizes = hidden_layer_sizes
+        self.activation = activation
+        self.solver = solver
+        self.alpha = alpha
+        self.batch_size = batch_size
+        self.learning_rate = learning_rate
+        self.learning_rate_init = learning_rate_init
+        self.power_t = power_t
+        self.max_iter = max_iter
+        self.random_state = random_state
+        self.tol = tol
+        self.momentum = momentum
+        self.early_stopping = early_stopping
+        self.validation_fraction = validation_fraction
+        self.beta_1 = beta_1
+        self.beta_2 = beta_2
+        self.epsilon = epsilon
+        self.n_iter_no_change = n_iter_no_change
+        self.device = device
+
+    def predict_proba(self, X):
+        return self._family.predict_proba(
+            self._model, self._static, self._X(X), self._meta).cpu().numpy()
+
+
+class MLPRegressor(_MLP):
+    """Multi-layer perceptron regressor: identity output, half squared
+    error; the parameters of `MLPClassifier`."""
+
+    _family = MLPRegressorFamily
+    __init__ = MLPClassifier.__init__
+
+
+class _Transformer(_Estimator):
+    """A preprocessing step's parameters, fitted on all rows."""
+
+    _step = None
+
+    def fit(self, X, y=None):
+        dev = resolve_device(TorchConfig(device=self.device))
+        X_t = torch.as_tensor(np.asarray(X, np.float32), device=dev)
+        static = self.get_params()
+        self._state = self._step.fit(
+            static, X_t, torch.ones((1, X_t.shape[0]), dtype=X_t.dtype,
+                                    device=dev))
+        self._device = dev
+        self.n_features_in_ = int(X_t.shape[1])
+        return self
+
+    def transform(self, X):
+        X_t = torch.as_tensor(np.asarray(X, np.float32),
+                              device=self._device)
+        return self._step.apply(self.get_params(), self._state,
+                                X_t)[0].cpu().numpy()
+
+
+class StandardScaler(_Transformer):
+    _step = prep.StandardScalerStep
+
+    def __init__(self, with_mean=True, with_std=True, device=None):
+        self.with_mean = with_mean
+        self.with_std = with_std
+        self.device = device
+
+
+class MinMaxScaler(_Transformer):
+    _step = prep.MinMaxScalerStep
+
+    def __init__(self, feature_range=(0, 1), clip=False, device=None):
+        self.feature_range = feature_range
+        self.clip = clip
+        self.device = device
+
+
+class MaxAbsScaler(_Transformer):
+    _step = prep.MaxAbsScalerStep
+
+    def __init__(self, device=None):
+        self.device = device
+
+
+class Normalizer(_Transformer):
+    _step = prep.NormalizerStep
+
+    def __init__(self, norm="l2", device=None):
+        self.norm = norm
+        self.device = device
+
+
+class PCA(_Transformer):
+    _step = prep.PCAStep
+
+    def __init__(self, n_components=None, whiten=False, svd_solver="auto",
+                 device=None):
+        self.n_components = n_components
+        self.whiten = whiten
+        self.svd_solver = svd_solver
+        self.device = device
+
+
+def _is_passthrough(step) -> bool:
+    return step is None or (isinstance(step, str) and step == "passthrough")
+
+
+def _clone(estimator):
+    """An unfitted copy with the same params: the port's own estimators
+    (a Pipeline with its steps) copy themselves; anything else goes
+    through sklearn's `clone`."""
+    if isinstance(estimator, _Estimator):
+        return estimator.clone()
+    from sklearn.base import clone
+    return clone(estimator)
+
+
+class Pipeline(_Estimator):
+    """A chain of transformers and a final estimator, sklearn's or the
+    port's.  `device` (None: each step's own) is handed to the port's
+    steps that have none when the pipeline fits."""
+
+    def __init__(self, steps, device=None):
+        self.steps = steps
+        self.device = device
+
+    @property
+    def named_steps(self):
+        return dict(self.steps)
+
+    def get_params(self, deep=True):
+        out = {"steps": self.steps, "device": self.device}
+        if deep:
+            for name, est in self.steps:
+                out[name] = est
+                if hasattr(est, "get_params"):
+                    for k, v in est.get_params(deep=False).items():
+                        out[f"{name}__{k}"] = v
+        return out
+
+    def set_params(self, **params):
+        names = [name for name, _ in self.steps]
+        for key, value in params.items():
+            if key in ("steps", "device"):
+                setattr(self, key, value)
+            elif key in names:
+                self.steps = [(n, value if n == key else e)
+                              for n, e in self.steps]
+            elif "__" in key and key.split("__", 1)[0] in names:
+                name, sub = key.split("__", 1)
+                self.named_steps[name].set_params(**{sub: value})
+            else:
+                raise ValueError(
+                    f"Invalid parameter {key!r} for estimator Pipeline. "
+                    f"Valid parameters are: {sorted(self.get_params())!r}.")
+        return self
+
+    def clone(self):
+        return Pipeline([(n, e if _is_passthrough(e) else _clone(e))
+                         for n, e in self.steps], device=self.device)
+
+    def can_refit(self) -> bool:
+        return all(not isinstance(e, _Estimator) or e.can_refit()
+                   for _, e in self.steps if not _is_passthrough(e))
+
+    def _own_device(self, est):
+        if self.device is not None and isinstance(est, _Estimator) and \
+                getattr(est, "device", None) is None:
+            est.set_params(device=self.device)
+        return est
+
+    def fit(self, X, y):
+        Xt = X
+        for _, est in self.steps[:-1]:
+            if not _is_passthrough(est):
+                Xt = self._own_device(est).fit(Xt, y).transform(Xt)
+        self._own_device(self.steps[-1][1]).fit(Xt, y)
+        return self
+
+    def _transform(self, X):
+        for _, est in self.steps[:-1]:
+            if not _is_passthrough(est):
+                X = est.transform(X)
+        return X
+
+    @property
+    def _final(self):
+        return self.steps[-1][1]
+
+    def predict(self, X):
+        return self._final.predict(self._transform(X))
+
+    def predict_proba(self, X):
+        return self._final.predict_proba(self._transform(X))
+

@@ -21,8 +21,12 @@ versions.  The reference's `lax.scan` over candidates is a Python loop
 that builds each candidate's kernel matrix into one reused (n, n) buffer.
 The residual exit reads `done.all()` on the host once a step.
 
-Not ported in this slice: the pipeline mode (per-fold transformed X,
-`data["X_folds"]`), `probability=True` (Platt scaling and pairwise
+In a Pipeline the final SVC gets per-fold transformed inputs
+``data["X_folds"]`` (F, n, d'): each (candidate, fold) then has its own
+kernel matrix, and ``gamma="scale"`` follows the fold's transformed
+training rows (the reference's pipeline mode, svm.py:584-638).
+
+Not ported in this slice: `probability=True` (Platt scaling and pairwise
 coupling) and the converted-model probability path; they raise.
 """
 
@@ -284,6 +288,20 @@ def _pair_labels(y, pairs, k, dtype):
     return ybin, (ypos | yneg).to(dtype)
 
 
+def _fold_scale_gamma(X_folds, w_folds):
+    """gamma="scale" of each fold's transformed training rows, 1 / (d ·
+    var), as float32 host numbers (the reference's pipeline mode,
+    svm.py:607-614)."""
+    d = X_folds.shape[2]
+    mrow = (w_folds > 0).to(X_folds.dtype)[:, :, None]       # (F, n, 1)
+    cnt = mrow.sum(dim=(1, 2)) * d + 1e-12
+    mu = (X_folds * mrow).sum(dim=(1, 2)) / cnt
+    var = (((X_folds - mu[:, None, None]) ** 2) * mrow).sum(dim=(1, 2)) \
+        / cnt
+    g = 1.0 / (d * torch.clamp_min(var, 1e-12))
+    return [_f32(v) for v in g.cpu().tolist()]
+
+
 def _f32(v):
     """A scalar as the float32 value the reference's traced scalar holds."""
     return float(np.float32(v))
@@ -292,6 +310,8 @@ def _f32(v):
 class SVCFamily(Family):
     name = "svc"
     is_classifier = True
+    #: a Pipeline hands it per-fold transformed inputs, data["X_folds"]
+    accepts_fold_inputs = True
     dynamic_params = {"C": np.float32, "gamma": np.float32}
     #: the per-candidate scalar the dual consumes (NuSVC swaps in "nu")
     primary_param = "C"
@@ -340,11 +360,8 @@ class SVCFamily(Family):
         task the full-set pair decisions `pair_dec` (B, n, P) — the search
         scores masked rows of the training X from them — and `n_iter`
         (B,), each candidate's steps repeated over its folds."""
-        if "X_folds" in data:
-            raise NotImplementedError(
-                "per-fold transformed inputs (Pipelines) wait for a later "
-                "slice of the port")
         X, y = data["X"], data["y"]
+        X_folds = data.get("X_folds")
         n = X.shape[0]
         k = meta["n_classes"]
         dev, dt = X.device, X.dtype
@@ -386,16 +403,38 @@ class SVCFamily(Family):
 
         K_buf = torch.empty((n, n), dtype=dt, device=dev)
         pair_dec = torch.empty((B, n, P), dtype=dt, device=dev)
+        g_fold = None
+        if X_folds is not None and "gamma" not in dynamic and \
+                static.get("gamma", "scale") == "scale":
+            g_fold = _fold_scale_gamma(X_folds, w_cand[0])
         its = []
         for c in range(n_real):
-            K = _kernel(X, X, kind, g_cand[c], degree, coef0, out=K_buf)
-            step = _power_step(K)
-            base = ((w_cand[c] * cw_fold)[:, None, :]
-                    * in_pair[None, :, :]).reshape(-1, n)
-            dec, it = cls._pair_dec(K, C_cand[c], base, yb, step, max_iter,
-                                    tol_exit)
-            pair_dec[c * n_folds:(c + 1) * n_folds] = \
-                dec.reshape(n_folds, P, n).transpose(1, 2)
+            if X_folds is None:
+                K = _kernel(X, X, kind, g_cand[c], degree, coef0, out=K_buf)
+                step = _power_step(K)
+                base = ((w_cand[c] * cw_fold)[:, None, :]
+                        * in_pair[None, :, :]).reshape(-1, n)
+                dec, it = cls._pair_dec(K, C_cand[c], base, yb, step,
+                                        max_iter, tol_exit)
+                dec = dec.reshape(n_folds, P, n)
+            else:
+                # a kernel matrix per fold, whose P pair subproblems are
+                # solved together; the candidate's steps are the most
+                # any of its folds ran
+                decs, fold_its = [], []
+                for f in range(n_folds):
+                    g = g_cand[c] if g_fold is None else g_fold[f]
+                    K = _kernel(X_folds[f], X_folds[f], kind, g, degree,
+                                coef0, out=K_buf)
+                    base = (w_cand[c, f] * cw_fold[f])[None, :] * in_pair
+                    d_f, it_f = cls._pair_dec(K, C_cand[c], base, ybin,
+                                              _power_step(K), max_iter,
+                                              tol_exit)
+                    decs.append(d_f)
+                    fold_its.append(torch.as_tensor(it_f, device=dev))
+                dec = torch.stack(decs)
+                it = torch.stack(fold_its).max()
+            pair_dec[c * n_folds:(c + 1) * n_folds] = dec.transpose(1, 2)
             its.append(it)
         last = pair_dec[(n_real - 1) * n_folds:n_real * n_folds]
         for c in range(n_real, nc):

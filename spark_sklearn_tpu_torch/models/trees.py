@@ -140,6 +140,9 @@ def _codes(data):
 class GradientBoostingRegressorFamily(Family):
     name = "gradient_boosting_regressor"
     is_classifier = False
+    #: fits from the data's bin codes, not from X (a Pipeline composes
+    #: it only with monotone per-feature steps)
+    binned_codes = True
     dynamic_params = {"learning_rate": np.float32,
                       "n_estimators": np.int32,
                       "subsample": np.float32}
@@ -296,6 +299,8 @@ class GradientBoostingClassifierFamily(GradientBoostingRegressorFamily):
 class RandomForestClassifierFamily(Family):
     name = "random_forest_classifier"
     is_classifier = True
+    #: fits from the data's bin codes, not from X
+    binned_codes = True
     dynamic_params = {"n_estimators": np.int32}
     _default_depth = 10
     #: sklearn's own default (RandomForest*: max_depth=None, unbounded:
@@ -450,6 +455,9 @@ class _TreeSpec(_Estimator):
     """sklearn's constructor defaults for the parameters the family
     reads; `fit` raises: refit the best parameters with sklearn's own
     estimator, or search with ``refit=False``."""
+
+    def can_refit(self) -> bool:
+        return False
 
     def fit(self, X, y, sample_weight=None):
         raise NotImplementedError(

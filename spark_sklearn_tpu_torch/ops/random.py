@@ -1,7 +1,7 @@
 """`jax.random`'s threefry draws, bit for bit, as torch ops.
 
-The stochastic families (the tree ensembles here; KMeans and the MLP in
-later slices) match the reference only if they draw the same numbers
+The stochastic families (the tree ensembles and the MLP; KMeans in a
+later slice) match the reference only if they draw the same numbers
 from the same seed.  This module reproduces the few `jax.random`
 functions they call, as jax 0.9 computes them with
 ``jax_threefry_partitionable=True`` (its default):
@@ -12,16 +12,23 @@ functions they call, as jax 0.9 computes them with
   two output words forming key i (`_threefry_split_foldlike`,
   jax/_src/prng.py:1156);
 - `fold_in(key, data)`: ``threefry2x32(key, (0, data))`` (prng.py:1168);
-- `uniform(key, shape)`: 32 random bits an element, ``bits1 ^ bits2`` of
-  ``threefry2x32(key, (hi(i), lo(i)))`` over the flat index i of `shape`
-  (prng.py:1184), made a float32 in [0, 1) by the mantissa trick, then
-  ``max(0, ·)`` (`_uniform`, jax/_src/random.py:435);
+- `uniform(key, shape, minval, maxval)`: 32 random bits an element,
+  ``bits1 ^ bits2`` of ``threefry2x32(key, (hi(i), lo(i)))`` over the
+  flat index i of `shape` (prng.py:1184), made a float32 in [0, 1) by
+  the mantissa trick, scaled and shifted to [minval, maxval), then
+  ``max(minval, ·)`` (`_uniform`, jax/_src/random.py:435);
 - `poisson_one(key, shape)`: ``poisson(key, 1.0, shape)`` by Knuth's
   method, the branch jax takes for lam < 10 (`_poisson_knuth`,
   random.py:1547): round i splits the key and draws one uniform u_i
   over the whole shape, the loop runs while any element's log-product
   is above -lam, and the draw is the count of rounds whose log-product
-  stays above it.
+  stays above it;
+- `permutation(key, n)`: `_shuffle` (jax/_src/random.py:700), which
+  sorts ``arange(n)`` by 32 random bits an element (`uniform`'s bits)
+  in ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each round under the
+  second key of ``split(key)`` (the first carries on), with a stable
+  sort (`lax.sort_key_val`): 1 round up to n = 1625, 2 from 1626;
+  `permutations` draws several keys' permutations in one pass.
 
 Keys are numpy uint32 arrays, (2,) or (n, 2), and live on the host: a
 key is two words, and deriving one is a few dozen integer operations on
@@ -110,16 +117,25 @@ def _bits(keys, n: int, device):
     return b0 ^ b1
 
 
-def _to_uniform(bits):
+def _to_uniform(bits, minval=0.0, maxval=1.0):
     one = 0x3F800000                        # the bits of 1.0f
     f = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, 0.0)
+    lo = np.float32(minval)
+    if (minval, maxval) != (0.0, 1.0):
+        # ``f * (maxval - minval) + minval`` contracted into one FMA, as
+        # XLA's CPU backend compiles it: the float32 product is exact in
+        # float64, so one float64 sum rounded to float32 is the FMA's value
+        span = np.float32(maxval) - lo
+        f = (f.double() * float(span) + float(lo)).float()
+    return torch.clamp_min(f, float(lo))
 
 
-def uniform(key, shape: Shape, device=None):
-    """jax.random.uniform(key, shape) in float32 on [0, 1)."""
+def uniform(key, shape: Shape, device=None, minval=0.0, maxval=1.0):
+    """jax.random.uniform(key, shape, minval=minval, maxval=maxval) in
+    float32 on [minval, maxval)."""
     shape = _shape(shape)
-    return _to_uniform(_bits(key, int(np.prod(shape)), device)).reshape(shape)
+    return _to_uniform(_bits(key, int(np.prod(shape)), device), minval,
+                       maxval).reshape(shape)
 
 
 def uniform_many(keys, shape: Shape, device=None):
@@ -165,3 +181,33 @@ def poisson_one(key, shape: Shape, device=None):
             count += (log_prod > neg_lam).to(torch.int32)
         if not bool((log_prod > neg_lam).any()):
             return count
+
+
+def permutation(key, n: int, device=None):
+    """jax.random.permutation(key, n): an int64 tensor holding a
+    permutation of ``range(n)``."""
+    return permutations(np.asarray(key)[None], n, device)[0]
+
+
+def permutations(keys, n: int, device=None):
+    """``stack([permutation(k, n) for k in keys])`` in one pass: (R, n)
+    int64; each round's bits for every key are drawn together and
+    sorted row by row."""
+    keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=device).expand(
+        len(keys), n)
+    subs = []
+    for _ in range(rounds):
+        pairs = [split(k) for k in keys]
+        keys = np.stack([p[0] for p in pairs])
+        subs.append(np.stack([p[1] for p in pairs]))
+    if not subs:
+        return x.contiguous()
+    bits = _bits(np.concatenate(subs), n, device).view(rounds, -1, n)
+    for r in range(rounds):
+        order = torch.sort(bits[r], dim=1, stable=True).indices
+        x = torch.gather(x, 1, order)
+    return x

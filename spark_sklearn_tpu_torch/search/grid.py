@@ -10,14 +10,20 @@ t % n_folds) and cut into chunks of at most `max_tasks_per_batch` lanes;
 each chunk is fitted as one batched problem and then scored from one wide
 GEMM.  `cv_results_` follows sklearn's schema.
 
+`refit` may be a callable, as sklearn's: it gets `cv_results_` and
+returns the best index (`best_score_` is then not set).  A search whose
+refit the estimator cannot run here (the port's tree parameter holders)
+raises before any fit.
+
 Not ported in this slice: the host fallback for estimators without a
-family, `fit_params`/`sample_weight` routing, `groups`, a callable
-`refit`, `verbose`, and the speed knobs of the reference (sorted
-chunking, the pipelined executor, the chunk scan, fused fit+score).
+family, `fit_params`/`sample_weight` routing, `groups`, `verbose`, and
+the speed knobs of the reference (sorted chunking, the pipelined
+executor, the chunk scan, fused fit+score).
 """
 
 from __future__ import annotations
 
+import numbers
 import time
 import warnings
 from collections import defaultdict
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 
 from spark_sklearn_tpu_torch.models.base import resolve_family
-from spark_sklearn_tpu_torch.models.estimators import _Estimator
+from spark_sklearn_tpu_torch.models.estimators import _Estimator, _clone
 from spark_sklearn_tpu_torch.parallel.device import TorchConfig, resolve_device
 from spark_sklearn_tpu_torch.parallel.taskgrid import (
     build_compile_groups,
@@ -50,13 +56,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _clone(estimator):
-    """An unfitted copy with the same params: the port's own estimators
-    copy themselves; anything else goes through sklearn's `clone`."""
-    if isinstance(estimator, _Estimator):
-        return type(estimator)(**estimator.get_params())
-    from sklearn.base import clone
-    return clone(estimator)
+def _refits_here(estimator) -> bool:
+    """False where the estimator has no fit of its own to refit with (the
+    port's tree parameter holders, or a Pipeline holding one); sklearn's
+    estimators refit themselves on the host."""
+    return not isinstance(estimator, _Estimator) or estimator.can_refit()
+
+
+def _select_best_index(refit, refit_metric, results) -> int:
+    """The refit candidate: what a callable `refit` returns (checked as
+    sklearn checks it), else the best rank of `refit_metric`."""
+    if callable(refit):
+        best_index = refit(results)
+        if not isinstance(best_index, numbers.Integral):
+            raise TypeError("best_index_ returned is not an integer")
+        if best_index < 0 or best_index >= len(results["params"]):
+            raise IndexError("best_index_ index out of range")
+        return int(best_index)
+    return int(results[f"rank_test_{refit_metric}"].argmin())
+
+
+def _logloss_clip_eps(family, x_dtype) -> float:
+    """The eps sklearn's log_loss clips at: that of the probabilities'
+    dtype, float64 for most estimators whatever X's dtype, but X's own
+    for a family whose `proba_dtype_rule` is "input" (the MLPs) when
+    sklearn's validation keeps X float32 (every other dtype becomes
+    float64), as the reference resolves it (grid.py:1180-1216)."""
+    rule = getattr(family, "proba_dtype_rule", "float64")
+    keep = rule == "input" and np.dtype(x_dtype) == np.float32
+    return float(np.finfo(np.float32 if keep else np.float64).eps)
 
 
 def _lane_finite(model, B: int) -> torch.Tensor:
@@ -74,11 +102,13 @@ class _BaseSearch:
     Runs on `config.device` (default ``cuda``; see `TorchConfig`).  The
     estimator must resolve to a ported family: the port's or sklearn's
     `LogisticRegression`, `Ridge`, `LinearRegression`, `ElasticNet`,
-    `Lasso`, `SVC`, `NuSVC`, `GradientBoostingRegressor`/`Classifier` or
-    `RandomForestClassifier`/`Regressor`.  `scoring` is None (accuracy for classifiers,
-    r2 for regressors), one of the scorer names of `search/scorers.py` or a
-    list of them; `cv` is None, an int, a splitter with ``.split(X, y)`` or
-    an iterable of (train, test) index pairs.
+    `Lasso`, `SVC`, `NuSVC`, `GradientBoostingRegressor`/`Classifier`,
+    `RandomForestClassifier`/`Regressor`, `MLPClassifier`/`Regressor`, or
+    a `Pipeline` of preprocessing steps and one of them.  `scoring` is
+    None (accuracy for classifiers, r2 for regressors), one of the scorer
+    names of `search/scorers.py` or a list of them; `cv` is None, an int,
+    a splitter with ``.split(X, y)`` or an iterable of (train, test) index
+    pairs.
     """
 
     def __init__(self, estimator, *, scoring=None, refit=True, cv=None,
@@ -103,17 +133,26 @@ class _BaseSearch:
             raise NotImplementedError(
                 f"{type(self.estimator).__name__} has no family in the "
                 "PyTorch port (the host fallback is not ported)")
+        if self.refit and not _refits_here(self.estimator):
+            raise NotImplementedError(
+                f"{type(self.estimator).__name__} has no fit of its own in "
+                "the PyTorch port to refit with: search with refit=False, "
+                "or pass sklearn's estimator (refit runs it on the host)")
         scorers, single = resolve_scoring(self.scoring, family)
         scorer_names = list(scorers)
         self.multimetric_ = single is None
-        if self.multimetric_ and self.refit is not False and (
-                not isinstance(self.refit, str)
-                or self.refit not in scorer_names):
+        if self.multimetric_ and self.refit is not False and \
+                not callable(self.refit) and (
+                    not isinstance(self.refit, str)
+                    or self.refit not in scorer_names):
+            # sklearn's phrasing (_search.py _check_refit_for_multimetric)
             raise ValueError(
                 "For multi-metric scoring, the parameter refit must be set "
-                "to a scorer key or False to refit an estimator with the "
-                f"best parameter setting on the whole data; got "
-                f"refit={self.refit!r}")
+                "to a scorer key or a callable to refit an estimator with "
+                "the best parameter setting on the whole data and make the "
+                "best_* attributes available for that metric. If this is "
+                "not needed, refit should be set to False explicitly. "
+                f"{self.refit!r} was passed.")
         config = self.config or TorchConfig()
         device = resolve_device(config)
         X = np.asarray(X)
@@ -136,12 +175,14 @@ class _BaseSearch:
             scorer_names)
         self.cv_results_ = results
 
-        refit_metric = self.refit if self.multimetric_ else "score"
+        refit_metric = (self.refit if self.multimetric_
+                        and isinstance(self.refit, str) else "score")
         if self.refit or not self.multimetric_:
-            self.best_index_ = int(
-                results[f"rank_test_{refit_metric}"].argmin())
-            self.best_score_ = results[
-                f"mean_test_{refit_metric}"][self.best_index_]
+            self.best_index_ = _select_best_index(self.refit, refit_metric,
+                                                  results)
+            if not callable(self.refit):
+                self.best_score_ = results[
+                    f"mean_test_{refit_metric}"][self.best_index_]
             self.best_params_ = results["params"][self.best_index_]
         if self.refit:
             best = _clone(self.estimator).set_params(**self.best_params_)
@@ -168,10 +209,7 @@ class _BaseSearch:
         dtype = np.float64 if use_f64 else np.float32
         data_np, meta = family.prepare_data(X, y, dtype=dtype)
         check_scoring_target(self.scoring, family, meta)
-        # sklearn's log_loss clips at its proba dtype's eps, and sklearn's
-        # LogisticRegression returns float64 probabilities whatever X's
-        # dtype (the reference resolves the same, grid.py:1251)
-        meta["logloss_clip_eps"] = float(np.finfo(np.float64).eps)
+        meta["logloss_clip_eps"] = _logloss_clip_eps(family, X.dtype)
         n_samples = X.shape[0]
         train_masks, test_masks = build_fold_masks(splits, n_samples,
                                                    dtype=dtype)

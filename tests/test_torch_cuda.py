@@ -2,7 +2,8 @@
 against their plain versions, and small searches, fits and scorer cores
 on cuda against the same on the CPU (logistic regression by L-BFGS and
 by FISTA, Ridge and LinearRegression in float64, ElasticNet, the 17
-scorers, SVC and NuSVC).  They skip where no card is visible.
+scorers, SVC and NuSVC, the tree ensembles, and the MLP and Pipeline
+searches).  They skip where no card is visible.
 
 This file imports neither JAX nor sklearn, so it also runs on a machine
 that has only PyTorch:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -15,6 +16,7 @@ import torch
 import spark_sklearn_tpu_torch as port
 from spark_sklearn_tpu_torch.models.linear import LogisticRegressionFamily
 from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
 from spark_sklearn_tpu_torch.ops import svm_kernels as svk
 from spark_sklearn_tpu_torch.ops import tree_kernels as tk
 from spark_sklearn_tpu_torch.search.scorers import SCORERS
@@ -610,3 +612,147 @@ def test_tree_search_on_cuda_matches_cpu(cuda_device, label):
                                runs["cpu"].cv_results_["mean_test_score"],
                                rtol=0, atol=tol)
     assert runs["cuda"].best_params_ == runs["cpu"].best_params_
+
+
+# ---------------------------------------------------------------------------
+# the MLP step's kernels (M1-M3) and the MLP and Pipeline searches
+# ---------------------------------------------------------------------------
+
+def _mlp_inputs(device, B=12, R=200, k=10, h=64, P=4874, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    t = {
+        "Z": 3.0 * torch.randn(B, R, k, generator=g),
+        "w": (torch.rand(B, R, generator=g) < 0.67).float(),
+        "y": torch.randint(0, k, (R,), generator=g, dtype=torch.int32),
+        "Yt": torch.randn(R, k, generator=g),
+        "A": torch.randn(B, R, h, generator=g),
+        "dH": torch.randn(B, R, h, generator=g),
+        "p": 0.3 * torch.randn(B, P, generator=g),
+        "g": 0.01 * torch.randn(B, P, generator=g),
+        "m": 0.01 * torch.randn(B, P, generator=g),
+        "v": 1e-4 * torch.rand(B, P, generator=g),
+        "t": torch.full((B,), 3.0),
+        "alpha": torch.logspace(-4, 0, B),
+        "wsum": 100.0 + torch.rand(B, generator=g),
+        "lr": torch.full((B,), 1e-3),
+        "loss": torch.rand(B, generator=g),
+        "acc": torch.rand(B, generator=g),
+    }
+    t["wmask"] = torch.arange(P) < P - 100
+    t["active"] = torch.arange(B) % 3 != 1
+    t["b"] = t["p"][:, :h]                   # a strided slice, as in the fit
+    return {name: v.to(device) for name, v in t.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regress", [False, True])
+@pytest.mark.parametrize("B,R,k", [(12, 200, 10), (3, 37, 2), (5, 300, 1),
+                                   (1, 1, 17)])
+def test_mlp_loss_grad_matches_plain(cuda_device, regress, B, R, k):
+    """Tolerance: rtol 1e-5 on the loss sums, atol 1e-6 on G; wsum equal.
+    Two launches give the same bits (no atomics)."""
+    t = _mlp_inputs(cuda_device, B=B, R=R, k=k)
+    kw = {"Yt": t["Yt"]} if regress else {"y": t["y"]}
+    got = mk.mlp_loss_grad(t["Z"], t["w"], **kw)
+    want = mk.mlp_loss_grad_plain(t["Z"], t["w"], t["y"] if not regress
+                                  else None, t["Yt"] if regress else None)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
+    again = mk.mlp_loss_grad(t["Z"], t["w"], **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adam", [True, False])
+def test_mlp_opt_step_matches_plain(cuda_device, adam):
+    """Tolerance: rtol 1e-5, atol 1e-7 on p, m, v; acc rtol 1e-5;
+    inactive lanes keep every bit."""
+    t = _mlp_inputs(cuda_device)
+    outs = []
+    for fn in (mk.mlp_opt_step, mk.mlp_opt_step_plain):
+        s = {k: t[k].clone() for k in ("p", "m", "v", "t", "acc")}
+        fn(s["p"], t["g"], s["m"], s["v"] if adam else None,
+           s["t"] if adam else None, t["wmask"], t["alpha"], t["wsum"],
+           t["lr"], t["active"], t["loss"], s["acc"], adam=adam)
+        outs.append(s)
+    got, want = outs
+    for name in ("p", "m", "v"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-5,
+                                   atol=1e-7)
+    torch.testing.assert_close(got["acc"], want["acc"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got["t"], want["t"], rtol=0, atol=0)
+    off = ~t["active"]
+    assert torch.equal(got["p"][off], t["p"][off])
+    assert torch.equal(got["acc"][off], t["acc"][off])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "tanh", "logistic", "identity"])
+def test_mlp_act_matches_plain(cuda_device, act):
+    """Forward rtol 1e-6 (tanh/logistic: the card's expf and tanhf),
+    backward atol 1e-6."""
+    t = _mlp_inputs(cuda_device)
+    H = mk.mlp_act_forward(t["A"], t["b"], act)
+    torch.testing.assert_close(H, mk.mlp_act_forward_plain(
+        t["A"], t["b"], act), rtol=1e-6, atol=1e-6)
+    dA = mk.mlp_act_backward(t["dH"], H, act)
+    torch.testing.assert_close(dA, mk.mlp_act_backward_plain(
+        t["dH"], H, act), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_mlp_wrappers_raise_instead_of_falling_back(cuda_device):
+    t = _mlp_inputs(cuda_device)
+    with pytest.raises(TypeError):
+        mk.mlp_loss_grad(t["Z"], t["w"], y=t["y"].long())
+    with pytest.raises(ValueError):
+        mk.mlp_loss_grad(t["Z"], t["w"].cpu(), y=t["y"])
+    with pytest.raises(ValueError):
+        mk.mlp_act_forward(t["A"], t["b"].t(), "relu")
+    with pytest.raises(TypeError):
+        mk.mlp_opt_step(t["p"], t["g"], t["m"], t["v"], t["t"],
+                        t["wmask"].float(), t["alpha"], t["wsum"], t["lr"],
+                        t["active"], t["loss"], t["acc"], adam=True)
+
+
+def _digits_like(n=600, d=16, k=4, seed=0):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, k, n)
+    X = rng.standard_normal((k, d))[y] + rng.standard_normal((n, d))
+    return X.astype(np.float32), y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["classifier", "regressor", "svc"])
+def test_pipeline_search_on_cuda_matches_cpu(cuda_device, kind):
+    """StandardScaler + MLPClassifier / MLPRegressor / SVC, the port's own
+    classes: mean_test_score within 5e-3 (the repo's oracle bound), the
+    same best candidate, M1-M3 launched on the card only (MLPs), and the
+    refit pipeline predicting on the card."""
+    X, y = _digits_like()
+    if kind == "regressor":
+        y = (X[:, 0] - 0.5 * X[:, 1] ** 2).astype(np.float32)
+    final = {"classifier": port.MLPClassifier(
+                 hidden_layer_sizes=(32,), max_iter=15, random_state=0),
+             "regressor": port.MLPRegressor(
+                 hidden_layer_sizes=(32,), max_iter=15,
+                 learning_rate_init=0.01, random_state=0),
+             "svc": port.SVC()}[kind]
+    grid = ({"f__C": [0.5, 2.0]} if kind == "svc"
+            else {"f__alpha": [1e-4, 1e-1]})
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mk.reset_launches()
+        pipe = port.Pipeline([("scale", port.StandardScaler()),
+                              ("f", final)])
+        runs[dev] = port.GridSearchCV(
+            pipe, grid, cv=3, config=port.TorchConfig(device=dev)).fit(X, y)
+        if kind != "svc":
+            assert all(v > 0 for v in mk.LAUNCHES.values()) == \
+                (dev == "cuda")
+    np.testing.assert_allclose(runs["cuda"].cv_results_["mean_test_score"],
+                               runs["cpu"].cv_results_["mean_test_score"],
+                               rtol=0, atol=5e-3)
+    assert runs["cuda"].best_params_ == runs["cpu"].best_params_
+    assert runs["cuda"].best_estimator_.predict(X[:7]).shape == (7,)

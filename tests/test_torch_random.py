@@ -50,6 +50,24 @@ def test_uniform_bitwise(seed, shape):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("bounds", [
+    (-np.sqrt(np.float32(6.0 / 74.0), dtype=np.float32),
+     np.sqrt(np.float32(6.0 / 74.0), dtype=np.float32)),
+    (-2.0, 5.0), (1.5, 1.75)], ids=str)
+def test_uniform_minval_maxval_bitwise(seed, bounds):
+    """The scale-and-shift (the MLP's Glorot init, first bounds) as XLA's
+    CPU backend computes it, one FMA."""
+    lo, hi = bounds
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (1001,),
+                                         minval=lo, maxval=hi))
+    got = jr.uniform(jr.PRNGKey(seed), (1001,), minval=lo,
+                     maxval=hi).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert got.min() >= np.float32(lo) and got.max() <= np.float32(hi)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("shape", SHAPES + [(20000,)], ids=str)
 def test_poisson_one_bitwise(seed, shape):
     want = np.asarray(jax.random.poisson(jax.random.PRNGKey(seed), 1.0,

@@ -172,3 +172,71 @@ def test_unported_estimator_and_bad_multimetric_refit_raise(digits):
         port.GridSearchCV(port.LogisticRegression(), {"C": [1.0]},
                           scoring=["accuracy", "neg_log_loss"],
                           config=CPU).fit(X[:90], y[:90])
+
+
+# ---------------------------------------------------------------------------
+# the search core's repairs: a callable refit, and a refit the estimator
+# cannot run here refused before any fit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("scoring", [None, ["accuracy", "neg_log_loss"]])
+def test_callable_refit_picks_its_index(digits, scoring):
+    """As sklearn's: the callable gets cv_results_, its index is the best
+    candidate, best_score_ stays unset; a non-integer or an index out of
+    range raises."""
+    X, y = digits
+    X, y = X[:150], y[:150]
+    seen = []
+
+    def pick(results):
+        seen.append(len(results["params"]))
+        return 2
+
+    gs = port.GridSearchCV(port.LogisticRegression(max_iter=20), GRID,
+                           cv=3, scoring=scoring, refit=pick,
+                           config=CPU).fit(X, y)
+    assert seen == [len(GRID["C"])]
+    assert gs.best_index_ == 2
+    assert gs.best_params_ == {"C": GRID["C"][2]}
+    assert not hasattr(gs, "best_score_")
+    assert gs.best_estimator_.C == GRID["C"][2]
+    with pytest.raises(TypeError):
+        port.GridSearchCV(port.LogisticRegression(max_iter=20), GRID, cv=3,
+                          scoring=scoring, refit=lambda r: 1.5,
+                          config=CPU).fit(X, y)
+    with pytest.raises(IndexError):
+        port.GridSearchCV(port.LogisticRegression(max_iter=20), GRID, cv=3,
+                          scoring=scoring, refit=lambda r: 9,
+                          config=CPU).fit(X, y)
+
+
+@pytest.mark.parametrize("in_pipeline", [False, True])
+def test_unrefittable_holder_raises_before_any_fit(diabetes, monkeypatch,
+                                                   in_pipeline):
+    """The port's tree holders have no fit of their own: refit=True is
+    refused before the search fits anything (alone or as a Pipeline's
+    final step); refit=False searches."""
+    from spark_sklearn_tpu_torch.models.trees import (
+        GradientBoostingRegressorFamily,
+    )
+    calls = []
+    real = GradientBoostingRegressorFamily.fit_task_batched.__func__
+
+    def counted(cls, *args, **kw):
+        calls.append(1)
+        return real(cls, *args, **kw)
+
+    monkeypatch.setattr(GradientBoostingRegressorFamily, "fit_task_batched",
+                        classmethod(counted))
+    est = port.GradientBoostingRegressor(n_estimators=2, max_depth=2)
+    grid = {"learning_rate": [0.1, 0.2]}
+    if in_pipeline:
+        est = port.Pipeline([("scale", port.StandardScaler()), ("gb", est)])
+        grid = {"gb__learning_rate": [0.1, 0.2]}
+    X, y = diabetes[0][:90], diabetes[1][:90]
+    with pytest.raises(NotImplementedError, match="refit"):
+        port.GridSearchCV(est, grid, cv=3, config=CPU).fit(X, y)
+    assert calls == []
+    gs = port.GridSearchCV(est, grid, cv=3, refit=False,
+                           config=CPU).fit(X, y)
+    assert calls and np.isfinite(gs.cv_results_["mean_test_score"]).all()
