@@ -8,7 +8,9 @@ host over the call falls on both trees alike.  Each run's
 and `.log`; the script then prints each phase's warm search wall (s) of
 the four runs, the parent's spread (its two runs' max - min) and the
 change's mean minus the parent's, and marks a phase "outside" where
-that difference is larger than the parent's spread.
+that difference is larger than the parent's spread; then, for the tree
+searches, each run's device busy time and cuda-against-cpu max |d
+mean_test_score|.
 
     python3 chip_pairs.py --parent .scratch/parent --change .
 
@@ -47,6 +49,17 @@ def warm_walls(d: dict) -> dict:
     return w
 
 
+TREE_SEARCHES = [("gb", "regressor"), ("gb", "classifier"),
+                 ("rf", "classifier"), ("rf", "regressor")]
+
+
+def tree_rows(d: dict) -> dict:
+    """{search: (device busy s, cuda-against-cpu max |d score|)}."""
+    return {f"[{9 if ph == 'gb' else 10}] {ph}_{kind}": (
+        d[ph][kind]["device_busy_s"], d[ph][kind]["check"]["max_abs"])
+        for ph, kind in TREE_SEARCHES}
+
+
 def run(tree: str, label: str, i: int) -> dict:
     """Run `tree`'s chip_smoke.py; keep its JSON and output."""
     t0 = time.perf_counter()
@@ -78,8 +91,11 @@ def main() -> int:
     order = [("parent", args.parent), ("change", args.change),
              ("change", args.change), ("parent", args.parent)]
     walls = {"parent": [], "change": []}
+    trees = {"parent": [], "change": []}
     for i, (label, tree) in enumerate(order, 1):
-        walls[label].append(warm_walls(run(tree, label, i)))
+        d = run(tree, label, i)
+        walls[label].append(warm_walls(d))
+        trees[label].append(tree_rows(d))
     phases = list(walls["change"][0])
     print(f"\n{'phase':24s} {'parent 1':>10s} {'change 1':>10s} "
           f"{'change 2':>10s} {'parent 2':>10s} {'spread':>8s} "
@@ -97,6 +113,13 @@ def main() -> int:
         diff = sum(chg) / 2 - sum(par) / 2
         mark = "" if abs(diff) <= spread else "  outside"
         print(f"{p:24s} {text} {spread:8.4f} {diff:+14.4f}{mark}")
+    print(f"\n{'search':24s} {'busy s, |d score|: parent 1':>30s} "
+          f"{'change 1':>22s} {'change 2':>22s} {'parent 2':>22s}")
+    for p in trees["change"][0]:
+        cells = [trees["parent"][0][p], trees["change"][0][p],
+                 trees["change"][1][p], trees["parent"][1][p]]
+        print(f"{p:24s} " + " ".join(f"{b:10.4f} s, {x:9.3g}"
+                                     for b, x in cells))
     return 0
 
 

@@ -81,9 +81,16 @@ staged plan, and the streamed one forced for its time) against their
 plain versions at phase 8's shapes (n=10000, d=784; 225 subproblem rows
 of 10000) and on a fold of phase 11's scaler + SVC path (n=2000, 45
 rows), and the tree grower's T1 (level histogram), T2 (split
-choice), T3 (routing and the walk) and T4 (leaf values) at phase 9's
-(60 lanes, n=20640, d=8, depth 5) and phase 10's (6 lanes, n=100000,
-d=54, depth 10) shapes, with `index_add_` timed beside T1 and T4, and
+choice), T3 (routing and the walk), T4 (leaf values) and G (their
+grouping of rows by node) at phase 9's (60 lanes, n=20640, d=8, depth 5)
+and phase 10's (6 lanes, n=100000, d=54, depth 10) shapes: T1 at the
+root and the deepest level, uniform and skewed (half the rows in one
+node, a quarter in the next, ...), T4 uniform, skewed and at one node a
+lane (the boosting init), each `torch.equal` to its plain version on CPU
+copies of the inputs, timed alone and with its grouping, beside
+`index_add_` (T1, T4), `torch.sort` (G), its byte bound and its order
+bound (the longest chain of one sum x 4 clocks at the SM clock read
+under load); and
 the MLP step's M1 (loss and cotangent), M2 (adam step; `torch.
 _fused_adam_` timed beside it) and M3 (bias and activation, forward and
 backward) at every shape phase 11 gives them: the BASELINE #5 step
@@ -1267,12 +1274,14 @@ def covtype_like(seed: int, n: int = N_RF):
 
 
 def tree_level_inputs(codes, lanes: int, n_nodes: int, stats_kind: str,
-                      seed: int):
+                      seed: int, skew: bool = False):
     """One level's T1/T3 inputs on the card at a path's shape: each of
     `lanes` lanes takes about 2/3 of the rows (a fold) with forest stats
     (Poisson(1) counts x the fold, one-hot targets of 7 classes: S = 8,
     integers) or boosting stats (the fold, continuous gradients: S = 2),
-    the rows spread over `n_nodes` nodes."""
+    the rows spread uniformly over `n_nodes` nodes, or with `skew` as a
+    grown tree's are: half the rows in node 0, a quarter in node 1, and
+    so on (the last node takes the rest)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     n = codes.shape[0]
@@ -1288,28 +1297,58 @@ def tree_level_inputs(codes, lanes: int, n_nodes: int, stats_kind: str,
         w = fold
         grad = torch.randn((lanes, n), generator=g, device="cuda")
         stats = torch.stack([w, w * grad], dim=2)
-    local = torch.randint(0, n_nodes, (lanes, n), generator=g,
-                          device="cuda", dtype=torch.int32)
+    if skew:
+        u = torch.rand((lanes, n), generator=g, device="cuda")
+        local = torch.floor(-torch.log2(1.0 - u)).clamp_max(
+            n_nodes - 1).to(torch.int32)
+    else:
+        local = torch.randint(0, n_nodes, (lanes, n), generator=g,
+                              device="cuda", dtype=torch.int32)
     local = torch.where(w > 0, local, torch.full_like(local, -1))
     return local, stats.contiguous()
 
 
+def sm_clock_under_load(fn, seconds: float = 1.0) -> float:
+    """The SM clock (MHz) nvidia-smi reads while `fn` runs back to back on
+    the card for about `seconds`."""
+    import torch
+    reps = max(1, int(seconds / (cuda_ms(fn, reps=3, warmup=1) * 1e-3)))
+    for _ in range(reps):
+        fn()                       # queued: the card runs while smi reads
+    mhz = float(nvidia_smi("clocks.sm").split()[0])
+    torch.cuda.synchronize()
+    return mhz
+
+
 def tree_symbol(name: str) -> str:
+    """The part of the mangled names of `name`'s CUDA kernels (the
+    grouping's three: group_count, group_scan, group_scatter)."""
     return {"tree_level_hist": "level_hist", "tree_best_split": "best_split",
-            "tree_route": "route_rows", "tree_leaf_values": "leaf_sums"
-            }[name]
+            "tree_route": "route_rows", "tree_leaf_values": "leaf_sums",
+            "tree_segments": "group_"}[name]
 
 
 def phase_tree_kernels(seed: int, ptxas: dict):
     """T1-T4 against their plain versions at phase 9's (boosting,
     n=20640, d=8, 60 lanes, depth 5) and phase 10's (forest, n=100000,
     d=54, 6 lanes, depth 10) shapes, each a chunk's lanes as the searches
-    run them: the root and the deepest level.
-    Integer (forest) stats: equal; boosting stats: rtol 1e-5 on sums, and
-    T2's feature and bin equal where the two best gains differ by more
-    than 1e-5 relative.  Two launches give the same bits.  Times (CUDA
-    events), plain times, `index_add_` times (T1, T4: one call a stat)
-    and byte bounds.  Returns {(name, shape label): row}."""
+    run them: T1 at the root and the deepest level, the latter also with
+    a skewed population (half the rows in one node, a quarter in the next,
+    ...); T2 and T3 on the uniform levels; T4 at the final level, uniform
+    and skewed, and (boosting) at one node a lane, as the boosting init
+    calls it.
+    T1 and T4 are held `torch.equal` to their plain versions run on CPU
+    copies of the inputs (the kernels add in the CPU's row order: forest
+    and boosting stats alike); T2 and T3 as before (forest equal;
+    boosting gains rtol 1e-4 and T2's feature and bin equal where the
+    two best gains differ by more than 1e-5 relative).  Two launches give
+    the same bits.  Times (CUDA events): for T1 and T4 the kernel alone on
+    rows already grouped and the wrapper with its grouping; the plain
+    versions on the card, `index_add_` (T1, T4: one call a stat, ids
+    built beforehand), the byte bound and, for T1 and T4, the order bound:
+    the longest chain of one sum (a cell's or a node's rows) x 4 clocks
+    (one dependent add) at the SM clock read under load.  Returns
+    {(name, shape label): row}."""
     import torch
 
     from spark_sklearn_tpu_torch.ops import tree_kernels as tk
@@ -1323,7 +1362,7 @@ def phase_tree_kernels(seed: int, ptxas: dict):
     }
 
     def record(name, label, got, want, exact, ms, plain_ms, lib_ms, nbytes,
-               ops, extra=None, rtol=1e-5, atol=1e-5):
+               ops, extra=None, rtol=1e-5, atol=1e-5, symbol=None):
         errs = [float(torch.nan_to_num(a.float() - b.float()).abs().max())
                 if a.numel() else 0.0 for a, b in zip(got, want)]
         for a, b in zip(got, want):
@@ -1340,18 +1379,25 @@ def phase_tree_kernels(seed: int, ptxas: dict):
                                      f"plain version: max abs err {errs}")
         bound_ms, bound_by = bound(nbytes, ops)
         regs, spill = next((v for f, v in ptxas.items()
-                            if tree_symbol(name) in f), (None, None))
+                            if (symbol or tree_symbol(name)) in f),
+                           (None, None))
         rows[(name, label)] = {
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "ops": ops,
             "registers": regs, "spill_bytes": spill, **(extra or {})}
         lib = f", index_add_ {lib_ms:.4f} ms" if lib_ms is not None else ""
-        print(f"  {name:16s} {label:10s}: {ms:.4f} ms (plain "
+        more = ""
+        if extra and "wrapper_ms" in extra:
+            more = (f", wrapper {extra['wrapper_ms']:.4f} ms, order bound "
+                    f"{extra['order_bound_ms']:.4f} ms (chain "
+                    f"{extra['chain']}), cpu plain "
+                    f"{extra['cpu_plain_s']:.2f} s")
+        print(f"  {name:16s} {label:14s}: {ms:.4f} ms (plain "
               f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms by "
-              f"{bound_by}, bound/time {bound_ms / ms:.3f}), max abs err "
-              f"{max(errs):.3g}, bitwise repeatable; {regs} registers, "
-              f"{spill} bytes spilled")
+              f"{bound_by}, bound/time {bound_ms / ms:.3f}{more}), max abs "
+              f"err {max(errs):.3g}, bitwise repeatable; {regs} registers, "
+              f"{spill} bytes spilled", flush=True)
 
     def repeat(fn, name):
         a, b = fn(), fn()
@@ -1361,10 +1407,9 @@ def phase_tree_kernels(seed: int, ptxas: dict):
             raise AssertionError(f"{name}: two launches differ")
         return a
 
-    def index_add_ms(local, stats, n_seg, ids_fn):
+    def index_add_ms(local, stats, n_seg, ids):
         """One `index_add_` a stat into a zeroed (n_seg,) vector."""
         live = local >= 0
-        ids = ids_fn(live)
         vals = [stats[..., s][live] for s in range(stats.shape[2])]
         if ids.numel() != vals[0].numel():
             vals = [v[:, None].expand(-1, ids.numel() // v.numel()
@@ -1375,40 +1420,85 @@ def phase_tree_kernels(seed: int, ptxas: dict):
                 torch.zeros(n_seg, device="cuda").index_add_(0, ids, v)
         return cuda_ms(run, reps=5, warmup=1)
 
+    def on_cpu(fn, *args):
+        """fn on CPU copies of `args`, back on the card, and its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                   for a in args])
+        return out.to("cuda"), time.perf_counter() - t0
+
+    def record_segments(lab, local, n_nodes, perm, offs):
+        """The grouping against `segments_plain` on CPU copies (equal);
+        `torch.sort` of the same keys (stable) as the library call."""
+        L = local.shape[0]
+        want = on_cpu(lambda lo: torch.cat(tk.segments_plain(lo, n_nodes)),
+                      local)[0]
+        key = (torch.where(local >= 0, local, n_nodes) + torch.arange(
+            L, dtype=torch.int32, device="cuda")[:, None] * (n_nodes + 1)
+               ).reshape(-1)
+        record("tree_segments", lab, (torch.cat((perm, offs)),), (want,),
+               True, cuda_ms(lambda: tk.segments(local, n_nodes)),
+               cuda_ms(lambda: tk.segments_plain(local, n_nodes), reps=5,
+                       warmup=1),
+               cuda_ms(lambda: torch.sort(key, stable=True), reps=5,
+                       warmup=1),
+               local.nbytes + perm.nbytes + offs.nbytes, 0,
+               {"lanes": L, "n_nodes": n_nodes},
+               symbol="group_scatter")
+
+    sm_mhz = None
     for label, (codes_np, L, depth, kind) in shapes.items():
         codes = torch.as_tensor(codes_np, device="cuda")
         n, d = codes.shape
-        exact = kind == "forest"
-        for n_nodes in (1, 2 ** (depth - 1)):
+        lane = torch.arange(L, device="cuda")[:, None]
+        deep = 2 ** (depth - 1)
+        for n_nodes, skew in ((1, False), (deep, False), (deep, True)):
             local, stats = tree_level_inputs(codes, L, n_nodes, kind,
-                                             seed + n_nodes)
+                                             seed + n_nodes, skew)
             S = stats.shape[2]
-            lab = f"{label}/{n_nodes}"
+            lab = f"{label}/{n_nodes}" + (" skew" if skew else "")
+            perm, offs = repeat(lambda: tk.segments(local, n_nodes),
+                                "tree_segments")
+            record_segments(lab, local, n_nodes, perm, offs)
+            if sm_mhz is None:
+                sm_mhz = sm_clock_under_load(
+                    lambda: tk.level_histogram_grouped(codes, perm, offs,
+                                                       stats, n_nodes))
+                print(f"  SM clock under T1's load: {sm_mhz:.0f} MHz")
             hist = repeat(lambda: tk.level_histogram(codes, local, stats,
                                                      n_nodes),
                           "tree_level_hist")[0]
-            want = tk.level_histogram_plain(codes, local, stats, n_nodes)
-            m = int((local >= 0).sum())
-            lane = torch.arange(L, device="cuda")[:, None]
-
-            def hist_ids(live):
-                seg = (lane * n_nodes + local.long())[live]
-                rows_ = torch.nonzero(live)[:, 1]
-                return ((seg[:, None] * d + torch.arange(d, device="cuda"))
-                        * 256 + codes[rows_].long()).reshape(-1)
-            record("tree_level_hist", lab, (hist,), (want,), exact,
-                   cuda_ms(lambda: tk.level_histogram(codes, local, stats,
-                                                      n_nodes), reps=10),
+            want, cpu_s = on_cpu(tk.level_histogram_plain, codes, local,
+                                 stats, n_nodes)
+            live = local >= 0
+            m = int(live.sum())
+            seg = (lane * n_nodes + local.long())[live]
+            ids = ((seg[:, None] * d + torch.arange(d, device="cuda"))
+                   * 256 + codes[torch.nonzero(live)[:, 1]].long()
+                   ).reshape(-1)
+            chain = int(torch.bincount(ids).max())
+            plan = tk.hist_plan(d, S, 256, L, n_nodes, 132)
+            record("tree_level_hist", lab, (hist,), (want,), True,
+                   cuda_ms(lambda: tk.level_histogram_grouped(
+                       codes, perm, offs, stats, n_nodes), reps=10),
                    cuda_ms(lambda: tk.level_histogram_plain(
                        codes, local, stats, n_nodes), reps=3, warmup=1),
-                   index_add_ms(local, stats, L * n_nodes * d * 256,
-                                hist_ids),
+                   index_add_ms(local, stats, L * n_nodes * d * 256, ids),
                    codes.nbytes + local.nbytes + stats.nbytes + hist.nbytes,
-                   m * d * S, {"entries": m * d, "lanes": L,
-                               "n_nodes": n_nodes, "S": S,
-                               "plan": tk.hist_plan(d, S, 256, L, n_nodes,
-                                                    132)})
-            del want
+                   m * d * S, {
+                       "entries": m * d, "lanes": L, "n_nodes": n_nodes,
+                       "S": S, "plan": plan,
+                       "wrapper_ms": cuda_ms(lambda: tk.level_histogram(
+                           codes, local, stats, n_nodes), reps=10),
+                       "chain": chain,
+                       "order_bound_ms": chain * 4 / (sm_mhz * 1e3),
+                       "sm_mhz": sm_mhz, "cpu_plain_s": cpu_s},
+                   symbol=f"level_histILi{plan['vw']}E")
+            del want, ids, seg
+            if skew:
+                del hist
+                continue
+            exact = kind == "forest"
             fmask = None
             if kind == "forest" and n_nodes > 1:
                 g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1479,22 +1569,43 @@ def phase_tree_kernels(seed: int, ptxas: dict):
                    codes.nbytes + 2 * (node.nbytes + frozen.nbytes)
                    + sf.nbytes + got[1].nbytes, 3 * L * n)
             del got, want
-        # T4 at the final level and T3's walk of a whole tree
+        # T4 at the final level (uniform, skewed) and, for boosting, at
+        # one node a lane (the init); T3's walk of a whole tree
         M = 2 ** (depth + 1) - 1
+        lam = 1e-9 if kind == "forest" else 1e-6
+        cases = [(M, False), (M, True)] + ([(1, False)] if kind ==
+                                           "boosting" else [])
+        for n_nodes, skew in cases:
+            local, stats = tree_level_inputs(codes, L, n_nodes, kind,
+                                             seed + 7, skew)
+            lab = f"{label}/{n_nodes}" + (" skew" if skew else "")
+            perm, offs = repeat(lambda: tk.segments(local, n_nodes),
+                                "tree_segments")
+            record_segments(lab, local, n_nodes, perm, offs)
+            val = repeat(lambda: tk.leaf_values(local, stats, n_nodes, lam),
+                         "tree_leaf_values")[0]
+            val_p, cpu_s = on_cpu(tk.leaf_values_plain, local, stats,
+                                  n_nodes, lam)
+            ids = (lane * n_nodes + local.long())[local >= 0]
+            chain = int(torch.bincount(ids).max())
+            record("tree_leaf_values", lab, (val,), (val_p,), True,
+                   cuda_ms(lambda: tk.leaf_values_grouped(
+                       perm, offs, stats, n_nodes, lam)),
+                   cuda_ms(lambda: tk.leaf_values_plain(local, stats,
+                                                        n_nodes, lam),
+                           reps=5, warmup=1),
+                   index_add_ms(local, stats, L * n_nodes, ids),
+                   local.nbytes + stats.nbytes + val.nbytes,
+                   L * n * stats.shape[2], {
+                       "lanes": L, "n_nodes": n_nodes,
+                       "wrapper_ms": cuda_ms(lambda: tk.leaf_values(
+                           local, stats, n_nodes, lam)),
+                       "chain": chain,
+                       "order_bound_ms": chain * 4 / (sm_mhz * 1e3),
+                       "sm_mhz": sm_mhz, "cpu_plain_s": cpu_s,
+                       "plan": tk.leaf_plan(stats.shape[2], L, n_nodes)})
         local, stats = tree_level_inputs(codes, L, M, kind, seed + 7)
-        lam = 1e-9 if exact else 1e-6
-        val = repeat(lambda: tk.leaf_values(local, stats, M, lam),
-                     "tree_leaf_values")[0]
-        val_p = tk.leaf_values_plain(local, stats, M, lam)
-        lane = torch.arange(L, device="cuda")[:, None]
-        record("tree_leaf_values", f"{label}/{M}", (val,), (val_p,), exact,
-               cuda_ms(lambda: tk.leaf_values(local, stats, M, lam)),
-               cuda_ms(lambda: tk.leaf_values_plain(local, stats, M, lam),
-                       reps=5, warmup=1),
-               index_add_ms(local, stats, L * M,
-                            lambda live: (lane * M + local.long())[live]),
-               local.nbytes + stats.nbytes + val.nbytes,
-               L * n * stats.shape[2])
+        val = tk.leaf_values(local, stats, M, lam)
         g = torch.Generator(device="cuda").manual_seed(seed + 9)
         feat = torch.randint(0, d, (L, M), generator=g, device="cuda",
                              dtype=torch.int32)
@@ -1517,8 +1628,7 @@ def phase_tree_kernels(seed: int, ptxas: dict):
                        reps=5, warmup=1), None,
                codes.nbytes + feat.nbytes + thr.nbytes + leaf.nbytes
                + val.nbytes + 2 * out0.nbytes, L * n * (2 * depth + 2))
-        del codes, local, stats, val, val_p, out0, work
-        torch.cuda.empty_cache()
+        del codes, local, stats, val, out0, work
     return rows
 
 
@@ -1592,10 +1702,23 @@ def run_tree_search(label, run, n_fits, n_trees_of, key, min_score):
           f"trees), peak memory {peak / 2**20:.1f} MiB, launches {launches}"
           f"; best {gs.cv_results_['params'][best]} {key} "
           f"{best_score:.4f}")
-    busy = profile_busy(run, warm, 1, f"chip_smoke_{label}.txt")
+    busy, by_name = profile_busy(run, warm, 1, f"chip_smoke_{label}.txt",
+                                 with_kernels=True)
+    per_kernel = {}
+    for name in tk.LAUNCHES:
+        ns, count = (sum(v[i] for k, v in by_name.items()
+                         if tree_symbol(name) in k) for i in (0, 1))
+        per_kernel[name] = {"launches": count,
+                            "ms_per_launch": ns / 1e6 / max(count, 1),
+                            "share_of_busy": ns / 1e9 / busy if busy else
+                            None}
     print(f"    busy {busy / trees * 1e3:.4f} ms a tree, idle share "
-          f"{1 - busy / warm:.4f}")
+          f"{1 - busy / warm:.4f}; " + ", ".join(
+              f"{tree_symbol(k)} {v['launches']}x "
+              f"{v['ms_per_launch']:.4f} ms ({v['share_of_busy'] or 0:.3f}"
+              f" of busy)" for k, v in per_kernel.items()))
     return {"cold_s": cold, "warm_s": warm, "fits_per_s": n_fits / warm,
+            "profile_kernels": per_kernel,
             "trees": trees, "busy_ms_per_tree": busy / trees * 1e3,
             "device_busy_s": busy, "idle_share": 1 - busy / warm,
             "peak_bytes": peak, "launches": launches,
@@ -2290,6 +2413,7 @@ def main() -> int:
         "tree_route": ("spark_sklearn_tpu/ops/trees.py:129", "rf/512"),
         "tree_leaf_values": ("spark_sklearn_tpu/ops/trees.py:142",
                              "rf/2047"),
+        "tree_segments": ("spark_sklearn_tpu/ops/trees.py:70", "rf/512"),
     }
     tree_paths = {"rf_classifier": rf_run["classifier"],
                   "rf_regressor": rf_run["regressor"],
@@ -2309,11 +2433,19 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            **({k: head[k] for k in ("wrapper_ms", "order_bound_ms")}
+               if "wrapper_ms" in head else {}),
             "registers": head["registers"],
             "spill_bytes": head["spill_bytes"],
-            "tolerance": ("forest stats equal; boosting sums rtol 1e-5, "
-                          "gains rtol 1e-4 and the same split where the "
-                          "two best gains differ by > 1e-5 relative"),
+            "tolerance": (
+                "equal to the plain version on CPU copies of the inputs "
+                "(forest and boosting stats)" if name in (
+                    "tree_level_hist", "tree_leaf_values") else
+                "equal to the plain version on CPU copies (integers)"
+                if name == "tree_segments" else
+                "forest stats equal; boosting gains rtol 1e-4 and the "
+                "same split where the two best gains differ by > 1e-5 "
+                "relative" if name == "tree_best_split" else "equal"),
             "shape": main_shape,
             "by_shape": {key[1]: {k: v for k, v in r.items()
                                   if k not in ("plan",)}

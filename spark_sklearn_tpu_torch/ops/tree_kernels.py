@@ -1,6 +1,6 @@
-"""The histogram tree grower's four device passes (T1-T4), each as a
-hand-written CUDA kernel (``csrc/tree_hist.cu``) with its plain PyTorch
-version beside it.  They replace the level body and the leaf sums of
+"""The histogram tree grower's four device passes (T1-T4) and T1's and
+T4's grouping of rows by node (G), each as a hand-written CUDA kernel
+(``csrc/tree_hist.cu``) with its plain PyTorch version beside it.  They replace the level body and the leaf sums of
 `spark_sklearn_tpu/ops/trees.py` `grow_tree` (:42-148), its
 `predict_tree` (:151-163) and the families' accumulation of a tree's
 prediction (`spark_sklearn_tpu/models/trees.py:175-177, 257-261,
@@ -27,6 +27,10 @@ prediction (`spark_sklearn_tpu/models/trees.py:175-177, 257-261,
   compiled fit).
 - T4 `leaf_values(local, stats, n_nodes, reg_lambda)` -> (L, n_nodes,
   S - 1): per lane and node, ``-Σ w·g / (Σ w·h + λ)`` (trees.py:142-147).
+- G `segments(local, n_nodes)` -> (perm, offs): each lane's rows grouped
+  by node, in row order within a node (the plain version a stable sort,
+  `segments_plain`).  `level_histogram_grouped` and `leaf_values_grouped`
+  launch T1 and T4 on rows already grouped.
 
 Shapes: codes (n, d) uint8 bin codes shared by the lanes; local, node
 (L, n) int32; frozen (L, n) bool; stats (L, n, S) float32; a tree's
@@ -38,12 +42,22 @@ a wrapper's calls on the card (plain runs are not counted).
 
 Order of the sums.  The plain versions add as the reference does on the
 CPU: `index_add_` adds each node's rows in row order, and `cumsum_bins`
-scans the bins in XLA's order.  On the card T1 and T4 first group each
-lane's taking-part rows by node (a stable sort of the (lane, node)
-keys, so a node's rows keep their order) and each sum walks them in that
-order, and T2 scans the bins in XLA's order too: the kernels give the
-plain versions' bits on the CPU (and the same bits launch after launch),
-so a tie between two splits breaks the same way on both devices.
+scans the bins in XLA's order.  The kernels keep that order, so they give
+the plain versions' bits on the CPU (and the same bits launch after
+launch), and a tie between two splits breaks the same way on both
+devices.  T1 and T4 first group each lane's taking-part rows by node
+(`segments`: on the card a counting sort, `tree_segments`, stable, so a
+node's rows keep their order).  The order binds each sum alone, not a
+whole column, and what bounds T1 and T4 at the shallow levels is the
+longest chain of one cell (a one-hot column's hot bin, a big leaf), one
+dependent add a row, and the 32-row batches a warp takes one after
+another.  T1 finds the rows of a batch that share a cell by ballots on
+the code bits and adds them in order: a one-hot batch's two cells in
+registers, a lane a stat; small groups in rounds by rank; big ones by
+their lowest lane.  At the deep levels T1 is bound by the bytes of the
+histogram it writes.  T4 runs one chain a (node, stat), fed from shared
+memory that `cp.async` fills two tiles ahead, so its loads stay off the
+chain.  T2 scans the bins in XLA's order.
 """
 
 from __future__ import annotations
@@ -57,20 +71,34 @@ from spark_sklearn_tpu_torch.ops import _build
 
 #: kernel name -> number of launches in this process
 LAUNCHES = {"tree_level_hist": 0, "tree_best_split": 0, "tree_route": 0,
-            "tree_leaf_values": 0}
+            "tree_leaf_values": 0, "tree_segments": 0}
 
-#: shared memory for T1's histogram tile in one block (three blocks fit
-#: an SM's 228 KB)
-HIST_SMEM_BYTES = 64 * 1024
+#: shared memory for T1's histogram tile in one block (three blocks, with
+#: their staged rows, fit an SM's 228 KB)
+HIST_SMEM_BYTES = 48 * 1024
 #: the most dynamic shared memory a block takes on an H100 (227 KB)
 MAX_SMEM = 232448
 #: T1 narrows its feature tiles until a launch has about this many
 #: blocks per SM (few nodes: the shallow levels)
 HIST_BLOCKS_PER_SM = 4
-#: rows T1 stages in shared memory at a time (two buffers), and the
-#: threads that stage them, as `kRowTile` and `kLoaders`
+#: rows T1 stages a tile (a loader thread each), the tiles in shared
+#: memory and the most warps that add features (one each), as
+#: `kRowTile`, `kLoaders`, `kStages` and `kColWarps`
 ROW_TILE = 128
-HIST_LOADERS = 128
+HIST_LOADERS = ROW_TILE
+HIST_STAGES = 3
+HIST_WARPS = 6
+#: T4's tile of rows a (node, stat) chain takes from shared memory, a
+#: stat's row padded for 16-byte loads, and the tiles in shared memory, as
+#: `kLeafRows`, `kLeafPad` and `kLeafStages`
+LEAF_ROWS = 128
+LEAF_PAD = LEAF_ROWS + 4
+LEAF_STAGES = 3
+#: rows a block of the grouping counts and scatters, and the most shared
+#: memory its blocks take (a node key and a row's key each 4 bytes; up to
+#: 10240 nodes, depth 12), as `kGroupTile` and `kGroupSmem`
+GROUP_TILE = 2048
+GROUP_SMEM = 48 * 1024
 
 
 def reset_launches() -> None:
@@ -230,13 +258,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("tree_hist")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tree_level_hist.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                    p]
+                                    i, i, p]
     lib.tree_best_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, p]
     lib.tree_route.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.tree_walk.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.tree_leaf_values.argtypes = [p, p, p, p, i, i, i, i, f, p]
+    lib.tree_leaf_values.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
+    lib.tree_segments.argtypes = [p, p, p, p, i, i, i, p]
     for fn in (lib.tree_level_hist, lib.tree_best_split, lib.tree_route,
-               lib.tree_walk, lib.tree_leaf_values):
+               lib.tree_walk, lib.tree_leaf_values, lib.tree_segments):
         fn.restype = i
     return lib
 
@@ -277,17 +306,12 @@ def _on_card(t, name) -> bool:
     return True
 
 
-def segments(local, n_nodes):
-    """The rows of each (lane, node) together: (perm (L·n,) int32 flat
-    row ids lane·n + row, sorted by (lane, node) and, within a node, by
-    row; offs (L·(n_nodes+1) + 1,) int32, where node j of lane l holds
-    perm[offs[l·(n_nodes+1) + j] : offs[l·(n_nodes+1) + j + 1]]).  Rows
-    with local < 0 sort into each lane's last slot, which no kernel
-    reads.  A stable sort of int32 keys, then a binary search."""
+def segments_plain(local, n_nodes):
+    """The grouping's plain version: a stable sort of the int32 keys
+    lane·(n_nodes+1) + node (n_nodes for a row with local < 0), then a
+    binary search for where each key's rows begin."""
     L, n = local.shape
     width = n_nodes + 1
-    if L * width >= 2 ** 31 or L * n >= 2 ** 31:
-        raise ValueError("too many lanes x nodes for int32 segment keys")
     lane = torch.arange(L, dtype=torch.int32, device=local.device)[:, None]
     key = (torch.where(local >= 0, local, n_nodes) + lane * width).reshape(-1)
     sorted_key, perm = torch.sort(key, stable=True)
@@ -297,38 +321,112 @@ def segments(local, n_nodes):
     return perm.to(torch.int32), offs
 
 
+def segments(local, n_nodes):
+    """The rows of each (lane, node) together: (perm (L·n,) int32 flat
+    row ids lane·n + row, sorted by (lane, node) and, within a node, by
+    row; offs (L·(n_nodes+1) + 1,) int32, where node j of lane l holds
+    perm[offs[l·(n_nodes+1) + j] : offs[l·(n_nodes+1) + j + 1]]).  Rows
+    with local < 0 sort into each lane's last slot, which no kernel
+    reads.  On the card a counting sort (`tree_segments`: counts a tile
+    of rows, scans a lane, scatters a tile in row order); on the CPU
+    `segments_plain`."""
+    L, n = local.shape
+    width = n_nodes + 1
+    if L * width >= 2 ** 31 or L * n >= 2 ** 31:
+        raise ValueError("too many lanes x nodes for int32 segment keys")
+    if not _on_card(local, "segments"):
+        return segments_plain(local, n_nodes)
+    dev = local.device
+    _check("local", local, (L, n), torch.int32, dev)
+    if 4 * (width + GROUP_TILE) > GROUP_SMEM:
+        raise ValueError(f"the grouping cannot take {n_nodes} nodes")
+    perm = torch.empty(L * n, dtype=torch.int32, device=dev)
+    offs = torch.empty(L * width + 1, dtype=torch.int32, device=dev)
+    counts = torch.empty((2, L, -(-n // GROUP_TILE), width),
+                         dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().tree_segments(local.data_ptr(), perm.data_ptr(),
+                                  offs.data_ptr(), counts.data_ptr(), L, n,
+                                  n_nodes, _stream(dev))
+    _raise_on(rc, "tree_segments")
+    LAUNCHES["tree_segments"] += 1
+    return perm, offs
+
+
 def hist_plan(d: int, S: int, n_bins: int, L: int, n_nodes: int,
               n_sm: int) -> dict:
-    """T1's launch: `ft` features a block (a thread a (feature, stat)
-    column, plus `HIST_LOADERS` threads that stage rows), at most what
-    `HIST_SMEM_BYTES` holds and few enough that the grid has about
-    `HIST_BLOCKS_PER_SM` blocks an SM; the grid, threads and dynamic
-    shared memory."""
-    tile = n_bins * S * 4                       # one feature's tile
-    ft = max(1, min(d, HIST_SMEM_BYTES // tile, (1024 - HIST_LOADERS) // S))
+    """T1's launch.  A block holds `ft` features' (n_bins, sp) histogram
+    tiles (the S stats padded to the vector width `vw`: 2 for S <= 2,
+    else 4), at most `HIST_WARPS` (a warp each) and what
+    `HIST_SMEM_BYTES` holds, and few enough that the
+    grid has about `HIST_BLOCKS_PER_SM` blocks an SM; its features go to
+    `warps` warps (at most `HIST_WARPS`), and `HIST_LOADERS` more threads
+    stage rows.  Returns
+    ft, vw, sp, warps, threads, the grid and the dynamic shared memory
+    (`hist_smem`)."""
+    vw = 2 if S <= 2 else 4
+    sp = -(-S // vw) * vw
+    tile = n_bins * sp * 4                      # one feature's tile
+    ft = max(1, min(d, HIST_SMEM_BYTES // tile, HIST_WARPS))
     tiles_wanted = -(-HIST_BLOCKS_PER_SM * n_sm // (L * n_nodes))
     ft = max(1, min(ft, -(-d // tiles_wanted)))
-    n_ft = -(-d // ft)
-    threads = -(-ft * S // 32) * 32 + HIST_LOADERS
-    smem = ft * tile + 2 * ROW_TILE * (ft + 4 * S)
-    if smem > MAX_SMEM or threads > 1024:
+    ft = -(-d // -(-d // ft))                   # even tiles
+    warps = min(ft, HIST_WARPS)
+    smem = hist_smem(ft, n_bins, sp, warps)
+    if smem > MAX_SMEM or n_bins > 256:
         raise ValueError(f"T1 cannot take {S} stats at {n_bins} bins in one "
                          f"block ({smem} bytes of shared memory)")
-    return {"ft": ft, "threads": threads, "grid": (L * n_nodes, n_ft),
+    return {"ft": ft, "vw": vw, "sp": sp, "warps": warps,
+            "threads": 32 * warps + HIST_LOADERS,
+            "grid": (L * n_nodes, -(-d // ft)), "smem": smem}
+
+
+def hist_smem(ft: int, n_bins: int, sp: int, warps: int) -> int:
+    """T1's dynamic shared memory (bytes), as `level_hist` lays it out:
+    the (ft, n_bins, sp) histogram tiles; per stage a tile of rows' stats
+    (sp floats), code words ((ft + 2) // 4 + 1 words: the 4-byte words
+    holding a row's ft codes) and first code byte; a tile of code bytes a
+    feature warp."""
+    words = (ft + 2) // 4 + 1
+    return (4 * (-(-ft * n_bins * sp // 4) * 4)
+            + HIST_STAGES * ROW_TILE * (4 * sp + 4 * words + 1)
+            + warps * ROW_TILE)
+
+
+def leaf_plan(S: int, L: int, n_nodes: int) -> dict:
+    """T4's launch: a one-warp block a (lane, node), ceil(S / 32) passes
+    of up to 32 stats (a lane each), and `LEAF_STAGES` tiles of
+    `LEAF_ROWS` rows x a pass's stats in shared memory."""
+    width = min(S, 32)
+    smem = LEAF_STAGES * width * LEAF_PAD * 4
+    return {"grid": L * n_nodes, "threads": 32, "passes": -(-S // 32),
             "smem": smem}
 
 
 def level_histogram(codes, local, stats, n_nodes, n_bins=256):
-    """T1 (see the module docstring)."""
+    """T1 (see the module docstring): the rows grouped by `segments`,
+    then `level_histogram_grouped`."""
     if not _on_card(stats, "level_histogram"):
         return level_histogram_plain(codes, local, stats, n_nodes, n_bins)
+    L, n, _ = stats.shape
+    _check("local", local, (L, n), torch.int32, stats.device)
+    perm, offs = segments(local, n_nodes)
+    return level_histogram_grouped(codes, perm, offs, stats, n_nodes,
+                                   n_bins)
+
+
+def level_histogram_grouped(codes, perm, offs, stats, n_nodes, n_bins=256):
+    """T1's kernel on rows already grouped by `segments` (card only: a
+    CPU tensor raises; chip_smoke.py times it alone)."""
     dev = stats.device
+    if dev.type != "cuda":
+        raise ValueError("level_histogram_grouped runs on the card only")
     L, n, S = stats.shape
     d = codes.shape[1]
     _check("codes", codes, (n, d), torch.uint8, dev)
-    _check("local", local, (L, n), torch.int32, dev)
+    _check("perm", perm, (L * n,), torch.int32, dev)
+    _check("offs", offs, (L * (n_nodes + 1) + 1,), torch.int32, dev)
     _check("stats", stats, (L, n, S), torch.float32, dev)
-    perm, offs = segments(local, n_nodes)
     plan = hist_plan(d, S, n_bins, L, n_nodes, _sm_count(dev.index))
     hist = torch.empty((L, n_nodes, d, n_bins, S), dtype=torch.float32,
                        device=dev)
@@ -336,7 +434,8 @@ def level_histogram(codes, local, stats, n_nodes, n_bins=256):
         rc = _lib().tree_level_hist(
             codes.data_ptr(), perm.data_ptr(), offs.data_ptr(),
             stats.data_ptr(), hist.data_ptr(), n, d, L, n_nodes, n_bins, S,
-            plan["ft"], plan["smem"], _stream(dev))
+            plan["ft"], plan["vw"], plan["warps"], plan["smem"],
+            _stream(dev))
     _raise_on(rc, "tree_level_hist")
     LAUNCHES["tree_level_hist"] += 1
     return hist
@@ -429,21 +528,34 @@ def walk(codes, feat, thresh, is_leaf, value, depth, out=None, scale=None):
 
 
 def leaf_values(local, stats, n_nodes, reg_lambda):
-    """T4 (see the module docstring)."""
+    """T4 (see the module docstring): the rows grouped by `segments`,
+    then `leaf_values_grouped`."""
     if not _on_card(stats, "leaf_values"):
         return leaf_values_plain(local, stats, n_nodes, reg_lambda)
-    dev = stats.device
-    L, n, S = stats.shape
-    _check("local", local, (L, n), torch.int32, dev)
-    _check("stats", stats, (L, n, S), torch.float32, dev)
+    L, n, _ = stats.shape
+    _check("local", local, (L, n), torch.int32, stats.device)
     perm, offs = segments(local, n_nodes)
+    return leaf_values_grouped(perm, offs, stats, n_nodes, reg_lambda)
+
+
+def leaf_values_grouped(perm, offs, stats, n_nodes, reg_lambda):
+    """T4's kernel on rows already grouped by `segments` (card only: a
+    CPU tensor raises; chip_smoke.py times it alone)."""
+    dev = stats.device
+    if dev.type != "cuda":
+        raise ValueError("leaf_values_grouped runs on the card only")
+    L, n, S = stats.shape
+    _check("perm", perm, (L * n,), torch.int32, dev)
+    _check("offs", offs, (L * (n_nodes + 1) + 1,), torch.int32, dev)
+    _check("stats", stats, (L, n, S), torch.float32, dev)
+    plan = leaf_plan(S, L, n_nodes)
     value = torch.empty((L, n_nodes, S - 1), dtype=torch.float32,
                         device=dev)
     with torch.cuda.device(dev):
         rc = _lib().tree_leaf_values(
             perm.data_ptr(), offs.data_ptr(), stats.data_ptr(),
             value.data_ptr(), L, n, n_nodes, S, float(reg_lambda),
-            _stream(dev))
+            plan["smem"], _stream(dev))
     _raise_on(rc, "tree_leaf_values")
     LAUNCHES["tree_leaf_values"] += 1
     return value

@@ -417,18 +417,26 @@ def test_svm_search_on_cuda_matches_cpu(cuda_device, label):
 # the tree grower's kernels (T1-T4) and the tree searches
 # ---------------------------------------------------------------------------
 
-def _tree_inputs(device, kind, L=3, n=700, d=9, n_nodes=8, seed=0):
-    """Bin codes (n, d) uint8, local node ids (L, n) with ~20% of rows
-    taking no part, and stats (L, n, S): integer (forest: Poisson counts
-    times one-hot targets, S = 1 + 4) or continuous (boosting, S = 2)."""
+def _tree_inputs(device, kind, L=3, n=700, d=9, n_nodes=8, seed=0,
+                 classes=4, skew=False):
+    """Bin codes (n, d) uint8 (the first three columns one-hot-like),
+    local node ids (L, n) with ~20% of rows taking no part, and stats (L,
+    n, S): integer (forest: Poisson counts times one-hot targets, S = 1 +
+    classes) or continuous (boosting, S = 2).  With `skew`, half the rows
+    go to node 0, a quarter to node 1, and so on (the last node takes the
+    rest); else the nodes are drawn uniformly."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 256, (n, d)).astype(np.uint8)
     codes[:, :3] = rng.integers(0, 2, (n, 3))         # one-hot-like columns
-    local = rng.integers(0, n_nodes, (L, n)).astype(np.int32)
+    if skew:
+        local = np.minimum(rng.geometric(0.5, (L, n)) - 1,
+                           n_nodes - 1).astype(np.int32)
+    else:
+        local = rng.integers(0, n_nodes, (L, n)).astype(np.int32)
     local[rng.random((L, n)) < 0.2] = -1
     if kind == "forest":
         w = rng.poisson(1.0, (L, n)).astype(np.float32)
-        t = np.eye(4, dtype=np.float32)[rng.integers(0, 4, n)]
+        t = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
         stats = np.concatenate([w[..., None], -w[..., None] * t], axis=2)
     else:
         w = (rng.random((L, n)) < 0.8).astype(np.float32)
@@ -438,27 +446,57 @@ def _tree_inputs(device, kind, L=3, n=700, d=9, n_nodes=8, seed=0):
             for a in (codes, local, stats)]
 
 
+# (kind, L, n, d, n_nodes, classes, skew): the nodes at a shallow and a
+# deep level; a node holding every row; empty nodes (64 nodes for 700
+# rows, and 300 rows over 2047 nodes); n not a multiple of T1's row tile
+# (256) or of T4's (128), and n above them; S = 11 (a 10-class forest);
+# skewed populations
+TREE_CASES = [(kind, 3, 700, 9, nodes, 4, False)
+              for kind in ("forest", "boosting") for nodes in (1, 8, 64)] + [
+    ("boosting", 2, 3000, 5, 1, 4, False),
+    ("forest", 2, 300, 6, 2047, 4, False),
+    ("boosting", 4, 257, 3, 4, 4, False),
+    ("forest", 2, 1000, 4, 16, 10, False),
+    ("boosting", 3, 2000, 9, 16, 4, True),
+    ("forest", 3, 2000, 9, 63, 4, True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["forest", "boosting"])
-@pytest.mark.parametrize("n_nodes", [1, 8, 64])
-def test_tree_hist_and_leaves_match_plain(cuda_device, kind, n_nodes):
-    """T1 and T4 against their plain versions: equal for integer stats
-    (exact in any order below 2**24), rtol 1e-5 for continuous ones;
-    two launches give the same bits."""
-    codes, local, stats = _tree_inputs(cuda_device, kind, n_nodes=n_nodes)
+@pytest.mark.parametrize("kind,L,n,d,n_nodes,classes,skew", TREE_CASES)
+def test_tree_hist_and_leaves_match_plain(cuda_device, kind, L, n, d,
+                                          n_nodes, classes, skew):
+    """T1 and T4 against their plain versions run on CPU copies of the
+    same inputs: equal, bit for bit, for integer and continuous stats
+    alike (the kernels add every sum in row order, as the CPU's
+    `index_add_` does); two launches give the same bits."""
+    codes, local, stats = _tree_inputs(cuda_device, kind, L, n, d, n_nodes,
+                                       classes=classes, skew=skew)
+    cpu = [t.cpu() for t in (codes, local, stats)]
     hist = tk.level_histogram(codes, local, stats, n_nodes)
-    want = tk.level_histogram_plain(codes, local, stats, n_nodes)
     assert torch.equal(hist, tk.level_histogram(codes, local, stats,
                                                 n_nodes))
+    assert torch.equal(hist.cpu(), tk.level_histogram_plain(*cpu, n_nodes))
     val = tk.leaf_values(local, stats, n_nodes, 1e-6)
-    val_p = tk.leaf_values_plain(local, stats, n_nodes, 1e-6)
     assert torch.equal(val, tk.leaf_values(local, stats, n_nodes, 1e-6))
-    if kind == "forest":
-        assert torch.equal(hist, want)
-        assert torch.equal(val, val_p)
-    else:
-        torch.testing.assert_close(hist, want, rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(val, val_p, rtol=1e-5, atol=1e-6)
+    assert torch.equal(val.cpu(), tk.leaf_values_plain(cpu[1], cpu[2],
+                                                       n_nodes, 1e-6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,n,n_nodes,skew", [
+    (3, 700, 8, False), (2, 5000, 2047, False), (4, 2049, 1, False),
+    (3, 4100, 63, True), (1, 1, 1, False)])
+def test_tree_segments_match_plain(cuda_device, L, n, n_nodes, skew):
+    """The grouping's counting sort against its plain version (a stable
+    torch sort) on CPU copies: the same perm and offs; tiles of 2048 rows
+    (n above and below), every row in one node, skewed nodes."""
+    local = _tree_inputs(cuda_device, "forest", L, n, 3, n_nodes,
+                         skew=skew)[1]
+    perm, offs = tk.segments(local, n_nodes)
+    want = tk.segments_plain(local.cpu(), n_nodes)
+    assert torch.equal(perm.cpu(), want[0])
+    assert torch.equal(offs.cpu(), want[1])
 
 
 @pytest.mark.cuda
@@ -571,13 +609,15 @@ def test_tree_wrappers_raise_instead_of_falling_back(cuda_device):
 def test_tree_search_on_cuda_matches_cpu(cuda_device, label):
     """The four tree families on both devices: mean_test_score within
     1e-4 for the forests and the boosted regressor, the same best
-    candidate, and T1-T4 launched on the card only.  T1, T2 and T4 add in
-    the plain versions' order, so the trees differ only where a torch op
-    rounds differently on the two devices (the Poisson draws' log, the
-    classifier's softmax).  The boosted classifier's softmax (exp) rounds
-    differently on the two devices, which can turn a near-tied split and
-    move a few of the 300 predictions: within 0.01 (three predictions of
-    a 100-row fold)."""
+    candidate, and T1-T4 launched on the card only.  T1, T2 and T4 give
+    the plain versions' bits on the CPU, boosting stats too (T1 and T4
+    add every sum in row order, T2 scans in XLA's order;
+    `test_tree_hist_and_leaves_match_plain`), so the trees differ only
+    where a torch op rounds differently on the two devices (the Poisson
+    draws' log, the classifier's softmax).  The boosted classifier's
+    softmax (exp) rounds differently on the two devices, which can turn
+    a near-tied split and move a few of the 300 predictions: within 0.01
+    (three predictions of a 100-row fold)."""
     rng = np.random.default_rng(4)
     n = 300
     X = rng.standard_normal((n, 6)).astype(np.float32)

@@ -214,14 +214,96 @@ def test_hist_plan_stays_inside_a_block():
                            (64, 11, 6, 16)):
         plan = tk.hist_plan(d, S, 256, L, nodes, 132)
         assert plan["threads"] <= 1024
-        assert plan["threads"] >= plan["ft"] * S + tk.HIST_LOADERS
+        assert plan["threads"] == 32 * plan["warps"] + tk.HIST_LOADERS
         assert plan["smem"] <= tk.MAX_SMEM
         assert plan["grid"] == (L * nodes, -(-d // plan["ft"]))
     # few nodes: one feature a block; many: the tiles the budget holds
     assert tk.hist_plan(54, 8, 256, 6, 1, 132)["ft"] == 1
-    assert tk.hist_plan(54, 8, 256, 6, 512, 132)["ft"] == 8
+    assert tk.hist_plan(54, 8, 256, 6, 512, 132)["ft"] == (
+        tk.HIST_SMEM_BYTES // (256 * 8 * 4))
     with pytest.raises(ValueError):
         tk.hist_plan(4, 300, 256, 1, 1, 132)
+
+
+# (d, S, n_bins, L, n_nodes): phase 10's forest at the root and depth 9,
+# phase 9's boosting at the root and depth 4, a 10-class forest (S = 11),
+# S = 3 (padded to 4), few bins, one lane of many nodes
+HIST_PLAN_SHAPES = [(54, 8, 256, 6, 1), (54, 8, 256, 6, 512),
+                    (8, 2, 256, 60, 1), (8, 2, 256, 60, 16),
+                    (64, 11, 256, 6, 16), (64, 11, 256, 6, 1),
+                    (5, 3, 32, 2, 4), (54, 8, 256, 1, 1024)]
+
+
+@pytest.mark.parametrize("d,S,n_bins,L,nodes", HIST_PLAN_SHAPES)
+def test_hist_plan_covers_every_feature_stat_and_node(d, S, n_bins, L,
+                                                      nodes):
+    plan = tk.hist_plan(d, S, n_bins, L, nodes, 132)
+    ft, vw, sp, warps = plan["ft"], plan["vw"], plan["sp"], plan["warps"]
+    # stats padded to the vector width, the columns shared out over the
+    # warps, the threads and shared memory inside an H100 block
+    assert vw == (2 if S <= 2 else 4) and sp % vw == 0 and S <= sp < S + vw
+    assert warps == min(tk.HIST_WARPS, ft)
+    assert plan["threads"] == 32 * warps + tk.HIST_LOADERS <= 1024
+    # the histogram tiles, each stage's rows (stats, the code words
+    # holding ft codes), a tile of codes a column warp
+    words = (ft + 2) // 4 + 1
+    assert 4 * words >= ft + 3
+    assert plan["smem"] == tk.hist_smem(ft, n_bins, sp, warps) >= (
+        ft * n_bins * sp * 4
+        + tk.HIST_STAGES * tk.ROW_TILE * (4 * sp + 4 * words)
+        + warps * tk.ROW_TILE)
+    assert plan["smem"] <= tk.MAX_SMEM
+    assert ft * n_bins * sp * 4 <= max(tk.HIST_SMEM_BYTES, n_bins * sp * 4)
+    # one block a (lane, node) and feature tile; the tiles cover d
+    lanes_nodes, tiles = plan["grid"]
+    assert lanes_nodes == L * nodes
+    assert (tiles - 1) * ft < d <= tiles * ft
+    assert tk.ROW_TILE == tk.HIST_LOADERS and tk.ROW_TILE % 32 == 0
+
+
+@pytest.mark.parametrize("S", [2, 3, 8, 11, 32, 33, 64, 100])
+def test_leaf_plan_fits_a_block_and_covers_every_stat(S):
+    plan = tk.leaf_plan(S, 6, 2047)
+    assert plan["grid"] == 6 * 2047 and plan["threads"] == 32
+    assert plan["passes"] * 32 >= S > (plan["passes"] - 1) * 32
+    assert plan["smem"] == tk.LEAF_STAGES * min(S, 32) * tk.LEAF_PAD * 4
+    assert plan["smem"] <= tk.MAX_SMEM
+    # a stat's row of a tile is whole 16-byte loads, one lane a row
+    assert tk.LEAF_ROWS % 32 == 0 and tk.LEAF_PAD % 4 == 0
+    assert tk.LEAF_PAD >= tk.LEAF_ROWS
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_segments_keep_row_order_on_random_and_skewed_keys(skew):
+    rng = np.random.default_rng(3)
+    L, n, nodes = 4, 500, 16
+    if skew:
+        local = np.minimum(rng.geometric(0.5, (L, n)) - 1, nodes - 1)
+    else:
+        local = rng.integers(0, nodes, (L, n))
+    local[rng.random((L, n)) < 0.2] = -1
+    perm, offs = tk.segments(torch.as_tensor(local.astype(np.int32)), nodes)
+    assert perm.dtype == torch.int32 and offs.dtype == torch.int32
+    assert offs.shape == (L * (nodes + 1) + 1,)
+    for lane in range(L):
+        for node in range(nodes):
+            lo = int(offs[lane * (nodes + 1) + node])
+            hi = int(offs[lane * (nodes + 1) + node + 1])
+            assert (perm[lo:hi] - lane * n).tolist() == np.flatnonzero(
+                local[lane] == node).tolist()
+
+
+def test_grouped_kernel_entry_points_run_on_the_card_only():
+    c = _grower_case("boosting")
+    codes = _u8(c["codes"])
+    n = codes.shape[0]
+    local = torch.zeros((1, n), dtype=torch.int32)
+    stats = torch.ones((1, n, 2))
+    perm, offs = tk.segments(local, 1)
+    with pytest.raises(ValueError):
+        tk.level_histogram_grouped(codes, perm, offs, stats, 1)
+    with pytest.raises(ValueError):
+        tk.leaf_values_grouped(perm, offs, stats, 1, 1.0)
 
 
 def test_tree_from_jax_predicts_as_the_reference():
