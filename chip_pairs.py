@@ -10,7 +10,12 @@ the four runs, the parent's spread (its two runs' max - min) and the
 change's mean minus the parent's, and marks a phase "outside" where
 that difference is larger than the parent's spread; then, for the tree
 searches, each run's device busy time and cuda-against-cpu max |d
-mean_test_score|.
+mean_test_score|; then phase 3's kernel rows (ms between events, each
+kernel by shape and variant) with the change's mean over the parent's;
+then T2 and S2 alone (`ALONE_ROWS`, again parent, change, change,
+parent): each tree's wrappers replayed in a CUDA graph, their host time
+a call, and whether each row's outputs have the same bits in the four
+runs.
 
     python3 chip_pairs.py --parent .scratch/parent --change .
 
@@ -39,6 +44,7 @@ def warm_walls(d: dict) -> dict:
     w["[7] l1"] = d["l1"]["l1"]["warm_s"]
     w["[7] elasticnet"] = d["l1"]["elasticnet"]["warm_s"]
     w["[8] svc"] = d["svm"]["svc"]["warm_s"]
+    w["[8] nusvc (one run)"] = d["svm"]["nusvc"]["wall_s"]
     w["[9] gb_regressor"] = d["gb"]["regressor"]["warm_s"]
     w["[9] gb_classifier"] = d["gb"]["classifier"]["warm_s"]
     w["[10] rf_classifier"] = d["rf"]["classifier"]["warm_s"]
@@ -58,6 +64,124 @@ def tree_rows(d: dict) -> dict:
     return {f"[{9 if ph == 'gb' else 10}] {ph}_{kind}": (
         d[ph][kind]["device_busy_s"], d[ph][kind]["check"]["max_abs"])
         for ph, kind in TREE_SEARCHES}
+
+
+def kernel_rows(d: dict) -> dict:
+    """{kernel and shape: ms} of phase 3's rows in the `kernels` list: each
+    kernel's headline row, its rows by shape and its variants, each timed
+    between CUDA events around its wrapper's calls (`events_ms` where a
+    row also has a CUDA graph's time as `ms`), as every tree times it."""
+    rows = {}
+    for k in d["kernels"]:
+        shape = k.get("shape") or {}
+        label = shape if isinstance(shape, str) else (
+            shape.get("mode") or shape.get("kind") or "")
+        subs = [(label, k)]
+        subs += list((k.get("by_shape") or {}).items())
+        subs += list((k.get("phase3_inputs") or {}).items())
+        subs += [(v, k[v]) for v in ("nu", "nu_pairs", "poly",
+                                     "svc_pipeline", "rbf_predict")
+                 if isinstance(k.get(v), dict)]
+        for sub, r in subs:
+            if isinstance(r, dict) and "ms" in r:
+                rows[f"{k['name']} {sub}".strip()] = r.get("events_ms",
+                                                           r["ms"])
+    return rows
+
+
+# T2 and S2 alone, in `tree`'s directory (its own package) on inputs that
+# the change's chip_smoke.py makes (the same in every run): each wrapper's
+# launches replayed in a CUDA graph (the host's time a call is not in
+# it), each wrapper's host time a call (a loop of calls, too short to fill
+# the launch queue, on the host's clock), and a digest of each row's
+# outputs, so that the two trees' bits can be compared.  At the roots and
+# on short rows the wrappers take longer on the host than the kernels on
+# the card, so timed between events they measure the host.  S2's rows:
+# phase 3's (`svm_step_inputs`), phase 8's own structure
+# (`svm_pair_inputs`) and the scaler + SVC pipeline's (45 pairs of a
+# StratifiedKFold(3) fold, 2000 rows, C=1).
+ALONE_ROWS = """
+import hashlib
+import importlib.util
+import json
+import sys
+import time
+import torch
+spec = importlib.util.spec_from_file_location(
+    "chip_smoke_change", sys.argv[1] + "/chip_smoke.py")
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+from spark_sklearn_tpu_torch.ops import tree_kernels as tk
+from spark_sklearn_tpu_torch.utils.binning import quantile_bin
+
+
+def host_us(fn, calls=100):
+    best = float("inf")
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
+def digest(outs):
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+rows = {}
+for label, codes_np, L, depth, kind in (
+        ("rf", quantile_bin(cs.covtype_like(0)[0])[1], 6, 10, "forest"),
+        ("gb", quantile_bin(cs.california_like(0)[0])[1], 60, 5,
+         "boosting")):
+    codes = torch.as_tensor(codes_np, device="cuda")
+    d = codes.shape[1]
+    for n_nodes in (1, 2 ** (depth - 1)):
+        local, stats = cs.tree_level_inputs(codes, L, n_nodes, kind, n_nodes)
+        hist = tk.level_histogram(codes, local, stats, n_nodes)
+        masks = {"": None}
+        if kind == "forest":
+            g = torch.Generator(device="cuda").manual_seed(0)
+            sc = torch.rand((n_nodes, d), generator=g, device="cuda")
+            masks[" masked"] = sc <= torch.sort(sc, dim=1).values[:, 6:7]
+        for tag, fm in masks.items():
+            fn = lambda: tk.best_splits(hist, fm, 1e-6, 1.0)
+            rows[f"tree_best_split {label}/{n_nodes}{tag}"] = {
+                "ms": cs.graph_ms(fn), "host_us": host_us(fn),
+                "bits": digest(fn())}
+        del hist
+*fold, step = cs.svm_pair_inputs(0, C=1.0, folds=3, n=2000)
+for shape, inputs in (
+        ("", cs.svm_step_inputs(0)),
+        (" pairs", cs.svm_pair_inputs(0)),
+        (" pipeline", (*(t[:45] for t in fold), step))):
+    V, z, x, yb, bnd, target, step = inputs
+    for mode in ("svc", "nu"):
+        tgt = target if mode == "nu" else None
+        fn = lambda: svk.dual_step(V, z, x, yb, bnd, step, 0.4, tgt)
+        rows[f"svm_dual_step {mode}{shape}"] = {
+            "ms": cs.graph_ms(fn), "host_us": host_us(fn),
+            "bits": digest(fn())}
+print(json.dumps(rows))
+"""
+
+
+def alone_rows(tree: str, change: str) -> dict:
+    """{row: {ms, host_us, bits}} of ALONE_ROWS run in `tree`'s
+    directory on the inputs of `change`'s chip_smoke.py."""
+    proc = subprocess.run([sys.executable, "-c", ALONE_ROWS,
+                           os.path.abspath(change)], cwd=tree,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"the kernels-alone timing failed in {tree}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def run(tree: str, label: str, i: int) -> dict:
@@ -92,10 +216,12 @@ def main() -> int:
              ("change", args.change), ("parent", args.parent)]
     walls = {"parent": [], "change": []}
     trees = {"parent": [], "change": []}
+    kernels = {"parent": [], "change": []}
     for i, (label, tree) in enumerate(order, 1):
         d = run(tree, label, i)
         walls[label].append(warm_walls(d))
         trees[label].append(tree_rows(d))
+        kernels[label].append(kernel_rows(d))
     phases = list(walls["change"][0])
     print(f"\n{'phase':24s} {'parent 1':>10s} {'change 1':>10s} "
           f"{'change 2':>10s} {'parent 2':>10s} {'spread':>8s} "
@@ -120,6 +246,38 @@ def main() -> int:
                  trees["change"][1][p], trees["parent"][1][p]]
         print(f"{p:24s} " + " ".join(f"{b:10.4f} s, {x:9.3g}"
                                      for b, x in cells))
+    print(f"\n{'phase 3 row (ms)':40s} {'parent 1':>9s} {'change 1':>9s} "
+          f"{'change 2':>9s} {'parent 2':>9s} {'change/parent':>14s}")
+    for r in kernels["change"][0]:
+        par = [k.get(r) for k in kernels["parent"]]
+        chg = [k[r] for k in kernels["change"]]
+        cells = [par[0], chg[0], chg[1], par[1]]
+        text = " ".join(f"{c:9.4f}" if c is not None else f"{'-':>9s}"
+                        for c in cells)
+        ratio = ("" if None in par else
+                 f"{sum(chg) / sum(par):14.3f}")
+        print(f"{r:40s} {text} {ratio}")
+    alone = {"parent": [], "change": []}
+    for label, tree in order:
+        alone[label].append(alone_rows(tree, args.change))
+    for key, title, fmt in (("ms", "T2, S2 alone (ms, CUDA graph)", "9.4f"),
+                            ("host_us", "T2, S2 host time a call (us)",
+                             "9.1f")):
+        print(f"\n{title:40s} {'parent 1':>9s} {'change 1':>9s} "
+              f"{'change 2':>9s} {'parent 2':>9s} {'change/parent':>14s}")
+        for r in alone["change"][0]:
+            par = [a[r][key] for a in alone["parent"]]
+            chg = [a[r][key] for a in alone["change"]]
+            print(f"{r:40s} " + " ".join(f"{c:{fmt}}" for c in
+                                         (par[0], chg[0], chg[1], par[1]))
+                  + f" {sum(chg) / sum(par):14.3f}")
+    print(f"\n{'outputs, change against parent':40s} bits")
+    for r in alone["change"][0]:
+        runs = {a[r]["bits"] for a in alone["change"] + alone["parent"]}
+        same_change = len({a[r]["bits"] for a in alone["change"]}) == 1
+        print(f"{r:40s} " + ("equal" if len(runs) == 1 else
+                             "differ" if same_change else
+                             "the change's two runs differ"))
     return 0
 
 

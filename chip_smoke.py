@@ -79,23 +79,27 @@ Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
 whose norms are summed apart) and S2 (SVC and NuSVC projections; the
 staged plan, and the streamed one forced for its time) against their
 plain versions at phase 8's shapes (n=10000, d=784; 225 subproblem rows
-of 10000) and on a fold of phase 11's scaler + SVC path (n=2000, 45
-rows), and the tree grower's T1 (level histogram), T2 (split
-choice), T3 (routing and the walk), T4 (leaf values) and G (their
-grouping of rows by node) at phase 9's (60 lanes, n=20640, d=8, depth 5)
-and phase 10's (6 lanes, n=100000, d=54, depth 10) shapes: T1 at the
-root and the deepest level, uniform and skewed (half the rows in one
-node, a quarter in the next, ...), T4 uniform, skewed and at one node a
-lane (the boosting init), each `torch.equal` to its plain version on CPU
-copies of the inputs, timed alone and with its grouping, beside
-`index_add_` (T1, T4), `torch.sort` (G), its byte bound and its order
-bound (the longest chain of one sum x 4 clocks at the SM clock read
-under load); and
-the MLP step's M1 (loss and cotangent), M2 (adam step; `torch.
-_fused_adam_` timed beside it) and M3 (bias and activation, forward and
-backward) at every shape phase 11 gives them: the BASELINE #5 step
-(12 lanes, 200 rows, k=10, h=64) and the MLPRegressor's (6 lanes, k=1,
-d=8), timed; the refit's one lane and the views' whole folds, checked.
+of 10000: phase 8's own structure, 45 class pairs x 5 folds with 16% of
+the elements free, and the 65%-free rows of `svm_step_inputs`) and on a
+fold of phase 11's scaler + SVC path (n=2000, 45 rows), and the tree
+grower's T1 (level histogram), T2 (split choice: the forest's roots
+unmasked and with 7 of 54 features kept, its deepest level with 7 kept
+and with a quarter of the nodes keeping none; its bound counts the kept
+features' bytes, the whole histogram's time beside it), T3 (routing and
+the walk), T4 (leaf values) and G (their grouping of rows by node) at
+phase 9's (60 lanes, n=20640, d=8, depth 5) and phase 10's (6 lanes,
+n=100000, d=54, depth 10) shapes: T1 at the root and the deepest level,
+uniform and skewed (half the rows in one node, a quarter in the next,
+...), T4 uniform, skewed and at one node a lane (the boosting init),
+each `torch.equal` to its plain version on CPU copies of the inputs,
+timed alone and with its grouping, beside `index_add_` (T1, T4),
+`torch.sort` (G), its byte bound and its order bound (the longest chain
+of one sum x 4 clocks at the SM clock read under load); and the MLP
+step's M1 (loss and cotangent), M2 (adam step; `torch._fused_adam_`
+timed beside it) and M3 (bias and activation, forward and backward) at
+every shape phase 11 gives them: the BASELINE #5 step (12 lanes, 200
+rows, k=10, h=64) and the MLPRegressor's (6 lanes, k=1, d=8), timed; the
+refit's one lane and the views' whole folds, checked.
 
 It prints one JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -402,27 +406,60 @@ def svm_step_inputs(seed: int, M: int = SVM_ROWS, n: int = N_SVM):
     return V, z, x, yb, bound, target, step
 
 
-def svm_ops(kind: str, M: int = SVM_ROWS, n: int = N_SVM):
+def svm_pair_inputs(seed: int, C: float = 10.0, folds: int = N_FOLDS,
+                    k: int = K_SVM, n: int = N_SVM):
+    """Inputs of one S2 step with phase 8's structure: 10 balanced classes
+    and 5 folds give 225 (fold, class pair) rows, each holding +1 / -1 on
+    its pair's two classes and a bound C on the fold's training rows, so
+    ~2/10 x 4/5 = 16% of a row's elements can move; feasible iterates and
+    a product V of an rbf kernel's scale, as `svm_step_inputs`."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randperm(n, generator=g, device="cuda") % k
+    fold = torch.randperm(n, generator=g, device="cuda") % folds
+    pairs = [(a, b) for a in range(k) for b in range(a + 1, k)]
+    ca = torch.tensor([a for a, _ in pairs], device="cuda")
+    cb = torch.tensor([b for _, b in pairs], device="cuda")
+    yb = ((y[None, :] == ca[:, None]).float()
+          - (y[None, :] == cb[:, None]).float())               # (45, n)
+    train = fold[None, :] != torch.arange(folds, device="cuda")[:, None]
+    yb = yb.repeat(folds, 1)                                   # fold-major
+    bound = C * (yb != 0) * train.repeat_interleave(len(pairs), 0)
+    M = yb.shape[0]
+    z = torch.rand((M, n), generator=g, device="cuda") * bound
+    x = torch.rand((M, n), generator=g, device="cuda") * bound
+    V = 30.0 * torch.randn((M, n), generator=g, device="cuda")
+    target = 0.2 * bound.sum(dim=1)
+    step = torch.tensor(1.0 / 3000.0, device="cuda")
+    return V, z, x, yb.contiguous(), bound.float().contiguous(), target, step
+
+
+def svm_ops(kind: str, M: int = SVM_ROWS, n: int = N_SVM,
+            kept: int = None):
     """Floating-point operations (a transcendental counts as one) of S1 on
-    an (n, n) product, or of one S2 step over (M, n)."""
+    an (n, n) product, or of one S2 step over (M, n) whose bisection sums
+    `kept` elements (all M n where None)."""
     if kind == "rbf":
         # per value: mul, add, add, max, mul, exp (the norms are G's
         # diagonal)
         return 6 * n * n
     if kind == "poly":
         return 3 * n * n                      # mul, add, pow
-    # S2: the gradient step (4), the bracket's maxima (2), 40 bisection
-    # passes (mul, sub, 2 compares, mul-add: 5; NuSVC's two halves 8), the
-    # last pass (clip 3, momentum 3, |x'-z| max 2, w' 1: 9)
-    per = 4 + 2 + 40 * (5 if kind == "svc" else 8) + 9
-    return per * M * n
+    # S2: the gradient step (4) and the bracket's maxima (2) of every
+    # element; 40 bisection steps over the kept ones (mul, sub, 2
+    # compares, mul-add: 5; NuSVC's two halves 8); the last pass over
+    # every element (the gradient step again 4, clip 3, momentum 3,
+    # |x'-z| max 2, w' 1: 13)
+    kept = M * n if kept is None else kept
+    return (4 + 2 + 13) * M * n + 40 * (5 if kind == "svc" else 8) * kept
 
 
 def svm_symbol(name: str, variant) -> str:
-    """Part of the mangled name of an S1/S2 kernel instantiation."""
+    """Part of the mangled name of an S1/S2 kernel instantiation (S2: its
+    mode's, the staged plan)."""
     if name == "svm_gram_epilogue":
         return f"gram_epilogueILi{variant}E"
-    return f"dual_stepILi{variant}ELb1E"          # the staged plan
+    return f"dual_stepILi{int(variant == 'nu')}ELb1E"
 
 
 def phase_svm_kernels(seed: int, ptxas: dict):
@@ -516,66 +553,87 @@ def phase_svm_kernels(seed: int, ptxas: dict):
     del got, again, want, work, err, G, X1, X
     torch.cuda.empty_cache()
 
-    V, z, x, yb, bnd, target, step = svm_step_inputs(seed)
-    for mode in ("svc", "nu"):
-        tgt = target if mode == "nu" else None
-        got = svk.dual_step(V, z, x, yb, bnd, step, 0.4, tgt)
-        again = svk.dual_step(V, z, x, yb, bnd, step, 0.4, tgt)
-        want = svk.dual_step_plain(V, z, x, yb, bnd, step, 0.4, tgt)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"S2 {mode}: two launches differ")
-        # tolerance: atol 1e-5 on x', z', w' (the bisection's block sums
-        # add in another order than torch's), 1e-5/step on the residual;
-        # rtol 1e-5 on all four
-        errs = []
-        for a, b, atol in zip(got, want, (1e-5, 1e-5, 1e-5,
-                                          1e-5 / float(step))):
-            err = (a - b).abs()
-            errs.append(float(err.max()))
-            if not bool((err <= atol + 1e-5 * b.abs()).all()):
-                raise AssertionError(
-                    f"S2 {mode} disagrees with its plain version: max abs "
-                    f"err {float(err.max())}, atol {atol}")
-        max_abs, resid_err = max(errs[:3]), errs[3]
-        # the streamed plan, forced at this n: the same bits, and its time
-        streamed = svk.dual_step(V, z, x, yb, bnd, step, 0.4, tgt,
-                                 plan="streamed")
-        if not all(torch.equal(a, b) for a, b in zip(got, streamed)):
-            raise AssertionError(f"S2 {mode}: the plans differ")
-        ms = cuda_ms(lambda: svk.dual_step(V, z, x, yb, bnd, step, 0.4, tgt))
-        streamed_ms = cuda_ms(lambda: svk.dual_step(
-            V, z, x, yb, bnd, step, 0.4, tgt, plan="streamed"))
-        plain_ms = cuda_ms(lambda: svk.dual_step_plain(
-            V, z, x, yb, bnd, step, 0.4, tgt), reps=5, warmup=1)
-        nbytes = (V.nbytes + z.nbytes + x.nbytes + yb.nbytes + bnd.nbytes
-                  + 3 * z.nbytes + got[3].nbytes + step.nbytes
-                  + (target.nbytes if tgt is not None else 0))
-        bound_ms, bound_by = bound(nbytes, svm_ops(mode))
-        variant = 0 if mode == "svc" else 1
-        regs, spill = next((v for f, v in ptxas.items()
-                            if svm_symbol("svm_dual_step", variant) in f),
-                           (None, None))
-        plan = {"grid": SVM_ROWS, "block": svk.STEP_THREADS,
-                "plan": svk.step_plan(N_SVM), "smem_bytes": 9 * N_SVM}
-        rows[("svm_dual_step", mode)] = {
-            "max_abs_err": max_abs, "resid_max_abs_err": resid_err,
-            "ms": ms, "streamed_ms": streamed_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "ops": svm_ops(mode), "plan": plan, "registers": regs,
-            "spill_bytes": spill}
-        print(f"  S2 svm_dual_step {mode:3s} M={SVM_ROWS} n={N_SVM}: "
-              f"{ms:.4f} ms staged, {streamed_ms:.4f} ms streamed (same "
-              f"bits; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-              f"ms by {bound_by}, bound/time {bound_ms / ms:.3f}), max abs "
-              f"err {max_abs:.3g} (x', z', w'), {resid_err:.3g} (residual, "
-              f"values ~{float(want[3].abs().max()):.3g}), bitwise "
-              f"repeatable; plan {plan}; {regs} registers, {spill} bytes "
-              "spilled")
-        del got, again, want, streamed
-    del V, z, x, yb, bnd, target, step
+    # S2 on phase 8's structure (10 classes x 5 folds: 225 pair rows, 16%
+    # of the elements free; the rows phase 8 runs) and on phase 3's inputs
+    # of `svm_step_inputs` (65% free), each for SVC and NuSVC
+    for population, inputs in (("pairs", svm_pair_inputs(seed)),
+                               ("", svm_step_inputs(seed))):
+        V, z, x, yb, bnd, target, step = inputs
+        kept = int(((bnd != 0) & (yb != 0)).sum())
+        for mode in ("svc", "nu"):
+            rows[("svm_dual_step", f"{mode}_{population}".strip("_"))] = \
+                s2_row(mode, V, z, x, yb, bnd, target, step, kept, ptxas)
+        del V, z, x, yb, bnd, target, step
     torch.cuda.empty_cache()
     return rows
+
+
+def s2_row(mode, V, z, x, yb, bnd, target, step, kept, ptxas):
+    """S2 against its plain version on one population: two launches and
+    the staged and streamed plans bitwise equal, the tolerances, times,
+    bounds and registers."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+    M, n = z.shape
+    tgt = target if mode == "nu" else None
+    got = svk.dual_step(V, z, x, yb, bnd, step, 0.4, tgt)
+    again = svk.dual_step(V, z, x, yb, bnd, step, 0.4, tgt)
+    want = svk.dual_step_plain(V, z, x, yb, bnd, step, 0.4, tgt)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"S2 {mode}: two launches differ")
+    # tolerance: atol 1e-5 on x', z', w' (the bisection's block sums add
+    # in another order than torch's), 1e-5/step on the residual; rtol
+    # 1e-5 on all four
+    errs = []
+    for a, b, atol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-5 / float(step))):
+        err = (a - b).abs()
+        errs.append(float(err.max()))
+        if not bool((err <= atol + 1e-5 * b.abs()).all()):
+            raise AssertionError(
+                f"S2 {mode} disagrees with its plain version: max abs "
+                f"err {float(err.max())}, atol {atol}")
+    max_abs, resid_err = max(errs[:3]), errs[3]
+    # the streamed plan, forced at this n: the same bits, and its time
+    streamed = svk.dual_step(V, z, x, yb, bnd, step, 0.4, tgt,
+                             plan="streamed")
+    if not all(torch.equal(a, b) for a, b in zip(got, streamed)):
+        raise AssertionError(f"S2 {mode}: the plans differ")
+    # the kernel alone (a CUDA graph's replay: on the pipeline's rows the
+    # wrapper takes longer on the host than the kernel on the card), and
+    # between events around wrapper calls, as the earlier rows were timed
+    ms = graph_ms(lambda: svk.dual_step(V, z, x, yb, bnd, step, 0.4, tgt))
+    events_ms = cuda_ms(lambda: svk.dual_step(V, z, x, yb, bnd, step, 0.4,
+                                              tgt))
+    streamed_ms = cuda_ms(lambda: svk.dual_step(
+        V, z, x, yb, bnd, step, 0.4, tgt, plan="streamed"))
+    plain_ms = cuda_ms(lambda: svk.dual_step_plain(
+        V, z, x, yb, bnd, step, 0.4, tgt), reps=5, warmup=1)
+    nbytes = (V.nbytes + z.nbytes + x.nbytes + yb.nbytes + bnd.nbytes
+              + 3 * z.nbytes + got[3].nbytes + step.nbytes
+              + (target.nbytes if tgt is not None else 0))
+    ops = svm_ops(mode, M, n, kept)
+    bound_ms, bound_by = bound(nbytes, ops)
+    regs, spill = next((v for f, v in ptxas.items()
+                        if svm_symbol("svm_dual_step", mode) in f),
+                       (None, None))
+    plan = {"grid": M, **svk.step_plan(n)}
+    print(f"  S2 svm_dual_step {mode:3s} M={M} n={n}, {kept / (M * n):.3f} "
+          f"kept: {ms:.4f} ms staged ({events_ms:.4f} ms between "
+          f"events), {streamed_ms:.4f} ms streamed (same "
+          f"bits; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by}, bound/time {bound_ms / ms:.3f}), max abs err "
+          f"{max_abs:.3g} (x', z', w'), "
+          f"{resid_err:.3g} (residual, values "
+          f"~{float(want[3].abs().max()):.3g}), bitwise repeatable; plan "
+          f"{plan}; {regs} registers, {spill} bytes spilled")
+    return {"max_abs_err": max_abs, "resid_max_abs_err": resid_err,
+            "ms": ms, "events_ms": events_ms, "streamed_ms": streamed_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "kept": kept / (M * n),
+            "plan": plan, "registers": regs, "spill_bytes": spill}
 
 
 def phase_pipeline_svm_kernels(seed: int, ptxas: dict):
@@ -660,18 +718,10 @@ def phase_pipeline_svm_kernels(seed: int, ptxas: dict):
     step = svm_family._power_step(K)
     M = bnd.shape[0]
 
-    def s2():
-        return svk.dual_step(V, z, x, yb, bnd, step, 0.4)
-
-    check("svm_dual_step", "svc_pipeline", s2(), s2(),
-          svk.dual_step_plain(V, z, x, yb, bnd, step, 0.4),
-          (1e-5, 1e-5, 1e-5, 1e-5 / float(step)),
-          8 * z.nbytes + 4 * M + step.nbytes,
-          svm_ops("svc", M=M, n=N_SVM_CHECK), s2,
-          lambda: svk.dual_step_plain(V, z, x, yb, bnd, step, 0.4),
-          svm_symbol("svm_dual_step", 0),
-          {"M": M, "n": N_SVM_CHECK, "mode": "svc",
-           "plan": svk.step_plan(N_SVM_CHECK)})
+    kept = int(((bnd != 0) & (yb != 0)).sum())
+    rows[("svm_dual_step", "svc_pipeline")] = {
+        **s2_row("svc", V, z, x, yb, bnd, None, step, kept, ptxas),
+        "shape": {"M": M, "n": N_SVM_CHECK, "mode": "svc"}}
     del K, V, z, x, yb, bnd
     torch.cuda.empty_cache()
     return rows
@@ -1151,7 +1201,7 @@ def phase_svm(seed: int, kernel_rows: dict):
     gemm_ms = cuda_ms(lambda: W @ K)
     del K, W
     torch.cuda.empty_cache()
-    s2_ms = kernel_rows[("svm_dual_step", "svc")]["ms"]
+    s2_ms = kernel_rows[("svm_dual_step", "svc_pairs")]["ms"]
     per_step = busy / total * 1e3
     print(f"  steps per candidate {steps} ({total} in all); busy "
           f"{per_step:.4f} ms a step = ascent GEMM {gemm_ms:.4f} "
@@ -1388,6 +1438,10 @@ def phase_tree_kernels(seed: int, ptxas: dict):
             "registers": regs, "spill_bytes": spill, **(extra or {})}
         lib = f", index_add_ {lib_ms:.4f} ms" if lib_ms is not None else ""
         more = ""
+        if extra and "events_ms" in extra:
+            more = (f", {extra['events_ms']:.4f} ms between events, whole "
+                    f"histogram bound {extra['hist_bytes_ms']:.4f} ms, "
+                    f"{extra['kept_features']} kept features")
         if extra and "wrapper_ms" in extra:
             more = (f", wrapper {extra['wrapper_ms']:.4f} ms, order bound "
                     f"{extra['order_bound_ms']:.4f} ms (chain "
@@ -1499,42 +1553,73 @@ def phase_tree_kernels(seed: int, ptxas: dict):
                 del hist
                 continue
             exact = kind == "forest"
-            fmask = None
-            if kind == "forest" and n_nodes > 1:
-                g = torch.Generator(device="cuda").manual_seed(seed)
-                sc = torch.rand((n_nodes, d), generator=g, device="cuda")
-                fmask = sc <= torch.sort(sc, dim=1).values[:, 6:7]
-            got = repeat(lambda: tk.best_splits(hist, fmask, 1e-9 if exact
-                                                else 1e-6, 1.0),
-                         "tree_best_split")
-            want = tk.best_splits_plain(hist, fmask, 1e-9 if exact else 1e-6,
-                                        1.0)
-            keep = torch.ones_like(want[3])
+            lam = 1e-9 if exact else 1e-6
+            keep = None
             if not exact:
                 # nodes whose two best gains are apart (else a tie that
                 # rounding may break either way)
                 gains = []
                 for f in range(d):
                     one = hist[:, :, f:f + 1]
-                    gains.append(_gain_table(one, 1e-6, 1.0))
+                    gains.append(_gain_table(one, lam, 1.0))
                 top = torch.topk(torch.cat(gains, dim=2), 2, dim=2).values
                 keep = (top[..., 0] - top[..., 1]) > 1e-5 * top[..., 0].abs()
-            # tolerance: boosting gains rtol 1e-4 (differences of sums
-            # added in another order), on the nodes with a clear best
-            record("tree_best_split", lab,
-                   (got[0][keep], got[1][keep], got[3][keep],
-                    got[2][keep]),
-                   (want[0][keep], want[1][keep], want[3][keep],
-                    want[2][keep]),
-                   exact, cuda_ms(lambda: tk.best_splits(hist, fmask, 1e-6,
-                                                         1.0)),
-                   cuda_ms(lambda: tk.best_splits_plain(hist, fmask, 1e-6,
-                                                        1.0), reps=3,
-                           warmup=1), None,
-                   hist.nbytes + 13 * L * n_nodes,
-                   L * n_nodes * d * 256 * (2 + 10 * (S - 1)),
-                   {"nodes_compared": int(keep.sum()),
-                    "nodes": L * n_nodes}, rtol=1e-4)
+            # the forest draws 7 of its 54 features a node at every level
+            # (max_features="sqrt"), the root too; the unmasked root is the
+            # RF regressor's (and the earlier row), and a quarter of the
+            # nodes with no feature left tests the fallback index
+            variants = [(lab, None)]
+            if exact:
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                sc = torch.rand((n_nodes, d), generator=g, device="cuda")
+                fmask = sc <= torch.sort(sc, dim=1).values[:, 6:7]
+                if n_nodes == 1:
+                    variants.append((f"{lab} masked", fmask))
+                else:
+                    quarter = fmask.clone()
+                    quarter[::4] = False
+                    variants = [(lab, fmask),
+                                (f"{lab} a quarter all-masked", quarter)]
+            for vlab, fmask in variants:
+                got = repeat(lambda: tk.best_splits(hist, fmask, lam, 1.0),
+                             "tree_best_split")
+                want = tk.best_splits_plain(hist, fmask, lam, 1.0)
+                sel = torch.ones_like(want[3]) if keep is None else keep
+                # the bytes the result needs: the kept features' blocks
+                # (each (n_bins, S) block read once), the mask, the
+                # outputs
+                kept = (int(fmask.sum()) if fmask is not None
+                        else n_nodes * d)
+                nbytes = (L * kept * 256 * S * 4 + 13 * L * n_nodes
+                          + (fmask.nbytes if fmask is not None else 0))
+                # tolerance: boosting gains rtol 1e-4 (differences of sums
+                # added in another order), on the nodes with a clear best
+                # the kernel alone (a CUDA graph's replay: at the roots
+                # the wrapper takes longer on the host than the kernel on
+                # the card), and between events around wrapper calls as
+                # the earlier rows were timed
+                record("tree_best_split", vlab,
+                       (got[0][sel], got[1][sel], got[3][sel], got[2][sel]),
+                       (want[0][sel], want[1][sel], want[3][sel],
+                        want[2][sel]),
+                       exact, graph_ms(lambda: tk.best_splits(
+                           hist, fmask, lam, 1.0)),
+                       cuda_ms(lambda: tk.best_splits_plain(
+                           hist, fmask, lam, 1.0), reps=3, warmup=1), None,
+                       nbytes, L * kept * 256 * (2 + 10 * (S - 1)),
+                       {"nodes_compared": int(sel.sum()),
+                        "nodes": L * n_nodes, "kept_features": kept,
+                        "events_ms": cuda_ms(lambda: tk.best_splits(
+                            hist, fmask, lam, 1.0)),
+                        "hist_bytes_ms": bound(hist.nbytes + 13 * L
+                                               * n_nodes, 0)[0],
+                        "no_finite_gain": int(torch.isneginf(
+                            want[2]).sum()),
+                        "plan": tk.split_plan(L, n_nodes, d, 256, S, 132)},
+                       rtol=1e-4)
+                if vlab == lab:
+                    split_of_level = got
+            got = split_of_level
             del hist
             # T3: route this level's rows by the splits just chosen
             node = (local.clamp_min(0) + (n_nodes - 1)).to(torch.int32)
@@ -2367,7 +2452,8 @@ def main() -> int:
     svm_meta = {
         "svm_gram_epilogue": ("spark_sklearn_tpu/models/svm.py:45", "rbf",
                               "poly", "rtol 1e-5, atol 1e-6"),
-        "svm_dual_step": ("spark_sklearn_tpu/models/svm.py:94", "svc", "nu",
+        "svm_dual_step": ("spark_sklearn_tpu/models/svm.py:94", "svc_pairs",
+                          "nu_pairs",
                           "atol 1e-5 (x', z', w'; max_abs_err), 1e-5/step "
                           "(residual; resid_max_abs_err), rtol 1e-5"),
     }
@@ -2388,6 +2474,8 @@ def main() -> int:
             "max_abs_err": max(svm_rows[key]["max_abs_err"]
                                for key in svm_rows if key[0] == name),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
+            **({"events_ms": head["events_ms"]} if "events_ms" in head
+               else {}),
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "plan": head["plan"],
             "registers": head["registers"],
@@ -2396,14 +2484,18 @@ def main() -> int:
                       if name == "svm_gram_epilogue" else
                       {"M": SVM_ROWS, "n": N_SVM, "mode": main_v}),
             other_v: {k: other[k] for k in
-                      ("ms", "plain_ms", "bound_ms", "bound_by",
-                       "max_abs_err", "plan", "registers", "spill_bytes")},
+                      ("ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
+                       "max_abs_err", "plan", "registers", "spill_bytes")
+                      if k in other},
             "svc_pipeline": pipe,
-            **({"resid_max_abs_err": max(head["resid_max_abs_err"],
-                                         other["resid_max_abs_err"],
-                                         pipe["resid_max_abs_err"]),
-                "streamed_ms": {v: svm_rows[(name, v)]["streamed_ms"]
-                                for v in (main_v, other_v)}}
+            **({"resid_max_abs_err": max(
+                    r["resid_max_abs_err"] for key, r in svm_rows.items()
+                    if key[0] == name),
+                "streamed_ms": {key[1]: r["streamed_ms"]
+                                for key, r in svm_rows.items()
+                                if key[0] == name},
+                "phase3_inputs": {v: svm_rows[(name, v)]
+                                  for v in ("svc", "nu")}}
                if name == "svm_dual_step" else
                {"rbf_predict": svm_rows[(name, "rbf_predict")]}),
         })
@@ -2435,6 +2527,8 @@ def main() -> int:
             "library_ms": head["library_ms"],
             **({k: head[k] for k in ("wrapper_ms", "order_bound_ms")}
                if "wrapper_ms" in head else {}),
+            **({k: head[k] for k in ("events_ms", "hist_bytes_ms")}
+               if "events_ms" in head else {}),
             "registers": head["registers"],
             "spill_bytes": head["spill_bytes"],
             "tolerance": (

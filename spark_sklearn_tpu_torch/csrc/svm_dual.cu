@@ -42,32 +42,51 @@
 //     so the projection agrees with it to rounding.
 //     Bound: bytes.  It reads V, z, x, yb, bound and writes x', z', w' once:
 //     at M = 225, n = 10000 that is 72 MB, ~0.022 ms at 3.35 TB/s; the 40
-//     passes of ~6 operations over M*n elements are ~0.008 ms at 67
-//     TFLOP/s.  In torch ops the same step is ~330 launches.
+//     steps over the elements that can move are ~0.001-0.005 ms at 67
+//     TFLOP/s.  In torch ops the same step is ~330 launches.  What bounds
+//     it is latency: each bisection step ends in a block-wide sum.
 //
 // Design of S2.
 // - One block of 512 threads a row (M = 225 rows: one wave at two blocks
-//   an SM on 132 SMs).  The first pass computes u and stages it, with the
-//   row's bound and the sign of yb (yb is -1, 0 or +1: the SVM's signed
-//   pair labels), in dynamic shared memory: 9 bytes an element, 88 KB at
-//   n = 10000.  The 40 bisection passes then read only shared memory; the
-//   last pass re-reads z, x and yb (from L2) to write x', z' and w'.
-// - Plan change: above kStagedMaxN = 20480 elements a row (180 KB of
-//   shared memory) the row does not fit; the "streamed" plan stores u in
-//   the row of x' and re-reads bound and yb from global memory (L2) on each
-//   pass.  The wrapper picks the plan from n (svm_kernels.py
-//   `STAGED_MAX_N`); a staged launch with n above the limit is refused.
-//   Below the limit staging pays: at M = 225, n = 10000 a step takes
-//   0.096 ms staged and 0.128 ms streamed (SVC; NuSVC 0.143 / 0.180 ms;
-//   H100 80GB HBM3 at 700 W, chip_smoke.py phase 3).
-// - Each bisection step ends in a block-wide sum: warp shuffles (down, a
-//   fixed tree), then warp 0 adds the 16 warp sums in order.  No atomics:
-//   the same inputs give the same bits.  Every thread then holds the same
-//   lo/hi and takes the same branch.
+//   an SM on 132 SMs).  Thread t owns elements t, t + 512, ... (fewer
+//   threads for short rows would add the sums in another order).
+// - Pass 1 computes u, the bracket's maxima and the thread's list of the
+//   elements that can add to a bisection sum: bound and yb nonzero (MODE
+//   1: a half with a bound), or a non-finite u, bound or yb.  Any other
+//   element adds exactly +-0 at every finite midpoint, and a sum that
+//   starts at +0 is never -0, so leaving it out keeps every partial sum's
+//   bits (phase 8's rows keep ~16% of their elements).  The lists keep
+//   each thread's own order, slot q at 512 q + t (a warp's loads hit 32
+//   banks): u, bound and the sign of yb in shared memory (9 bytes a slot;
+//   "staged", up to kStagedMaxN elements), or in the rows of x', z', w'
+//   ("streamed", above), which a thread rewrites only at its own elements.
+//   A bracket wider than FLT_MAX / 2 (a midpoint could overflow, and 0 x
+//   inf is NaN) puts every element in the lists.  Its loads are issued
+//   kUnroll elements at a time, as are the last pass's.
+// - The 40 steps run 2 a pass: a pass sums at the 3 midpoints those
+//   steps can visit, each 0.5 (lo + hi) of the bracket the sequential
+//   steps would hold there, then makes the sequential choices, so lo and
+//   hi are the one-step-a-pass bisection's bit for bit (3 steps a pass,
+//   7 midpoints, measured slower but on the shortest lists).  In a tame row
+//   (every u and bound finite, bounds >= 0, the bracket within FLT_MAX /
+//   2) x is never NaN and the clip is min(max(x, 0), b), two
+//   instructions; any other row runs one step a pass with clip's NaN
+//   rule.
+// - Each pass ends in block-wide sums: every warp adds its lanes' values
+//   by the shuffle-down tree's pairs, several values at once (a lane keeps
+//   half its values and trades the other half with its partner: P - 1 +
+//   5 - log2 P shuffles for P values, not 5 P), then warp 0 adds the
+//   warps' results by the same tree.  That is the earlier design's order, so
+//   the kernel gives its bits; no atomics, so two launches give the same
+//   bits.  Every thread then holds the same lo/hi and takes
+//   the same branch.
+// - The last pass recomputes u from z, V and yb (the lists hold only the
+//   kept elements) and writes x', z', w' for every element.
 // - Maxima propagate NaN as jnp.max and torch.amax do, and the clip is
 //   written as min(max(x, 0), b) with NaN passing through, as jnp.clip.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 namespace {
@@ -77,11 +96,15 @@ constexpr int kNormWarps = 8;              // rows of one norms block
 constexpr int kEpiThreads = 256;
 constexpr int kEpiPerThread = 4;           // elements a thread, loads first
 constexpr int kMaxGridY = 65535;
-constexpr int kStepThreads = 512;
+constexpr int kStepThreads = 512;          // S2: threads a row
 constexpr int kStepWarps = kStepThreads / 32;
 constexpr int kBisect = 40;                // svm.py:132 n_bisect
 constexpr int kStagedMaxN = 20480;         // 9 bytes an element: 180 KB
-constexpr int kMaxNV = 3;                  // most values one reduction adds
+constexpr int kMaxNV = 6;                  // most values one reduction adds
+constexpr int kUnroll = 4;                 // S2: elements a thread loads
+                                           // before it uses them
+constexpr float kHalfMax = FLT_MAX / 2;    // S2: widest bracket skipped
+constexpr int kMaxSmem = 232448;           // 227 KB, an H100 block's most
 constexpr int kMaxDevices = 64;            // devices of one process
 
 enum Kind { kLinear = 0, kRbf = 1, kPoly = 2, kSigmoid = 3 };
@@ -160,102 +183,311 @@ __device__ __forceinline__ float clip(float x, float b) {
   return x < 0.0f ? 0.0f : (x > b ? b : x);  // NaN passes, as jnp.clip
 }
 
-// Block-wide reduction of NV values a thread (sum, or NaN-propagating max),
-// in a fixed order; every thread gets the results.  `buf` holds two
-// alternating slots of (kStepWarps + 1) * kMaxNV floats; consecutive calls
-// take turns (`parity`), so a slot is never rewritten while a slow thread
-// may still read its result.
-template <int NV, bool kMax>
-__device__ __forceinline__ void block_reduce(float (&v)[NV], float* buf,
-                                             int& parity) {
-  static_assert(NV <= kMaxNV, "too many values for one reduction");
+// Block-wide maxima of NV values a thread (NaN propagates), in a fixed
+// order, for every thread: each warp's shuffle-down tree, then warp 0's
+// tree over the warps' results (the earlier design's order).  `buf` holds two
+// alternating slots of (kStepWarps + 1) * kMaxNV floats, the warps' results
+// and the totals; consecutive calls take turns (`parity`), so a slot is
+// never rewritten while a slow thread may still read its totals.
+template <int NV>
+__device__ __forceinline__ void block_max(float (&v)[NV], float* buf,
+                                          int& parity) {
+  constexpr int NW = kStepWarps;
+  static_assert(NV <= kMaxNV, "reduction too wide");
   float* part = buf + parity * (kStepWarps + 1) * kMaxNV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
     float x = v[q];
-    for (int o = 16; o > 0; o >>= 1) {
-      const float y = __shfl_down_sync(kFull, x, o);
-      x = kMax ? max_nan(x, y) : x + y;
-    }
-    if (lane == 0) part[warp * NV + q] = x;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      x = max_nan(x, __shfl_down_sync(kFull, x, o));
+    if (lane == 0) part[q * NW + warp] = x;
   }
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
-      float x = lane < kStepWarps ? part[lane * NV + q] : (kMax ? -INFINITY
-                                                               : 0.0f);
-      for (int o = 16; o > 0; o >>= 1) {
-        const float y = __shfl_down_sync(kFull, x, o);
-        x = kMax ? max_nan(x, y) : x + y;
-      }
-      if (lane == 0) part[kStepWarps * NV + q] = x;
+      float x = lane < NW ? part[q * NW + lane] : -INFINITY;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        x = max_nan(x, __shfl_down_sync(kFull, x, o));
+      if (lane == 0) part[kStepWarps * kMaxNV + q] = x;
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int q = 0; q < NV; ++q) v[q] = part[kStepWarps * NV + q];
+  for (int q = 0; q < NV; ++q) v[q] = part[kStepWarps * kMaxNV + q];
   parity ^= 1;
 }
 
-// Where a row's staged values live: shared memory (u, bound, sign of yb),
-// or for the streamed plan u in the row of x' and bound/yb in place.
+// NV sums a lane over one warp, added in the pairs of the shuffle-down
+// tree (lanes l and l + o for o = 16, 8, ..., 1), NV at once: while a lane
+// holds more than one value it keeps half of them and trades the other
+// half with its partner l ^ o, so both add the same pair (float addition
+// is commutative) and a warp takes P - 1 + 5 - log2 P shuffles, not 5 NV
+// (P: NV rounded up to a power of two).  Value q ends in lanes l with
+// l / (32 / P) == q; each lane returns the value it holds.
+template <int NV>
+__device__ __forceinline__ float warp_sums(const float (&v)[NV], int lane) {
+  constexpr int P = NV <= 1 ? 1 : NV <= 2 ? 2 : NV <= 4 ? 4 : NV <= 8 ? 8
+                                                                       : 16;
+  static_assert(NV <= 16, "too many sums for one warp");
+  float w[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) w[q] = q < NV ? v[q] : 0.0f;
+#pragma unroll
+  for (int st = 0; st < 5; ++st) {
+    const int o = 16 >> st;
+    const int c = P >> (st + 1);           // values a lane keeps
+    if (c >= 1) {
+      const bool upper = (lane & o) != 0;
+#pragma unroll
+      for (int i = 0; i < c; ++i) {
+        const float send = upper ? w[i] : w[c + i];
+        const float keep = upper ? w[c + i] : w[i];
+        w[i] = keep + __shfl_xor_sync(kFull, send, o);
+      }
+    } else {
+      w[0] = w[0] + __shfl_xor_sync(kFull, w[0], o);
+    }
+  }
+  return w[0];
+}
+
+// Block-wide sums of NV values a thread, for every thread: each warp's
+// `warp_sums`, then warp 0's over the warps' results (lanes past the last
+// warp add 0), which is the earlier design's tree of shuffle-down sums.
+template <int NV>
+__device__ __forceinline__ void block_sum(float (&v)[NV], float* buf,
+                                          int& parity) {
+  constexpr int NW = kStepWarps;
+  constexpr int G = 32 / (NV <= 1 ? 1 : NV <= 2 ? 2 : NV <= 4 ? 4
+                          : NV <= 8 ? 8 : 16);   // lanes a value
+  static_assert(NV <= kMaxNV, "reduction too wide");
+  float* part = buf + parity * (kStepWarps + 1) * kMaxNV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane / G;
+  const float w = warp_sums<NV>(v, lane);
+  if (lane % G == 0 && q < NV) part[q * NW + warp] = w;
+  __syncthreads();
+  if (warp == 0) {
+    float x[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) x[i] = lane < NW ? part[i * NW + lane] : 0.0f;
+    const float t = warp_sums<NV>(x, lane);
+    if (lane % G == 0 && q < NV) part[kStepWarps * kMaxNV + q] = t;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = part[kStepWarps * kMaxNV + i];
+  parity ^= 1;
+}
+
+// clip(x, b) as the bisection sums it.  In a tame row (every u and bound
+// finite, bounds >= 0, a bracket within FLT_MAX / 2) x is never NaN, and
+// min(max(x, 0), b) differs from clip only in the sign of a zero result,
+// which adds nothing to a sum that is never -0 (it starts at +0): two
+// instructions, not four.
+template <bool kTame>
+__device__ __forceinline__ float clamp(float x, float b) {
+  return kTame ? fminf(fmaxf(x, 0.0f), b) : clip(x, b);
+}
+
+// u = z - step * grad, the Nesterov point's gradient step from the
+// product's value v (z alone when there is no product): pass 1 and the
+// last pass compute it alike.
+template <int MODE>
+__device__ __forceinline__ float grad_step(bool has_v, float v, float z,
+                                           float yb, float step) {
+  if (!has_v) return z;
+  const float yv = __fmul_rn(yb, v);
+  const float grad = MODE == 0 ? -__fsub_rn(1.0f, yv) : yv;
+  return __fsub_rn(z, __fmul_rn(step, grad));
+}
+
+// A row's elements i = threadIdx.x + k kStepThreads of one thread,
+// kUnroll at a
+// time: every load of a batch is issued before the first is used (pass 1
+// and the last pass are a chain of loads a thread otherwise), then
+// fn(i, z, yb, b, v, x) runs on them in the thread's own order (v 0
+// without V, x 0 without X).
+template <typename Fn>
+__device__ __forceinline__ void row_batches(const float* __restrict__ V,
+                                            const float* __restrict__ Z,
+                                            const float* __restrict__ Yb,
+                                            const float* __restrict__ Bd,
+                                            const float* __restrict__ X,
+                                            size_t off, int n, Fn fn) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kUnroll * kStepThreads) {
+    float z[kUnroll], yb[kUnroll], b[kUnroll], v[kUnroll], x[kUnroll];
+#pragma unroll
+    for (int e = 0; e < kUnroll; ++e) {
+      const int i = i0 + e * kStepThreads;
+      const bool in = i < n;
+      z[e] = in ? Z[off + i] : 0.0f;
+      yb[e] = in ? Yb[off + i] : 0.0f;
+      b[e] = in ? Bd[off + i] : 0.0f;
+      v[e] = in && V != nullptr ? V[off + i] : 0.0f;
+      x[e] = in && X != nullptr ? X[off + i] : 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < kUnroll; ++e) {
+      const int i = i0 + e * kStepThreads;
+      if (i < n) fn(i, z[e], yb[e], b[e], v[e], x[e]);
+    }
+  }
+}
+
+// S2's dynamic shared memory (the staged plan's lists)
+extern __shared__ float s2_smem[];
+
+// A thread's list of the elements the bisection sums, in its own order:
+// slot q at q kStepThreads + threadIdx.x (a warp's loads hit 32 banks).
+// Staged:
+// u, bound and the sign of yb in shared memory, indexed from the shared
+// array itself (so the loads stay shared-memory loads); streamed: in the
+// rows of x', z' and w', which the last pass overwrites (a thread writes
+// only the elements i = threadIdx.x (mod kStepThreads), the slots it
+// owns).
 template <bool kStaged>
-struct RowView {
-  float* u;
-  const float* b;
-  const float* yf;
-  signed char* ys;
-  __device__ __forceinline__ float yb(int i) const {
-    if (kStaged) return static_cast<float>(ys[i]);
-    return yf[i];
+struct KeptList {
+  int cap;                                 // slots * kStepThreads
+  float* gu;
+  float* gb;
+  float* gy;
+  __device__ __forceinline__ float u(int k) const {
+    return kStaged ? s2_smem[k] : gu[k];
+  }
+  __device__ __forceinline__ float b(int k) const {
+    return kStaged ? s2_smem[cap + k] : gb[k];
+  }
+  __device__ __forceinline__ float yb(int k) const {
+    if (kStaged)
+      return static_cast<float>(
+          reinterpret_cast<const signed char*>(s2_smem + 2 * cap)[k]);
+    return gy[k];
+  }
+  __device__ __forceinline__ void put(int k, float uk, float bk,
+                                      float yk) const {
+    if (kStaged) {
+      s2_smem[k] = uk;
+      s2_smem[cap + k] = bk;
+      reinterpret_cast<signed char*>(s2_smem + 2 * cap)[k] =
+          static_cast<signed char>((yk > 0.0f) - (yk < 0.0f));
+    } else {
+      gu[k] = uk;
+      gb[k] = bk;
+      gy[k] = yk;
+    }
   }
 };
 
+// K steps of the bisection in one pass: the sums at the 2^K - 1 midpoints
+// those steps can visit (a heap: node j's children 2j and 2j + 1, each
+// midpoint 0.5 (lo + hi) of the bracket the sequential steps would hold
+// there), one reduction, then the K sequential choices.  So the choices,
+// and lo and hi after them, are the sequential bisection's bit for bit.
+// MODE 0: sum of yb clip(u - mid yb, b) > 0 takes the upper half; MODE 1:
+// per half h, sum of clip(u - mid_h, b_h) > target.
+template <int MODE, int K, bool kStaged, bool kTame>
+__device__ __forceinline__ void bisect_levels(const KeptList<kStaged>& kept,
+                                              int cnt, float (&lo)[2],
+                                              float (&hi)[2], float tgt,
+                                              float* red, int& parity) {
+  constexpr int P = (1 << K) - 1;          // midpoints a bisection
+  constexpr int H = MODE == 0 ? 1 : 2;     // bisections
+  float mid[H][P + 1], from[H][P + 1], to[H][P + 1];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    from[h][1] = lo[h];
+    to[h][1] = hi[h];
+#pragma unroll
+    for (int j = 1; j <= P; ++j) {
+      mid[h][j] = 0.5f * (from[h][j] + to[h][j]);
+      if (2 * j <= P) {
+        from[h][2 * j] = from[h][j];
+        to[h][2 * j] = mid[h][j];
+        from[h][2 * j + 1] = mid[h][j];
+        to[h][2 * j + 1] = to[h][j];
+      }
+    }
+  }
+  float g[H * P];
+#pragma unroll
+  for (int q = 0; q < H * P; ++q) g[q] = 0.0f;
+  for (int q = 0; q < cnt; ++q) {
+    const int k = q * kStepThreads + threadIdx.x;
+    const float u = kept.u(k), b = kept.b(k), yb = kept.yb(k);
+    if (MODE == 0) {
+#pragma unroll
+      for (int j = 1; j <= P; ++j) {
+        const float a = clamp<kTame>(__fsub_rn(u, __fmul_rn(mid[0][j], yb)),
+                                     b);
+        g[j - 1] += yb * a;
+      }
+    } else {
+      const float bp = yb > 0.0f ? b : 0.0f, bm = yb < 0.0f ? b : 0.0f;
+#pragma unroll
+      for (int j = 1; j <= P; ++j) {
+        g[j - 1] += clamp<kTame>(__fsub_rn(u, mid[0][j]), bp);
+        g[P + j - 1] += clamp<kTame>(__fsub_rn(u, mid[1][j]), bm);
+      }
+    }
+  }
+  block_sum<H * P>(g, red, parity);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    int j = 1;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      float gj = 0.0f, mj = 0.0f;
+#pragma unroll
+      for (int c = 1; c <= P; ++c) {
+        if (c == j) {
+          gj = g[h * P + c - 1];
+          mj = mid[h][c];
+        }
+      }
+      const bool take_hi = MODE == 0 ? gj > 0.0f : gj > tgt;
+      lo[h] = take_hi ? mj : lo[h];
+      hi[h] = take_hi ? hi[h] : mj;
+      j = 2 * j + (take_hi ? 1 : 0);
+    }
+  }
+}
+
 // MODE 0: box + hyperplane sum(yb a) = 0 (SVC); MODE 1: the two half
 // box-sums sum_{yb>0} a = sum_{yb<0} a = target[row] (NuSVC).
+// kStepThreads threads a row.
 template <int MODE, bool kStaged>
 __global__ void __launch_bounds__(kStepThreads, 2)
 dual_step(const float* __restrict__ V, const float* __restrict__ Z,
           const float* __restrict__ X, const float* __restrict__ Yb,
           const float* __restrict__ Bd, const float* __restrict__ step_ptr,
-          float coef, const float* __restrict__ target, float* Xo,
-          float* __restrict__ Zo, float* __restrict__ Wo,
-          float* __restrict__ resid, int n) {
-  extern __shared__ float smem[];
+          float coef, const float* __restrict__ target, float* Xo, float* Zo,
+          float* Wo, float* __restrict__ resid, int n) {
   __shared__ float red[2 * (kStepWarps + 1) * kMaxNV];
   int parity = 0;
+  const int tid = threadIdx.x;
   const size_t off = static_cast<size_t>(blockIdx.x) * n;
   const float step = *step_ptr;
-  RowView<kStaged> row;
-  if (kStaged) {
-    row.u = smem;
-    row.b = smem + n;
-    row.ys = reinterpret_cast<signed char*>(smem + 2 * static_cast<size_t>(n));
-    row.yf = nullptr;
-  } else {
-    row.u = Xo + off;
-    row.b = Bd + off;
-    row.yf = Yb + off;
-    row.ys = nullptr;
-  }
+  const int slots = (n + kStepThreads - 1) / kStepThreads;
+  const KeptList<kStaged> kept = {slots * kStepThreads, Xo + off, Zo + off,
+                                  Wo + off};
 
-  // pass 1: the gradient step and the bracket's maxima
-  float mx[3] = {0.0f, 0.0f, 0.0f};        // max|u|, max b (+half), -half
-  for (int i = threadIdx.x; i < n; i += kStepThreads) {
-    const float z = Z[off + i], yb = Yb[off + i], b = Bd[off + i];
-    float u = z;
-    if (V != nullptr) {
-      const float yv = __fmul_rn(yb, V[off + i]);
-      const float grad = MODE == 0 ? -__fsub_rn(1.0f, yv) : yv;
-      u = __fsub_rn(z, __fmul_rn(step, grad));
-    }
-    row.u[i] = u;
-    if (kStaged) {
-      smem[n + i] = b;
-      row.ys[i] = static_cast<signed char>((yb > 0.0f) - (yb < 0.0f));
-    }
+  // pass 1: the gradient step, the bracket's maxima, and the thread's list
+  // of the elements that can add to a bisection sum.  One whose bound or
+  // yb is 0 adds exactly +-0 at every finite midpoint (MODE 1: it has no
+  // half with a bound), so leaving it out keeps every partial sum's bits;
+  // one with a non-finite u, bound or yb is always kept (NaN propagates).
+  float mx[3] = {0.0f, 0.0f, 0.0f};         // max|u|, max b (+half), -half
+  float neg_b = -INFINITY;                  // max of -b
+  int cnt = 0;
+  const bool has_v = V != nullptr;
+  row_batches(V, Z, Yb, Bd, nullptr, off, n,
+                  [&](int, float z, float yb, float b, float v, float) {
+    const float u = grad_step<MODE>(has_v, v, z, yb, step);
     mx[0] = max_nan(mx[0], fabsf(u));
     if (MODE == 0) {
       mx[1] = max_nan(mx[1], b);
@@ -263,21 +495,34 @@ dual_step(const float* __restrict__ V, const float* __restrict__ Z,
       mx[1] = max_nan(mx[1], yb > 0.0f ? b : 0.0f);
       mx[2] = max_nan(mx[2], yb < 0.0f ? b : 0.0f);
     }
-  }
+    neg_b = max_nan(neg_b, -b);
+    const bool moves = b != 0.0f && (yb > 0.0f || yb < 0.0f);
+    if (moves || !(isfinite(u) && isfinite(b) && isfinite(yb))) {
+      kept.put(cnt * kStepThreads + tid, u, b, yb);
+      ++cnt;
+    }
+  });
+  // with the least bound (as -max -b)
+  float m[4] = {mx[0], mx[1], mx[2], neg_b};
   if (MODE == 0) {
-    float m[2] = {mx[0], mx[1]};
-    block_reduce<2, true>(m, red, parity);
-    mx[0] = m[0];
-    mx[1] = m[1];
+    float m0[3] = {m[0], m[1], m[3]};
+    block_max<3>(m0, red, parity);
+    m[0] = m0[0];
+    m[1] = m0[1];
+    m[3] = m0[2];
   } else {
-    block_reduce<3, true>(mx, red, parity);
+    block_max<4>(m, red, parity);
   }
+  mx[0] = m[0];
+  mx[1] = m[1];
+  mx[2] = m[2];
 
-  // the bisections: nu (MODE 0) or the two half multipliers (MODE 1)
+  // the brackets: nu (MODE 0) or the two half multipliers (MODE 1)
   float lo[2], hi[2], tgt = 0.0f;
   if (MODE == 0) {
     lo[0] = -__fadd_rn(mx[0], mx[1]);
     hi[0] = -lo[0];
+    lo[1] = hi[1] = 0.0f;
   } else {
     tgt = target[blockIdx.x];
 #pragma unroll
@@ -287,47 +532,40 @@ dual_step(const float* __restrict__ V, const float* __restrict__ Z,
       hi[h] = zmax;
     }
   }
-  for (int s = 0; s < kBisect; ++s) {
-    if (MODE == 0) {
-      const float mid = 0.5f * (lo[0] + hi[0]);
-      float g[1] = {0.0f};
-      for (int i = threadIdx.x; i < n; i += kStepThreads) {
-        const float yb = row.yb(i);
-        const float a = clip(__fsub_rn(row.u[i], __fmul_rn(mid, yb)),
-                             row.b[i]);
-        g[0] += yb * a;
-      }
-      block_reduce<1, false>(g, red, parity);
-      const bool take_hi = g[0] > 0.0f;
-      lo[0] = take_hi ? mid : lo[0];
-      hi[0] = take_hi ? hi[0] : mid;
-    } else {
-      const float mid0 = 0.5f * (lo[0] + hi[0]);
-      const float mid1 = 0.5f * (lo[1] + hi[1]);
-      float g[2] = {0.0f, 0.0f};
-      for (int i = threadIdx.x; i < n; i += kStepThreads) {
-        const float yb = row.yb(i), u = row.u[i], b = row.b[i];
-        g[0] += clip(__fsub_rn(u, mid0), yb > 0.0f ? b : 0.0f);
-        g[1] += clip(__fsub_rn(u, mid1), yb < 0.0f ? b : 0.0f);
-      }
-      block_reduce<2, false>(g, red, parity);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float mid = h == 0 ? mid0 : mid1;
-        const bool take_hi = g[h] > tgt;
-        lo[h] = take_hi ? mid : lo[h];
-        hi[h] = take_hi ? hi[h] : mid;
-      }
-    }
+  // A bracket wider than FLT_MAX / 2 (or NaN) may give an infinite or NaN
+  // midpoint, where 0 * mid is NaN: then every element is summed.
+  const bool wide = !(hi[0] <= kHalfMax && hi[1] <= kHalfMax);
+  const bool tame = !wide && m[3] <= 0.0f;
+  if (wide) {
+    cnt = 0;
+    row_batches(V, Z, Yb, Bd, nullptr, off, n,
+                    [&](int, float z, float yb, float b, float v, float) {
+      kept.put(cnt * kStepThreads + tid,
+               grad_step<MODE>(has_v, v, z, yb, step), b, yb);
+      ++cnt;
+    });
   }
+
+  // the 40 steps, 2 a pass: a pass's barriers and reductions are most of
+  // its cost (3 a pass measured slower but on the shortest lists).  A row
+  // that is not tame takes them one at a time, with clip's NaN rule.
+  int left = kBisect;
+  if (tame) {
+    for (; left >= 2; left -= 2)
+      bisect_levels<MODE, 2, kStaged, true>(kept, cnt, lo, hi, tgt, red,
+                                                parity);
+  }
+  for (; left > 0; --left)
+    bisect_levels<MODE, 1, kStaged, false>(kept, cnt, lo, hi, tgt, red,
+                                               parity);
   const float m0 = 0.5f * (lo[0] + hi[0]);
   const float m1 = MODE == 0 ? 0.0f : 0.5f * (lo[1] + hi[1]);
 
-  // last pass: x', z', w' and the residual
+  // last pass, every element: x', z', w' and the residual
   float r[1] = {0.0f};
-  for (int i = threadIdx.x; i < n; i += kStepThreads) {
-    const float u = row.u[i], b = row.b[i];
-    const float yb = Yb[off + i];
+  row_batches(V, Z, Yb, Bd, X, off, n,
+                  [&](int i, float z, float yb, float b, float v, float x) {
+    const float u = grad_step<MODE>(has_v, v, z, yb, step);
     float xn;
     if (MODE == 0) {
       xn = clip(__fsub_rn(u, __fmul_rn(m0, yb)), b);
@@ -335,30 +573,16 @@ dual_step(const float* __restrict__ V, const float* __restrict__ Z,
       xn = __fadd_rn(clip(__fsub_rn(u, m0), yb > 0.0f ? b : 0.0f),
                      clip(__fsub_rn(u, m1), yb < 0.0f ? b : 0.0f));
     }
-    const float zn = __fadd_rn(xn, __fmul_rn(coef, __fsub_rn(xn, X[off + i])));
-    r[0] = max_nan(r[0], fabsf(__fsub_rn(xn, Z[off + i])));
-    Xo[off + i] = xn;                      // streamed: u[i] read above
+    const float zn = __fadd_rn(xn, __fmul_rn(coef, __fsub_rn(xn, x)));
+    r[0] = max_nan(r[0], fabsf(__fsub_rn(xn, z)));
+    Xo[off + i] = xn;
     Zo[off + i] = zn;
     Wo[off + i] = __fmul_rn(zn, yb);
+  });
+  block_max<1>(r, red, parity);
+  if (tid == 0) {
+    resid[blockIdx.x] = __fdiv_rn(r[0], step);
   }
-  block_reduce<1, true>(r, red, parity);
-  if (threadIdx.x == 0) resid[blockIdx.x] = __fdiv_rn(r[0], step);
-}
-
-// The staged plan takes more than the default 48 KB of dynamic shared
-// memory; the limit is raised once a device, not on every launch.
-template <int MODE>
-int allow_staged_smem() {
-  static bool raised[kMaxDevices] = {};
-  int dev = 0;
-  int rc = static_cast<int>(cudaGetDevice(&dev));
-  if (rc != 0) return rc;
-  if (dev < kMaxDevices && raised[dev]) return 0;
-  rc = static_cast<int>(cudaFuncSetAttribute(
-      dual_step<MODE, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      9 * kStagedMaxN));
-  if (rc == 0 && dev < kMaxDevices) raised[dev] = true;
-  return rc;
 }
 
 template <int MODE, bool kStaged>
@@ -368,9 +592,24 @@ int launch_step(const float* V, const float* Z, const float* X,
                 float* Wo, float* resid, int M, int n, cudaStream_t s) {
   size_t smem = 0;
   if (kStaged) {
-    smem = 9 * static_cast<size_t>(n);
-    const int rc = allow_staged_smem<MODE>();
+    // 9 bytes a slot: u, bound, the sign of yb
+    smem = 9 * static_cast<size_t>((n + kStepThreads - 1) / kStepThreads) *
+           kStepThreads;
+    static bool raised[kMaxDevices] = {};
+    int dev = 0;
+    int rc = static_cast<int>(cudaGetDevice(&dev));
     if (rc != 0) return rc;
+    if (dev >= kMaxDevices || !raised[dev]) {
+      // the block's most, less the reductions' static shared memory
+      cudaFuncAttributes fa;
+      rc = static_cast<int>(cudaFuncGetAttributes(&fa, dual_step<MODE, true>));
+      if (rc != 0) return rc;
+      rc = static_cast<int>(cudaFuncSetAttribute(
+          dual_step<MODE, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kMaxSmem - static_cast<int>(fa.sharedSizeBytes)));
+      if (rc != 0) return rc;
+      if (dev < kMaxDevices) raised[dev] = true;
+    }
   }
   dual_step<MODE, kStaged><<<M, kStepThreads, smem, s>>>(
       V, Z, X, Yb, Bd, step, coef, target, Xo, Zo, Wo, resid, n);

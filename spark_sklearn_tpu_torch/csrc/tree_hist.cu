@@ -57,16 +57,29 @@
 //     GL^2/(HL+lam) + GR^2/(HR+lam) - G^2/(H+lam), -inf where a side's H
 //     is below min_child_weight, at the last bin, and at features outside
 //     the node's mask; the first maximum over the flat index f * n_bins +
-//     b; split where the best gain > 1e-7.  One block of 8 warps a node;
-//     a half-warp takes one feature at a time, a thread 16 consecutive
-//     bins: it adds them in order, the 16 threads' totals are scanned in
-//     order and added to each block of bins, which is the order XLA's
-//     CPU backend gives jnp.cumsum (and the plain version's
-//     `cumsum_bins`).  Each operation rounds as the reference's separate
-//     float32 operations do (__f*_rn: no contraction into FMA), so the
-//     kernel gives the plain version's gains bit for bit, and exact ties
-//     go to the smaller flat index as jnp.argmax does.  Bound: bytes
-//     (one read of the histogram).
+//     b; split where the best gain > 1e-7.
+//     Order.  Each 16-bin block is summed in order, then the blocks'
+//     totals in order, added to each block: the order XLA's CPU backend
+//     gives jnp.cumsum (and the plain version's `cumsum_bins`).  Each
+//     operation rounds as the reference's separate float32 operations do
+//     (__f*_rn: no contraction into FMA), so the gains are the plain
+//     version's bit for bit.  The maximum compares (gain, then the smaller
+//     flat index), which no combining order changes; where no gain is
+//     finite the answer is flat index 0, as argmax gives over all -inf.
+//     Design.  The work is a (lane, node, kept feature): a block reads the
+//     node's mask row first and never touches a masked feature's block
+//     (the RF classifier keeps 7 of 54).  A feature's (n_bins, S) block is
+//     contiguous; a group of whole warps stages it whole into shared
+//     memory by cp.async (16 bytes a copy where S allows), a round or two
+//     ahead of the one being scanned, in rows of rk = S (mod 32) floats a
+//     16-bin block, so that the in-block scan, a thread a (block, stat),
+//     reads 32 banks a warp; the blocks' totals are a 16-add chain a stat,
+//     and a thread a bin computes the gains.  A block runs G groups (G
+//     features a round: 2 at S = 8, 8 at S = 2), so a round's barriers and
+//     chains serve G features.  Where few (lane, node)s fill the card (the
+//     roots), a cluster of up to 8 blocks shares one's features and its
+//     first block combines their maxima through distributed shared memory.
+//     Bound: bytes, the kept features' blocks read once (and the mask).
 //
 // T3  tree_route         replaces trees.py:129-136: one level's routing of
 //     every row of every lane (a frozen row stays; a row at a node that
@@ -94,9 +107,12 @@
 //     Bound: the order, the largest node's rows x the add's latency
 //     (bytes, each row's S stats read once, where the nodes are even).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -109,7 +125,10 @@ constexpr int kFew = 4;                // T1: groups this small add in rounds
 constexpr int kMaxBins = 256;          // T1: uint8 codes
 constexpr int kMaxSmem = 232448;       // 227 KB, an H100 block's most
 constexpr int kMaxDevices = 64;
-constexpr int kSplitWarps = 8;         // T2: warps a block
+constexpr int kSplitThreads = 256;     // T2: threads a block (a bin each)
+constexpr int kSplitRow = 17;          // T2: a 16-bin block's scanned row
+constexpr int kSplitMaxStages = 3;     // T2: feature blocks in shared memory
+constexpr int kSplitMaxChunks = 8;     // T2: blocks a (lane, node): a cluster
 constexpr int kScanBase = 16;          // T2: XLA's cumsum block (bins)
 constexpr int kLeafRows = 128;         // T4: rows a tile
 constexpr int kLeafPad = kLeafRows + 4;   // T4: a stat's row of a tile
@@ -419,96 +438,197 @@ level_hist(const uint8_t* __restrict__ codes, const int* __restrict__ perm,
   }
 }
 
-// T2 helper: the cumulative sums of stat s over one feature's (n_bins, S)
-// block, in XLA's CPU order (jnp.cumsum: in order within blocks of 16
-// bins, then the blocks' totals in order, added to each block).  Thread t
-// of a half-warp holds bins 16t .. 16t + 15 in c (t < m = n_bins / 16);
-// returns the sum over all bins (the last cumulative sum, as cum[-1]).
-__device__ __forceinline__ float scan_bins(const float* __restrict__ hf,
-                                           int t, int m, int S, int s,
-                                           bool valid,
-                                           float (&c)[kScanBase]) {
-  const bool mine = valid && t < m;
-  float run = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kScanBase; ++j) {
-    const float x =
-        mine ? __ldg(hf + static_cast<size_t>(t * kScanBase + j) * S + s)
-             : 0.0f;
-    run = j == 0 ? x : __fadd_rn(run, x);
-    c[j] = run;
-  }
-  // the blocks' totals, scanned in order: thread k adds its total to
-  // thread k-1's running sum, one thread a step
-  float pre = run;
-  for (int k = 1; k < m; ++k) {
-    const float up = __shfl_sync(kFull, pre, k - 1, kScanBase);
-    if (t == k) pre = __fadd_rn(up, run);
-  }
-  float before = __shfl_sync(kFull, pre, t > 0 ? t - 1 : 0, kScanBase);
-  if (m > 1) {
-    if (t == 0) before = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kScanBase; ++j) c[j] = __fadd_rn(c[j], before);
-  }
-  return __shfl_sync(kFull, c[kScanBase - 1], m - 1, kScanBase);
-}
-
 __device__ __forceinline__ bool better(float g, int i, float bg, int bi) {
   return g > bg || (g == bg && i < bi);
 }
 
-// T2: one (lane, node) a block; a half-warp a feature at a time.
-__global__ void __launch_bounds__(kSplitWarps * 32)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// T2's dynamic shared memory (best_split's layout; tree_kernels.py
+// `split_smem`): `stages` rounds of G staged feature blocks (m rows of rk
+// floats each), then per group the scanned sums (S rows of rs floats), the
+// blocks' offsets (S x 16), the totals and the totals' gain terms (S
+// each); then the node's feature list.
+long long split_smem(int m, int S, int d, int rk, int rs, int stages,
+                     int G) {
+  return 4LL * (static_cast<long long>(stages) * G * m * rk +
+                static_cast<long long>(G) * S * (rs + kScanBase + 2) + d);
+}
+
+// T2: a block takes every chunks-th of its (lane, node)'s features (all d,
+// or those the node's mask row keeps), G at a time (a round; a group of
+// kSplitThreads / G threads, whole warps, a feature), staged `stages` - 1
+// rounds ahead; a cluster of `chunks` blocks takes the whole (lane, node),
+// and its first block combines their maxima through distributed shared
+// memory.  Per feature: (1) a thread a (16-bin block k, stat s) adds the
+// block's 16 values in order (reads at k rk + j S + s, rk = S mod 32: a
+// warp's 32 chains hit 32 banks) and writes the running sums to row s of
+// the scanned sums (kSplitRow floats a 16-bin block); (2) a thread a stat
+// scans the blocks' totals in order (the offset each block adds) and
+// takes its total's gain term; (3) a thread a bin: its cumulative sums,
+// the gain summed over the outputs where both sides hold min_child_weight
+// and the bin is not the last, and the thread's running first maximum.
+template <int VW>
+__global__ void __launch_bounds__(kSplitThreads, 4)
 best_split(const float* __restrict__ hist, const bool* __restrict__ fmask,
            int* __restrict__ feat, int* __restrict__ thr,
            float* __restrict__ gain_out, bool* __restrict__ split,
-           int n_nodes, int d, int n_bins, int S, float lam, float mcw) {
-  __shared__ float wg[kSplitWarps];
-  __shared__ int wi[kSplitWarps];
-  const int seg = blockIdx.x;
-  const int node = seg % n_nodes;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int half = lane >> 4;
-  const int t = lane & (kScanBase - 1);
+           int n_nodes, int d, int n_bins, int S, int chunks, int rk, int rs,
+           int stages, int G, float lam, float mcw) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int n_feat;
+  __shared__ float wg[kSplitThreads / 32];
+  __shared__ int wi[kSplitThreads / 32];
+  __shared__ float block_best;
+  __shared__ int block_idx;
   const int m = n_bins / kScanBase;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int TG = kSplitThreads / G;                    // a group's threads
+  const int grp = tid / TG;
+  const int lt = tid - grp * TG;
+  const int slot = m * rk;                             // a staged feature
+  float* ring = sm;                                    // stages x G slots
+  float* cum = ring + stages * G * slot + grp * S * (rs + kScanBase + 2);
+  float* before = cum + S * rs;                        // S x 16
+  float* total = before + S * kScanBase;               // S
+  float* t3 = total + S;                               // S
+  int* list = reinterpret_cast<int*>(ring + stages * G * slot +
+                                     G * S * (rs + kScanBase + 2));
+  const int pair = blockIdx.x / chunks;                // lane * N + node
+  const int rank = blockIdx.x - pair * chunks;
+  const int node = pair % n_nodes;
   const size_t fstride = static_cast<size_t>(n_bins) * S;
-  const float* hs = hist + static_cast<size_t>(seg) * d * fstride;
-  float best = -INFINITY;
-  int best_i = 0x7fffffff;
-  float lh[kScanBase], lg[kScanBase], gain[kScanBase];
-  // both halves of a warp run the same trip count (the scans shuffle)
-  for (int fb = 2 * warp; fb < d; fb += 2 * kSplitWarps) {
-    const int f = fb + half;
-    const bool valid = f < d;
-    const float* hf = hs + (valid ? f : 0) * fstride;
-    const float tot_h = scan_bins(hf, t, m, S, 0, valid, lh);
-    const float tot_term_h = __fadd_rn(tot_h, lam);
-#pragma unroll
-    for (int j = 0; j < kScanBase; ++j) gain[j] = 0.0f;
-    for (int o = 1; o < S; ++o) {
-      const float tot_g = scan_bins(hf, t, m, S, o, valid, lg);
-      const float t3 = __fdiv_rn(__fmul_rn(tot_g, tot_g), tot_term_h);
-#pragma unroll
-      for (int j = 0; j < kScanBase; ++j) {
-        const float rh = __fsub_rn(tot_h, lh[j]);
-        const float rg = __fsub_rn(tot_g, lg[j]);
-        const float t1 = __fdiv_rn(__fmul_rn(lg[j], lg[j]),
-                                   __fadd_rn(lh[j], lam));
-        const float t2 = __fdiv_rn(__fmul_rn(rg, rg), __fadd_rn(rh, lam));
-        gain[j] = __fadd_rn(gain[j], __fsub_rn(__fadd_rn(t1, t2), t3));
+  const float* hp = hist + static_cast<size_t>(pair) * d * fstride;
+
+  // the node's features, in order: the mask row's kept ones (or all d)
+  if (fmask == nullptr) {
+    if (tid == 0) n_feat = d;
+  } else if (warp == 0) {
+    int cnt = 0;
+    for (int f0 = 0; f0 < d; f0 += 32) {
+      const int f = f0 + lane;
+      const bool on = f < d && fmask[static_cast<size_t>(node) * d + f];
+      const unsigned bal = __ballot_sync(kFull, on);
+      if (on) list[cnt + __popc(bal & ((1u << lane) - 1u))] = f;
+      cnt += __popc(bal);
+    }
+    if (lane == 0) n_feat = cnt;
+  }
+  __syncthreads();
+  const int mine = n_feat > rank ? (n_feat - rank + chunks - 1) / chunks : 0;
+  const int rounds = (mine + G - 1) / G;
+  const int row = kScanBase * S;                       // a 16-bin block
+  // this group's item of round r: the block's item r G + grp
+  auto feature = [&](int r) {
+    const int item = rank + (r * G + grp) * chunks;
+    return fmask == nullptr ? item : list[item];
+  };
+  // round r's features into their stage, a group its own, VW floats a copy
+  auto stage = [&](int r) {
+    if (r < rounds && r * G + grp < mine) {
+      const float* src = hp + feature(r) * fstride;
+      float* dst = ring + ((r % stages) * G + grp) * slot;
+      for (int e = lt * VW; e < n_bins * S; e += TG * VW) {
+        const int k = e / row;
+        float* to = dst + k * rk + (e - k * row);
+        if (VW == 4) cp_async16(to, src + e);
+        else if (VW == 2) cp_async8(to, src + e);
+        else cp_async4(to, src + e);
       }
     }
-    if (!valid || t >= m) continue;
-    const bool masked = fmask != nullptr && !fmask[node * d + f];
+    cp_async_commit();
+  };
+
+  float best = -INFINITY;
+  int best_i = 0x7fffffff;
+  for (int r = 0; r < stages - 1; ++r) stage(r);
+  for (int r = 0; r < rounds; ++r) {
+    stage(r + stages - 1);
+    if (stages == 3) cp_async_wait<2>();
+    else if (stages == 2) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();          // round r is in; round r-1's sums are read
+    const bool busy = r * G + grp < mine;
+    const float* blk = ring + ((r % stages) * G + grp) * slot;
+    // (1) within each 16-bin block, in order
+    for (int c = lt; busy && c < m * S; c += TG) {
+      const int k = c / S;
+      const int s = c - k * S;
+      const float* src = blk + k * rk + s;
+      float v[kScanBase];
 #pragma unroll
-    for (int j = 0; j < kScanBase; ++j) {
-      const int b = t * kScanBase + j;
-      const float rh = __fsub_rn(tot_h, lh[j]);
-      const bool ok = lh[j] >= mcw && rh >= mcw && b != n_bins - 1 &&
-                      !masked;
-      const float g = ok ? gain[j] : -INFINITY;
+      for (int j = 0; j < kScanBase; ++j) v[j] = src[j * S];
+      float* dst = cum + s * rs + k * kSplitRow;
+      float run = v[0];
+      dst[0] = run;
+#pragma unroll
+      for (int j = 1; j < kScanBase; ++j) {
+        run = __fadd_rn(run, v[j]);
+        dst[j] = run;
+      }
+    }
+    __syncthreads();
+    // (2) the blocks' totals, in order: block k adds the sum of blocks < k
+    // (the totals loaded first, then a chain of adds); each output's term
+    // of the parent, tg^2 / (th + lam), from stat 0's total (a shuffle
+    // from the group's lane 0 where the stats fit one warp)
+    for (int s = lt; busy && s < S; s += TG) {
+      const float* tot = cum + s * rs + kScanBase - 1;
+      float* off = before + s * kScanBase;
+      float t[kScanBase];
+#pragma unroll
+      for (int k = 0; k < kScanBase; ++k)
+        t[k] = k < m ? tot[k * kSplitRow] : 0.0f;
+      float pre = t[0];
+      off[0] = 0.0f;
+#pragma unroll
+      for (int k = 1; k < kScanBase; ++k) {
+        if (k < m) {
+          off[k] = pre;
+          pre = __fadd_rn(pre, t[k]);
+        }
+      }
+      total[s] = pre;
+      if (S <= 32) {
+        // lanes 0 .. S-1 of the group's first warp, each once
+        const unsigned lanes = S == 32 ? kFull : (1u << S) - 1u;
+        const float th = __shfl_sync(lanes, pre, 0);
+        if (s > 0)
+          t3[s] = __fdiv_rn(__fmul_rn(pre, pre), __fadd_rn(th, lam));
+      }
+    }
+    __syncthreads();
+    if (S > 32) {
+      for (int s = 1 + lt; busy && s < S; s += TG)
+        t3[s] = __fdiv_rn(__fmul_rn(total[s], total[s]),
+                          __fadd_rn(total[0], lam));
+      __syncthreads();
+    }
+    // (3) a bin a thread
+    const int f = busy ? feature(r) : 0;
+    for (int b = lt; busy && b < n_bins; b += TG) {
+      const int k = b >> 4;
+      const int at = k * kSplitRow + (b & (kScanBase - 1));
+      float lh = cum[at];
+      if (m > 1) lh = __fadd_rn(lh, before[k]);
+      const float rh = __fsub_rn(total[0], lh);
+      if (!(lh >= mcw && rh >= mcw && b != n_bins - 1)) continue;  // -inf
+      const float lhl = __fadd_rn(lh, lam);
+      const float rhl = __fadd_rn(rh, lam);
+      float g = 0.0f;
+      for (int o = 1; o < S; ++o) {
+        float lg = cum[o * rs + at];
+        if (m > 1) lg = __fadd_rn(lg, before[o * kScanBase + k]);
+        const float rg = __fsub_rn(total[o], lg);
+        const float t1 = __fdiv_rn(__fmul_rn(lg, lg), lhl);
+        const float t2 = __fdiv_rn(__fmul_rn(rg, rg), rhl);
+        g = __fadd_rn(g, __fsub_rn(__fadd_rn(t1, t2), t3[o]));
+      }
       const int idx = f * n_bins + b;
       if (better(g, idx, best, best_i)) {
         best = g;
@@ -516,6 +636,7 @@ best_split(const float* __restrict__ hist, const bool* __restrict__ fmask,
       }
     }
   }
+  cp_async_wait<0>();
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float og = __shfl_down_sync(kFull, best, off);
@@ -530,17 +651,42 @@ best_split(const float* __restrict__ hist, const bool* __restrict__ fmask,
     wi[warp] = best_i;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kSplitWarps; ++w) {
+  if (tid == 0) {
+    for (int w = 1; w < kSplitThreads / 32; ++w) {
       if (better(wg[w], wi[w], best, best_i)) {
         best = wg[w];
         best_i = wi[w];
       }
     }
-    feat[seg] = best_i / n_bins;
-    thr[seg] = best_i % n_bins;
-    gain_out[seg] = best;
-    split[seg] = best > 1e-7f;
+    block_best = best;
+    block_idx = best_i;
+  }
+  if (chunks > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                      // every block's maximum is written
+    if (rank == 0 && tid == 0) {
+      for (int r = 1; r < chunks; ++r) {
+        const float og = *cluster.map_shared_rank(&block_best, r);
+        const int oi = *cluster.map_shared_rank(&block_idx, r);
+        if (better(og, oi, best, best_i)) {
+          best = og;
+          best_i = oi;
+        }
+      }
+    }
+    cluster.sync();                      // read before any block exits
+  }
+  if (rank == 0 && tid == 0) {
+    // no finite gain (a node that cannot split, or whose features are all
+    // masked): the first maximum of all -inf is flat index 0
+    if (!(best > -INFINITY)) {
+      best = -INFINITY;
+      best_i = 0;
+    }
+    feat[pair] = best_i / n_bins;
+    thr[pair] = best_i % n_bins;
+    gain_out[pair] = best;
+    split[pair] = best > 1e-7f;
   }
 }
 
@@ -833,13 +979,18 @@ group_scatter(const int* __restrict__ local, const int* __restrict__ bases,
 // memory; the limit is raised once a device, not on every launch.
 template <typename Kernel>
 int allow_smem(Kernel kernel, int slot) {
-  static bool raised[3][kMaxDevices] = {};
+  static bool raised[6][kMaxDevices] = {};
   int dev = 0;
   int rc = static_cast<int>(cudaGetDevice(&dev));
   if (rc != 0) return rc;
   if (dev < kMaxDevices && raised[slot][dev]) return 0;
+  // the block's most, less what the kernel declares statically
+  cudaFuncAttributes fa;
+  rc = static_cast<int>(cudaFuncGetAttributes(&fa, kernel));
+  if (rc != 0) return rc;
   rc = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem - static_cast<int>(fa.sharedSizeBytes)));
   if (rc == 0 && dev < kMaxDevices) raised[slot][dev] = true;
   return rc;
 }
@@ -898,16 +1049,63 @@ int tree_level_hist(const uint8_t* codes, const int* perm, const int* offs,
 }
 
 // T2.  hist (L, N, d, n_bins, S); fmask (N, d) or null; feat, thr, gain,
-// split (L, N) out.  n_bins a multiple of 16 up to 256.
+// split (L, N) out.  n_bins a multiple of 16 up to 256.  chunks blocks a
+// (lane, node) (a cluster), rk and rs the rows of the staged and scanned
+// sums, `stages` staged rounds of G features (G = 1, 2, 4 or 8 a round)
+// and `smem` bytes of dynamic shared memory, as tree_kernels.py
+// `split_plan` chooses them.
 int tree_best_split(const float* hist, const bool* fmask, int* feat,
                     int* thr, float* gain, bool* split, int L, int N, int d,
-                    int n_bins, int S, float lam, float mcw, void* stream) {
+                    int n_bins, int S, int chunks, int rk, int rs, int stages,
+                    int G, int smem, float lam, float mcw, void* stream) {
+  const int m = n_bins / kScanBase;
   if (L < 1 || N < 1 || d < 1 || S < 1 || n_bins < kScanBase ||
-      n_bins % kScanBase || n_bins > kScanBase * kScanBase)
+      n_bins % kScanBase || n_bins > kScanBase * kScanBase || chunks < 1 ||
+      chunks > kSplitMaxChunks || stages < 1 || stages > kSplitMaxStages ||
+      rk < kScanBase * S || rs < kSplitRow * m || smem > kMaxSmem ||
+      (G != 1 && G != 2 && G != 4 && G != 8) ||
+      smem < split_smem(m, S, d, rk, rs, stages, G) ||
+      static_cast<long long>(L) * N * chunks >= (1LL << 31) ||
+      static_cast<long long>(d) * n_bins >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  best_split<<<L * N, kSplitWarps * 32, 0, static_cast<cudaStream_t>(
-      stream)>>>(hist, fmask, feat, thr, gain, split, N, d, n_bins, S, lam,
-                 mcw);
+  // the widest copy both ends allow: a staged row starts every rk floats
+  const uintptr_t a = reinterpret_cast<uintptr_t>(hist);
+  const int vw = (S % 4 == 0 && rk % 4 == 0 && (a & 15) == 0)   ? 4
+                 : (S % 2 == 0 && rk % 2 == 0 && (a & 7) == 0) ? 2
+                                                                : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(L * N * chunks));
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = chunks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = chunks > 1 ? 1 : 0;
+  int rc;
+  if (vw == 4) {
+    rc = allow_smem(best_split<4>, 3);
+    if (rc == 0)
+      rc = static_cast<int>(cudaLaunchKernelEx(
+          &cfg, best_split<4>, hist, fmask, feat, thr, gain, split, N, d,
+          n_bins, S, chunks, rk, rs, stages, G, lam, mcw));
+  } else if (vw == 2) {
+    rc = allow_smem(best_split<2>, 4);
+    if (rc == 0)
+      rc = static_cast<int>(cudaLaunchKernelEx(
+          &cfg, best_split<2>, hist, fmask, feat, thr, gain, split, N, d,
+          n_bins, S, chunks, rk, rs, stages, G, lam, mcw));
+  } else {
+    rc = allow_smem(best_split<1>, 5);
+    if (rc == 0)
+      rc = static_cast<int>(cudaLaunchKernelEx(
+          &cfg, best_split<1>, hist, fmask, feat, thr, gain, split, N, d,
+          n_bins, S, chunks, rk, rs, stages, G, lam, mcw));
+  }
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

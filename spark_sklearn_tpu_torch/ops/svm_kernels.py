@@ -25,9 +25,13 @@ one row per subproblem; yb holds -1, 0 or +1 and bound is >= 0; target
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — it never falls back.  `LAUNCHES` counts
-kernel launches (plain runs are not counted).  S2 stages a row in shared
-memory up to `STAGED_MAX_N` elements and streams it through L2 above
-(`step_plan`).
+kernel launches (plain runs are not counted).  S2 sums each bisection
+step over the elements that can move only (bound and yb nonzero, or a
+non-finite value: any other element adds exactly ±0, so the sums keep
+their bits), kept in a list a thread in shared memory up to
+`STAGED_MAX_N` elements a row and in the output rows above
+(`step_plan`), and takes 2 bisection steps a pass (1 in a row with a
+non-finite value, a negative bound or a bracket past FLT_MAX / 2).
 """
 
 from __future__ import annotations
@@ -206,10 +210,20 @@ def gram_epilogue(G, X1, X2, kind, gamma, degree, coef0):
     return G
 
 
-def step_plan(n: int) -> str:
-    """S2's plan for rows of n elements: "staged" in shared memory up to
-    `STAGED_MAX_N`, "streamed" through L2 above."""
-    return "staged" if n <= STAGED_MAX_N else "streamed"
+def step_plan(n: int, plan=None) -> dict:
+    """S2's launch for rows of n elements: `threads` (`STEP_THREADS`) a
+    row, each thread owning elements t, t + threads, ... and up to
+    `slots` of them in its list of kept elements (slot q at q·threads +
+    t); "staged" keeps the lists in `smem` bytes of shared memory (u,
+    bound, the sign of yb: 9 bytes a slot) up to `STAGED_MAX_N`,
+    "streamed" in the rows of x', z' and w' above (`plan` forces one)."""
+    threads = STEP_THREADS
+    slots = -(-n // threads)
+    plan = plan or ("staged" if n <= STAGED_MAX_N else "streamed")
+    if plan not in ("staged", "streamed"):
+        raise ValueError(f"plan={plan!r} is not 'staged' or 'streamed'")
+    return {"plan": plan, "threads": threads, "slots": slots,
+            "smem": 9 * slots * threads if plan == "staged" else 0}
 
 
 def dual_step(V, z, x, yb, bound, step, coef, target=None, plan=None):
@@ -228,9 +242,7 @@ def dual_step(V, z, x, yb, bound, step, coef, target=None, plan=None):
     _check("step", step, (), dev)
     if target is not None:
         _check("target", target, (M,), dev)
-    plan = plan or step_plan(n)
-    if plan not in ("staged", "streamed"):
-        raise ValueError(f"plan={plan!r} is not 'staged' or 'streamed'")
+    plan = step_plan(n, plan)
     x_new = torch.empty_like(z)
     z_new = torch.empty_like(z)
     w_new = torch.empty_like(z)
@@ -241,7 +253,7 @@ def dual_step(V, z, x, yb, bound, step, coef, target=None, plan=None):
             yb.data_ptr(), bound.data_ptr(), step.data_ptr(), float(coef),
             None if target is None else target.data_ptr(), x_new.data_ptr(),
             z_new.data_ptr(), w_new.data_ptr(), resid.data_ptr(), M, n,
-            0 if target is None else 1, int(plan == "staged"),
+            0 if target is None else 1, int(plan["plan"] == "staged"),
             _stream(dev))
     _raise_on(rc, "svm_dual_step")
     LAUNCHES["svm_dual_step"] += 1

@@ -57,7 +57,9 @@ registers, a lane a stat; small groups in rounds by rank; big ones by
 their lowest lane.  At the deep levels T1 is bound by the bytes of the
 histogram it writes.  T4 runs one chain a (node, stat), fed from shared
 memory that `cp.async` fills two tiles ahead, so its loads stay off the
-chain.  T2 scans the bins in XLA's order.
+chain.  T2 scans the bins in XLA's order, from feature blocks staged
+whole in shared memory (`split_plan`: a few features a round, a cluster of
+blocks at the roots), and reads only the features a node's mask keeps.
 """
 
 from __future__ import annotations
@@ -99,6 +101,24 @@ LEAF_STAGES = 3
 #: 10240 nodes, depth 12), as `kGroupTile` and `kGroupSmem`
 GROUP_TILE = 2048
 GROUP_SMEM = 48 * 1024
+#: T2's threads a block, the scanned sums' row for a 16-bin block, the
+#: most staged rounds of features (the one scanned and two ahead), the
+#: most blocks a (lane, node) (a thread-block cluster) and the most
+#: features a round (a group of whole warps each), as `kSplitThreads`,
+#: `kSplitRow`, `kSplitMaxStages`, `kSplitMaxChunks` and the kernel's G
+SPLIT_THREADS = 256
+SPLIT_ROW = 17
+SPLIT_STAGES = 3
+SPLIT_MAX_CHUNKS = 8
+SPLIT_MAX_GROUPS = 8
+#: T2 shares a (lane, node)'s features out over more blocks until a
+#: launch has about this many blocks an SM (few nodes: the roots)
+SPLIT_BLOCKS_PER_SM = 2
+#: T2's dynamic shared memory at most: a block's, less the 1 KB that
+#: holds its static shared memory (80 bytes: the warps' maxima); and what
+#: leaves four blocks an SM, which fewer stages keep to where they can
+SPLIT_MAX_SMEM = MAX_SMEM - 1024
+SPLIT_SMEM_FOUR = MAX_SMEM // 4 - 1024
 
 
 def reset_launches() -> None:
@@ -259,7 +279,8 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tree_level_hist.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                     i, i, p]
-    lib.tree_best_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, p]
+    lib.tree_best_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                    i, i, i, i, f, f, p]
     lib.tree_route.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.tree_walk.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.tree_leaf_values.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
@@ -441,6 +462,74 @@ def level_histogram_grouped(codes, perm, offs, stats, n_nodes, n_bins=256):
     return hist
 
 
+def _scan_conflicts(S: int, m: int, rs: int) -> int:
+    """The most threads of one warp that T2's in-block scan sends to one
+    shared-memory bank when chain c = (16-bin block c // S, stat c % S)
+    writes its running sums to rows of `rs` floats a stat,
+    `SPLIT_ROW` floats a block."""
+    worst = 1
+    for c0 in range(0, m * S, 32):
+        banks = [((c % S) * rs + SPLIT_ROW * (c // S)) % 32
+                 for c in range(c0, min(c0 + 32, m * S))]
+        worst = max(worst, max(banks.count(b) for b in set(banks)))
+    return worst
+
+
+def split_smem(m: int, S: int, d: int, rk: int, rs: int, stages: int,
+               G: int) -> int:
+    """T2's dynamic shared memory (bytes), as `best_split` lays it out:
+    `stages` rounds of G staged feature blocks (m rows of rk floats); per
+    group the scanned sums (S rows of rs floats), each stat's 16 block
+    offsets, its total and its total's gain term; the node's list of kept
+    features."""
+    return 4 * (stages * G * m * rk + G * S * (rs + 16 + 2) + d)
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(L: int, N: int, d: int, n_bins: int, S: int,
+               n_sm: int) -> dict:
+    """T2's launch.  A block of `SPLIT_THREADS` takes the kept features
+    of one (lane, node), G at a time (a round: a group of whole warps a
+    feature; G the most of 1, 2, 4, 8 whose groups still have a thread a
+    scan chain, up to the power of two that covers a block's share of
+    d); `chunks` blocks
+    (a cluster) share a (lane, node) where L·N alone gives fewer than
+    `SPLIT_BLOCKS_PER_SM` blocks an SM.  A staged 16-bin block is a row
+    of rk floats, rk = S (mod 32), so the scan's reads of a warp hit 32
+    banks; the scanned sums are rows of rs floats a stat, rs chosen for
+    the fewest bank conflicts of the scan's writes.  `stages` rounds (3:
+    the one scanned and two ahead; 2 where 3 would leave fewer than four
+    blocks an SM; fewer where S is large) fit the block's shared memory.
+    Returns chunks, groups, grid, threads, rk, rs, stages, vw (the copy's
+    floats, where the histogram is aligned) and smem; cached (the search
+    for rs takes longer on the host than the kernel on the card)."""
+    if n_bins % 16 or not 16 <= n_bins <= 256:
+        raise ValueError(f"T2 takes n_bins a multiple of 16 up to 256, "
+                         f"got {n_bins}")
+    m = n_bins // 16
+    rk = 16 * S + (S - 16 * S) % 32
+    rs = min(range(SPLIT_ROW * m, SPLIT_ROW * m + 32),
+             key=lambda r: (_scan_conflicts(S, m, r), r))
+    chunks = max(1, min(SPLIT_MAX_CHUNKS, d,
+                        -(-SPLIT_BLOCKS_PER_SM * n_sm // (L * N))))
+    share = -(-d // chunks)                  # a block's features, at most
+    G = 1
+    while (2 * G <= SPLIT_MAX_GROUPS and G < share
+           and SPLIT_THREADS // (2 * G) >= m * S):
+        G *= 2
+    fits = [st for st in range(SPLIT_STAGES, 0, -1)
+            if split_smem(m, S, d, rk, rs, st, G) <= SPLIT_MAX_SMEM]
+    if not fits:
+        raise ValueError(f"T2 cannot take {S} stats at {n_bins} bins in one "
+                         f"block")
+    stages = next((st for st in fits if st >= 2 and split_smem(
+        m, S, d, rk, rs, st, G) <= SPLIT_SMEM_FOUR), fits[0])
+    vw = 4 if S % 4 == 0 else 2 if S % 2 == 0 else 1
+    return {"chunks": chunks, "groups": G, "grid": L * N * chunks,
+            "threads": SPLIT_THREADS, "rk": rk, "rs": rs, "stages": stages,
+            "vw": vw, "smem": split_smem(m, S, d, rk, rs, stages, G)}
+
+
 def best_splits(hist, fmask, reg_lambda, min_child_weight):
     """T2 (see the module docstring).  fmask: (n_nodes, d) bool, shared by
     the lanes, or None."""
@@ -449,11 +538,9 @@ def best_splits(hist, fmask, reg_lambda, min_child_weight):
     dev = hist.device
     L, N, d, B, S = hist.shape
     _check("hist", hist, (L, N, d, B, S), torch.float32, dev)
-    if B % 16 or B > 256:
-        raise ValueError(f"T2 takes n_bins a multiple of 16 up to 256, "
-                         f"got {B}")
     if fmask is not None:
         _check("fmask", fmask, (N, d), torch.bool, dev)
+    plan = split_plan(L, N, d, B, S, _sm_count(dev.index))
     feat = torch.empty((L, N), dtype=torch.int32, device=dev)
     thr = torch.empty((L, N), dtype=torch.int32, device=dev)
     gain = torch.empty((L, N), dtype=torch.float32, device=dev)
@@ -462,7 +549,9 @@ def best_splits(hist, fmask, reg_lambda, min_child_weight):
         rc = _lib().tree_best_split(
             hist.data_ptr(), None if fmask is None else fmask.data_ptr(),
             feat.data_ptr(), thr.data_ptr(), gain.data_ptr(),
-            split.data_ptr(), L, N, d, B, S, float(reg_lambda),
+            split.data_ptr(), L, N, d, B, S, plan["chunks"], plan["rk"],
+            plan["rs"], plan["stages"], plan["groups"], plan["smem"],
+            float(reg_lambda),
             float(min_child_weight), _stream(dev))
     _raise_on(rc, "tree_best_split")
     LAUNCHES["tree_best_split"] += 1

@@ -299,11 +299,26 @@ def test_gram_epilogue_matches_plain(cuda_device, kind, same):
         assert torch.all(got.diagonal() == 1.0)
 
 
-def _step_inputs(device, M, n, seed=0):
+def _step_inputs(device, M, n, seed=0, pairs=False):
+    """One S2 step's inputs: elements drawn -1/0/+1 with bounds on ~80%
+    of the signed ones, or with `pairs` rows shaped like the SVC search's
+    (fold, class pair) subproblems: 10 balanced classes and 5 folds, +-1
+    on a pair's two classes, bounds on the fold's training rows (~16% of
+    the elements free)."""
     rng = np.random.default_rng(seed)
-    yb = rng.choice([-1.0, 0.0, 1.0], size=(M, n), p=[0.45, 0.1, 0.45])
-    bound = (rng.uniform(0.5, 2.0, (M, n)) * (rng.random((M, n)) < 0.8)
-             * (yb != 0))
+    if pairs:
+        y = rng.permutation(n) % 10
+        fold = rng.permutation(n) % 5
+        ab = [(a, b) for a in range(10) for b in range(a + 1, 10)]
+        r = np.arange(M)
+        a, b = np.array(ab)[r % 45].T
+        yb = ((y[None] == a[:, None]).astype(float)
+              - (y[None] == b[:, None]))
+        bound = 1.5 * (yb != 0) * (fold[None] != (r // 45 % 5)[:, None])
+    else:
+        yb = rng.choice([-1.0, 0.0, 1.0], size=(M, n), p=[0.45, 0.1, 0.45])
+        bound = (rng.uniform(0.5, 2.0, (M, n)) * (rng.random((M, n)) < 0.8)
+                 * (yb != 0))
     z = rng.uniform(0, 1, (M, n)) * bound
     x = rng.uniform(0, 1, (M, n)) * bound
     V = rng.standard_normal((M, n))
@@ -313,26 +328,29 @@ def _step_inputs(device, M, n, seed=0):
     return arrs + [torch.tensor(0.25, device=device)]
 
 
-# (M, n, forced staged limit or None): one row of one element, ragged
-# rows, the largest staged row, the streamed plan forced at a small n and
-# taken at a real one
-STEP_SHAPES = [(7, 300, None), (3, 1, None), (5, 777, None),
-               (2, svk.STAGED_MAX_N, None), (5, 777, 256),
-               (2, svk.STAGED_MAX_N + 1, None)]
+# (M, n, forced staged limit or None, pair rows): one row of one element,
+# ragged rows, the largest staged row, the streamed plan forced at a small
+# n and taken at a real one; the SVC search's pair rows at phase 8's shape
+# and at the scaler + SVC pipeline's
+STEP_SHAPES = [(7, 300, None, False), (3, 1, None, False),
+               (5, 777, None, False), (2, svk.STAGED_MAX_N, None, False),
+               (5, 777, 256, False), (2, svk.STAGED_MAX_N + 1, None, False),
+               (225, 10000, None, True), (45, 2000, None, True)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,n,staged_max", STEP_SHAPES)
+@pytest.mark.parametrize("M,n,staged_max,pairs", STEP_SHAPES)
 @pytest.mark.parametrize("mode", ["svc", "nu", "project"])
 def test_dual_step_matches_plain(cuda_device, monkeypatch, mode, M, n,
-                                 staged_max):
+                                 staged_max, pairs):
     """Tolerance: atol 1e-5 on x', z', w' and 1e-5/step on the residual —
     the bisection's block sums add in another order than torch's, which
     moves the multiplier by rounding only where enough elements are
     free.  `staged_max` forces the streamed plan below its limit."""
     if staged_max is not None:
         monkeypatch.setattr(svk, "STAGED_MAX_N", staged_max)
-    V, z, x, yb, bound, target, step = _step_inputs(cuda_device, M, n)
+    V, z, x, yb, bound, target, step = _step_inputs(cuda_device, M, n,
+                                                    pairs=pairs)
     V = None if mode == "project" else V
     target = None if mode == "svc" else target
     want = svk.dual_step_plain(V, z, x, yb, bound, step, 0.4, target)
@@ -346,11 +364,16 @@ def test_dual_step_matches_plain(cuda_device, monkeypatch, mode, M, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,n,pairs", [(33, 3001, False),
+                                       (225, 10000, True),
+                                       (45, 2000, True)])
 @pytest.mark.parametrize("mode", ["svc", "nu"])
-def test_dual_step_plans_and_repeats_agree_bitwise(cuda_device, mode):
+def test_dual_step_plans_and_repeats_agree_bitwise(cuda_device, mode, M, n,
+                                                   pairs):
     """No atomics: two launches give the same bits, and the staged and
     streamed plans add in the same order, so they agree bitwise too."""
-    V, z, x, yb, bound, target, step = _step_inputs(cuda_device, 33, 3001)
+    V, z, x, yb, bound, target, step = _step_inputs(cuda_device, M, n,
+                                                    pairs=pairs)
     target = None if mode == "svc" else target
     first = svk.dual_step(V, z, x, yb, bound, step, 0.4, target)
     second = svk.dual_step(V, z, x, yb, bound, step, 0.4, target)
@@ -362,6 +385,37 @@ def test_dual_step_plans_and_repeats_agree_bitwise(cuda_device, mode):
     G = X1 @ X1.T
     assert torch.equal(svk.gram_epilogue(G.clone(), X1, X1, "rbf", 0.1, 3, 0),
                        svk.gram_epilogue(G.clone(), X1, X1, "rbf", 0.1, 3, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["svc", "nu"])
+def test_dual_step_keeps_nan_and_wide_brackets(cuda_device, mode):
+    """S2 leaves out of its bisection sums the elements whose bound or yb
+    is 0, but keeps a non-finite one: a NaN in an inert element still
+    turns its row NaN, as in the plain version, and the other rows agree
+    with it within the tolerances.  A row whose bracket is wider than
+    FLT_MAX / 2 sums every element, one step a pass; its sums of values
+    near FLT_MAX may round differently from torch's, so that row is held
+    to the box and to the same bits in both plans, not to the plain
+    version."""
+    V, z, x, yb, bound, target, step = _step_inputs(cuda_device, 6, 900,
+                                                    pairs=True)
+    inert = int(torch.nonzero(bound[1] == 0)[0, 0])
+    V[1, inert] = float("nan")
+    bound[3] = torch.where(bound[3] > 0, 3.4e38, 0.0)   # a bracket past
+    z[3] = x[3] = 0.0                                     # FLT_MAX / 2
+    target = None if mode == "svc" else target
+    got = svk.dual_step(V, z, x, yb, bound, step, 0.4, target)
+    want = svk.dual_step_plain(V, z, x, yb, bound, step, 0.4, target)
+    streamed = svk.dual_step(V, z, x, yb, bound, step, 0.4, target,
+                             plan="streamed")
+    assert torch.isnan(got[0][1]).all() and torch.isnan(want[0][1]).all()
+    rows = [0, 2, 4, 5]
+    for a, b, atol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-5 / 0.25)):
+        torch.testing.assert_close(a[rows], b[rows], rtol=1e-5, atol=atol)
+    for a, c in zip(got, streamed):
+        assert torch.equal(a.nan_to_num(), c.nan_to_num())
+    assert bool((got[0][3] >= 0).all() and (got[0][3] <= bound[3]).all())
 
 
 @pytest.mark.cuda
@@ -499,29 +553,55 @@ def test_tree_segments_match_plain(cuda_device, L, n, n_nodes, skew):
     assert torch.equal(offs.cpu(), want[1])
 
 
+# (kind, L, n, d, n_nodes, classes, mask): no mask and a random one (S =
+# 5 forest, S = 2 boosting), nodes with every feature masked, one kept
+# feature, and the RF classifier's draw of 7 of 54 features at the root
+# and at 512 nodes, with forest (S = 8) and boosting (S = 2) stats
+SPLIT_CASES = [(kind, 3, 700, 9, 16, 4, mask)
+               for kind in ("forest", "boosting")
+               for mask in (None, "random", "all-masked nodes",
+                            "one feature")] + [
+    (kind, L, 3000, 54, nodes, 7, "seven")
+    for kind in ("forest", "boosting") for L, nodes in ((3, 1), (1, 512))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["forest", "boosting"])
-@pytest.mark.parametrize("masked", [False, True])
-def test_tree_best_split_matches_plain(cuda_device, kind, masked):
+@pytest.mark.parametrize("kind,L,n,d,n_nodes,classes,mask", SPLIT_CASES)
+def test_tree_best_split_matches_plain(cuda_device, kind, L, n, d, n_nodes,
+                                       classes, mask):
     """T2 on one histogram against its plain version: on integer stats
-    the same feature, bin and split everywhere and gains within rounding;
-    on continuous ones the same where the two best gains are apart."""
-    codes, local, stats = _tree_inputs(cuda_device, kind, n_nodes=16)
-    hist = tk.level_histogram_plain(codes, local, stats, 16)
+    the same feature, bin, split and gain everywhere; on continuous ones
+    the same where the two best gains are apart, gains within rounding.
+    A node with no finite gain (every feature masked) gets flat index 0,
+    as argmax over all -inf does."""
+    codes, local, stats = _tree_inputs(cuda_device, kind, L, n, d, n_nodes,
+                                       classes=classes)
+    hist = tk.level_histogram_plain(codes, local, stats, n_nodes)
     fmask = None
-    if masked:
+    if mask is not None:
         g = torch.Generator(device="cuda").manual_seed(1)
-        fmask = torch.rand((16, codes.shape[1]), generator=g,
-                           device="cuda") < 0.4
+        sc = torch.rand((n_nodes, d), generator=g, device="cuda")
+        if mask == "seven":
+            fmask = sc <= torch.sort(sc, dim=1).values[:, 6:7]
+        elif mask == "one feature":
+            fmask = sc == sc.max(dim=1, keepdim=True).values
+        else:
+            fmask = sc < 0.4
+        if mask == "all-masked nodes":
+            fmask[::3] = False
     got = tk.best_splits(hist, fmask, 1e-6, 1.0)
     want = tk.best_splits_plain(hist, fmask, 1e-6, 1.0)
     again = tk.best_splits(hist, fmask, 1e-6, 1.0)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    ok = torch.ones_like(got[3])
-    if kind == "boosting":
-        flat = _plain_gains(hist, fmask)
-        top2 = torch.topk(flat, 2, dim=2).values
-        ok = (top2[..., 0] - top2[..., 1]) > 1e-5 * top2[..., 0].abs()
+    if mask == "all-masked nodes":
+        assert (got[0][:, ::3] == 0).all() and (got[1][:, ::3] == 0).all()
+        assert torch.isneginf(got[2][:, ::3]).all()
+    if kind == "forest":
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return
+    flat = _plain_gains(hist, fmask)
+    top2 = torch.topk(flat, 2, dim=2).values
+    ok = (top2[..., 0] - top2[..., 1]) > 1e-5 * top2[..., 0].abs()
     for a, b in zip(got[:2], want[:2]):
         assert torch.equal(a[ok], b[ok])
     assert torch.equal(got[3], want[3])
