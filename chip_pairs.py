@@ -12,10 +12,11 @@ that difference is larger than the parent's spread; then, for the tree
 searches, each run's device busy time and cuda-against-cpu max |d
 mean_test_score|; then phase 3's kernel rows (ms between events, each
 kernel by shape and variant) with the change's mean over the parent's;
-then T2 and S2 alone (`ALONE_ROWS`, again parent, change, change,
-parent): each tree's wrappers replayed in a CUDA graph, their host time
-a call, and whether each row's outputs have the same bits in the four
-runs.
+then T2, S2, T3 and M2 alone and `grow_tree` at the tree searches'
+chunks (`ALONE_ROWS`, again parent, change, change, parent): each
+tree's wrappers replayed in a CUDA graph, their host time a call, the
+grower's launches and host time a level, and whether each row's outputs
+have the same bits in the four runs.
 
     python3 chip_pairs.py --parent .scratch/parent --change .
 
@@ -89,17 +90,31 @@ def kernel_rows(d: dict) -> dict:
     return rows
 
 
-# T2 and S2 alone, in `tree`'s directory (its own package) on inputs that
-# the change's chip_smoke.py makes (the same in every run): each wrapper's
+# Kernels alone, in `tree`'s directory (its own package) on inputs that
+# the change's chip_smoke.py makes (the same in every run): each row's
 # launches replayed in a CUDA graph (the host's time a call is not in
-# it), each wrapper's host time a call (a loop of calls, too short to fill
-# the launch queue, on the host's clock), and a digest of each row's
-# outputs, so that the two trees' bits can be compared.  At the roots and
-# on short rows the wrappers take longer on the host than the kernels on
-# the card, so timed between events they measure the host.  S2's rows:
-# phase 3's (`svm_step_inputs`), phase 8's own structure
-# (`svm_pair_inputs`) and the scaler + SVC pipeline's (45 pairs of a
-# StratifiedKFold(3) fold, 2000 rows, C=1).
+# it), its host time a call (a loop of calls, too short to fill the
+# launch queue, on the host's clock), and a digest of its outputs, so
+# that the two trees' bits can be compared.  At the roots and on short
+# rows the wrappers take longer on the host than the kernels on the card,
+# so timed between events they measure the host.
+# - T2 at phase 9's and 10's roots and deepest levels; S2 on phase 3's
+#   rows (`svm_step_inputs`), phase 8's own structure (`svm_pair_inputs`)
+#   and the scaler + SVC pipeline's (45 pairs of a StratifiedKFold(3)
+#   fold, 2000 rows, C=1).
+# - T3's level step at phase 9's and 10's roots and last levels, from a
+#   copy of the level's nodes (its time taken off); in a tree without the
+#   level step, the grower's bookkeeping and routing of a level as that
+#   tree ran it (the level's keys, the split features, the heap's three
+#   writes, `route`; at the last level the is_leaf scatter and T4's keys).
+#   The digest holds node and the heap (and T4's keys at the last level).
+# - T3's walk at phase 10's depth 10; the fit's update after a grown tree
+#   (`accumulate_leaves` from the grower's nodes, or the walk where a
+#   tree has no such entry point), whose bits must match; `grow_tree`
+#   alone at each search's chunk (`grower_alone`: launches and host us a
+#   level) with a digest of its tree.
+# - M2 at phase 3's adam, sgd and regressor shapes, on a copy of the
+#   state a call.
 ALONE_ROWS = """
 import hashlib
 import importlib.util
@@ -111,9 +126,14 @@ spec = importlib.util.spec_from_file_location(
     "chip_smoke_change", sys.argv[1] + "/chip_smoke.py")
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
+from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
 from spark_sklearn_tpu_torch.ops import svm_kernels as svk
 from spark_sklearn_tpu_torch.ops import tree_kernels as tk
+from spark_sklearn_tpu_torch.ops import trees as pt
 from spark_sklearn_tpu_torch.utils.binning import quantile_bin
+
+FUSED = hasattr(tk, "level_step")
+MINUS_ONE = torch.tensor(-1, dtype=torch.int32, device="cuda")
 
 
 def host_us(fn, calls=100):
@@ -135,6 +155,29 @@ def digest(outs):
     return h.hexdigest()[:16]
 
 
+def level_unit(codes, st, active, bf, bb, split, last):
+    node, feat, thresh, is_leaf, keys, frozen = st
+    if FUSED:
+        tk.level_step(codes, node, active, bf, bb, split, feat, thresh,
+                      is_leaf, keys, last)
+        return
+    N = split.shape[1]
+    offset = N - 1
+    torch.where(frozen | ~active, MINUS_ONE, node - offset)
+    sf = torch.where(split, bf, MINUS_ONE)
+    feat[:, offset:offset + N] = sf
+    thresh[:, offset:offset + N] = bb
+    is_leaf[:, offset:offset + N] = ~split
+    tk.route(codes, node, frozen, sf, bb, offset)
+    if last:
+        is_leaf.scatter_(1, node.long(), True)
+        keys.copy_(torch.where(active, node, MINUS_ONE))
+
+
+def tree_of(res):
+    return res if hasattr(res, "feat") else res[0]
+
+
 rows = {}
 for label, codes_np, L, depth, kind in (
         ("rf", quantile_bin(cs.covtype_like(0)[0])[1], 6, 10, "forest"),
@@ -142,6 +185,7 @@ for label, codes_np, L, depth, kind in (
          "boosting")):
     codes = torch.as_tensor(codes_np, device="cuda")
     d = codes.shape[1]
+    M = 2 ** (depth + 1) - 1
     for n_nodes in (1, 2 ** (depth - 1)):
         local, stats = cs.tree_level_inputs(codes, L, n_nodes, kind, n_nodes)
         hist = tk.level_histogram(codes, local, stats, n_nodes)
@@ -155,7 +199,79 @@ for label, codes_np, L, depth, kind in (
             rows[f"tree_best_split {label}/{n_nodes}{tag}"] = {
                 "ms": cs.graph_ms(fn), "host_us": host_us(fn),
                 "bits": digest(fn())}
+        bf, bb, _, split = tk.best_splits(hist, masks[" masked" if kind
+                                                     == "forest" else ""],
+                                          1e-6, 1.0)
         del hist
+        last = n_nodes == 2 ** (depth - 1)
+        node0 = (local.clamp_min(0) + (n_nodes - 1)).to(torch.int32)
+        active = local >= 0
+        st = [node0.clone(),
+              torch.full((L, M), -1, dtype=torch.int32, device="cuda"),
+              torch.zeros((L, M), dtype=torch.int32, device="cuda"),
+              torch.zeros((L, M), dtype=torch.bool, device="cuda"),
+              torch.full_like(node0, -7), torch.zeros_like(active)]
+        restore = lambda: (st[0].copy_(node0), st[5].zero_())
+        stepped = lambda: (restore(), level_unit(codes, st, active, bf, bb,
+                                                 split, last))
+        stepped()
+        bits = digest(st[:4] + ([st[4]] if last else []))
+        rows[f"tree_route step {label}/{n_nodes}"] = {
+            "ms": cs.graph_ms(stepped) - cs.graph_ms(restore),
+            "host_us": host_us(stepped) - host_us(restore), "bits": bits}
+    # the walk of random trees of the path's depth (phase 3's)
+    local, stats = cs.tree_level_inputs(codes, L, M, kind, 7)
+    val = tk.leaf_values(local, stats, M, 1e-6)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    feat = torch.randint(0, d, (L, M), generator=g, device="cuda",
+                         dtype=torch.int32)
+    thr = torch.randint(0, 256, (L, M), generator=g, device="cuda",
+                        dtype=torch.int32)
+    leaf = torch.zeros((L, M), dtype=torch.bool, device="cuda")
+    leaf[:, M // 2:] = True
+    scale = torch.full((L,), 0.1, device="cuda")
+    out = torch.zeros((L, codes.shape[0], val.shape[2]), device="cuda")
+    fn = lambda: tk.walk(codes, feat, thr, leaf, val, depth, out, scale)
+    rows[f"tree_route walk {label}"] = {
+        "ms": cs.graph_ms(fn), "host_us": host_us(fn),
+        "bits": digest([tk.walk(codes, feat, thr, leaf, val, depth,
+                                torch.zeros_like(out), scale)])}
+    # a grown tree at the search's chunk, and the fit's update from it
+    args, kw = cs.grower_inputs(label, 0)
+    grow = lambda: pt.grow_tree(*args, **kw)
+    res = grow()
+    tree = tree_of(res)
+    scale = torch.full((tree.value.shape[0],), 0.1, device="cuda")
+    out = torch.zeros((tree.value.shape[0], codes.shape[0],
+                       tree.value.shape[2]), device="cuda")
+    if FUSED:
+        update = lambda o: pt.accumulate_leaves(tree, res[1], o, scale)
+    else:
+        update = lambda o: pt.accumulate_tree(tree, codes, depth, o, scale)
+    fn = lambda: update(out)
+    rows[f"tree_route update {label}"] = {
+        "ms": cs.graph_ms(fn), "host_us": host_us(fn),
+        "bits": digest([update(torch.zeros_like(out))])}
+    per_level = cs.grower_alone(label, 0)
+    rows[f"grow_tree {label}"] = {
+        "ms": cs.cuda_ms(grow, reps=5, warmup=1),
+        "host_us": host_us(grow, calls=3), "bits": digest(tree),
+        **per_level}
+for path, shape, adam in (("adam", {}, True), ("sgd", {}, False),
+                          ("regressor", dict(B=6, k=1, d=cs.D_REG,
+                                             alphas=cs.MLP_REG_ALPHAS),
+                           True)):
+    t = cs.mlp_step_inputs(0, **shape)
+    fn = cs.state_in_place(t, mk.mlp_opt_step, adam)
+    names = ("p", "m", "v", "t", "acc") if adam else ("p", "m", "acc")
+    s = {n: t[n].clone() for n in ("p", "m", "v", "t", "acc")}
+    mk.mlp_opt_step(s["p"], t["g"], s["m"], s["v"] if adam else None,
+                    s["t"] if adam else None, t["wmask"], t["alpha"],
+                    t["wsum"], t["lr"], t["active"], t["loss"], s["acc"],
+                    adam=adam)
+    rows[f"mlp_opt_step {path}"] = {
+        "ms": cs.graph_ms(fn), "host_us": host_us(fn),
+        "bits": digest([s[n] for n in names])}
 *fold, step = cs.svm_pair_inputs(0, C=1.0, folds=3, n=2000)
 for shape, inputs in (
         ("", cs.svm_step_inputs(0)),
@@ -260,12 +376,19 @@ def main() -> int:
     alone = {"parent": [], "change": []}
     for label, tree in order:
         alone[label].append(alone_rows(tree, args.change))
-    for key, title, fmt in (("ms", "T2, S2 alone (ms, CUDA graph)", "9.4f"),
-                            ("host_us", "T2, S2 host time a call (us)",
-                             "9.1f")):
+    grow = [r for r in alone["change"][0] if r.startswith("grow_tree")]
+    for key, title, fmt in (("ms", "kernels alone (ms, CUDA graph; "
+                             "grow_tree events)", "9.4f"),
+                            ("host_us", "host time a call (us)", "9.1f"),
+                            ("launches_per_level", "grow_tree: device "
+                             "launches a level", "9.2f"),
+                            ("host_us_per_level", "grow_tree: host us a "
+                             "level", "9.1f"),
+                            ("device_us_per_level", "grow_tree: device us "
+                             "a level", "9.1f")):
         print(f"\n{title:40s} {'parent 1':>9s} {'change 1':>9s} "
               f"{'change 2':>9s} {'parent 2':>9s} {'change/parent':>14s}")
-        for r in alone["change"][0]:
+        for r in (grow if key.endswith("_level") else alone["change"][0]):
             par = [a[r][key] for a in alone["parent"]]
             chg = [a[r][key] for a in alone["change"]]
             print(f"{r:40s} " + " ".join(f"{c:{fmt}}" for c in

@@ -51,7 +51,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    n_estimators=50, max_depth=3) over learning_rate {0.1, 0.3} on phase
    4's data, 5 folds; each cold, warm and profiled (trees grown, busy ms
    a tree, idle share, peak memory, best candidate), and cuda against the
-   CPU on at most 2000 rows (2 candidates, 3 folds);
+   CPU on at most 2000 rows (2 candidates, 3 folds); the device
+   launches and warm wall a level of each search (its profile's events
+   over its T3 level steps), and `grow_tree` alone at the search's chunk
+   (launches, host and device us a level);
 10. random forest, BASELINE config #3, on covtype-shaped data made from
    --seed (d=54: 10 quantitative columns in covtype's ranges, 4
    wilderness and 40 soil one-hot columns, 7 classes at covtype's
@@ -85,10 +88,13 @@ fold of phase 11's scaler + SVC path (n=2000, 45 rows), and the tree
 grower's T1 (level histogram), T2 (split choice: the forest's roots
 unmasked and with 7 of 54 features kept, its deepest level with 7 kept
 and with a quarter of the nodes keeping none; its bound counts the kept
-features' bytes, the whole histogram's time beside it), T3 (routing and
-the walk), T4 (leaf values) and G (their grouping of rows by node) at
-phase 9's (60 lanes, n=20640, d=8, depth 5) and phase 10's (6 lanes,
-n=100000, d=54, depth 10) shapes: T1 at the root and the deepest level,
+features' bytes, the whole histogram's time beside it), T3 (its level
+step at the roots and at the last level, its accumulate of the last
+level's nodes and the walk of whole trees, each `torch.equal` to its
+plain version, timed as a CUDA graph's replay and between events), T4
+(leaf values) and G (their grouping of rows by node) at phase 9's (60
+lanes, n=20640, d=8, depth 5) and phase 10's (6 lanes, n=100000, d=54,
+depth 10) shapes: T1 at the root and the deepest level,
 uniform and skewed (half the rows in one node, a quarter in the next,
 ...), T4 uniform, skewed and at one node a lane (the boosting init),
 each `torch.equal` to its plain version on CPU copies of the inputs,
@@ -96,7 +102,8 @@ timed alone and with its grouping, beside `index_add_` (T1, T4),
 `torch.sort` (G), its byte bound and its order bound (the longest chain
 of one sum x 4 clocks at the SM clock read under load); and the MLP
 step's M1 (loss and cotangent), M2 (adam step; `torch._fused_adam_`
-timed beside it) and M3 (bias and activation, forward and backward) at
+timed beside it, and `torch._fused_sgd_` beside the sgd step) and M3
+(bias and activation, forward and backward) at
 every shape phase 11 gives them: the BASELINE #5 step (12 lanes, 200
 rows, k=10, h=64) and the MLPRegressor's (6 lanes, k=1, d=8), timed; the
 refit's one lane and the views' whole folds, checked.
@@ -1370,12 +1377,19 @@ def sm_clock_under_load(fn, seconds: float = 1.0) -> float:
     return mhz
 
 
+#: the parts of the mangled names of each count's CUDA kernels (T3: the
+#: level step, the accumulate and the walk; the grouping's group_count,
+#: group_scan and group_scatter)
+TREE_SYMBOLS = {"tree_level_hist": ("level_hist",),
+                "tree_best_split": ("best_split",),
+                "tree_route": ("level_step", "add_leaves", "walk_rows"),
+                "tree_leaf_values": ("leaf_sums",),
+                "tree_segments": ("group_",)}
+
+
 def tree_symbol(name: str) -> str:
-    """The part of the mangled names of `name`'s CUDA kernels (the
-    grouping's three: group_count, group_scan, group_scatter)."""
-    return {"tree_level_hist": "level_hist", "tree_best_split": "best_split",
-            "tree_route": "route_rows", "tree_leaf_values": "leaf_sums",
-            "tree_segments": "group_"}[name]
+    """The part of the mangled name of `name`'s main CUDA kernel."""
+    return TREE_SYMBOLS[name][0]
 
 
 def phase_tree_kernels(seed: int, ptxas: dict):
@@ -1439,9 +1453,10 @@ def phase_tree_kernels(seed: int, ptxas: dict):
         lib = f", index_add_ {lib_ms:.4f} ms" if lib_ms is not None else ""
         more = ""
         if extra and "events_ms" in extra:
-            more = (f", {extra['events_ms']:.4f} ms between events, whole "
-                    f"histogram bound {extra['hist_bytes_ms']:.4f} ms, "
-                    f"{extra['kept_features']} kept features")
+            more = f", {extra['events_ms']:.4f} ms between events"
+        if extra and "hist_bytes_ms" in extra:
+            more += (f", whole histogram bound {extra['hist_bytes_ms']:.4f}"
+                     f" ms, {extra['kept_features']} kept features")
         if extra and "wrapper_ms" in extra:
             more = (f", wrapper {extra['wrapper_ms']:.4f} ms, order bound "
                     f"{extra['order_bound_ms']:.4f} ms (chain "
@@ -1501,6 +1516,7 @@ def phase_tree_kernels(seed: int, ptxas: dict):
                symbol="group_scatter")
 
     sm_mhz = None
+    final_node = {}
     for label, (codes_np, L, depth, kind) in shapes.items():
         codes = torch.as_tensor(codes_np, device="cuda")
         n, d = codes.shape
@@ -1621,39 +1637,62 @@ def phase_tree_kernels(seed: int, ptxas: dict):
                     split_of_level = got
             got = split_of_level
             del hist
-            # T3: route this level's rows by the splits just chosen
-            node = (local.clamp_min(0) + (n_nodes - 1)).to(torch.int32)
-            frozen = local < 0
-            sf = torch.where(got[3], got[0], torch.full_like(got[0], -1))
-            outs = []
-            for _ in range(2):
-                nd, fr = node.clone(), frozen.clone()
-                tk.route(codes, nd, fr, sf, got[1], n_nodes - 1)
-                outs.append((nd, fr))
-            nd_p, fr_p = node.clone(), frozen.clone()
-            tk.route_plain(codes, nd_p, fr_p, sf, got[1], n_nodes - 1)
+            # T3: the level step on this level's splits, every row at
+            # the level's nodes (local < 0: inactive, routed all the
+            # same); the deepest level is the tree's last
+            node0 = (local.clamp_min(0) + (n_nodes - 1)).to(torch.int32)
+            active = local >= 0
+            last = n_nodes == deep
+            M = 2 ** (depth + 1) - 1
+            bf, bb, split = got[0], got[1], got[3]
+
+            def fresh():
+                return [node0.clone(),
+                        torch.full((L, M), -1, dtype=torch.int32,
+                                   device="cuda"),
+                        torch.zeros((L, M), dtype=torch.int32, device="cuda"),
+                        torch.zeros((L, M), dtype=torch.bool, device="cuda"),
+                        torch.empty_like(node0)]
+
+            def step_on(fn, st):
+                fn(codes, st[0], active, bf, bb, split, st[1], st[2], st[3],
+                   st[4], last)
+                return st
+
+            outs = [step_on(tk.level_step, fresh()) for _ in range(2)]
             if not all(torch.equal(a, b) for a, b in zip(*outs)):
-                raise AssertionError("tree_route: two launches differ")
-            # a routed row leaves the level: each timed launch starts
-            # from copies of the level's state, whose own time is taken
-            # off
-            nd, fr = node.clone(), frozen.clone()
+                raise AssertionError("tree_route (level step): two launches "
+                                     "differ")
+            want = step_on(tk.level_step_plain, fresh())
+            if last:
+                final_node[label] = outs[0][0]
+            # a routed row leaves the level: each timed launch starts from
+            # a copy of the level's nodes, whose own time is taken off
+            work = fresh()
 
             def restore():
-                nd.copy_(node)
-                fr.copy_(frozen)
+                work[0].copy_(node0)
 
-            def routed():
+            def stepped():
                 restore()
-                tk.route(codes, nd, fr, sf, got[1], n_nodes - 1)
-            record("tree_route", lab, outs[0], (nd_p, fr_p), True,
-                   cuda_ms(routed) - cuda_ms(restore),
-                   cuda_ms(lambda: tk.route_plain(
-                       codes, node.clone(), frozen.clone(), sf, got[1],
-                       n_nodes - 1), reps=5, warmup=1), None,
-                   codes.nbytes + 2 * (node.nbytes + frozen.nbytes)
-                   + sf.nbytes + got[1].nbytes, 3 * L * n)
-            del got, want
+                step_on(tk.level_step, work)
+
+            # the bytes the step needs: the codes, node read and written,
+            # active, the keys written, the splits read and the heap's
+            # level written (9 bytes a node each), the final is_leaf
+            nbytes = (codes.nbytes + 3 * node0.nbytes + active.nbytes
+                      + 18 * L * n_nodes + (L * M if last else 0))
+            record("tree_route", lab, outs[0], want, True,
+                   graph_ms(stepped) - graph_ms(restore),
+                   cuda_ms(lambda: step_on(tk.level_step_plain, fresh()),
+                           reps=5, warmup=1), None, nbytes, 3 * L * n,
+                   {"events_ms": cuda_ms(stepped) - cuda_ms(restore),
+                    "last": last,
+                    "plan": tk.row_plan(n, d, L, 4 * n_nodes
+                                        + (M if last else 0),
+                                        tk.STEP_SMEM, 132)},
+                   symbol="level_step")
+            del got, want, outs, work
         # T4 at the final level (uniform, skewed) and, for boosting, at
         # one node a lane (the init); T3's walk of a whole tree
         M = 2 ** (depth + 1) - 1
@@ -1705,14 +1744,35 @@ def phase_tree_kernels(seed: int, ptxas: dict):
         want = tk.walk_plain(codes, feat, thr, leaf, val, depth, out0.clone(),
                              scale)
         work = out0.clone()
+
+        def walked():
+            tk.walk(codes, feat, thr, leaf, val, depth, work, scale)
         record("tree_route", f"{label}/walk", got, (want,), True,
-               cuda_ms(lambda: tk.walk(codes, feat, thr, leaf, val, depth,
-                                       work, scale)),
+               graph_ms(walked),
                cuda_ms(lambda: tk.walk_plain(codes, feat, thr, leaf, val,
                                              depth, out0.clone(), scale),
                        reps=5, warmup=1), None,
                codes.nbytes + feat.nbytes + thr.nbytes + leaf.nbytes
-               + val.nbytes + 2 * out0.nbytes, L * n * (2 * depth + 2))
+               + val.nbytes + 2 * out0.nbytes, L * n * (2 * depth + 2),
+               {"events_ms": cuda_ms(walked),
+                "plan": tk.row_plan(n, d, L, 4 * M, tk.WALK_SMEM, 132)},
+               symbol="walk_rows")
+        # the fit's update: the leaf values at the last level step's
+        # final nodes added to the prediction
+        node = final_node[label]
+        got = repeat(lambda: tk.accumulate(val, node, out0.clone(), scale),
+                     "tree_add_leaves")
+        want = tk.accumulate_plain(val, node, out0.clone(), scale)
+
+        def added():
+            tk.accumulate(val, node, work, scale)
+        record("tree_route", f"{label}/accumulate", got, (want,), True,
+               graph_ms(added),
+               cuda_ms(lambda: tk.accumulate_plain(val, node, out0.clone(),
+                                                   scale), reps=5, warmup=1),
+               None, node.nbytes + 2 * out0.nbytes + val.nbytes
+               + scale.nbytes, 2 * out0.numel(),
+               {"events_ms": cuda_ms(added)}, symbol="add_leaves")
         del codes, local, stats, val, out0, work
     return rows
 
@@ -1792,7 +1852,8 @@ def run_tree_search(label, run, n_fits, n_trees_of, key, min_score):
     per_kernel = {}
     for name in tk.LAUNCHES:
         ns, count = (sum(v[i] for k, v in by_name.items()
-                         if tree_symbol(name) in k) for i in (0, 1))
+                         if any(part in k for part in TREE_SYMBOLS[name]))
+                     for i in (0, 1))
         per_kernel[name] = {"launches": count,
                             "ms_per_launch": ns / 1e6 / max(count, 1),
                             "share_of_busy": ns / 1e9 / busy if busy else
@@ -1802,13 +1863,104 @@ def run_tree_search(label, run, n_fits, n_trees_of, key, min_score):
               f"{tree_symbol(k)} {v['launches']}x "
               f"{v['ms_per_launch']:.4f} ms ({v['share_of_busy'] or 0:.3f}"
               f" of busy)" for k, v in per_kernel.items()))
+    # a level: every device launch of the profiled search (kernels,
+    # copies, fills) over its levels, one T3 level step each
+    levels = sum(c for k, (_, c) in by_name.items() if "level_step" in k)
+    n_launch = sum(c for _, c in by_name.values())
+    tree_launch = sum(c for k, (_, c) in by_name.items()
+                      if any(part in k for parts in TREE_SYMBOLS.values()
+                             for part in parts))
+    per_level = {"levels": levels,
+                 "launches_per_level": n_launch / max(levels, 1),
+                 "tree_kernel_launches_per_level": tree_launch
+                 / max(levels, 1),
+                 "wall_us_per_level": warm / max(levels, 1) * 1e6}
+    print(f"    {levels} levels: {per_level['launches_per_level']:.2f} "
+          f"device launches a level ("
+          f"{per_level['tree_kernel_launches_per_level']:.2f} of them T1-T4 "
+          f"and G), {per_level['wall_us_per_level']:.1f} us of warm wall a "
+          f"level")
     return {"cold_s": cold, "warm_s": warm, "fits_per_s": n_fits / warm,
             "profile_kernels": per_kernel,
             "trees": trees, "busy_ms_per_tree": busy / trees * 1e3,
             "device_busy_s": busy, "idle_share": 1 - busy / warm,
             "peak_bytes": peak, "launches": launches,
             "best_params": gs.cv_results_["params"][best],
-            "best_score": best_score}
+            "best_score": best_score, "per_level": per_level}
+
+
+def grower_inputs(kind: str, seed: int):
+    """`grow_tree`'s arguments at a tree search's chunk: "rf" phase 10's
+    forest (6 lanes of Poisson(1) x 2/3-fold weights, one-hot targets of
+    7 classes, 7 of 54 features a node, depth 10), "gb" phase 9's
+    boosting (60 lanes, fold weights, normal gradients, depth 5)."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import random as jr
+    from spark_sklearn_tpu_torch.utils.binning import quantile_bin
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "rf":
+        X, y = covtype_like(seed)
+        L, depth = 6, 10
+    else:
+        X, y = california_like(seed)
+        L, depth = 12 * N_FOLDS, 5
+    codes = torch.as_tensor(quantile_bin(X)[1], device="cuda")
+    n = codes.shape[0]
+    fold = (torch.rand((L, n), generator=g, device="cuda") < 2 / 3).float()
+    if kind == "rf":
+        w = torch.poisson(torch.ones((L, n), device="cuda"),
+                          generator=g) * fold
+        t = torch.nn.functional.one_hot(torch.as_tensor(y, device="cuda"),
+                                        K_RF).float()
+        return (codes, -t, torch.ones(n, device="cuda"), w, depth, 256), {
+            "min_child_weight": 1.0, "reg_lambda": 1e-9,
+            "feat_mask_key": jr.fold_in(jr.PRNGKey(seed), 7),
+            "max_features": 7, "n_out": K_RF}
+    grad = torch.randn((L, n, 1), generator=g, device="cuda")
+    return (codes, grad, torch.ones((L, n), device="cuda"), fold, depth,
+            256), {"min_child_weight": 1.0, "reg_lambda": 1e-6}
+
+
+def grower_alone(kind: str, seed: int, reps: int = 7):
+    """One `grow_tree` at a search's chunk (`grower_inputs`): its device
+    launches a level (the profiler's device events over the depth), its
+    host time a level (the host clock from the call to its return, the
+    card idle before it, best of `reps`) and its device time a level (CUDA
+    events around the call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_sklearn_tpu_torch.ops.trees import grow_tree
+
+    args, kw = grower_inputs(kind, seed)
+    depth = args[4]
+    grow_tree(*args, **kw)
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grow_tree(*args, **kw)
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    dev_ms = cuda_ms(lambda: grow_tree(*args, **kw), reps=5, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grow_tree(*args, **kw)
+        torch.cuda.synchronize()
+    n_dev = sum(1 for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA)
+    row = {"lanes": args[3].shape[0], "depth": depth,
+           "launches_per_level": n_dev / depth,
+           "host_us_per_level": min(host) / depth * 1e6,
+           "device_us_per_level": dev_ms / depth * 1e3}
+    print(f"  grow_tree alone at the {kind} search's chunk ({row['lanes']} "
+          f"lanes, depth {depth}): {row['launches_per_level']:.2f} device "
+          f"launches a level, host {row['host_us_per_level']:.1f} us a "
+          f"level, device {row['device_us_per_level']:.1f} us a level")
+    return row
 
 
 def cuda_cpu_check(label, est, grid, X, y, cv, tol):
@@ -1873,6 +2025,7 @@ def phase_gb(seed: int):
         "gb_classifier", GradientBoostingClassifier(
             n_estimators=20, max_depth=3), {"learning_rate": [0.1, 0.3]},
         Xd, yd, StratifiedKFold(3), 1e-3)
+    out["regressor"]["grower"] = grower_alone("gb", seed)
     return out
 
 
@@ -1913,6 +2066,7 @@ def phase_rf(seed: int):
         "rf_regressor", RandomForestRegressor(max_depth=6, random_state=0),
         {"n_estimators": [10, 20]}, Xr[:N_TREE_CHECK], yr[:N_TREE_CHECK],
         KFold(3), 1e-4)
+    out["classifier"]["grower"] = grower_alone("rf", seed)
     return out
 
 
@@ -2050,8 +2204,9 @@ def phase_mlp_kernels(seed: int, ptx: dict):
     times, bounds, registers and spills, a bitwise repeat check, and
     `torch._fused_adam_` (the adam core without the per-lane alpha, rate
     and mask) on the same buffers beside M2; sgd's M2 at BASELINE #5's
-    shape.  At the refit's one lane and the views' whole folds: the
-    agreement.  Returns {(name, variant): row}."""
+    shape, with `torch._fused_sgd_` beside it.  At the refit's one lane
+    and the views' whole folds: the agreement.  Returns {(name, variant):
+    row}."""
     import torch
 
     from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
@@ -2125,12 +2280,22 @@ def phase_mlp_kernels(seed: int, ptx: dict):
                         if name == "mlp_loss_grad" else ""),
                    shape=dims)
         if classifier:
-            # sgd with momentum, the family's other solver
+            # sgd with momentum, the family's other solver;
+            # `torch._fused_sgd_` (the momentum core alone) beside it
+            sgd = {"p": [t["p"].clone()], "m": [t["m"].clone()]}
+
+            def fused_sgd(sgd=sgd, g=t["g"]):
+                torch._fused_sgd_(sgd["p"], [g], sgd["m"], weight_decay=0.0,
+                                  momentum=0.9, lr=1e-3, dampening=0.0,
+                                  nesterov=False, maximize=False,
+                                  is_first_step=False)
+
             record("mlp_opt_step", "sgd",
                    mlp_step_calls(t, True, adam=False)["mlp_opt_step"],
                    timed=(state_in_place(t, mk.mlp_opt_step, False),
                           state_in_place(t, mk.mlp_opt_step_plain, False)),
-                   sym="ILb0E", shape={"B": B, "P": dims["P"]})
+                   library=fused_sgd, sym="ILb0E",
+                   shape={"B": B, "P": dims["P"]})
             tanh = mk.mlp_act_forward(t["A"], t["b"], "tanh")
             for a, b in ((tanh, mk.mlp_act_forward_plain(t["A"], t["b"],
                                                          "tanh")),
@@ -2527,8 +2692,8 @@ def main() -> int:
             "library_ms": head["library_ms"],
             **({k: head[k] for k in ("wrapper_ms", "order_bound_ms")}
                if "wrapper_ms" in head else {}),
-            **({k: head[k] for k in ("events_ms", "hist_bytes_ms")}
-               if "events_ms" in head else {}),
+            **{k: head[k] for k in ("events_ms", "hist_bytes_ms")
+               if k in head},
             "registers": head["registers"],
             "spill_bytes": head["spill_bytes"],
             "tolerance": (
@@ -2581,7 +2746,8 @@ def main() -> int:
             "library_ms": head["library_ms"],
             "wrapper_ms": head["wrapper_ms"],
             "path_ms": mlp_run["classifier"]["path_ms"][name],
-            **({"library": "torch._fused_adam_ (the adam core alone)"}
+            **({"library": "torch._fused_adam_ (the adam core alone); "
+                           "sgd: torch._fused_sgd_ (the momentum core)"}
                if name == "mlp_opt_step" else
                {"library": "none: no single torch call computes it"}),
             "registers": head["registers"],

@@ -42,18 +42,32 @@
 // an H100's 3.35 TB/s: the step is bound by its launches, and these
 // kernels exist to make fewer of them.
 //
-// Design: simple and deterministic.  M1 and M2 run one block per lane;
-// each thread walks rows (M1) or parameters (M2) with a block stride and
-// the block adds its threads' partial sums in shared memory in a fixed
-// tree order, so launches on the same inputs give the same bits (no
-// atomics).  M3 is a grid-stride elementwise pass.
+// Design: simple and deterministic.  M1 runs one block per lane; each
+// thread walks rows with a block stride and the block adds its threads'
+// partial sums in shared memory in a fixed tree order, so launches on the
+// same inputs give the same bits (no atomics).  M3 is a grid-stride
+// elementwise pass.  M2 spreads a lane over a thread-block cluster of up
+// to 8 blocks (12 lanes x 8 = 96 SMs at BASELINE #5), each taking a few
+// rounds of kThreads parameters with all their loads in flight at once;
+// one block of one SM a lane walking ~19 rounds of four dependent loads
+// each was its time (0.012 ms for 1.6 MB).  Its l2 keeps one order, the
+// kThreads strided partials each added in order then the fixed tree, with
+// the partials gathered in the first block's shared memory.  A lane's rounds
+// are a warp's 32 consecutive floats, four full 32-byte sectors; 16-byte
+// loads would need P % 4 == 0 for each lane's row to stay aligned, which
+// P = 4874 is not, and the time is latency, not instructions.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kOptRounds = 4;        // M2: rounds of kThreads a block a wave
+constexpr int kOptMaxCluster = 8;    // M2: blocks a lane, at most
 
 // Sum of one value a thread over the block, in a fixed order; every
 // thread gets the total.
@@ -122,6 +136,43 @@ loss_grad(const float* __restrict__ Z, const int* __restrict__ y,
   }
 }
 
+// One parameter's update (adam or sgd with momentum) with the roundings
+// of the one-block kernel it replaced: there nvcc contracted adam's
+// b1 m + (1 - b1) g into fma(1 - b1, g, m b1) and b2 v + (1 - b2) g g into
+// fma(g, (1 - b2) g, v b2), and fused nothing else (the PTX of both,
+// compared on the H100); here the loads come first and nvcc would fuse
+// the other products, so adam's two are written out.
+template <bool kAdam>
+__device__ __forceinline__ void update_one(
+    float pi, float gi, bool wm, float mo, float vo, float a, float ws,
+    float step, float b1, float b2, float eps, float mu, float c1, float c2,
+    float* __restrict__ p, float* __restrict__ m, float* __restrict__ v) {
+  if (wm) gi += a * pi / ws;
+  if (kAdam) {
+    const float mi = __fmaf_rn(1.f - b1, gi, __fmul_rn(mo, b1));
+    const float vi =
+        __fmaf_rn(gi, __fmul_rn(1.f - b2, gi), __fmul_rn(vo, b2));
+    *m = mi;
+    *v = vi;
+    *p = pi - step * (mi / c1) / (sqrtf(vi / c2) + eps);
+  } else {
+    const float vel = mu * mo - step * gi;
+    *m = vel;
+    *p = pi + vel;
+  }
+}
+
+// M2: a cluster of C blocks a lane.  The lane's P parameters form rounds
+// of kThreads (round k holds parameters k * kThreads + t); a wave hands
+// each block rb consecutive rounds, every load of a thread's rounds
+// issued before its arithmetic.  Each block stores q = p (0 off the
+// weights) of its rounds into the first block's shared memory (remote
+// stores, in round order); after a cluster barrier the first block adds,
+// thread t, the squares of partial t's q in round order from its own
+// shared memory (l2 = fma(q, q, l2): the one-block kernel's strided
+// partials and order), and after the last wave sums the kThreads
+// partials by block_sum's fixed tree.  A second barrier, between waves only, keeps
+// the next wave's stores off the buffer until it is read.
 template <bool kAdam>
 __global__ void __launch_bounds__(kThreads)
 opt_step(float* __restrict__ p, const float* __restrict__ g,
@@ -130,35 +181,57 @@ opt_step(float* __restrict__ p, const float* __restrict__ g,
          const float* __restrict__ alpha, const float* __restrict__ wsum,
          const float* __restrict__ lr, const unsigned char* __restrict__ active,
          const float* __restrict__ loss, float* __restrict__ acc, int P,
-         float b1, float b2, float eps, float mu) {
+         int C, int rb, float b1, float b2, float eps, float mu) {
+  __shared__ float sq[kOptMaxCluster * kOptRounds * kThreads];
   __shared__ float red[kThreads];
-  const int b = blockIdx.x;
-  if (!active[b]) return;           // the whole block leaves together
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C;
+  if (!active[b]) return;           // the whole cluster leaves together
+  float* sq0 = cluster.map_shared_rank(sq, 0);
   const float a = alpha[b], ws = wsum[b], step = lr[b];
   const float tn = kAdam ? t[b] + 1.f : 0.f;
-  const float c1 = kAdam ? 1.f - powf(b1, tn) : 1.f;
-  const float c2 = kAdam ? 1.f - powf(b2, tn) : 1.f;
   const size_t off = static_cast<size_t>(b) * P;
-  float l2 = 0.f;
-  for (int i = threadIdx.x; i < P; i += kThreads) {
-    const float pi = p[off + i];
-    float gi = g[off + i];
-    if (wmask[i]) {
-      l2 += pi * pi;
-      gi += a * pi / ws;
+  const int K = (P + kThreads - 1) / kThreads;
+  float l2 = 0.f;                   // partial threadIdx.x (first block)
+  for (int k0 = 0; k0 < K; k0 += C * rb) {
+    const int kb = k0 + c * rb;     // this block's first round
+    float pv[kOptRounds], gv[kOptRounds], mv[kOptRounds], vv[kOptRounds];
+    bool wv[kOptRounds];
+#pragma unroll
+    for (int r = 0; r < kOptRounds; ++r) {
+      const int i = (kb + r) * kThreads + threadIdx.x;
+      const bool in = r < rb && i < P;
+      pv[r] = in ? p[off + i] : 0.f;
+      gv[r] = in ? g[off + i] : 0.f;
+      mv[r] = in ? m[off + i] : 0.f;
+      vv[r] = in && kAdam ? v[off + i] : 0.f;
+      wv[r] = in && wmask[i];
     }
-    if (kAdam) {
-      const float mi = b1 * m[off + i] + (1.f - b1) * gi;
-      const float vi = b2 * v[off + i] + (1.f - b2) * gi * gi;
-      m[off + i] = mi;
-      v[off + i] = vi;
-      p[off + i] = pi - step * (mi / c1) / (sqrtf(vi / c2) + eps);
-    } else {
-      const float vel = mu * m[off + i] - step * gi;
-      m[off + i] = vel;
-      p[off + i] = pi + vel;
+    const float c1 = kAdam ? 1.f - powf(b1, tn) : 1.f;
+    const float c2 = kAdam ? 1.f - powf(b2, tn) : 1.f;
+#pragma unroll
+    for (int r = 0; r < kOptRounds; ++r) {
+      if (r >= rb) break;
+      const int i = (kb + r) * kThreads + threadIdx.x;
+      sq0[(c * rb + r) * kThreads + threadIdx.x] = wv[r] ? pv[r] : 0.f;
+      if (i < P)
+        update_one<kAdam>(pv[r], gv[r], wv[r], mv[r], vv[r], a, ws, step, b1,
+                          b2, eps, mu, c1, c2, p + off + i, m + off + i,
+                          kAdam ? v + off + i : nullptr);
     }
+    cluster.sync();
+    if (c == 0) {
+      const int n = min(C * rb, K - k0);
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) {
+        const float q = sq[j * kThreads + threadIdx.x];
+        l2 = __fmaf_rn(q, q, l2);
+      }
+    }
+    if (k0 + C * rb < K) cluster.sync();
   }
+  if (c != 0) return;
   const float total = block_sum(l2, red);
   if (threadIdx.x == 0) {
     acc[b] += (loss[b] / ws + 0.5f * a * total / ws) * ws;
@@ -227,21 +300,38 @@ int mlp_loss_grad(const float* Z, const int* y, const float* Yt,
   return static_cast<int>(cudaGetLastError());
 }
 
+// M2.  C blocks a lane (a cluster) and rb rounds of kThreads parameters
+// a block a wave, as mlp_kernels.py `opt_plan` chooses them.
 int mlp_opt_step(float* p, const float* g, float* m, float* v, float* t,
                  const unsigned char* wmask, const float* alpha,
                  const float* wsum, const float* lr,
                  const unsigned char* active, const float* loss, float* acc,
-                 int B, int P, int adam, float b1, float b2, float eps,
-                 float mu, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                 int B, int P, int C, int rb, int adam, float b1, float b2,
+                 float eps, float mu, void* stream) {
+  if (B < 1 || P < 1 || C < 1 || C > kOptMaxCluster || rb < 1 ||
+      rb > kOptRounds || static_cast<long long>(B) * C >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * C));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int rc;
   if (adam)
-    opt_step<true><<<B, kThreads, 0, s>>>(p, g, m, v, t, wmask, alpha, wsum,
-                                          lr, active, loss, acc, P, b1, b2,
-                                          eps, mu);
+    rc = static_cast<int>(cudaLaunchKernelEx(
+        &cfg, opt_step<true>, p, g, m, v, t, wmask, alpha, wsum, lr, active,
+        loss, acc, P, C, rb, b1, b2, eps, mu));
   else
-    opt_step<false><<<B, kThreads, 0, s>>>(p, g, m, v, t, wmask, alpha, wsum,
-                                           lr, active, loss, acc, P, b1, b2,
-                                           eps, mu);
+    rc = static_cast<int>(cudaLaunchKernelEx(
+        &cfg, opt_step<false>, p, g, m, v, t, wmask, alpha, wsum, lr, active,
+        loss, acc, P, C, rb, b1, b2, eps, mu));
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

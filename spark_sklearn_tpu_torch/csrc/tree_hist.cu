@@ -81,16 +81,40 @@
 //     first block combines their maxima through distributed shared memory.
 //     Bound: bytes, the kept features' blocks read once (and the mask).
 //
-// T3  tree_route         replaces trees.py:129-136: one level's routing of
-//     every row of every lane (a frozen row stays; a row at a node that
-//     does not split freezes; else it moves to 2 node + 1 + (code > bin)).
-//     tree_walk          replaces `predict_tree` (trees.py:151-163) and the
-//     families' accumulation (models/trees.py:175-177, 257-261, 375-377):
-//     a thread walks one row from the root of its lane's tree to a leaf,
-//     then writes the leaf's values or adds scale[l] * value to `out`
-//     with one rounding (an FMA: XLA contracts the reference's
-//     F + lr * live * delta so in its compiled fit).
-//     Bound: bytes (codes, node ids, the output rows).
+// T3  tree_route         replaces trees.py:123-136 and :139 (the level's
+//     heap writes, its routing and the final is_leaf scatter), the
+//     reference's `predict_tree` (:151-163) and the families' accumulation
+//     (models/trees.py:175-177, 257-261, 375-377).  Three entry points,
+//     one count:
+//     tree_level_step    one launch a level.  From T2's (feat, bin, split)
+//     it writes the heap's feat (the feature or -1), thr and leaf for the
+//     level's nodes; moves every row at a splitting node of the level to
+//     2 node + 1 + (code > bin) (a frozen row, one at a shallower node,
+//     stays; a row at a node that does not split stops there); and
+//     writes the next level's keys for G (node - next offset, -1 where the
+//     row stopped or is inactive).  At the last level the keys are T4's
+//     (node, -1 where inactive) and leaf is set at every row's node.
+//     tree_add_leaves    out += scale[l] * value[l, node[l, r]], from the
+//     grower's final nodes: the fit's update needs no walk (the proof is
+//     in ops/trees.py's docstring).
+//     tree_walk          `predict_tree` for other codes: each row from the
+//     root to a leaf, then its values, or scale[l] * value added to `out`
+//     (__fmaf_rn: one rounding, as XLA contracts F + lr * live * delta in
+//     the reference's compiled fit).
+//     Design.  A block owns a group of lanes and a tile of kRowThreads
+//     rows, a row a thread: the tile's codes are staged once in shared
+//     memory by 16-byte copies (where 256 d bytes fit) and serve every
+//     lane of the block, so a row's codes are read once for its lanes,
+//     not once a lane; node, active and the keys are read and written
+//     coalesced, a lane after another.  The level's splits (the walk: the
+//     lanes' whole trees) sit in shared memory packed a word a node
+//     (pack_node), so the walk's depth-long chain is two shared-memory
+//     loads a level and no global load; the walk interleaves two lanes.
+//     The heap's level is written by the threads of the first row tile's
+//     blocks, a node a thread; the last level's scatter marks a flag a
+//     node in shared memory and a block writes its flags once.
+//     Bound: bytes (codes once a lane group, node read and written, active
+//     read, the keys written; the walk's output rows).
 //
 // T4  tree_leaf_values   replaces trees.py:142-147: per (lane, node) of the
 //     final tree, -sum(w g) / (sum(w h) + lam) over the node's rows (and,
@@ -690,64 +714,200 @@ best_split(const float* __restrict__ hist, const bool* __restrict__ fmask,
   }
 }
 
-// T3, routing: one row of one lane a thread.
-__global__ void route_rows(const uint8_t* __restrict__ codes,
-                           int* __restrict__ node, bool* __restrict__ frozen,
-                           const int* __restrict__ sf,
-                           const int* __restrict__ sb, int L, int n, int d,
-                           int N, int offset) {
-  const long long total = static_cast<long long>(L) * n;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    if (frozen[i]) continue;
-    const int l = static_cast<int>(i / n);
-    const long long r = i - static_cast<long long>(l) * n;
-    const int v = node[i];
-    const int j = l * N + (v - offset);
-    const int f = sf[j];
-    if (f < 0) {
-      frozen[i] = true;
-    } else {
-      node[i] = 2 * v + 1 + (codes[r * d + f] > sb[j] ? 1 : 0);
+// T3's packed node word: feature f in bits 9-30 and t = thr + 1 clamped
+// to [0, 256] in bits 0-8, so that code > thr is code >= t for any int
+// threshold and a uint8 code; -1 for a node where a row stops.  Limits d
+// to 2^22 features.
+__device__ __forceinline__ int pack_node(int f, int thr) {
+  const int t = thr < 0 ? 0 : thr >= 255 ? 256 : thr + 1;
+  return (f << 9) | t;
+}
+
+__device__ __forceinline__ int child(int v, const uint8_t* row, int w) {
+  return 2 * v + 1 + (row[w >> 9] >= (w & 511) ? 1 : 0);
+}
+
+// A block's tile of rows' codes into shared memory: nbytes contiguous
+// bytes, 16 at a time where the source is aligned.
+__device__ void stage_bytes(uint8_t* __restrict__ dst,
+                            const uint8_t* __restrict__ src, int nbytes) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n16 = nbytes >> 4;
+    for (int i = threadIdx.x; i < n16; i += blockDim.x)
+      reinterpret_cast<int4*>(dst)[i] =
+          __ldg(reinterpret_cast<const int4*>(src) + i);
+    done = n16 << 4;
+  }
+  for (int i = done + threadIdx.x; i < nbytes; i += blockDim.x)
+    dst[i] = src[i];
+}
+
+__host__ __device__ constexpr int align16(int bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// T3, the level step.  A block owns lg lanes and walks row tiles of
+// kRowThreads rows, a row a thread; with kStage the tile's codes are
+// staged once in shared memory for all its lanes.  Shared memory: the
+// codes tile, the lanes' packed splits (N words a lane) and, at the last
+// level, a flag a heap node (M bytes a lane) for the final scatter.
+template <bool kStage>
+__global__ void __launch_bounds__(kRowThreads)
+level_step(const uint8_t* __restrict__ codes, int* __restrict__ node,
+           const bool* __restrict__ active, const int* __restrict__ bf,
+           const int* __restrict__ bb, const bool* __restrict__ split,
+           int* __restrict__ feat, int* __restrict__ thr,
+           bool* __restrict__ leaf, int* __restrict__ local, int L, int n,
+           int d, int N, int M, int lg, int last) {
+  extern __shared__ int4 step_s[];
+  uint8_t* tile = reinterpret_cast<uint8_t*>(step_s);
+  int* words = reinterpret_cast<int*>(
+      tile + (kStage ? align16(kRowThreads * d) : 0));
+  uint8_t* flags = reinterpret_cast<uint8_t*>(words + lg * N);
+  const int l0 = blockIdx.y * lg;
+  const int nl = min(lg, L - l0);
+  const int offset = N - 1, next = 2 * N - 1;
+  // the splits, and the heap's level written by the first row tile's
+  // blocks, a node a thread
+  for (int i = threadIdx.x; i < nl * N; i += kRowThreads) {
+    const int q = i / N, j = i - q * N;
+    const int s = (l0 + q) * N + j;
+    const bool sp = split[s];
+    const int f = bf[s], b = bb[s];
+    words[i] = sp ? pack_node(f, b) : -1;
+    if (blockIdx.x == 0) {
+      const size_t h = static_cast<size_t>(l0 + q) * M + offset + j;
+      feat[h] = sp ? f : -1;
+      thr[h] = b;
+      leaf[h] = !sp;
+    }
+  }
+  if (last)
+    for (int i = threadIdx.x; i < nl * M; i += kRowThreads) flags[i] = 0;
+  const int tiles = (n + kRowThreads - 1) / kRowThreads;
+  for (int tt = blockIdx.x; tt < tiles; tt += gridDim.x) {
+    const int r0 = tt * kRowThreads;
+    if (kStage) {
+      __syncthreads();              // the previous tile's reads are done
+      stage_bytes(tile, codes + static_cast<size_t>(r0) * d,
+                  min(kRowThreads, n - r0) * d);
+    }
+    __syncthreads();
+    const int r = r0 + threadIdx.x;
+    if (r >= n) continue;
+    const uint8_t* row =
+        kStage ? tile + threadIdx.x * d : codes + static_cast<size_t>(r) * d;
+#pragma unroll 4
+    for (int q = 0; q < nl; ++q) {
+      const size_t i = static_cast<size_t>(l0 + q) * n + r;
+      int v = node[i];
+      const bool a = active[i];
+      const int j = v - offset;         // < 0: frozen at a shallower node
+      if (j >= 0 && j < N) {
+        const int w = words[q * N + j];
+        if (w >= 0) {
+          v = child(v, row, w);
+          node[i] = v;
+        }
+      }
+      if (last) {
+        local[i] = a ? v : -1;
+        if (v < M) flags[q * M + v] = 1;
+      } else {
+        local[i] = a && v >= next ? v - next : -1;
+      }
+    }
+  }
+  if (last) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < nl * M; i += kRowThreads)
+      if (flags[i])
+        leaf[static_cast<size_t>(l0) * M + i] = true;
+  }
+}
+
+// T3, the walk: a block owns lg lanes' trees, packed a word a node in
+// shared memory, and walks row tiles, a row a thread, each row's codes
+// from the staged tile (kStage); then writes the leaf's values to `out`
+// or adds scale[l] * value to it (one rounding).
+template <bool kStage>
+__global__ void __launch_bounds__(kRowThreads)
+walk_rows(const uint8_t* __restrict__ codes, const int* __restrict__ feat,
+          const int* __restrict__ thr, const bool* __restrict__ leaf,
+          const float* __restrict__ value, const float* __restrict__ scale,
+          float* __restrict__ out, int L, int n, int d, int M, int n_out,
+          int depth, int lg) {
+  extern __shared__ int4 walk_s[];
+  uint8_t* tile = reinterpret_cast<uint8_t*>(walk_s);
+  int* words = reinterpret_cast<int*>(
+      tile + (kStage ? align16(kRowThreads * d) : 0));
+  const int l0 = blockIdx.y * lg;
+  const int nl = min(lg, L - l0);
+  for (int i = threadIdx.x; i < nl * M; i += kRowThreads) {
+    const size_t h = static_cast<size_t>(l0) * M + i;
+    const int f = feat[h];
+    words[i] = leaf[h] || f < 0 ? -1 : pack_node(f, thr[h]);
+  }
+  const int tiles = (n + kRowThreads - 1) / kRowThreads;
+  for (int tt = blockIdx.x; tt < tiles; tt += gridDim.x) {
+    const int r0 = tt * kRowThreads;
+    __syncthreads();
+    if (kStage) {
+      stage_bytes(tile, codes + static_cast<size_t>(r0) * d,
+                  min(kRowThreads, n - r0) * d);
+      __syncthreads();
+    }
+    const int r = r0 + threadIdx.x;
+    if (r >= n) continue;
+    const uint8_t* row =
+        kStage ? tile + threadIdx.x * d : codes + static_cast<size_t>(r) * d;
+    // two lanes' walks interleaved: a stopped walk keeps its node
+    for (int q = 0; q < nl; q += 2) {
+      const bool two = q + 1 < nl;
+      const int* w0 = words + q * M;
+      const int* w1 = two ? w0 + M : w0;
+      int v0 = 0, v1 = 0;
+      for (int k = 0; k < depth; ++k) {
+        const int a = w0[v0], b = w1[v1];
+        if (a < 0 && b < 0) break;
+        if (a >= 0) v0 = child(v0, row, a);
+        if (b >= 0) v1 = child(v1, row, b);
+      }
+      for (int u = 0; u < (two ? 2 : 1); ++u) {
+        const int l = l0 + q + u;
+        const float* val =
+            value + (static_cast<size_t>(l) * M + (u ? v1 : v0)) * n_out;
+        float* o = out + (static_cast<size_t>(l) * n + r) * n_out;
+        if (scale != nullptr) {
+          const float sc = scale[l];
+          for (int c = 0; c < n_out; ++c) o[c] = __fmaf_rn(sc, val[c], o[c]);
+        } else {
+          for (int c = 0; c < n_out; ++c) o[c] = val[c];
+        }
+      }
     }
   }
 }
 
-// T3, walk: one row of one lane a thread, root to leaf; then the leaf's
-// values into `out`, or scale[l] * value added to it.
-__global__ void walk_rows(const uint8_t* __restrict__ codes,
-                          const int* __restrict__ feat,
-                          const int* __restrict__ thr,
-                          const bool* __restrict__ leaf,
-                          const float* __restrict__ value,
-                          const float* __restrict__ scale,
-                          float* __restrict__ out, int L, int n, int d, int M,
-                          int n_out, int depth) {
-  const long long total = static_cast<long long>(L) * n;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int l = static_cast<int>(i / n);
-    const long long r = i - static_cast<long long>(l) * n;
-    const int* fl = feat + static_cast<size_t>(l) * M;
-    const int* tl = thr + static_cast<size_t>(l) * M;
-    const bool* ll = leaf + static_cast<size_t>(l) * M;
-    int v = 0;
-    for (int k = 0; k < depth; ++k) {
-      const int f = fl[v];
-      if (ll[v] || f < 0) break;
-      v = 2 * v + 1 + (codes[r * d + f] > tl[v] ? 1 : 0);
-    }
-    const float* val = value + (static_cast<size_t>(l) * M + v) * n_out;
-    float* o = out + i * n_out;
-    if (scale != nullptr) {
-      const float sc = scale[l];
-      for (int q = 0; q < n_out; ++q)
-        o[q] = __fmaf_rn(sc, val[q], o[q]);
-    } else {
-      for (int q = 0; q < n_out; ++q) o[q] = val[q];
-    }
+// T3, the accumulate: out[l, r, c] += scale[l] * value[l, node[l, r], c],
+// one rounding, an element a thread; lane l along y, its n * n_out
+// elements (< 2^31) along x, so the index arithmetic stays 32-bit.
+__global__ void __launch_bounds__(kRowThreads)
+add_leaves(const int* __restrict__ node, const float* __restrict__ value,
+           const float* __restrict__ scale, float* __restrict__ out, int n,
+           int M, int n_out) {
+  const int l = blockIdx.y;
+  const unsigned per_lane = static_cast<unsigned>(n) * n_out;
+  const int* nl = node + static_cast<size_t>(l) * n;
+  const float* vl = value + static_cast<size_t>(l) * M * n_out;
+  float* ol = out + static_cast<size_t>(l) * per_lane;
+  const float sc = scale[l];
+  for (unsigned e = blockIdx.x * kRowThreads + threadIdx.x; e < per_lane;
+       e += gridDim.x * kRowThreads) {
+    const unsigned r = e / n_out;
+    const unsigned c = e - r * n_out;
+    ol[e] = __fmaf_rn(sc, vl[nl[r] * n_out + c], ol[e]);
   }
 }
 
@@ -979,7 +1139,7 @@ group_scatter(const int* __restrict__ local, const int* __restrict__ bases,
 // memory; the limit is raised once a device, not on every launch.
 template <typename Kernel>
 int allow_smem(Kernel kernel, int slot) {
-  static bool raised[6][kMaxDevices] = {};
+  static bool raised[10][kMaxDevices] = {};
   int dev = 0;
   int rc = static_cast<int>(cudaGetDevice(&dev));
   if (rc != 0) return rc;
@@ -1004,9 +1164,28 @@ long long hist_smem(int ft, int n_bins, int SP, int cw) {
          static_cast<long long>(cw) * kRowTile;
 }
 
+// T3's dynamic shared memory (level_step's and walk_rows' layouts;
+// tree_kernels.py `row_plan`): the staged codes tile, then per lane
+// `per_lane` bytes.
+long long row_smem(int d, int stage, int lg, long long per_lane) {
+  return (stage ? align16(kRowThreads * d) : 0) + lg * per_lane;
+}
+
 int row_blocks(long long total) {
   const long long b = (total + kRowThreads - 1) / kRowThreads;
   return static_cast<int>(b < (1 << 20) ? (b > 0 ? b : 1) : (1 << 20));
+}
+
+// the row grid of T3's level step and walk: grid_x blocks over the row
+// tiles, a block a group of lg lanes along y
+bool bad_row_grid(int L, int n, int d, int lg, int grid_x, int smem,
+                  long long per_lane, int stage) {
+  const int tiles = (n + kRowThreads - 1) / kRowThreads;
+  return L < 1 || n < 1 || d < 1 || d >= (1 << 22) || lg < 1 || lg > L ||
+         grid_x < 1 || grid_x > tiles || smem > kMaxSmem ||
+         smem < row_smem(d, stage, lg, per_lane) ||
+         static_cast<long long>(L) * n >= (1LL << 31) ||
+         (L + lg - 1) / lg > 65535;
 }
 
 }  // namespace
@@ -1109,31 +1288,85 @@ int tree_best_split(const float* hist, const bool* fmask, int* feat,
   return static_cast<int>(cudaGetLastError());
 }
 
-// T3, routing.  node (L, n) and frozen (L, n) in place; sf, sb (L, N): the
-// level's split feature (-1: no split) and bin; offset = N - 1.
-int tree_route(const uint8_t* codes, int* node, bool* frozen, const int* sf,
-               const int* sb, int L, int n, int d, int N, int offset,
-               void* stream) {
-  if (L < 1 || n < 1 || d < 1 || N < 1)
+// T3, the level step.  node (L, n) in place; active (L, n); bf, bb,
+// split (L, N): the level's split feature, bin and flag (offset = N - 1);
+// feat, thr, leaf (L, M): the heap, its level's nodes written; local (L,
+// n) out: the next level's keys (node - (2N - 1), -1 where the row is
+// frozen or inactive) or, with `last`, T4's keys (node, -1 where
+// inactive), and then leaf set at every row's node.  lg lanes a block,
+// grid_x blocks over the row tiles, the codes staged where `stage`, and
+// `smem` bytes of dynamic shared memory, as tree_kernels.py `row_plan`
+// chooses them.
+int tree_level_step(const uint8_t* codes, int* node, const bool* active,
+                    const int* bf, const int* bb, const bool* split,
+                    int* feat, int* thr, bool* leaf, int* local, int L,
+                    int n, int d, int N, int M, int lg, int grid_x,
+                    int stage, int last, int smem, void* stream) {
+  const long long per_lane = 4LL * N + (last ? M : 0);
+  if (N < 1 || M < 2 * N - 1 + (last ? 2 * N : 0) ||
+      bad_row_grid(L, n, d, lg, grid_x, smem, per_lane, stage))
     return static_cast<int>(cudaErrorInvalidValue);
-  route_rows<<<row_blocks(static_cast<long long>(L) * n), kRowThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(codes, node, frozen, sf,
-                                                    sb, L, n, d, N, offset);
+  const dim3 grid(grid_x, (L + lg - 1) / lg);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (stage) {
+    rc = allow_smem(level_step<true>, 6);
+    if (rc != 0) return rc;
+    level_step<true><<<grid, kRowThreads, smem, s>>>(
+        codes, node, active, bf, bb, split, feat, thr, leaf, local, L, n, d,
+        N, M, lg, last);
+  } else {
+    rc = allow_smem(level_step<false>, 7);
+    if (rc != 0) return rc;
+    level_step<false><<<grid, kRowThreads, smem, s>>>(
+        codes, node, active, bf, bb, split, feat, thr, leaf, local, L, n, d,
+        N, M, lg, last);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// T3, walk.  A tree's feat, thr, leaf (L, M) and value (L, M, n_out); out
-// (L, n, n_out) gets the leaf values (scale null) or scale[l] * value
-// added.
+// T3, the walk.  A tree's feat, thr, leaf (L, M) and value (L, M, n_out);
+// out (L, n, n_out) gets the leaf values (scale null) or scale[l] * value
+// added.  lg, grid_x, stage and smem as for the level step.
 int tree_walk(const uint8_t* codes, const int* feat, const int* thr,
               const bool* leaf, const float* value, const float* scale,
               float* out, int L, int n, int d, int M, int n_out, int depth,
-              void* stream) {
-  if (L < 1 || n < 1 || d < 1 || M < 1 || n_out < 1 || depth < 0)
+              int lg, int grid_x, int stage, int smem, void* stream) {
+  if (n_out < 1 || depth < 0 || depth > 30 || M < (2LL << depth) - 1 ||
+      bad_row_grid(L, n, d, lg, grid_x, smem, 4LL * M, stage))
     return static_cast<int>(cudaErrorInvalidValue);
-  walk_rows<<<row_blocks(static_cast<long long>(L) * n), kRowThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(
-      codes, feat, thr, leaf, value, scale, out, L, n, d, M, n_out, depth);
+  const dim3 grid(grid_x, (L + lg - 1) / lg);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (stage) {
+    rc = allow_smem(walk_rows<true>, 8);
+    if (rc != 0) return rc;
+    walk_rows<true><<<grid, kRowThreads, smem, s>>>(
+        codes, feat, thr, leaf, value, scale, out, L, n, d, M, n_out, depth,
+        lg);
+  } else {
+    rc = allow_smem(walk_rows<false>, 9);
+    if (rc != 0) return rc;
+    walk_rows<false><<<grid, kRowThreads, smem, s>>>(
+        codes, feat, thr, leaf, value, scale, out, L, n, d, M, n_out, depth,
+        lg);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T3, the accumulate.  node (L, n) the grown trees' final nodes; value
+// (L, M, n_out); out (L, n, n_out) gets scale[l] * value[l, node] added.
+int tree_add_leaves(const int* node, const float* value, const float* scale,
+                    float* out, int L, int n, int M, int n_out,
+                    void* stream) {
+  const long long per_lane = static_cast<long long>(n) * n_out;
+  if (L < 1 || L > 65535 || n < 1 || M < 1 || n_out < 1 ||
+      per_lane >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(row_blocks(per_lane) < 4096 ? row_blocks(per_lane) : 4096,
+                  L);
+  add_leaves<<<grid, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      node, value, scale, out, n, M, n_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,7 +46,7 @@ from spark_sklearn_tpu_torch.models.base import (
 from spark_sklearn_tpu_torch.models.estimators import _Estimator
 from spark_sklearn_tpu_torch.ops import random as jr
 from spark_sklearn_tpu_torch.ops.tree_kernels import leaf_values
-from spark_sklearn_tpu_torch.ops.trees import accumulate_tree, grow_tree
+from spark_sklearn_tpu_torch.ops.trees import accumulate_leaves, grow_tree
 from spark_sklearn_tpu_torch.utils.binning import quantile_bin
 
 N_BINS = 256
@@ -203,7 +203,7 @@ class GradientBoostingRegressorFamily(Family):
             F_l = F[lanes]
             g, h = grads(F_l)                           # (Lb, n_out, n)
             Lb = F_l.shape[0]
-            tree = grow_tree(codes, g.reshape(Lb * n_out, n, 1),
+            tree, node = grow_tree(codes, g.reshape(Lb * n_out, n, 1),
                              h.reshape(Lb * n_out, n),
                              w_t.repeat_interleave(n_out, dim=0), depth,
                              N_BINS, min_child_weight=min_leaf,
@@ -212,7 +212,7 @@ class GradientBoostingRegressorFamily(Family):
             scale = (lr[lanes] * (t < n_est[lanes]).to(torch.float32)
                      ).repeat_interleave(n_out)
             out = F_l.reshape(Lb * n_out, n, 1)
-            accumulate_tree(tree, codes, depth, out, scale)
+            accumulate_leaves(tree, node, out, scale)
             if not isinstance(lanes, slice):
                 F[lanes] = F_l
         return lr, n_est, n_lim
@@ -374,13 +374,13 @@ class RandomForestClassifierFamily(Family):
             if bootstrap:
                 w_t = w_t * jr.poisson_one(k_t, (n,), dev).to(
                     torch.float32)[None, :]
-            tree = grow_tree(codes, g, h, w_t, depth, N_BINS,
+            tree, node = grow_tree(codes, g, h, w_t, depth, N_BINS,
                              min_child_weight=min_leaf, reg_lambda=1e-9,
                              feat_mask_key=jr.fold_in(k_t, 7),
                              max_features=mf, n_out=n_out)
             acc_l = acc[lanes]
             live = (ti < n_est[lanes]).to(torch.float32)
-            accumulate_tree(tree, codes, depth, acc_l, live)
+            accumulate_leaves(tree, node, acc_l, live)
             if not isinstance(lanes, slice):
                 acc[lanes] = acc_l
         avg = acc / torch.clamp_min(n_lim.to(torch.float32), 1.0)[:, None,

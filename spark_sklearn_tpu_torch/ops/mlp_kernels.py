@@ -10,7 +10,9 @@ version beside it.
 - M2 `mlp_opt_step(...)`: the L2 term, the adam or sgd-momentum update
   and the epoch's loss sum, in place on the flat (B, P) parameters and
   optimizer state, only where a lane is active.  Replaces `mlp.py:167-193`
-  (`update`), the L2 gradient of `:163-164` and `:253-256`.
+  (`update`), the L2 gradient of `:163-164` and `:253-256`.  A lane's
+  parameters spread over a thread-block cluster (`opt_plan`), and the
+  l2 sum keeps one order, so launches give the same bits.
 - M3 `mlp_act_forward(A, b, act)` / `mlp_act_backward(dH, H, act)`: a
   hidden layer's bias and activation, and its cotangent from the kept
   output H.  Replaces the hidden layers of `mlp.py:60-64` and their
@@ -35,6 +37,26 @@ LAUNCHES = {"mlp_loss_grad": 0, "mlp_opt_step": 0, "mlp_act": 0}
 
 #: activation name -> the kernel's code (`enum Act` in csrc/mlp_step.cu)
 ACTIVATIONS = {"identity": 0, "relu": 1, "tanh": 2, "logistic": 3}
+
+#: M2's threads a block (a round of parameters), the most rounds a block
+#: takes a wave and the most blocks a lane (a thread-block cluster), as
+#: `kThreads`, `kOptRounds` and `kOptMaxCluster`
+OPT_THREADS = 256
+OPT_ROUNDS = 4
+OPT_MAX_CLUSTER = 8
+
+
+def opt_plan(P: int) -> dict:
+    """M2's launch for P parameters a lane: K rounds of `OPT_THREADS`, a
+    cluster of C = min(K, `OPT_MAX_CLUSTER`) blocks a lane, each taking
+    rb rounds a wave (at most `OPT_ROUNDS`); more waves where P is
+    larger.  The widest cluster was the fastest at every shape tried on
+    the H100 (BASELINE #5's P = 4810: 19 rounds, 8 blocks of 3; the
+    MLPRegressor's 641: 3 blocks of 1)."""
+    K = -(-P // OPT_THREADS)
+    C = min(OPT_MAX_CLUSTER, K)
+    rb = min(OPT_ROUNDS, -(-K // C))
+    return {"cluster": C, "rounds": rb, "waves": -(-K // (C * rb))}
 
 
 def reset_launches() -> None:
@@ -128,7 +150,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong
     lib.mlp_loss_grad.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.mlp_opt_step.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
-                                 i, i, i, f, f, f, f, p]
+                                 i, i, i, i, i, f, f, f, f, p]
     lib.mlp_act_forward.argtypes = [p, p, p, i, i, i, ll, i, p]
     lib.mlp_act_backward.argtypes = [p, p, p, ll, i, p]
     for fn in (lib.mlp_loss_grad, lib.mlp_opt_step, lib.mlp_act_forward,
@@ -224,14 +246,15 @@ def mlp_opt_step(p, g, m, v, t, wmask, alpha, wsum, lr, active, loss, acc,
         _check(name, x, torch.float32, (B,), dev)
     _check("wmask", wmask, torch.bool, (P,), dev)
     _check("active", active, torch.bool, (B,), dev)
+    plan = opt_plan(P)
     with torch.cuda.device(dev):
         rc = _lib().mlp_opt_step(
             p.data_ptr(), g.data_ptr(), m.data_ptr(),
             v.data_ptr() if adam else None, t.data_ptr() if adam else None,
             wmask.data_ptr(), alpha.data_ptr(), wsum.data_ptr(),
             lr.data_ptr(), active.data_ptr(), loss.data_ptr(),
-            acc.data_ptr(), B, P, int(adam), beta_1, beta_2, epsilon,
-            momentum, _stream(dev))
+            acc.data_ptr(), B, P, plan["cluster"], plan["rounds"],
+            int(adam), beta_1, beta_2, epsilon, momentum, _stream(dev))
     _raise_on(rc, "mlp_opt_step")
     LAUNCHES["mlp_opt_step"] += 1
 

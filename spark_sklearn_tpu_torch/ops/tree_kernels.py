@@ -18,13 +18,22 @@ prediction (`spark_sklearn_tpu/models/trees.py:175-177, 257-261,
   the last bin never a split, the feature mask, the first maximum over
   the flat (feature, bin) index, and ``split = gain > 1e-7``
   (trees.py:85-122).
-- T3 `route(codes, node, frozen, split_feat, split_bin, offset)`: one
-  level's routing, in place (trees.py:129-136); and `walk(codes, feat,
-  thresh, is_leaf, value, depth, out, scale)`: `predict_tree` from the
-  root, either returning the leaf values or adding ``scale[l] * value``
-  to `out` as one fused multiply-add (the families' ``F + lr·live·delta``
-  and ``acc + live·pred``, which XLA contracts so in the reference's
-  compiled fit).
+- T3, three entry points with one count.  `level_step(codes, node,
+  active, split_feat, split_bin, split, feat, thresh, is_leaf, local,
+  last)`: one level's heap writes, routing and keys, in place
+  (trees.py:123-136; at the last level also :139): the heap's level from
+  T2's splits, every row at a splitting node moved to its child (a row at
+  a shallower node is frozen there), and `local` set to the next level's
+  keys for G, T1 (node - next offset, -1 where the row stopped or is
+  inactive) or, at the `last` level, T4's keys (node, -1 where inactive)
+  with is_leaf set at every row's node.  `accumulate(value, node, out,
+  scale)`: ``out += scale[l] * value[l, node]`` from the grower's final
+  nodes (the fit's update; `ops/trees.py` says why that is the walk's
+  leaf).  `walk(codes, feat, thresh, is_leaf, value, depth, out, scale)`:
+  `predict_tree` from the root, either returning the leaf values or
+  adding ``scale[l] * value`` to `out`.  Both updates round once, as a
+  fused multiply-add (the families' ``F + lr·live·delta`` and ``acc +
+  live·pred``, which XLA contracts so in the reference's compiled fit).
 - T4 `leaf_values(local, stats, n_nodes, reg_lambda)` -> (L, n_nodes,
   S - 1): per lane and node, ``-Σ w·g / (Σ w·h + λ)`` (trees.py:142-147).
 - G `segments(local, n_nodes)` -> (perm, offs): each lane's rows grouped
@@ -60,6 +69,10 @@ memory that `cp.async` fills two tiles ahead, so its loads stay off the
 chain.  T2 scans the bins in XLA's order, from feature blocks staged
 whole in shared memory (`split_plan`: a few features a round, a cluster of
 blocks at the roots), and reads only the features a node's mask keeps.
+T3 takes a tile of 256 rows a block, a row a thread, for a group of
+lanes: the tile's codes are staged once in shared memory and serve every
+lane of the group, and the level's splits (the walk: the whole trees)
+sit in shared memory packed a word a node (`row_plan`).
 """
 
 from __future__ import annotations
@@ -119,6 +132,17 @@ SPLIT_BLOCKS_PER_SM = 2
 #: leaves four blocks an SM, which fewer stages keep to where they can
 SPLIT_MAX_SMEM = MAX_SMEM - 1024
 SPLIT_SMEM_FOUR = MAX_SMEM // 4 - 1024
+#: T3's threads a block (a row each, as `kRowThreads`); the most bytes of
+#: a row tile's codes it stages in shared memory (d <= 96); the shared
+#: memory of the level step's and the walk's blocks, at most; the row
+#: tiles of a launch spread over more lane groups until it has about
+#: this many blocks an SM (the best of 2, 4, 8 and 16 at phase 9's and
+#: 10's shapes on the H100)
+ROW_THREADS = 256
+ROW_STAGE_BYTES = 24 * 1024
+STEP_SMEM = 48 * 1024
+WALK_SMEM = 96 * 1024
+ROW_BLOCKS_PER_SM = 4
 
 
 def reset_launches() -> None:
@@ -217,18 +241,41 @@ def best_splits_plain(hist, fmask, reg_lambda, min_child_weight):
             best_gain, best_gain > 1e-7)
 
 
-def route_plain(codes, node, frozen, split_feat, split_bin, offset):
-    """T3's routing, plain (trees.py:129-136), in place: a row that is
-    not frozen moves to child 2·node + 1 + (code > bin) of a node that
-    splits (split_feat >= 0) and freezes at one that does not."""
-    j = (node - offset).clamp_min(0).long()
-    f = torch.gather(split_feat, 1, j)
-    b = torch.gather(split_bin, 1, j)
+def level_step_plain(codes, node, active, split_feat, split_bin, split,
+                     feat, thresh, is_leaf, local, last):
+    """T3's level step, plain (trees.py:123-136, and :139 at the last
+    level), in place: the heap's level (feat = split_feat or -1, thresh,
+    is_leaf = ~split); every row at a splitting node of the level moves
+    to child 2·node + 1 + (code > bin), a row at a shallower node (frozen)
+    stays; then `local` gets the next level's keys (node - (2N - 1), -1
+    where the row stopped or is inactive) or, with `last`, T4's keys
+    (node, -1 where inactive), and is_leaf is set at every row's node."""
+    N = split.shape[1]
+    offset = N - 1
+    sf = torch.where(split, split_feat, -1)
+    feat[:, offset:offset + N] = sf
+    thresh[:, offset:offset + N] = split_bin
+    is_leaf[:, offset:offset + N] = ~split
+    j = (node - offset).clamp(0, N - 1).long()
+    f = torch.gather(sf, 1, j)
     code_at = codes.long().T.gather(0, f.clamp_min(0).long())     # (L, n)
-    go = (~frozen) & (f >= 0)
-    nxt = 2 * node + 1 + (code_at > b).to(node.dtype)
-    node.copy_(torch.where(go, nxt, node))
-    frozen |= (~frozen) & (f < 0)
+    go = (node >= offset) & (f >= 0)
+    right = (code_at > torch.gather(split_bin, 1, j)).to(node.dtype)
+    node.copy_(torch.where(go, 2 * node + 1 + right, node))
+    if last:
+        is_leaf.scatter_(1, node.long(), True)
+        local.copy_(torch.where(active, node, -1))
+    else:
+        nxt = 2 * N - 1
+        local.copy_(torch.where(active & (node >= nxt), node - nxt, -1))
+
+
+def accumulate_plain(value, node, out, scale):
+    """T3's accumulate, plain: ``out += scale[l] * value[l, node[l, r]]``
+    in place (returned), one rounding as the walk's."""
+    vals = torch.gather(value, 1, node.long()[..., None].expand(
+        -1, -1, value.shape[2]))
+    return out.addcmul_(scale[:, None, None], vals)
 
 
 def walk_plain(codes, feat, thresh, is_leaf, value, depth, out=None,
@@ -281,12 +328,16 @@ def _lib() -> ctypes.CDLL:
                                     i, i, p]
     lib.tree_best_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
                                     i, i, i, i, f, f, p]
-    lib.tree_route.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    lib.tree_walk.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.tree_level_step.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                    i, i, i, i, i, i, i, p]
+    lib.tree_walk.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                              i, i, p]
+    lib.tree_add_leaves.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.tree_leaf_values.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
     lib.tree_segments.argtypes = [p, p, p, p, i, i, i, p]
-    for fn in (lib.tree_level_hist, lib.tree_best_split, lib.tree_route,
-               lib.tree_walk, lib.tree_leaf_values, lib.tree_segments):
+    for fn in (lib.tree_level_hist, lib.tree_best_split, lib.tree_level_step,
+               lib.tree_walk, lib.tree_add_leaves, lib.tree_leaf_values,
+               lib.tree_segments):
         fn.restype = i
     return lib
 
@@ -558,27 +609,103 @@ def best_splits(hist, fmask, reg_lambda, min_child_weight):
     return feat, thr, gain, split
 
 
-def route(codes, node, frozen, split_feat, split_bin, offset):
-    """T3's routing, in place (see the module docstring)."""
-    if not _on_card(node, "route"):
-        return route_plain(codes, node, frozen, split_feat, split_bin,
-                           offset)
+def row_plan(n: int, d: int, L: int, per_lane: int, budget: int,
+             n_sm: int) -> dict:
+    """T3's launch (the level step's and the walk's).  A block of
+    `ROW_THREADS` takes a tile of as many rows, a row a thread, for a
+    group of `lg` lanes; the tile's codes are staged in shared memory
+    where `ROW_THREADS`·d bytes fit `ROW_STAGE_BYTES`.  A lane takes
+    `per_lane` bytes of shared memory; the lanes go into as few groups
+    as `budget` allows, or more where the row tiles alone give fewer
+    than `ROW_BLOCKS_PER_SM` blocks an SM (GB: 60 lanes, 81 tiles).  A
+    block walks the tiles `grid_x` apart, as many blocks as an SM holds
+    at once.  Returns lg, groups, grid_x, stage and smem."""
+    stage = ROW_THREADS * d <= ROW_STAGE_BYTES
+    tile = -(-ROW_THREADS * d // 16) * 16 if stage else 0
+    fit = (budget - tile) // per_lane
+    if fit < 1:
+        raise ValueError(f"T3 cannot hold a lane's {per_lane} bytes of "
+                         f"nodes in one block")
+    tiles = -(-n // ROW_THREADS)
+    groups = max(-(-L // fit), min(L, -(-ROW_BLOCKS_PER_SM * n_sm // tiles)))
+    lg = -(-L // groups)
+    groups = -(-L // lg)
+    smem = tile + lg * per_lane
+    per_sm = max(1, min(2048 // ROW_THREADS, MAX_SMEM // (smem + 1024)))
+    grid_x = max(1, min(tiles, per_sm * n_sm // groups))
+    return {"lg": lg, "groups": groups, "grid_x": grid_x, "stage": stage,
+            "smem": smem}
+
+
+def level_step(codes, node, active, split_feat, split_bin, split, feat,
+               thresh, is_leaf, local, last):
+    """T3's level step, in place (see the module docstring): node (L, n)
+    int32 and the heap's feat, thresh (L, M) int32 and is_leaf (L, M)
+    bool; active (L, n) bool; the level's split_feat, split_bin (L, N)
+    int32 and split (L, N) bool from T2; local (L, n) int32 gets the next
+    level's keys, or T4's at the `last` level."""
+    if not _on_card(node, "level_step"):
+        return level_step_plain(codes, node, active, split_feat, split_bin,
+                                split, feat, thresh, is_leaf, local, last)
     dev = node.device
     L, n = node.shape
-    N = split_feat.shape[1]
+    N = split.shape[1]
+    M = feat.shape[1]
     d = codes.shape[1]
     _check("codes", codes, (n, d), torch.uint8, dev)
     _check("node", node, (L, n), torch.int32, dev)
-    _check("frozen", frozen, (L, n), torch.bool, dev)
+    _check("active", active, (L, n), torch.bool, dev)
+    _check("local", local, (L, n), torch.int32, dev)
     _check("split_feat", split_feat, (L, N), torch.int32, dev)
     _check("split_bin", split_bin, (L, N), torch.int32, dev)
+    _check("split", split, (L, N), torch.bool, dev)
+    _check("feat", feat, (L, M), torch.int32, dev)
+    _check("thresh", thresh, (L, M), torch.int32, dev)
+    _check("is_leaf", is_leaf, (L, M), torch.bool, dev)
+    if M < (4 if last else 2) * N - 1:
+        raise ValueError(f"a heap of {M} nodes cannot take a level of {N}")
+    plan = _step_plan(n, d, L, N, M, bool(last), _sm_count(dev.index))
     with torch.cuda.device(dev):
-        rc = _lib().tree_route(
-            codes.data_ptr(), node.data_ptr(), frozen.data_ptr(),
-            split_feat.data_ptr(), split_bin.data_ptr(), L, n, d, N,
-            int(offset), _stream(dev))
-    _raise_on(rc, "tree_route")
+        rc = _lib().tree_level_step(
+            codes.data_ptr(), node.data_ptr(), active.data_ptr(),
+            split_feat.data_ptr(), split_bin.data_ptr(), split.data_ptr(),
+            feat.data_ptr(), thresh.data_ptr(), is_leaf.data_ptr(),
+            local.data_ptr(), L, n, d, N, M, plan["lg"], plan["grid_x"],
+            int(plan["stage"]), int(last), plan["smem"], _stream(dev))
+    _raise_on(rc, "tree_level_step")
     LAUNCHES["tree_route"] += 1
+
+
+@functools.lru_cache(maxsize=256)
+def _step_plan(n, d, L, N, M, last, n_sm):
+    return row_plan(n, d, L, 4 * N + (M if last else 0), STEP_SMEM, n_sm)
+
+
+@functools.lru_cache(maxsize=64)
+def _walk_plan(n, d, L, M, n_sm):
+    return row_plan(n, d, L, 4 * M, WALK_SMEM, n_sm)
+
+
+def accumulate(value, node, out, scale):
+    """T3's accumulate: ``out[l, r] += scale[l] * value[l, node[l, r]]``
+    in place (returned), for the grower's final nodes `node` (L, n)
+    int32; value (L, M, n_out), out (L, n, n_out), scale (L,) float32."""
+    if not _on_card(out, "accumulate"):
+        return accumulate_plain(value, node, out, scale)
+    dev = out.device
+    L, M, n_out = value.shape
+    n = node.shape[1]
+    _check("value", value, (L, M, n_out), torch.float32, dev)
+    _check("node", node, (L, n), torch.int32, dev)
+    _check("out", out, (L, n, n_out), torch.float32, dev)
+    _check("scale", scale, (L,), torch.float32, dev)
+    with torch.cuda.device(dev):
+        rc = _lib().tree_add_leaves(
+            node.data_ptr(), value.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), L, n, M, n_out, _stream(dev))
+    _raise_on(rc, "tree_add_leaves")
+    LAUNCHES["tree_route"] += 1
+    return out
 
 
 def walk(codes, feat, thresh, is_leaf, value, depth, out=None, scale=None):
@@ -605,12 +732,14 @@ def walk(codes, feat, thresh, is_leaf, value, depth, out=None, scale=None):
         _check("out", out, (L, n, n_out), torch.float32, dev)
         _check("scale", scale, (L,), torch.float32, dev)
         res = out
+    plan = _walk_plan(n, d, L, M, _sm_count(dev.index))
     with torch.cuda.device(dev):
         rc = _lib().tree_walk(
             codes.data_ptr(), feat.data_ptr(), thresh.data_ptr(),
             is_leaf.data_ptr(), value.data_ptr(),
             None if out is None else scale.data_ptr(), res.data_ptr(), L, n,
-            d, M, n_out, depth, _stream(dev))
+            d, M, n_out, depth, plan["lg"], plan["grid_x"],
+            int(plan["stage"]), plan["smem"], _stream(dev))
     _raise_on(rc, "tree_walk")
     LAUNCHES["tree_route"] += 1
     return res

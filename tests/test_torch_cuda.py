@@ -629,22 +629,69 @@ def _plain_gains(hist, fmask):
     return gain.reshape(L, N, d * B)
 
 
+def _random_trees(rng, device, L, M, d, n_out):
+    """Random heaps (feat -1 in about one node of 8d+1, a fifth of the
+    nodes leaves) and leaf values."""
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return (t(rng.integers(-1, d, (L, M)).astype(np.int32)),
+            t(rng.integers(0, 256, (L, M)).astype(np.int32)),
+            t(rng.random((L, M)) < 0.2),
+            t(rng.standard_normal((L, M, n_out)).astype(np.float32)))
+
+
+def _level_state(device, L, n, d, depth, level, seed=0):
+    """A level's state as the grower leaves it (frozen rows at shallower
+    nodes, the others at the level's nodes; inactive rows; splits with
+    non-splitting nodes; a heap of random contents)."""
+    rng = np.random.default_rng(seed)
+    N = 2 ** level
+    offset = N - 1
+    M = 2 ** (depth + 1) - 1
+    frozen = (rng.random((L, n)) < 0.3) & (level > 0)
+    node = np.where(frozen, rng.integers(0, max(offset, 1), (L, n)),
+                    rng.integers(offset, offset + N, (L, n)))
+    split = rng.random((L, N)) < 0.7
+    split[0, 0], split[-1, -1] = True, False
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a).astype(dt),
+                                      device=device)
+    feat, thresh, is_leaf, _ = _random_trees(rng, device, L, M, d, 1)
+    return dict(codes=t(rng.integers(0, 256, (n, d)), np.uint8),
+                node=t(node, np.int32),
+                active=t(rng.random((L, n)) < 0.8, bool),
+                bf=t(rng.integers(0, d, (L, N)), np.int32),
+                bb=t(rng.integers(0, 256, (L, N)), np.int32),
+                split=t(split, bool), feat=feat, thresh=thresh,
+                is_leaf=is_leaf,
+                local=torch.full((L, n), 7, dtype=torch.int32,
+                                 device=device))
+
+
+def _level_step_pair(st, last):
+    """The level step on the card and its plain version on copies of the
+    same state: (kernel's state, plain's state)."""
+    names = ("node", "feat", "thresh", "is_leaf", "local")
+    out = []
+    for fn in (tk.level_step, tk.level_step_plain):
+        c = {k: st[k].clone() for k in names}
+        fn(st["codes"], c["node"], st["active"], st["bf"], st["bb"],
+           st["split"], c["feat"], c["thresh"], c["is_leaf"], c["local"],
+           last)
+        out.append(c)
+    return out
+
+
 @pytest.mark.cuda
 def test_tree_route_and_walk_match_plain(cuda_device):
-    """T3: routing one level and walking whole trees, against their plain
-    versions: the same nodes, frozen flags and values, bit for bit."""
+    """T3: one level step and the walk of whole trees, against their
+    plain versions: the same nodes, keys, heap and values, bit for bit.
+    The walk's update rounds once on both sides (the kernel's fma; the
+    plain `addcmul_`, one fma on the card), so it is held equal too."""
     rng = np.random.default_rng(2)
     L, n, d, depth = 3, 500, 7, 4
     codes = torch.as_tensor(rng.integers(0, 256, (n, d)).astype(np.uint8),
                             device="cuda")
     M = 2 ** (depth + 1) - 1
-    feat = torch.as_tensor(rng.integers(-1, d, (L, M)).astype(np.int32),
-                           device="cuda")
-    thr = torch.as_tensor(rng.integers(0, 256, (L, M)).astype(np.int32),
-                          device="cuda")
-    leaf = torch.as_tensor(rng.random((L, M)) < 0.2, device="cuda")
-    value = torch.as_tensor(rng.standard_normal((L, M, 3)).astype(
-        np.float32), device="cuda")
+    feat, thr, leaf, value = _random_trees(rng, "cuda", L, M, d, 3)
     got = tk.walk(codes, feat, thr, leaf, value, depth)
     assert torch.equal(got, tk.walk_plain(codes, feat, thr, leaf, value,
                                           depth))
@@ -653,20 +700,103 @@ def test_tree_route_and_walk_match_plain(cuda_device):
     tk.walk(codes, feat, thr, leaf, value, depth, out, scale)
     want = tk.walk_plain(codes, feat, thr, leaf, value, depth,
                          torch.ones((L, n, 3), device="cuda"), scale)
-    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(out, want)
 
-    N = 4                                        # level 2: nodes 3 .. 6
-    node = torch.as_tensor(rng.integers(3, 7, (L, n)).astype(np.int32),
-                           device="cuda")
-    frozen = torch.as_tensor(rng.random((L, n)) < 0.3, device="cuda")
-    sf = torch.as_tensor(rng.integers(-1, d, (L, N)).astype(np.int32),
-                         device="cuda")
-    sb = torch.as_tensor(rng.integers(0, 256, (L, N)).astype(np.int32),
-                         device="cuda")
-    node_p, frozen_p = node.clone(), frozen.clone()
-    tk.route(codes, node, frozen, sf, sb, 3)
-    tk.route_plain(codes, node_p, frozen_p, sf, sb, 3)
-    assert torch.equal(node, node_p) and torch.equal(frozen, frozen_p)
+    st = _level_state(cuda_device, L, n, d, depth, 2)   # nodes 3 .. 6
+    got, want = _level_step_pair(st, last=False)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
+# (L, n, d, depth, level): the first, a middle and the last level of a
+# depth-5 tree; phase 10's forest lanes at depth 10 (a middle level and
+# the last); phase 9's 60 boosting lanes (spread over lane groups); d too
+# wide to stage the codes; one row
+LEVEL_CASES = [(3, 700, 9, 5, lv) for lv in (0, 2, 4)] + [
+    (6, 3000, 54, 10, 5), (6, 3000, 54, 10, 9), (60, 2000, 8, 5, 3),
+    (60, 2000, 8, 5, 4), (2, 300, 784, 4, 3), (1, 1, 3, 2, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,n,d,depth,level", LEVEL_CASES)
+def test_tree_level_step_matches_plain(cuda_device, L, n, d, depth, level):
+    """T3's level step against its plain version at the first, middle and
+    last levels: nodes, keys and heap equal; two launches equal."""
+    st = _level_state(cuda_device, L, n, d, depth, level, seed=level + d)
+    last = level == depth - 1
+    got, want = _level_step_pair(st, last)
+    again, _ = _level_step_pair(st, last)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,n,M,n_out", [(6, 3000, 2047, 7), (60, 2000, 63,
+                                                             1),
+                                         (3, 1, 7, 3)])
+def test_tree_accumulate_matches_plain(cuda_device, L, n, M, n_out):
+    """T3's accumulate against its plain version: equal (one fma each)."""
+    rng = np.random.default_rng(n)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+    node = t(rng.integers(0, M, (L, n)).astype(np.int32))
+    value = t(rng.standard_normal((L, M, n_out)).astype(np.float32))
+    out = t(rng.standard_normal((L, n, n_out)).astype(np.float32))
+    scale = t(rng.uniform(0, 1, L).astype(np.float32))
+    want = tk.accumulate_plain(value, node, out.clone(), scale)
+    got = tk.accumulate(value, node, out.clone(), scale)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_tree_walk_at_depth_10_matches_plain(cuda_device):
+    """The walk at phase 10's shape cut in rows: 6 lanes, d = 54, depth
+    10 (two lane groups' trees in shared memory); equal."""
+    rng = np.random.default_rng(10)
+    L, n, d, depth = 6, 4000, 54, 10
+    codes = torch.as_tensor(rng.integers(0, 256, (n, d)).astype(np.uint8),
+                            device="cuda")
+    M = 2 ** (depth + 1) - 1
+    feat, thr, leaf, value = _random_trees(rng, "cuda", L, M, d, 7)
+    leaf[:, :M // 2] = False                  # deep walks
+    assert torch.equal(tk.walk(codes, feat, thr, leaf, value, depth),
+                       tk.walk_plain(codes, feat, thr, leaf, value, depth))
+    out = torch.randn((L, n, 7), device="cuda")
+    scale = torch.rand(L, device="cuda")
+    want = tk.walk_plain(codes, feat, thr, leaf, value, depth, out.clone(),
+                         scale)
+    assert torch.equal(tk.walk(codes, feat, thr, leaf, value, depth,
+                               out.clone(), scale), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forest", [True, False])
+def test_tree_grower_nodes_give_the_walks_update_on_cuda(cuda_device,
+                                                         forest):
+    """On the card, as on the CPU: the grower's final nodes give the
+    walk's update bit for bit (rows of weight 0, feature masks)."""
+    from spark_sklearn_tpu_torch.ops import random as jr
+    from spark_sklearn_tpu_torch.ops import trees as pt
+    rng = np.random.default_rng(6)
+    L, n, d, depth = 3, 2000, 9, 6
+    codes = torch.as_tensor(rng.integers(0, 256, (n, d)).astype(np.uint8),
+                            device="cuda")
+    k = 3 if forest else 1
+    g = torch.as_tensor(rng.standard_normal((L, n, k)).astype(np.float32),
+                        device="cuda")
+    h = torch.ones((L, n), device="cuda")
+    w = torch.as_tensor((rng.poisson(1.0, (L, n))).astype(np.float32),
+                        device="cuda")
+    tree, node = pt.grow_tree(
+        codes, g, h, w, depth, 256, 1.0, 1e-6,
+        feat_mask_key=jr.fold_in(jr.PRNGKey(0), 7) if forest else None,
+        max_features=4 if forest else None, n_out=k)
+    scale = torch.tensor([0.5, 0.0, 2.0], device="cuda")
+    walked = torch.ones((L, n, k), device="cuda")
+    grown = walked.clone()
+    pt.accumulate_tree(tree, codes, depth, walked, scale)
+    pt.accumulate_leaves(tree, node, grown, scale)
+    assert torch.equal(grown, walked)
 
 
 @pytest.mark.cuda
@@ -681,6 +811,20 @@ def test_tree_wrappers_raise_instead_of_falling_back(cuda_device):
     hist = tk.level_histogram(codes, local, stats, 8)
     with pytest.raises(ValueError):
         tk.best_splits(hist[..., :100, :], None, 1e-6, 1.0)
+    st = _level_state(cuda_device, 3, 500, 7, 4, 2)
+    args = [st[k] for k in ("codes", "node", "active", "bf", "bb", "split",
+                            "feat", "thresh", "is_leaf", "local")]
+    for i, bad in ((1, st["node"].long()), (2, st["active"].int()),
+                   (9, st["local"][:, :10]), (6, st["feat"][:, :5])):
+        with pytest.raises((TypeError, ValueError)):
+            tk.level_step(*args[:i], bad, *args[i + 1:], False)
+    value = torch.zeros((3, 31, 1), device="cuda")
+    with pytest.raises(TypeError):
+        tk.accumulate(value, st["node"].long(), torch.zeros(
+            (3, 500, 1), device="cuda"), torch.ones(3, device="cuda"))
+    with pytest.raises(ValueError):
+        tk.accumulate(value, st["node"], torch.zeros(
+            (3, 500, 2), device="cuda"), torch.ones(3, device="cuda"))
 
 
 @pytest.mark.cuda
@@ -785,26 +929,32 @@ def test_mlp_loss_grad_matches_plain(cuda_device, regress, B, R, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("adam", [True, False])
-def test_mlp_opt_step_matches_plain(cuda_device, adam):
+@pytest.mark.parametrize("P", [4874, 641, 20001])
+def test_mlp_opt_step_matches_plain(cuda_device, adam, P):
     """Tolerance: rtol 1e-5, atol 1e-7 on p, m, v; acc rtol 1e-5;
-    inactive lanes keep every bit."""
-    t = _mlp_inputs(cuda_device)
+    inactive lanes keep every bit; two launches give the same bits.  P
+    4874 (BASELINE #5: 20 rounds of 256, 8 blocks a lane), 641 (the
+    MLPRegressor's: 3 blocks) and 20001 (two waves of 8 blocks x 8
+    rounds), none a multiple of a block's 256 or of 4 floats."""
+    t = _mlp_inputs(cuda_device, P=P)
     outs = []
-    for fn in (mk.mlp_opt_step, mk.mlp_opt_step_plain):
+    for fn in (mk.mlp_opt_step, mk.mlp_opt_step_plain, mk.mlp_opt_step):
         s = {k: t[k].clone() for k in ("p", "m", "v", "t", "acc")}
         fn(s["p"], t["g"], s["m"], s["v"] if adam else None,
            s["t"] if adam else None, t["wmask"], t["alpha"], t["wsum"],
            t["lr"], t["active"], t["loss"], s["acc"], adam=adam)
         outs.append(s)
-    got, want = outs
+    got, want, again = outs
     for name in ("p", "m", "v"):
         torch.testing.assert_close(got[name], want[name], rtol=1e-5,
                                    atol=1e-7)
     torch.testing.assert_close(got["acc"], want["acc"], rtol=1e-5, atol=0)
     torch.testing.assert_close(got["t"], want["t"], rtol=0, atol=0)
+    for name in got:
+        assert torch.equal(got[name], again[name]), name
     off = ~t["active"]
-    assert torch.equal(got["p"][off], t["p"][off])
-    assert torch.equal(got["acc"][off], t["acc"][off])
+    for name in ("p", "m", "v", "t", "acc"):
+        assert torch.equal(got[name][off], t[name][off]), name
 
 
 @pytest.mark.cuda
@@ -834,6 +984,14 @@ def test_mlp_wrappers_raise_instead_of_falling_back(cuda_device):
         mk.mlp_opt_step(t["p"], t["g"], t["m"], t["v"], t["t"],
                         t["wmask"].float(), t["alpha"], t["wsum"], t["lr"],
                         t["active"], t["loss"], t["acc"], adam=True)
+    with pytest.raises(ValueError):
+        mk.mlp_opt_step(t["p"], t["g"][:, :100], t["m"], t["v"], t["t"],
+                        t["wmask"], t["alpha"], t["wsum"], t["lr"],
+                        t["active"], t["loss"], t["acc"], adam=True)
+    with pytest.raises(ValueError):
+        mk.mlp_opt_step(t["p"], t["g"], t["m"], None, None, t["wmask"],
+                        t["alpha"], t["wsum"], t["lr"], t["active"].cpu(),
+                        t["loss"], t["acc"], adam=False)
 
 
 def _digits_like(n=600, d=16, k=4, seed=0):

@@ -298,6 +298,23 @@ def test_opt_step_plain_matches_torch_optimizer(adam):
         assert abs(float(acc[b]) - accs) <= 1e-5 * abs(accs)
 
 
+@pytest.mark.parametrize("P", [1, 255, 256, 641, 2048, 4874, 20001,
+                               100000])
+def test_opt_plan_keeps_the_l2_order(P):
+    """M2's cluster plan: every round of 256 parameters goes to one block
+    of one wave, and the first block, reading the cluster's blocks in
+    rank order a wave, adds each partial's rounds in round order, as the
+    one-block kernel did (so `acc` keeps its bits)."""
+    plan = mk.opt_plan(P)
+    C, rb, waves = plan["cluster"], plan["rounds"], plan["waves"]
+    K = -(-P // mk.OPT_THREADS)
+    assert 1 <= C <= mk.OPT_MAX_CLUSTER and 1 <= rb <= mk.OPT_ROUNDS
+    assert C <= K and (waves - 1) * C * rb < K <= waves * C * rb
+    order = [k0 + c * rb + r for k0 in range(0, K, C * rb)
+             for c in range(C) for r in range(rb) if k0 + c * rb + r < K]
+    assert order == list(range(K))
+
+
 # ---------------------------------------------------------------------------
 # the sklearn-free estimators: one lane of the batched fit
 # ---------------------------------------------------------------------------

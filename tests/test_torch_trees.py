@@ -140,11 +140,11 @@ def test_grow_and_predict_match_reference(kind):
                            c["w"], c["depth"], c["nb"], c["mcw"], c["lam"],
                            key_j, c["mf"], c["n_out"])
     codes = _u8(c["codes"])
-    got = pt.grow_tree(codes, torch.as_tensor(c["g"]),
-                       torch.as_tensor(c["h"]), torch.as_tensor(c["w"]),
-                       c["depth"], c["nb"], c["mcw"], c["lam"],
-                       feat_mask_key=key_p, max_features=c["mf"],
-                       n_out=c["n_out"])
+    got, node = pt.grow_tree(codes, torch.as_tensor(c["g"]),
+                             torch.as_tensor(c["h"]),
+                             torch.as_tensor(c["w"]), c["depth"], c["nb"],
+                             c["mcw"], c["lam"], feat_mask_key=key_p,
+                             max_features=c["mf"], n_out=c["n_out"])
     np.testing.assert_array_equal(got.feat.numpy(), np.asarray(ref.feat))
     np.testing.assert_array_equal(got.thresh.numpy(), np.asarray(ref.thresh))
     np.testing.assert_array_equal(got.is_leaf.numpy(),
@@ -168,6 +168,10 @@ def test_grow_and_predict_match_reference(kind):
     np.testing.assert_allclose(out.numpy(), 1.0 + scale.numpy()[:, None,
                                                                 None]
                                * pred.numpy(), rtol=1e-6, atol=1e-6)
+    # the fit's update from the grower's final nodes: the walk's bits
+    from_nodes = torch.ones_like(pred)
+    pt.accumulate_leaves(got, node, from_nodes, scale)
+    assert torch.equal(from_nodes, out)
 
 
 def test_grow_tree_in_lane_passes_gives_the_same_trees():
@@ -176,12 +180,144 @@ def test_grow_tree_in_lane_passes_gives_the_same_trees():
         c["h"]), torch.as_tensor(c["w"]), c["depth"], c["nb"], c["mcw"],
             c["lam"])
     key = jr.fold_in(jr.PRNGKey(1), 7)
-    one = pt.grow_tree(*args, feat_mask_key=key, max_features=2, n_out=3)
+    one, node = pt.grow_tree(*args, feat_mask_key=key, max_features=2,
+                             n_out=3)
     per_lane = pt.hist_bytes(c["depth"], c["codes"].shape[1], c["nb"], 4)
-    passes = pt.grow_tree(*args, feat_mask_key=key, max_features=2, n_out=3,
-                          max_hist_bytes=per_lane)
+    passes, node_p = pt.grow_tree(*args, feat_mask_key=key, max_features=2,
+                                  n_out=3, max_hist_bytes=per_lane)
     for a, b in zip(one, passes):
         assert torch.equal(a, b)
+    assert torch.equal(node, node_p)
+
+
+def _old_level(codes, node, frozen, active, bf, bb, split, feat, thresh,
+               is_leaf, last):
+    """One level of the grower as it was before the fused level step:
+    the heap writes and the routing of `_grow` with a frozen flag carried
+    from level to level, then the next level's keys (or T4's at the last
+    level, with the final is_leaf scatter).  Returns the keys."""
+    N = split.shape[1]
+    offset = N - 1
+    sf = torch.where(split, bf, -1)
+    feat[:, offset:offset + N] = sf
+    thresh[:, offset:offset + N] = bb
+    is_leaf[:, offset:offset + N] = ~split
+    j = (node - offset).clamp_min(0).long()
+    f = torch.gather(sf, 1, j)
+    b = torch.gather(bb, 1, j)
+    code_at = codes.long().T.gather(0, f.clamp_min(0).long())
+    go = (~frozen) & (f >= 0)
+    node.copy_(torch.where(go, 2 * node + 1 + (code_at > b).to(node.dtype),
+                           node))
+    frozen |= (~frozen) & (f < 0)
+    if last:
+        is_leaf.scatter_(1, node.long(), True)
+        return torch.where(active, node, -1)
+    return torch.where(frozen | ~active, -1, node - (2 * N - 1))
+
+
+def _level_state(rng, L, n, d, depth, level):
+    """A level's state as the grower leaves it: frozen rows at shallower
+    nodes, the others at the level's nodes; inactive rows; splits with
+    non-splitting nodes; a heap of random contents."""
+    N = 2 ** level
+    offset = N - 1
+    M = 2 ** (depth + 1) - 1
+    frozen = (rng.random((L, n)) < 0.3) & (level > 0)
+    node = np.where(frozen, rng.integers(0, max(offset, 1), (L, n)),
+                    rng.integers(offset, offset + N, (L, n)))
+    split = rng.random((L, N)) < 0.7
+    split[0, 0], split[-1, -1] = True, False     # both kinds at the root
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a).astype(dt))
+    return dict(
+        codes=t(rng.integers(0, 256, (n, d)), np.uint8),
+        node=t(node, np.int32), frozen=t(frozen, bool),
+        active=t(rng.random((L, n)) < 0.8, bool),
+        bf=t(rng.integers(0, d, (L, N)), np.int32),
+        bb=t(rng.integers(0, 256, (L, N)), np.int32),
+        split=t(split, bool),
+        feat=t(rng.integers(-1, d, (L, M)), np.int32),
+        thresh=t(rng.integers(0, 256, (L, M)), np.int32),
+        is_leaf=t(rng.random((L, M)) < 0.3, bool))
+
+
+@pytest.mark.parametrize("level", [0, 2, 4])
+def test_level_step_plain_matches_the_old_level(level):
+    """The fused level step's plain version against the grower's old
+    sequence, at the first, a middle and the last level of a depth-5
+    tree: the same nodes, keys and heap, on levels with non-splitting
+    nodes, frozen rows and inactive rows."""
+    depth = 5
+    st = _level_state(np.random.default_rng(level), 3, 500, 7, depth, level)
+    last = level == depth - 1
+    old = {k: v.clone() for k, v in st.items()}
+    want = _old_level(old["codes"], old["node"], old["frozen"],
+                      old["active"], old["bf"], old["bb"], old["split"],
+                      old["feat"], old["thresh"], old["is_leaf"], last)
+    local = torch.full_like(st["node"], 7)
+    tk.level_step(st["codes"], st["node"], st["active"], st["bf"], st["bb"],
+                  st["split"], st["feat"], st["thresh"], st["is_leaf"],
+                  local, last)
+    assert torch.equal(local, want)
+    for k in ("node", "feat", "thresh", "is_leaf"):
+        assert torch.equal(st[k], old[k]), k
+    assert (local >= 0).any() and (local < 0).any()
+
+
+@pytest.mark.parametrize("kind", ["forest", "boosting"])
+@pytest.mark.parametrize("passes", [False, True])
+def test_grown_nodes_give_the_walks_update(kind, passes):
+    """`grow_tree`'s final nodes are the walk's leaves: the families'
+    update from them (`accumulate_leaves`) equals the walk's
+    (`accumulate_tree`) bit for bit, with feature masks and rows of
+    weight 0, grown in one pass or a pass a lane."""
+    c = _grower_case(kind)
+    codes = _u8(c["codes"])
+    key = jr.fold_in(jr.PRNGKey(2), 7) if kind == "forest" else None
+    per_lane = pt.hist_bytes(c["depth"], c["codes"].shape[1], c["nb"],
+                             1 + c["n_out"])
+    tree, node = pt.grow_tree(
+        codes, torch.as_tensor(c["g"]), torch.as_tensor(c["h"]),
+        torch.as_tensor(c["w"]), c["depth"], c["nb"], c["mcw"], c["lam"],
+        feat_mask_key=key, max_features=c["mf"], n_out=c["n_out"],
+        max_hist_bytes=per_lane if passes else pt.MAX_HIST_BYTES)
+    assert (c["w"] == 0).any()
+    assert bool(torch.gather(tree.is_leaf, 1, node.long()).all())
+    scale = torch.tensor([0.1, 0.0, 3.0])
+    base = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (3, codes.shape[0], c["n_out"])).astype(np.float32))
+    walked, grown = base.clone(), base.clone()
+    pt.accumulate_tree(tree, codes, c["depth"], walked, scale)
+    pt.accumulate_leaves(tree, node, grown, scale)
+    assert torch.equal(grown, walked)
+
+
+# (n, d, L, N, M, last, walk): phase 10's forest at its deepest levels and
+# its walk, phase 9's boosting (60 lanes), d too wide to stage
+ROW_PLAN_SHAPES = [(100000, 54, 6, 256, 2047, False, False),
+                   (100000, 54, 6, 512, 2047, True, False),
+                   (20640, 8, 60, 16, 63, True, False),
+                   (100000, 54, 6, 0, 2047, False, True),
+                   (20640, 8, 60, 0, 63, False, True),
+                   (3000, 784, 4, 8, 31, True, False),
+                   (5, 3, 1, 1, 3, True, False)]
+
+
+@pytest.mark.parametrize("n,d,L,N,M,last,walk", ROW_PLAN_SHAPES)
+def test_row_plan_fits_a_block_and_covers_every_lane(n, d, L, N, M, last,
+                                                     walk):
+    per_lane = 4 * M if walk else 4 * N + (M if last else 0)
+    budget = tk.WALK_SMEM if walk else tk.STEP_SMEM
+    plan = tk.row_plan(n, d, L, per_lane, budget, 132)
+    tiles = -(-n // tk.ROW_THREADS)
+    assert plan["stage"] == (d <= 96)
+    tile = -(-tk.ROW_THREADS * d // 16) * 16 if plan["stage"] else 0
+    assert plan["smem"] == tile + plan["lg"] * per_lane <= budget
+    assert plan["groups"] * plan["lg"] >= L > (plan["groups"] - 1) * plan[
+        "lg"]
+    assert 1 <= plan["grid_x"] <= tiles
+    if L == 60:                   # few tiles: the lanes spread out
+        assert plan["groups"] > 1
 
 
 @pytest.mark.parametrize("length", [5, 16, 17, 100, 256])
