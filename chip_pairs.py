@@ -12,8 +12,8 @@ that difference is larger than the parent's spread; then, for the tree
 searches, each run's device busy time and cuda-against-cpu max |d
 mean_test_score|; then phase 3's kernel rows (ms between events, each
 kernel by shape and variant) with the change's mean over the parent's;
-then T2, S2, T3 and M2 alone and `grow_tree` at the tree searches'
-chunks (`ALONE_ROWS`, again parent, change, change, parent): each
+then G, T2, S2, T3, M2 and M3 alone and `grow_tree` at the tree
+searches' chunks (`ALONE_ROWS`, again parent, change, change, parent): each
 tree's wrappers replayed in a CUDA graph, their host time a call, the
 grower's launches and host time a level, and whether each row's outputs
 have the same bits in the four runs.
@@ -113,7 +113,10 @@ def kernel_rows(d: dict) -> dict:
 #   tree has no such entry point), whose bits must match; `grow_tree`
 #   alone at each search's chunk (`grower_alone`: launches and host us a
 #   level) with a digest of its tree.
-# - M2 at phase 3's adam, sgd and regressor shapes, on a copy of the
+# - G at phase 9's and 10's roots, deepest levels and T4's final level.
+# - M3 (relu, forward and backward) at phase 3's BASELINE #5 and
+#   regressor shapes, with `threshold_backward` on the backward's inputs;
+#   M2 at phase 3's adam, sgd and regressor shapes, on a copy of the
 #   state a call.
 ALONE_ROWS = """
 import hashlib
@@ -188,6 +191,10 @@ for label, codes_np, L, depth, kind in (
     M = 2 ** (depth + 1) - 1
     for n_nodes in (1, 2 ** (depth - 1)):
         local, stats = cs.tree_level_inputs(codes, L, n_nodes, kind, n_nodes)
+        fn = lambda: tk.segments(local, n_nodes)
+        rows[f"tree_segments {label}/{n_nodes}"] = {
+            "ms": cs.graph_ms(fn), "host_us": host_us(fn),
+            "bits": digest(fn())}
         hist = tk.level_histogram(codes, local, stats, n_nodes)
         masks = {"": None}
         if kind == "forest":
@@ -221,6 +228,9 @@ for label, codes_np, L, depth, kind in (
             "host_us": host_us(stepped) - host_us(restore), "bits": bits}
     # the walk of random trees of the path's depth (phase 3's)
     local, stats = cs.tree_level_inputs(codes, L, M, kind, 7)
+    fn = lambda: tk.segments(local, M)
+    rows[f"tree_segments {label}/{M}"] = {
+        "ms": cs.graph_ms(fn), "host_us": host_us(fn), "bits": digest(fn())}
     val = tk.leaf_values(local, stats, M, 1e-6)
     g = torch.Generator(device="cuda").manual_seed(9)
     feat = torch.randint(0, d, (L, M), generator=g, device="cuda",
@@ -257,6 +267,19 @@ for label, codes_np, L, depth, kind in (
         "ms": cs.cuda_ms(grow, reps=5, warmup=1),
         "host_us": host_us(grow, calls=3), "bits": digest(tree),
         **per_level}
+for path, shape in (("baseline5", {}),
+                    ("regressor", dict(B=6, k=1, d=cs.D_REG,
+                                       alphas=cs.MLP_REG_ALPHAS))):
+    t = cs.mlp_step_inputs(0, **shape)
+    H = mk.mlp_act_forward_plain(t["A"], t["b"], "relu")
+    for part, fn in (
+            ("forward", lambda: mk.mlp_act_forward(t["A"], t["b"], "relu")),
+            ("backward", lambda: mk.mlp_act_backward(t["dH"], H, "relu")),
+            ("threshold_backward", lambda: torch.ops.aten.threshold_backward(
+                t["dH"], H, 0.0))):
+        rows[f"mlp_act {part} {path}"] = {
+            "ms": cs.graph_ms(fn), "host_us": host_us(fn),
+            "bits": digest([fn()])}
 for path, shape, adam in (("adam", {}, True), ("sgd", {}, False),
                           ("regressor", dict(B=6, k=1, d=cs.D_REG,
                                              alphas=cs.MLP_REG_ALPHAS),

@@ -99,11 +99,13 @@ uniform and skewed (half the rows in one node, a quarter in the next,
 ...), T4 uniform, skewed and at one node a lane (the boosting init),
 each `torch.equal` to its plain version on CPU copies of the inputs,
 timed alone and with its grouping, beside `index_add_` (T1, T4),
-`torch.sort` (G), its byte bound and its order bound (the longest chain
+`torch.sort` (G, timed as a CUDA graph's replay and between events),
+its byte bound and its order bound (the longest chain
 of one sum x 4 clocks at the SM clock read under load); and the MLP
 step's M1 (loss and cotangent), M2 (adam step; `torch._fused_adam_`
 timed beside it, and `torch._fused_sgd_` beside the sgd step) and M3
-(bias and activation, forward and backward) at
+(bias and activation, forward and backward; relu's backward beside
+`torch.ops.aten.threshold_backward`) at
 every shape phase 11 gives them: the BASELINE #5 step (12 lanes, 200
 rows, k=10, h=64) and the MLPRegressor's (6 lanes, k=1, d=8), timed; the
 refit's one lane and the views' whole folds, checked.
@@ -1378,13 +1380,12 @@ def sm_clock_under_load(fn, seconds: float = 1.0) -> float:
 
 
 #: the parts of the mangled names of each count's CUDA kernels (T3: the
-#: level step, the accumulate and the walk; the grouping's group_count,
-#: group_scan and group_scatter)
+#: level step, the accumulate and the walk; the grouping's one kernel)
 TREE_SYMBOLS = {"tree_level_hist": ("level_hist",),
                 "tree_best_split": ("best_split",),
                 "tree_route": ("level_step", "add_leaves", "walk_rows"),
                 "tree_leaf_values": ("leaf_sums",),
-                "tree_segments": ("group_",)}
+                "tree_segments": ("segment_rows",)}
 
 
 def tree_symbol(name: str) -> str:
@@ -1505,15 +1506,17 @@ def phase_tree_kernels(seed: int, ptxas: dict):
         key = (torch.where(local >= 0, local, n_nodes) + torch.arange(
             L, dtype=torch.int32, device="cuda")[:, None] * (n_nodes + 1)
                ).reshape(-1)
+        # the kernel alone (a CUDA graph's replay) and the wrapper's time
+        # between events (its host cost and allocations included)
         record("tree_segments", lab, (torch.cat((perm, offs)),), (want,),
-               True, cuda_ms(lambda: tk.segments(local, n_nodes)),
+               True, graph_ms(lambda: tk.segments(local, n_nodes)),
                cuda_ms(lambda: tk.segments_plain(local, n_nodes), reps=5,
                        warmup=1),
                cuda_ms(lambda: torch.sort(key, stable=True), reps=5,
                        warmup=1),
                local.nbytes + perm.nbytes + offs.nbytes, 0,
-               {"lanes": L, "n_nodes": n_nodes},
-               symbol="group_scatter")
+               {"lanes": L, "n_nodes": n_nodes,
+                "events_ms": cuda_ms(lambda: tk.segments(local, n_nodes))})
 
     sm_mhz = None
     final_node = {}
@@ -2268,16 +2271,30 @@ def phase_mlp_kernels(seed: int, ptx: dict):
                                beta2=0.999, weight_decay=0.0, eps=1e-8,
                                amsgrad=False, maximize=False)
 
+        # relu's backward: `threshold_backward` computes dH where H > 0,
+        # else 0, in one call (autograd's own relu backward)
+        H = mk.mlp_act_forward_plain(t["A"], t["b"], "relu")
+
+        def relu_backward(dH=t["dH"], H=H):
+            return torch.ops.aten.threshold_backward(dH, H, 0.0)
+
+        if not torch.equal(relu_backward(),
+                           mk.mlp_act_backward_plain(t["dH"], H, "relu")):
+            raise AssertionError("threshold_backward is not relu's backward")
+        libraries = {"mlp_opt_step": fused_adam,
+                     "mlp_act_backward": relu_backward}
         for name, call in mlp_step_calls(t, classifier).items():
             opt = name == "mlp_opt_step"
             record(name, path, call,
                    timed=((state_in_place(t, mk.mlp_opt_step, True),
                            state_in_place(t, mk.mlp_opt_step_plain, True))
                           if opt else None),
-                   library=fused_adam if opt else None,
-                   sym=("ILb1E" if opt else
-                        ("ILb0E" if classifier else "ILb1E")
-                        if name == "mlp_loss_grad" else ""),
+                   library=libraries.get(name),
+                   sym={"mlp_opt_step": "ILb1E",
+                        "mlp_loss_grad": "ILb0E" if classifier else "ILb1E",
+                        # relu (1), 16 bytes a thread
+                        "mlp_act_forward": "4ILi1E",
+                        "mlp_act_backward": "4ILi1E"}[name],
                    shape=dims)
         if classifier:
             # sgd with momentum, the family's other solver;
@@ -2746,10 +2763,13 @@ def main() -> int:
             "library_ms": head["library_ms"],
             "wrapper_ms": head["wrapper_ms"],
             "path_ms": mlp_run["classifier"]["path_ms"][name],
-            **({"library": "torch._fused_adam_ (the adam core alone); "
-                           "sgd: torch._fused_sgd_ (the momentum core)"}
-               if name == "mlp_opt_step" else
-               {"library": "none: no single torch call computes it"}),
+            "library": {
+                "mlp_opt_step": "torch._fused_adam_ (the adam core alone); "
+                                "sgd: torch._fused_sgd_ (the momentum core)",
+                "mlp_act": "forward: none; backward (relu): "
+                           "torch.ops.aten.threshold_backward, by_shape's "
+                           "mlp_act_backward rows"}.get(
+                name, "none: no single torch call computes it"),
             "registers": head["registers"],
             "spill_bytes": head["spill_bytes"], "tolerance": tol,
             "shape": head["shape"], "by_shape": by_shape,

@@ -45,8 +45,17 @@
 // Design: simple and deterministic.  M1 runs one block per lane; each
 // thread walks rows with a block stride and the block adds its threads'
 // partial sums in shared memory in a fixed tree order, so launches on the
-// same inputs give the same bits (no atomics).  M3 is a grid-stride
-// elementwise pass.  M2 spreads a lane over a thread-block cluster of up
+// same inputs give the same bits (no atomics).  M3 is an elementwise
+// pass (0.6 MB read and written at BASELINE #5: 0.2-0.55 us of bytes, so
+// its launch and one load's latency are its time): a thread takes 16
+// bytes, one float4 load per tensor, where h (forward) or the total
+// (backward) is a multiple of 4 and the tensors are aligned, so a launch
+// is a quarter of the threads and blocks (150 at BASELINE #5) of a float
+// a thread; forward, a lane is a row of the grid, so a thread finds its
+// bias column by a 32-bit modulo and no 64-bit division; the activation
+// is a template argument, so the pass has no branch on it.  Otherwise
+// (h not a multiple of 4, an unaligned view) a float a thread.
+// M2 spreads a lane over a thread-block cluster of up
 // to 8 blocks (12 lanes x 8 = 96 SMs at BASELINE #5), each taking a few
 // rounds of kThreads parameters with all their loads in flight at once;
 // one block of one SM a lane walking ~19 rounds of four dependent loads
@@ -60,6 +69,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -241,48 +251,115 @@ opt_step(float* __restrict__ p, const float* __restrict__ g,
 
 enum Act { kIdentity = 0, kRelu = 1, kTanh = 2, kLogistic = 3 };
 
+template <int kAct>
+__device__ __forceinline__ float act_of(float x) {
+  if (kAct == kRelu) return fmaxf(x, 0.f);
+  if (kAct == kTanh) return tanhf(x);
+  if (kAct == kLogistic) return 1.f / (1.f + expf(-x));
+  return x;
+}
+
+// the activation's derivative times g, from the activation's output hv
+template <int kAct>
+__device__ __forceinline__ float act_grad(float g, float hv) {
+  if (kAct == kRelu) return hv > 0.f ? g : 0.f;
+  if (kAct == kTanh) return (g + g * hv) * (1.f - hv);
+  if (kAct == kLogistic) return g * (hv * (1.f - hv));
+  return g;
+}
+
+// M3 forward, 16 bytes a thread: lane blockIdx.y, float4 i of its R x h
+// block (per4 of them), whose four columns' biases are read from the
+// lane's bias row (any stride; the row is L1's after the first warp).
+template <int kAct>
 __global__ void __launch_bounds__(kThreads)
-act_forward(const float* __restrict__ A, const float* __restrict__ bias,
-            float* __restrict__ H, long long total, int h, long long lane_len,
-            long long ld_bias, int act) {
+act_forward4(const float4* __restrict__ A, const float* __restrict__ bias,
+             float4* __restrict__ H, int per4, int h4, long long ld_bias) {
+  const int lane = blockIdx.y;
+  const float4* a = A + static_cast<size_t>(lane) * per4;
+  float4* o = H + static_cast<size_t>(lane) * per4;
+  const float* bl = bias + lane * ld_bias;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < per4;
+       i += gridDim.x * kThreads) {
+    const float4 x = a[i];
+    const float* bj = bl + 4 * (i % h4);
+    o[i] = make_float4(act_of<kAct>(x.x + bj[0]), act_of<kAct>(x.y + bj[1]),
+                       act_of<kAct>(x.z + bj[2]), act_of<kAct>(x.w + bj[3]));
+  }
+}
+
+// M3 forward, a float a thread (h not a multiple of 4, or A unaligned)
+template <int kAct>
+__global__ void __launch_bounds__(kThreads)
+act_forward1(const float* __restrict__ A, const float* __restrict__ bias,
+             float* __restrict__ H, long long total, int h,
+             long long lane_len, long long ld_bias) {
   for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
                      threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * kThreads) {
     const long long lane = i / lane_len;
     const int j = static_cast<int>(i % h);
-    const float x = A[i] + bias[lane * ld_bias + j];
-    float out;
-    switch (act) {
-      case kRelu: out = fmaxf(x, 0.f); break;
-      case kTanh: out = tanhf(x); break;
-      case kLogistic: out = 1.f / (1.f + expf(-x)); break;
-      default: out = x;
-    }
-    H[i] = out;
+    H[i] = act_of<kAct>(A[i] + bias[lane * ld_bias + j]);
   }
 }
 
+// M3 backward, 16 bytes a thread (items float4s, fewer than 2^31: 32-bit
+// indices)
+template <int kAct>
 __global__ void __launch_bounds__(kThreads)
-act_backward(const float* __restrict__ dH, const float* __restrict__ H,
-             float* __restrict__ dA, long long total, int act) {
+act_backward4(const float4* __restrict__ dH, const float4* __restrict__ H,
+              float4* __restrict__ dA, int items) {
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < items;
+       i += gridDim.x * kThreads) {
+    const float4 g = dH[i];
+    const float4 hv = H[i];
+    dA[i] = make_float4(act_grad<kAct>(g.x, hv.x), act_grad<kAct>(g.y, hv.y),
+                        act_grad<kAct>(g.z, hv.z), act_grad<kAct>(g.w, hv.w));
+  }
+}
+
+// M3 backward, a float a thread
+template <int kAct>
+__global__ void __launch_bounds__(kThreads)
+act_backward1(const float* __restrict__ dH, const float* __restrict__ H,
+              float* __restrict__ dA, long long total) {
   for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
                      threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * kThreads) {
-    const float g = dH[i], hv = H[i];
-    float out;
-    switch (act) {
-      case kRelu: out = hv > 0.f ? g : 0.f; break;
-      case kTanh: out = (g + g * hv) * (1.f - hv); break;
-      case kLogistic: out = g * (hv * (1.f - hv)); break;
-      default: out = g;
-    }
-    dA[i] = out;
-  }
+       i < total; i += static_cast<long long>(gridDim.x) * kThreads)
+    dA[i] = act_grad<kAct>(dH[i], H[i]);
 }
 
-int elementwise_blocks(long long total) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int kAct>
+int launch_act_forward(const float* A, const float* bias, float* H, int B,
+                       int R, int h, long long ld_bias, int vec, int grid_x,
+                       cudaStream_t s) {
+  const long long total = static_cast<long long>(B) * R * h;
+  if (vec)
+    act_forward4<kAct><<<dim3(grid_x, B), kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(A), bias,
+        reinterpret_cast<float4*>(H), R * h / 4, h / 4, ld_bias);
+  else
+    act_forward1<kAct><<<grid_x, kThreads, 0, s>>>(
+        A, bias, H, total, h, static_cast<long long>(R) * h, ld_bias);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kAct>
+int launch_act_backward(const float* dH, const float* H, float* dA,
+                        long long total, int vec, int grid_x,
+                        cudaStream_t s) {
+  if (vec)
+    act_backward4<kAct><<<grid_x, kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(dH),
+        reinterpret_cast<const float4*>(H), reinterpret_cast<float4*>(dA),
+        static_cast<int>(total / 4));
+  else
+    act_backward1<kAct><<<grid_x, kThreads, 0, s>>>(dH, H, dA, total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -335,20 +412,56 @@ int mlp_opt_step(float* p, const float* g, float* m, float* v, float* t,
   return static_cast<int>(cudaGetLastError());
 }
 
+// M3.  `vec`: 16 bytes a thread (forward: h a multiple of 4, A and H
+// 16-byte aligned, a lane a grid row; backward: total a multiple of 4,
+// dH, H and dA aligned), else a float a thread; grid_x blocks (a lane's,
+// forward with `vec`), as mlp_kernels.py `act_plan` chooses them.
 int mlp_act_forward(const float* A, const float* bias, float* H, int B,
-                    int R, int h, long long ld_bias, int act, void* stream) {
-  const long long total = static_cast<long long>(B) * R * h;
-  act_forward<<<elementwise_blocks(total), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      A, bias, H, total, h, static_cast<long long>(R) * h, ld_bias, act);
-  return static_cast<int>(cudaGetLastError());
+                    int R, int h, long long ld_bias, int act, int vec,
+                    int grid_x, void* stream) {
+  const long long per = static_cast<long long>(R) * h;
+  if (B < 1 || R < 1 || h < 1 || grid_x < 1 || act < kIdentity ||
+      act > kLogistic ||
+      (vec && (h % 4 != 0 || B > 65535 || per >= (1LL << 31) ||
+               !aligned16(A) || !aligned16(H))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {
+    case kRelu:
+      return launch_act_forward<kRelu>(A, bias, H, B, R, h, ld_bias, vec,
+                                       grid_x, s);
+    case kTanh:
+      return launch_act_forward<kTanh>(A, bias, H, B, R, h, ld_bias, vec,
+                                       grid_x, s);
+    case kLogistic:
+      return launch_act_forward<kLogistic>(A, bias, H, B, R, h, ld_bias,
+                                           vec, grid_x, s);
+    default:
+      return launch_act_forward<kIdentity>(A, bias, H, B, R, h, ld_bias,
+                                           vec, grid_x, s);
+  }
 }
 
 int mlp_act_backward(const float* dH, const float* H, float* dA,
-                     long long total, int act, void* stream) {
-  act_backward<<<elementwise_blocks(total), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(dH, H, dA, total, act);
-  return static_cast<int>(cudaGetLastError());
+                     long long total, int act, int vec, int grid_x,
+                     void* stream) {
+  if (total < 1 || grid_x < 1 || act < kIdentity || act > kLogistic ||
+      (vec && (total % 4 != 0 || total / 4 >= (1LL << 31) ||
+               !aligned16(dH) || !aligned16(H) || !aligned16(dA))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {
+    case kRelu:
+      return launch_act_backward<kRelu>(dH, H, dA, total, vec, grid_x, s);
+    case kTanh:
+      return launch_act_backward<kTanh>(dH, H, dA, total, vec, grid_x, s);
+    case kLogistic:
+      return launch_act_backward<kLogistic>(dH, H, dA, total, vec, grid_x,
+                                            s);
+    default:
+      return launch_act_backward<kIdentity>(dH, H, dA, total, vec, grid_x,
+                                            s);
+  }
 }
 
 }  // extern "C"

@@ -15,12 +15,21 @@
 //
 // G   tree_segments      T1's and T4's grouping: each lane's rows sorted
 //     stably by node (`perm`, and `offs` where node slots begin).  A
-//     counting sort: a block counts a tile of kGroupTile rows (integer
-//     atomics in shared memory), a block a lane scans the counts, and a
-//     warp scatters a tile in row order (a row's rank among the batch's
-//     rows of its node from ballots over the node id's bits).  Bound:
-//     bytes (the node ids read twice, perm written once) and three
-//     launches.
+//     counting sort in one launch: the C blocks of a lane form a
+//     thread-block cluster, each takes a contiguous slice of the lane's
+//     rows and each of its warps a contiguous run of the slice, so the
+//     (block, warp) order is row order.  A block stages its slice's node
+//     ids in shared memory (cp.async, all in flight at once) where they
+//     fit, counts them per (warp, key) by shared-memory atomics, reads
+//     the cluster's counts through distributed shared memory to get the
+//     lane's scan over the keys (`offs`) and its warps' places, and then
+//     each warp scatters its run in row order (a row's rank among its
+//     32-row batch's rows of its key by one __match_any_sync).  Bound:
+//     bytes (the node ids read once, perm written once), 1.4-3 us; what
+//     holds it is latency: the warps' 32-row batches one after another
+//     (a __match_any_sync, slower the more nodes a batch holds, and
+//     scattered 4-byte stores), the cluster's barriers and scan, and the
+//     launch.
 //
 // T1  tree_level_hist    replaces the level histogram of
 //     spark_sklearn_tpu/ops/trees.py:70-84 (`hist`, a jax.ops.segment_sum
@@ -158,10 +167,9 @@ constexpr int kLeafRows = 128;         // T4: rows a tile
 constexpr int kLeafPad = kLeafRows + 4;   // T4: a stat's row of a tile
 constexpr int kLeafStages = 3;         // T4: tiles in shared memory
 constexpr int kRowThreads = 256;       // T3: threads a block
-constexpr int kGroupTile = 2048;       // G: rows a tile
-constexpr int kGroupThreads = 256;     // G: threads a counting block
-constexpr int kScanThreads = 1024;     // G: threads a scanning block
-constexpr int kGroupSmem = 48 * 1024;  // G: shared memory, the default most
+constexpr int kSegMaxThreads = 512;    // G: threads a block, at most
+constexpr int kSegMaxCluster = 8;      // G: blocks a lane (a cluster)
+constexpr int kSegUnroll = 8;          // G: a warp's batches a count round
 
 template <int VW>
 struct VecOf;
@@ -1005,141 +1013,200 @@ leaf_sums(const int* __restrict__ perm, const int* __restrict__ offs,
 }
 
 // G: T1's and T4's grouping, a stable counting sort of each lane's rows by
-// node key (local, or n_nodes for a row that takes no part): counts a
-// tile of rows, a scan a lane, then a scatter a tile in row order.
-
-// G, count: keys of tile t (kGroupTile rows) of lane l into counts[(l *
-// tiles + t) * W + key], W = n_nodes + 1 (integer atomics in shared
-// memory).
-__global__ void __launch_bounds__(kGroupThreads)
-group_count(const int* __restrict__ local, int* __restrict__ counts, int n,
-            int n_nodes, int tiles) {
-  extern __shared__ int cnt_s[];
-  const int W = n_nodes + 1;
-  const int t = blockIdx.x;
-  const int l = blockIdx.y;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) cnt_s[j] = 0;
-  __syncthreads();
-  const int* lr = local + static_cast<long long>(l) * n;
-  const int r1 = min(n, (t + 1) * kGroupTile);
-  for (int r = t * kGroupTile + threadIdx.x; r < r1; r += blockDim.x) {
-    const int v = lr[r];
-    atomicAdd(&cnt_s[v >= 0 && v < n_nodes ? v : n_nodes], 1);
-  }
-  __syncthreads();
-  int* out = counts + (static_cast<long long>(l) * tiles + t) * W;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) out[j] = cnt_s[j];
+// node key (local, or n_nodes for a row that takes no part), in one
+// launch.  The C blocks of a lane form a thread-block cluster; block c
+// takes rows [c rb, (c+1) rb) of the lane and warp w of it a run of rb /
+// warps rows, so (block, warp, row) order is row order.
+//   1. Stage the block's node ids in shared memory (cp.async, all in
+//      flight at once) where they fit; else read them from global memory
+//      (L2) in both passes.
+//   2. Each warp counts its run's keys into its own counts by shared
+//      memory atomics (a count needs no order), one add of 32 where a
+//      batch's rows share a key: a __match_any_sync a batch, as the
+//      scatter takes, was slower on the H100, the more so the more nodes
+//      a batch holds.
+//   3. Each key's counts become where each warp's first row of it goes
+//      within the block, and the block's total of the key (`tot`).
+//   4. After a cluster barrier every block reads the cluster's totals
+//      through distributed shared memory, all C loads in flight: the
+//      lane's count of each key and the earlier blocks' rows of it; an
+//      exclusive scan of the lane's counts over the keys gives `offs`
+//      (block 0 writes them) and, with the earlier blocks' rows (`add`),
+//      where each warp's rows of a key begin.
+//   5. Each warp walks its run again in row order and writes a row's id
+//      at its key's next place: its rank among the batch's rows of its
+//      key (one __match_any_sync) after the key's rows so far.
+// A block arrives at the cluster barrier after its reads of the others'
+// totals and waits on it only at its end, so no block leaves while
+// another may still read its shared memory.
+__device__ __forceinline__ int seg_key(int v, int n_nodes) {
+  return v >= 0 && v < n_nodes ? v : n_nodes;
 }
 
-// G, scan: one block a lane.  offs[l * W + j] = l * n + the lane's rows of
-// keys below j; bases[(l * tiles + t) * W + j] = where tile t's first row
-// of key j goes (offs + the earlier tiles' rows of key j).
-__global__ void __launch_bounds__(kScanThreads)
-group_scan(const int* __restrict__ counts, int* __restrict__ bases,
-           int* __restrict__ offs, int n, int n_nodes, int tiles, int L) {
-  extern __shared__ int tot[];                     // W: a key's rows, then
-  __shared__ int warp_sum[kScanThreads / 32];      // where they begin
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kSegMaxThreads)
+segment_rows(const int* __restrict__ local, int* __restrict__ perm,
+             int* __restrict__ offs, int L, int n, int n_nodes, int C,
+             int rb, int stage) {
+  extern __shared__ __align__(16) int seg_s[];
+  __shared__ int warp_tot[kSegMaxThreads / 32];
+  cg::cluster_group cluster = cg::this_cluster();
   const int W = n_nodes + 1;
-  const int l = blockIdx.x;
-  const int* c = counts + static_cast<long long>(l) * tiles * W;
-  int* bs = bases + static_cast<long long>(l) * tiles * W;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    int sum = 0;
-#pragma unroll 8
-    for (int t = 0; t < tiles; ++t) sum += c[t * W + j];
-    tot[j] = sum;
+  const int T = blockDim.x;
+  const int warps = T >> 5;
+  const int wp = threadIdx.x >> 5;
+  const int ln = threadIdx.x & 31;
+  const int c = static_cast<int>(cluster.block_rank());
+  const int l = blockIdx.x / C;
+  int* cnt = seg_s;                   // warps x W: counts, then places
+  int* tot = cnt + warps * W;         // W: the block's counts
+  int* lane = tot + W;                // W: the lane's counts, then offs
+  int* add = lane + W;                // W: where the block's rows go
+  int* keys = seg_s + align16(4 * (warps + 3) * W) / 4;   // rb, staged
+  const int r0 = c * rb;
+  const int rows = max(0, min(n - r0, rb));
+  const int run = rb / warps;
+  const int a = wp * run;             // the warp's run: [a, b)
+  const int b = min(rows, a + run);
+  const int* lr = local + static_cast<long long>(l) * n + r0;
+  const int flat = l * n + r0;        // L * n < 2^31
+
+  if (stage) {
+    const bool vec = (reinterpret_cast<uintptr_t>(lr) & 15) == 0;
+    const int n4 = vec ? rows >> 2 : 0;
+    for (int q = threadIdx.x; q < n4; q += T)
+      cp_async16(reinterpret_cast<float*>(keys + 4 * q),
+                 reinterpret_cast<const float*>(lr + 4 * q));
+    for (int i = 4 * n4 + threadIdx.x; i < rows; i += T)
+      cp_async4(reinterpret_cast<float*>(keys + i),
+                reinterpret_cast<const float*>(lr + i));
+    cp_async_commit();
+  }
+  for (int j = threadIdx.x; j < warps * W; j += T) cnt[j] = 0;
+  if (stage) cp_async_wait_all();
+  __syncthreads();
+
+  const int* src = stage ? keys : lr;
+  int* mine = cnt + wp * W;
+  for (int i0 = a; i0 < b; i0 += 32 * kSegUnroll) {
+    int v[kSegUnroll];
+#pragma unroll
+    for (int u = 0; u < kSegUnroll; ++u) {
+      const int i = i0 + 32 * u + ln;
+      v[u] = i < b ? src[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kSegUnroll; ++u) {
+      if (i0 + 32 * u >= b) break;    // the same for the whole warp
+      const bool has = i0 + 32 * u + ln < b;
+      const int key = has ? seg_key(v[u], n_nodes) : -1;
+      const int k0 = __shfl_sync(kFull, key, 0);   // lane 0 has a row
+      if (__all_sync(kFull, key == k0)) {
+        if (ln == 0) atomicAdd(mine + k0, 32);
+      } else if (has) {
+        atomicAdd(mine + key, 1);
+      }
+    }
   }
   __syncthreads();
-  // exclusive scan of tot over the keys: a chunk a thread, then the
-  // threads' sums across the block
-  const int per = (W + blockDim.x - 1) / blockDim.x;
-  const int j0 = threadIdx.x * per;
+
+  for (int j = threadIdx.x; j < W; j += T) {
+    int s = 0;
+#pragma unroll 8
+    for (int w = 0; w < warps; ++w) {
+      const int x = cnt[w * W + j];
+      cnt[w * W + j] = s;
+      s += x;
+    }
+    tot[j] = s;
+  }
+  cluster.sync();                     // every block's totals written
+  for (int j = threadIdx.x; j < W; j += T) {
+    int x[kSegMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kSegMaxCluster; ++q)
+      x[q] = q < C ? *cluster.map_shared_rank(tot + j, q) : 0;
+    int all = 0, before = 0;
+#pragma unroll
+    for (int q = 0; q < kSegMaxCluster; ++q) {
+      if (q == c) before = all;
+      all += x[q];
+    }
+    lane[j] = all;
+    add[j] = before;
+  }
+  cluster_arrive();                   // done with the others' totals
+  __syncthreads();
+
+  // exclusive scan of the lane's counts over the keys: a run of keys a
+  // thread, then the threads' sums across the block
+  const int per = (W + T - 1) / T;
+  const int j0 = min(W, static_cast<int>(threadIdx.x) * per);
+  const int j1 = min(W, j0 + per);
   int sum = 0;
-  for (int k = 0; k < per && j0 + k < W; ++k) sum += tot[j0 + k];
-  const int ln = threadIdx.x & 31;
-  const int wp = threadIdx.x >> 5;
+  for (int j = j0; j < j1; ++j) sum += lane[j];
   int x = sum;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int y = __shfl_up_sync(kFull, x, o);
     if (ln >= o) x += y;
   }
-  if (ln == 31) warp_sum[wp] = x;
+  if (ln == 31) warp_tot[wp] = x;
   __syncthreads();
-  int run = static_cast<int>(static_cast<long long>(l) * n) + x - sum;
-  for (int w = 0; w < wp; ++w) run += warp_sum[w];
-  for (int k = 0; k < per && j0 + k < W; ++k) {
-    const int v = tot[j0 + k];
-    tot[j0 + k] = run;
-    run += v;
+  int at = l * n + x - sum +
+           __reduce_add_sync(kFull, ln < wp ? warp_tot[ln] : 0);
+  for (int j = j0; j < j1; ++j) {
+    const int v = lane[j];
+    lane[j] = at;
+    add[j] += at;                     // the earlier blocks' rows and
+    at += v;                          // the lane's of the smaller keys
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    int at = tot[j];
-    offs[l * W + j] = at;
-#pragma unroll 8
-    for (int t = 0; t < tiles; ++t) {
-      bs[t * W + j] = at;
-      at += c[t * W + j];
+  if (c == 0) {
+    for (int j = threadIdx.x; j < W; j += T) offs[l * W + j] = lane[j];
+    if (l == L - 1 && threadIdx.x == 0) offs[L * W] = L * n;
+  }
+  for (int w = 0; w < warps; ++w)
+    for (int j = threadIdx.x; j < W; j += T) cnt[w * W + j] += add[j];
+  __syncthreads();
+
+  // the scatter, in row order; the next batch's key is read ahead
+  const unsigned below = (1u << ln) - 1;
+  int key = a + ln < b ? seg_key(src[a + ln], n_nodes) : -1;
+  for (int i0 = a; i0 < b; i0 += 32) {
+    const int i = i0 + ln;
+    const int nx = i + 32 < b ? seg_key(src[i + 32], n_nodes) : -1;
+    const unsigned grp = __match_any_sync(kFull, key);
+    const int pos = key >= 0 ? mine[key] + __popc(grp & below) : 0;
+    __syncwarp();
+    if (key >= 0) {
+      perm[pos] = flat + i;
+      if ((grp >> ln) == 1u) mine[key] = pos + 1;   // the group's last row
     }
+    __syncwarp();
+    key = nx;
   }
-  if (l == L - 1 && threadIdx.x == 0)
-    offs[L * W] = static_cast<int>(static_cast<long long>(L) * n);
+  cluster_wait();
 }
 
-// G, scatter: one warp a tile of a lane, its rows in order, 32 at a time:
-// a lane's rank among the batch's rows of its key (ballots over the key's
-// `bits` bits) after where its key's rows go so far.
-__global__ void __launch_bounds__(32)
-group_scatter(const int* __restrict__ local, const int* __restrict__ bases,
-              int* __restrict__ perm, int n, int n_nodes, int tiles,
-              int bits) {
-  extern __shared__ int grp_s[];                   // W bases, then keys
-  const int W = n_nodes + 1;
-  int* base = grp_s;
-  int* keys = grp_s + W;
-  const int t = blockIdx.x;
-  const int l = blockIdx.y;
-  const int ln = threadIdx.x;
-  const int r0 = t * kGroupTile;
-  const int rows = min(n - r0, kGroupTile);
-  const int* lr = local + static_cast<long long>(l) * n + r0;
-  for (int i = ln; i < rows; i += 32)
-    cp_async4(reinterpret_cast<float*>(keys + i),
-              reinterpret_cast<const float*>(lr + i));
-  cp_async_commit();
-  const int* c = bases + (static_cast<long long>(l) * tiles + t) * W;
-  for (int j = ln; j < W; j += 32) base[j] = c[j];
-  cp_async_wait_all();
-  __syncwarp();
-  const unsigned below = (1u << ln) - 1;
-  const int flat = static_cast<int>(static_cast<long long>(l) * n) + r0;
-  for (int b = 0; b < rows; b += 32) {
-    const int r = b + ln;
-    const bool has = r < rows;
-    const int v = has ? keys[r] : 0;
-    const int key = v >= 0 && v < n_nodes ? v : n_nodes;
-    unsigned grp = __ballot_sync(kFull, has);
-    for (int k = 0; k < bits; ++k) {
-      const bool bit = (key >> k) & 1;
-      const unsigned m = __ballot_sync(kFull, bit);
-      grp &= bit ? m : ~m;
-    }
-    const int pos = base[key] + __popc(grp & below);
-    __syncwarp();
-    if (has) {
-      perm[pos] = flat + r;
-      if ((grp >> ln) == 1u) base[key] = pos + 1;  // the group's last row
-    }
-    __syncwarp();
-  }
+// G's dynamic shared memory (segment_rows' layout; tree_kernels.py
+// `segments_plan`): warps + 3 arrays of W counts, then `staged` keys.
+long long seg_smem(long long W, int warps, long long staged) {
+  return (4 * (warps + 3) * W + 15) / 16 * 16 + 4 * staged;
 }
 
 // T1 and T4 may take more than the default 48 KB of dynamic shared
 // memory; the limit is raised once a device, not on every launch.
 template <typename Kernel>
 int allow_smem(Kernel kernel, int slot) {
-  static bool raised[10][kMaxDevices] = {};
+  static bool raised[11][kMaxDevices] = {};
   int dev = 0;
   int rc = static_cast<int>(cudaGetDevice(&dev));
   if (rc != 0) return rc;
@@ -1387,28 +1454,42 @@ int tree_leaf_values(const int* perm, const int* offs, const float* stats,
 }
 
 // G.  local (L, n) int32 node ids (< 0: no part); perm (L*n) and offs
-// (L*(n_nodes+1)+1) out, as tree_kernels.py `segments` gives them; counts
-// (2, L, tiles, n_nodes+1) int32 scratch (the counts, then the bases),
-// tiles = ceil(n / kGroupTile).
-int tree_segments(const int* local, int* perm, int* offs, int* counts, int L,
-                  int n, int n_nodes, void* stream) {
+// (L*(n_nodes+1)+1) out, as tree_kernels.py `segments` gives them.  C
+// blocks a lane (a cluster) of `threads` threads, rb rows a block (a
+// multiple of the warps), the block's ids staged in shared memory where
+// `stage`, and `smem` bytes of dynamic shared memory, as tree_kernels.py
+// `segments_plan` chooses them.
+int tree_segments(const int* local, int* perm, int* offs, int L, int n,
+                  int n_nodes, int C, int threads, int rb, int stage,
+                  int smem, void* stream) {
   const long long W = static_cast<long long>(n_nodes) + 1;
-  const long long smem = 4 * (W + kGroupTile);     // the most of the three
-  if (L < 1 || n < 1 || n_nodes < 1 || smem > kGroupSmem ||
+  const int warps = threads / 32;
+  if (L < 1 || n < 1 || n_nodes < 1 || C < 1 || C > kSegMaxCluster ||
+      threads < 32 || threads > kSegMaxThreads || threads % 32 != 0 ||
+      rb < 1 || rb % warps != 0 || static_cast<long long>(C) * rb < n ||
+      static_cast<long long>(C - 1) * rb >= n || smem > kMaxSmem ||
+      smem < seg_smem(W, warps, stage ? rb : 0) ||
       static_cast<long long>(L) * n >= (1LL << 31) ||
-      static_cast<long long>(L) * W >= (1LL << 31))
+      static_cast<long long>(L) * W >= (1LL << 31) ||
+      static_cast<long long>(L) * C >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  int bits = 0;
-  while ((1LL << bits) < W) ++bits;
-  const int tiles = (n + kGroupTile - 1) / kGroupTile;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  group_count<<<dim3(tiles, L), kGroupThreads, 4 * W, s>>>(local, counts, n,
-                                                         n_nodes, tiles);
-  int* bases = counts + static_cast<long long>(L) * tiles * W;
-  group_scan<<<L, kScanThreads, 4 * W, s>>>(counts, bases, offs, n, n_nodes,
-                                            tiles, L);
-  group_scatter<<<dim3(tiles, L), 32, smem, s>>>(local, bases, perm, n,
-                                                 n_nodes, tiles, bits);
+  const int rc = allow_smem(segment_rows, 10);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(L * C));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  const int lc = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, segment_rows, local, perm, offs, L, n, n_nodes, C, rb, stage));
+  if (lc != 0) return lc;
   return static_cast<int>(cudaGetLastError());
 }
 

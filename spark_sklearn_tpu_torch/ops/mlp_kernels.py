@@ -16,7 +16,10 @@ version beside it.
 - M3 `mlp_act_forward(A, b, act)` / `mlp_act_backward(dH, H, act)`: a
   hidden layer's bias and activation, and its cotangent from the kept
   output H.  Replaces the hidden layers of `mlp.py:60-64` and their
-  cotangent.  Both entry points count as M3's launches.
+  cotangent.  Both entry points count as M3's launches.  A thread takes
+  16 bytes where the widths and the tensors' alignment allow
+  (`act_plan`, `act_vec`), forward a grid row a lane; the activation is
+  a template argument of the kernel.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises: it never falls back.  `LAUNCHES`
@@ -44,6 +47,40 @@ ACTIVATIONS = {"identity": 0, "relu": 1, "tanh": 2, "logistic": 3}
 OPT_THREADS = 256
 OPT_ROUNDS = 4
 OPT_MAX_CLUSTER = 8
+
+
+#: M3's threads a block and blocks a launch, at most (as `kThreads`; a
+#: larger launch strides)
+ACT_THREADS = 256
+ACT_MAX_BLOCKS = 4096
+
+
+@functools.lru_cache(maxsize=256)
+def act_plan(lanes: int, per_lane: int, vec: bool) -> dict:
+    """M3's launch over `lanes` x `per_lane` floats.  With `vec` a thread
+    takes 16 bytes (a float4) and, forward, a lane is a row of the grid
+    (the caller sets `vec` where h and the total are multiples of 4 and
+    the tensors 16-byte aligned: `act_vec`); else a float a thread over
+    the whole lanes x per_lane.  `grid` blocks (a lane's, with `vec` and
+    several lanes), `ACT_THREADS` threads each, at most `ACT_MAX_BLOCKS`
+    blocks a launch; beyond, a thread strides.  Cached: the MLP step is
+    bound by its host time a launch."""
+    items = -(-per_lane // 4) if vec else lanes * per_lane
+    rows = lanes if vec else 1
+    grid = max(1, min(-(-items // ACT_THREADS),
+                      max(1, ACT_MAX_BLOCKS // rows)))
+    return {"vec": vec, "threads": ACT_THREADS, "grid": grid}
+
+
+def act_vec(width: int, *tensors) -> bool:
+    """Whether M3 may take 16 bytes a thread: `width` (h forward, the
+    total backward) a multiple of 4 and every tensor 16-byte aligned."""
+    if width % 4:
+        return False
+    for t in tensors:
+        if t.data_ptr() % 16:
+            return False
+    return True
 
 
 def opt_plan(P: int) -> dict:
@@ -151,8 +188,8 @@ def _lib() -> ctypes.CDLL:
     lib.mlp_loss_grad.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.mlp_opt_step.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
                                  i, i, i, i, i, f, f, f, f, p]
-    lib.mlp_act_forward.argtypes = [p, p, p, i, i, i, ll, i, p]
-    lib.mlp_act_backward.argtypes = [p, p, p, ll, i, p]
+    lib.mlp_act_forward.argtypes = [p, p, p, i, i, i, ll, i, i, i, p]
+    lib.mlp_act_backward.argtypes = [p, p, p, ll, i, i, i, p]
     for fn in (lib.mlp_loss_grad, lib.mlp_opt_step, lib.mlp_act_forward,
                lib.mlp_act_backward):
         fn.restype = i
@@ -272,10 +309,11 @@ def mlp_act_forward(A, b, act):
         raise ValueError("b must be (B, h) float32 on A's device with "
                          "unit stride along h")
     H = torch.empty_like(A)
+    plan = act_plan(B, R * h, act_vec(h, A, H) and B <= 65535)
     with torch.cuda.device(dev):
         rc = _lib().mlp_act_forward(
             A.data_ptr(), b.data_ptr(), H.data_ptr(), B, R, h, b.stride(0),
-            ACTIVATIONS[act], _stream(dev))
+            ACTIVATIONS[act], int(plan["vec"]), plan["grid"], _stream(dev))
     _raise_on(rc, "mlp_act")
     LAUNCHES["mlp_act"] += 1
     return H
@@ -288,10 +326,13 @@ def mlp_act_backward(dH, H, act):
     _check("dH", dH, torch.float32, H.shape, H.device)
     _check("H", H, torch.float32, H.shape, dH.device)
     dA = torch.empty_like(dH)
+    plan = act_plan(1, dH.numel(), act_vec(dH.numel(), dH, H, dA)
+                    and dH.numel() < 2 ** 33)
     with torch.cuda.device(dH.device):
         rc = _lib().mlp_act_backward(
             dH.data_ptr(), H.data_ptr(), dA.data_ptr(), dH.numel(),
-            ACTIVATIONS[act], _stream(dH.device))
+            ACTIVATIONS[act], int(plan["vec"]), plan["grid"],
+            _stream(dH.device))
     _raise_on(rc, "mlp_act")
     LAUNCHES["mlp_act"] += 1
     return dA

@@ -109,11 +109,17 @@ HIST_WARPS = 6
 LEAF_ROWS = 128
 LEAF_PAD = LEAF_ROWS + 4
 LEAF_STAGES = 3
-#: rows a block of the grouping counts and scatters, and the most shared
-#: memory its blocks take (a node key and a row's key each 4 bytes; up to
-#: 10240 nodes, depth 12), as `kGroupTile` and `kGroupSmem`
-GROUP_TILE = 2048
-GROUP_SMEM = 48 * 1024
+#: G's threads a block and blocks a lane (a thread-block cluster), at
+#: most, as `kSegMaxThreads` and `kSegMaxCluster`; the shared memory its
+#: warps' counts take, at most (a warp an array of n_nodes + 1 counts:
+#: 16 warps up to 1535 nodes, fewer above); the fewest rows a block takes
+#: where a lane has few; and the most dynamic shared memory a block takes,
+#: less 1 KB for its static shared memory (the warps' sums of the scan)
+SEG_MAX_THREADS = 512
+SEG_MAX_CLUSTER = 8
+SEG_COUNT_SMEM = 96 * 1024
+SEG_MIN_ROWS = 1024
+SEG_MAX_SMEM = MAX_SMEM - 1024
 #: T2's threads a block, the scanned sums' row for a 16-bin block, the
 #: most staged rounds of features (the one scanned and two ahead), the
 #: most blocks a (lane, node) (a thread-block cluster) and the most
@@ -334,7 +340,7 @@ def _lib() -> ctypes.CDLL:
                               i, i, p]
     lib.tree_add_leaves.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.tree_leaf_values.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
-    lib.tree_segments.argtypes = [p, p, p, p, i, i, i, p]
+    lib.tree_segments.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     for fn in (lib.tree_level_hist, lib.tree_best_split, lib.tree_level_step,
                lib.tree_walk, lib.tree_add_leaves, lib.tree_leaf_values,
                lib.tree_segments):
@@ -399,9 +405,10 @@ def segments(local, n_nodes):
     row; offs (L·(n_nodes+1) + 1,) int32, where node j of lane l holds
     perm[offs[l·(n_nodes+1) + j] : offs[l·(n_nodes+1) + j + 1]]).  Rows
     with local < 0 sort into each lane's last slot, which no kernel
-    reads.  On the card a counting sort (`tree_segments`: counts a tile
-    of rows, scans a lane, scatters a tile in row order); on the CPU
-    `segments_plain`."""
+    reads.  On the card a counting sort in one launch (`tree_segments`,
+    `segments_plan`: a lane's blocks count their rows' nodes, share their
+    counts through a thread-block cluster and scatter their rows in row
+    order); on the CPU `segments_plain`."""
     L, n = local.shape
     width = n_nodes + 1
     if L * width >= 2 ** 31 or L * n >= 2 ** 31:
@@ -410,19 +417,61 @@ def segments(local, n_nodes):
         return segments_plain(local, n_nodes)
     dev = local.device
     _check("local", local, (L, n), torch.int32, dev)
-    if 4 * (width + GROUP_TILE) > GROUP_SMEM:
-        raise ValueError(f"the grouping cannot take {n_nodes} nodes")
+    plan = segments_plan(L, n, n_nodes, _sm_count(dev.index))
     perm = torch.empty(L * n, dtype=torch.int32, device=dev)
     offs = torch.empty(L * width + 1, dtype=torch.int32, device=dev)
-    counts = torch.empty((2, L, -(-n // GROUP_TILE), width),
-                         dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().tree_segments(local.data_ptr(), perm.data_ptr(),
-                                  offs.data_ptr(), counts.data_ptr(), L, n,
-                                  n_nodes, _stream(dev))
+        rc = _lib().tree_segments(
+            local.data_ptr(), perm.data_ptr(), offs.data_ptr(), L, n,
+            n_nodes, plan["cluster"], plan["threads"], plan["rows"],
+            int(plan["stage"]), plan["smem"], _stream(dev))
     _raise_on(rc, "tree_segments")
     LAUNCHES["tree_segments"] += 1
     return perm, offs
+
+
+def seg_smem(width: int, warps: int, staged: int) -> int:
+    """G's dynamic shared memory (bytes), as `segment_rows` lays it out:
+    warps + 3 arrays of `width` int32 counts (each warp's, the block's,
+    the lane's, where the block's rows of a key go), padded to 16 bytes,
+    then `staged` int32 node ids."""
+    return -(-4 * (warps + 3) * width // 16) * 16 + 4 * staged
+
+
+@functools.lru_cache(maxsize=256)
+def segments_plan(L: int, n: int, n_nodes: int, n_sm: int) -> dict:
+    """G's launch.  The `cluster` blocks of a lane (a thread-block
+    cluster, at most `SEG_MAX_CLUSTER`; enough for about a block an SM
+    over the L lanes, none with fewer than `SEG_MIN_ROWS` rows but the
+    one of a small lane) each take `rows` consecutive rows, and each of a
+    block's warps a run of rows / warps of them, a multiple of 32.  A
+    block has as many warps (at most 16) as `SEG_COUNT_SMEM` holds arrays
+    of n_nodes + 1 counts, and no more than its rows fill; its node ids
+    are staged in shared memory (`stage`) where they fit beside the
+    counts, else read twice from global memory.  Returns cluster,
+    threads, rows, run, stage, grid and smem; raises where even one
+    warp's counts do not fit a block."""
+    width = n_nodes + 1
+    if L < 1 or n < 1 or n_nodes < 1:
+        raise ValueError(f"G takes L, n, n_nodes >= 1, got {L}, {n}, "
+                         f"{n_nodes}")
+    if L * width >= 2 ** 31 or L * n >= 2 ** 31:
+        raise ValueError("too many lanes x nodes for int32 segment keys")
+    warps = max(1, min(SEG_MAX_THREADS // 32,
+                       SEG_COUNT_SMEM // (4 * width)))
+    if seg_smem(width, warps, 0) > SEG_MAX_SMEM:
+        raise ValueError(f"the grouping cannot take {n_nodes} nodes")
+    cluster = max(1, min(SEG_MAX_CLUSTER, -(-n_sm // L),
+                         -(-n // SEG_MIN_ROWS)))
+    per = -(-n // cluster)
+    warps = min(warps, -(-per // 32))
+    run = -(-per // (32 * warps)) * 32
+    rows = run * warps
+    cluster = -(-n // rows)
+    stage = seg_smem(width, warps, rows) <= SEG_MAX_SMEM
+    return {"cluster": cluster, "threads": 32 * warps, "rows": rows,
+            "run": run, "stage": stage, "grid": L * cluster,
+            "smem": seg_smem(width, warps, rows if stage else 0)}
 
 
 def hist_plan(d: int, S: int, n_bins: int, L: int, n_nodes: int,

@@ -540,13 +540,77 @@ def test_tree_hist_and_leaves_match_plain(cuda_device, kind, L, n, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,n,n_nodes,skew", [
     (3, 700, 8, False), (2, 5000, 2047, False), (4, 2049, 1, False),
-    (3, 4100, 63, True), (1, 1, 1, False)])
+    (3, 4100, 63, True), (1, 1, 1, False),
+    (6, 100000, 512, False), (6, 100000, 2047, True),   # RF: T1, T4
+    (60, 20640, 16, False), (60, 20640, 63, True),      # GB: T1, T4
+    (1, 581012, 2047, False), (1, 581012, 512, True),   # covtype, unstaged
+    (2, 3000, 10239, False)])
 def test_tree_segments_match_plain(cuda_device, L, n, n_nodes, skew):
     """The grouping's counting sort against its plain version (a stable
-    torch sort) on CPU copies: the same perm and offs; tiles of 2048 rows
-    (n above and below), every row in one node, skewed nodes."""
+    torch sort) on CPU copies: the same perm and offs; one block and
+    clusters of 3 and 8, every row in one node, skewed nodes; W = 2048
+    (T4 at depth 10); the full covtype rows in one lane (ids read twice
+    from global memory, not staged); 10239 nodes (two warps a block).
+    Two launches give the same bits."""
     local = _tree_inputs(cuda_device, "forest", L, n, 3, n_nodes,
                          skew=skew)[1]
+    perm, offs = tk.segments(local, n_nodes)
+    want = tk.segments_plain(local.cpu(), n_nodes)
+    assert torch.equal(perm.cpu(), want[0])
+    assert torch.equal(offs.cpu(), want[1])
+    again = tk.segments(local, n_nodes)
+    assert torch.equal(perm, again[0]) and torch.equal(offs, again[1])
+
+
+def _plan_edge(L, n_nodes, n_sm, where):
+    """A row count at an edge of G's plan: the most rows whose ids are
+    staged and the fewest that are not ("staged", "unstaged"), or one
+    whose last block holds one row or a full slice ("one", "full")."""
+    def plan(n):
+        return tk.segments_plan(L, n, n_nodes, n_sm)
+    if where in ("staged", "unstaged"):
+        lo, hi = 1, 2 ** 31 // L - 1       # plan(lo) staged, plan(hi) not
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if plan(mid)["stage"] else (lo, mid)
+        return lo if where == "staged" else hi
+    for n in range(2000, 60000):
+        p = plan(n)
+        if p["cluster"] > 1 and n % p["rows"] == (1 if where == "one"
+                                                   else 0):
+            return n
+    raise AssertionError(f"no {where} edge")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,n_nodes,where", [
+    (1, 512, "staged"), (1, 512, "unstaged"), (6, 2047, "staged"),
+    (6, 2047, "unstaged"), (2, 16, "one"), (2, 16, "full"),
+    (6, 512, "one")])
+def test_tree_segments_at_the_plans_edges(cuda_device, L, n_nodes, where):
+    """G at the edges of its plan, against the plain version: n just
+    below and just above what a block's shared memory stages, and a
+    cluster whose last block holds one row or a whole slice."""
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n = _plan_edge(L, n_nodes, n_sm, where)
+    if where in ("staged", "unstaged"):
+        assert tk.segments_plan(L, n, n_nodes, n_sm)["stage"] == (
+            where == "staged")
+    local = _tree_inputs(cuda_device, "forest", L, n, 3, n_nodes,
+                         skew=True)[1]
+    perm, offs = tk.segments(local, n_nodes)
+    want = tk.segments_plain(local.cpu(), n_nodes)
+    assert torch.equal(perm.cpu(), want[0])
+    assert torch.equal(offs.cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,n,n_nodes", [(3, 700, 8), (6, 100000, 512),
+                                         (1, 581012, 2047)])
+def test_tree_segments_with_every_row_out(cuda_device, L, n, n_nodes):
+    """Every row with local < 0 (key n_nodes): each lane's rows in its
+    last slot, in row order, every node's slot empty."""
+    local = torch.full((L, n), -1, dtype=torch.int32, device=cuda_device)
     perm, offs = tk.segments(local, n_nodes)
     want = tk.segments_plain(local.cpu(), n_nodes)
     assert torch.equal(perm.cpu(), want[0])
@@ -911,10 +975,13 @@ def _mlp_inputs(device, B=12, R=200, k=10, h=64, P=4874, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("regress", [False, True])
 @pytest.mark.parametrize("B,R,k", [(12, 200, 10), (3, 37, 2), (5, 300, 1),
-                                   (1, 1, 17)])
+                                   (1, 1, 17), (4, 1, 10), (6, 45, 10),
+                                   (6, 200, 1), (2, 700, 3), (3, 33, 1)])
 def test_mlp_loss_grad_matches_plain(cuda_device, regress, B, R, k):
     """Tolerance: rtol 1e-5 on the loss sums, atol 1e-6 on G; wsum equal.
-    Two launches give the same bits (no atomics)."""
+    Two launches give the same bits (no atomics).  R = 1, R not a
+    multiple of 32, R above the block's 256 threads (a thread takes two
+    and three rows); k = 1 and k = 10."""
     t = _mlp_inputs(cuda_device, B=B, R=R, k=k)
     kw = {"Yt": t["Yt"]} if regress else {"y": t["y"]}
     got = mk.mlp_loss_grad(t["Z"], t["w"], **kw)
@@ -925,6 +992,24 @@ def test_mlp_loss_grad_matches_plain(cuda_device, regress, B, R, k):
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
     again = mk.mlp_loss_grad(t["Z"], t["w"], **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regress", [False, True])
+def test_mlp_loss_grad_clamps_an_all_zero_lane(cuda_device, regress):
+    """A lane whose weights are all 0 (a fold with no row in the batch):
+    wsum clamps to 1, its loss and G are 0, as the plain version's."""
+    t = _mlp_inputs(cuda_device, B=5, R=200, k=10)
+    t["w"][2] = 0.0
+    kw = {"Yt": t["Yt"]} if regress else {"y": t["y"]}
+    got = mk.mlp_loss_grad(t["Z"], t["w"], **kw)
+    want = mk.mlp_loss_grad_plain(t["Z"], t["w"], t["y"] if not regress
+                                  else None, t["Yt"] if regress else None)
+    assert float(got[1][2]) == 1.0 and float(got[0][2]) == 0.0
+    assert not bool(got[2][2].any())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -969,6 +1054,41 @@ def test_mlp_act_matches_plain(cuda_device, act):
     dA = mk.mlp_act_backward(t["dH"], H, act)
     torch.testing.assert_close(dA, mk.mlp_act_backward_plain(
         t["dH"], H, act), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "tanh", "logistic", "identity"])
+@pytest.mark.parametrize("B,R,h,layout", [
+    (12, 200, 64, "fit"), (1, 1797, 64, "fit"), (6, 1, 64, "fit"),
+    (3, 37, 5, "fit"), (2, 33, 3, "fit"), (4, 50, 64, "shifted"),
+    (70000, 1, 4, "fit")])
+def test_mlp_act_matches_plain_at_every_layout(cuda_device, act, B, R, h,
+                                               layout):
+    """M3 against its plain version at the layouts the fit gives it and
+    around them: 16 bytes a thread (h a multiple of 4; BASELINE #5's step,
+    a view's one lane, one row), a float a thread (h = 5 and 3, and A one
+    float off 16-byte alignment), more lanes than a grid's rows; the bias
+    a strided slice of the flat parameters (an odd row stride).  Forward
+    rtol 1e-6 atol 1e-6, backward atol 1e-6; two launches give the same
+    bits."""
+    g = torch.Generator(device="cpu").manual_seed(B * R * h)
+    A = torch.randn(B * R * h + 1, generator=g).to(cuda_device)
+    A = (A[1:] if layout == "shifted" else A[:-1]).view(B, R, h)
+    dH = torch.randn(B, R, h, generator=g).to(cuda_device)
+    p = torch.randn(B, 2 * h + 3, generator=g).to(cuda_device)
+    b = p[:, 3:3 + h]
+    H = mk.mlp_act_forward(A, b, act)
+    torch.testing.assert_close(H, mk.mlp_act_forward_plain(A, b, act),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(H, mk.mlp_act_forward(A, b, act))
+    for dh, hv in ((dH, H), (dH[..., :h - 1].contiguous(),
+                             H[..., :h - 1].contiguous())):
+        if dh.numel() == 0:
+            continue
+        dA = mk.mlp_act_backward(dh, hv, act)
+        torch.testing.assert_close(dA, mk.mlp_act_backward_plain(
+            dh, hv, act), rtol=1e-6, atol=1e-6)
+        assert torch.equal(dA, mk.mlp_act_backward(dh, hv, act))
 
 
 @pytest.mark.cuda

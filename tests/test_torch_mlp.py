@@ -315,6 +315,36 @@ def test_opt_plan_keeps_the_l2_order(P):
     assert order == list(range(K))
 
 
+@pytest.mark.parametrize("lanes,per_lane,vec", [
+    (12, 200 * 64, True), (1, 12 * 200 * 64, True), (6, 200 * 64, True),
+    (12, 1797 * 64, True), (1, 1, False), (3, 37 * 5, False),
+    (70000, 64, False), (1, 2 ** 30, True), (4096, 4, True)])
+def test_act_plan_covers_every_element(lanes, per_lane, vec):
+    """M3's plan: with `vec` each lane's per_lane floats are float4s, a
+    grid row a lane; else floats over all lanes in one row.  A launch has
+    at most `ACT_MAX_BLOCKS` blocks (more items stride) and covers every
+    item: blocks x threads x strides >= items."""
+    plan = mk.act_plan(lanes, per_lane, vec)
+    assert plan["vec"] is vec and plan["threads"] == mk.ACT_THREADS == 256
+    items = -(-per_lane // 4) if vec else lanes * per_lane
+    rows = lanes if vec else 1       # the grid's rows: a lane's with vec
+    assert 1 <= plan["grid"] * rows <= max(mk.ACT_MAX_BLOCKS, rows)
+    strides = -(-items // (plan["grid"] * plan["threads"]))
+    assert plan["grid"] * plan["threads"] * strides >= items
+    if items <= mk.ACT_THREADS * mk.ACT_MAX_BLOCKS // rows:
+        assert strides == 1          # BASELINE #5: a float4 a thread
+
+
+def test_act_vec_takes_aligned_multiples_of_four():
+    """16 bytes a thread only where the width is a multiple of 4 and
+    every tensor is 16-byte aligned (a view one float in is not)."""
+    a = torch.zeros(2 * 200 * 64 + 4)
+    whole = a[:2 * 200 * 64].view(2, 200, 64)
+    shifted = a[1:1 + 2 * 200 * 64].view(2, 200, 64)
+    assert mk.act_vec(64, whole) and not mk.act_vec(62, whole)
+    assert not mk.act_vec(64, whole, shifted)
+
+
 # ---------------------------------------------------------------------------
 # the sklearn-free estimators: one lane of the batched fit
 # ---------------------------------------------------------------------------

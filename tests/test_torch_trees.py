@@ -429,6 +429,93 @@ def test_segments_keep_row_order_on_random_and_skewed_keys(skew):
                 local[lane] == node).tolist()
 
 
+def _segments_as_planned(local, n_nodes, plan):
+    """The card's grouping step by step in numpy, as `segment_rows` runs
+    it under `plan`: block c of a lane takes rows [c·rows, (c+1)·rows),
+    its warp w the run [w·run, (w+1)·run) of them; each run's counts of a
+    key become where its first row of the key goes, in (block, warp)
+    order after the lane's rows of the smaller keys; each run scatters
+    its rows in row order.  Returns (perm, offs, the runs of each lane)."""
+    L, n = local.shape
+    width = n_nodes + 1
+    key = np.where((local >= 0) & (local < n_nodes), local, n_nodes)
+    warps = plan["threads"] // 32
+    C, rows, run = plan["cluster"], plan["rows"], plan["run"]
+    runs = []
+    for c in range(C):
+        r0 = c * rows
+        here = max(0, min(n - r0, rows))
+        for w in range(warps):
+            a, b = w * run, min(here, w * run + run)
+            runs.append((r0 + a, r0 + max(a, b)))
+    perm = np.full(L * n, -1, np.int64)
+    offs = np.zeros(L * width + 1, np.int64)
+    for lane in range(L):
+        counts = np.stack([np.bincount(key[lane, lo:hi], minlength=width)
+                           for lo, hi in runs])
+        total = counts.sum(axis=0)
+        start = lane * n + np.cumsum(total) - total
+        offs[lane * width:(lane + 1) * width] = start
+        place = start + np.cumsum(counts, axis=0) - counts
+        for q, (lo, hi) in enumerate(runs):
+            ks = key[lane, lo:hi]
+            order = np.argsort(ks, kind="stable")
+            sk = ks[order]
+            rank = np.arange(sk.size) - np.searchsorted(sk, sk)
+            perm[place[q, sk] + rank] = lane * n + lo + order
+    offs[-1] = L * n
+    return perm, offs, runs
+
+
+@pytest.mark.parametrize("n_nodes", [1, 2, 16, 63, 512, 767, 768, 2047,
+                                     10239])
+def test_segments_plan_covers_every_row_once_within_a_block(n_nodes):
+    """G's plan over the grower's shapes (1 to 2047 nodes, and up to
+    10239; 1 to 581012 rows; 1 to 60 lanes): every row of a lane is in
+    exactly one warp's run of one block, a cluster is at most 8 blocks,
+    a block at most 512 threads and its shared memory within a block's
+    most, with the ids staged exactly where they fit; on the smaller
+    shapes the kernel's steps under the plan (in numpy) give
+    `segments_plain`'s perm and offs."""
+    width = n_nodes + 1
+    rng = np.random.default_rng(n_nodes)
+    for n in (1, 31, 700, 2049, 20640, 100000, 581012):
+        for L in (1, 6, 60):
+            plan = tk.segments_plan(L, n, n_nodes, 132)
+            C, rows, run = plan["cluster"], plan["rows"], plan["run"]
+            warps = plan["threads"] // 32
+            assert 1 <= C <= tk.SEG_MAX_CLUSTER == 8
+            assert 32 <= plan["threads"] <= tk.SEG_MAX_THREADS == 512
+            assert plan["threads"] % 32 == 0 and run % 32 == 0
+            assert rows == run * warps and (C - 1) * rows < n <= C * rows
+            assert plan["grid"] == L * C
+            staged = tk.seg_smem(width, warps, rows)
+            assert plan["stage"] == (staged <= tk.SEG_MAX_SMEM)
+            assert plan["smem"] == (staged if plan["stage"] else
+                                    tk.seg_smem(width, warps, 0))
+            assert plan["smem"] <= tk.SEG_MAX_SMEM < tk.MAX_SMEM
+            if L * n > 130000 or L > 6:
+                continue
+            local = rng.integers(-1, n_nodes, (L, n)).astype(np.int32)
+            perm, offs, runs = _segments_as_planned(local, n_nodes, plan)
+            covered = np.concatenate([np.arange(lo, hi) for lo, hi in runs])
+            assert covered.tolist() == list(range(n))
+            want = tk.segments_plain(torch.as_tensor(local), n_nodes)
+            assert perm.tolist() == want[0].tolist()
+            assert offs.tolist() == want[1].tolist()
+
+
+def test_segments_plan_refuses_what_no_block_holds():
+    """One warp's counts and the block's three arrays of n_nodes + 1
+    must fit a block (up to 14463 nodes); L·n and L·(n_nodes + 1) stay
+    int32."""
+    assert tk.segments_plan(1, 1000, 14463, 132)["threads"] == 32
+    with pytest.raises(ValueError):
+        tk.segments_plan(1, 1000, 14464, 132)
+    with pytest.raises(ValueError):
+        tk.segments_plan(2 ** 12, 2 ** 19, 1, 132)
+
+
 def test_grouped_kernel_entry_points_run_on_the_card_only():
     c = _grower_case("boosting")
     codes = _u8(c["codes"])
