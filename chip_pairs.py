@@ -12,7 +12,7 @@ that difference is larger than the parent's spread; then, for the tree
 searches, each run's device busy time and cuda-against-cpu max |d
 mean_test_score|; then phase 3's kernel rows (ms between events, each
 kernel by shape and variant) with the change's mean over the parent's;
-then G, T2, S2, T3, M2 and M3 alone and `grow_tree` at the tree
+then G, T2, S2, T3, M1, M2, M3 and S1 alone and `grow_tree` at the tree
 searches' chunks (`ALONE_ROWS`, again parent, change, change, parent): each
 tree's wrappers replayed in a CUDA graph, their host time a call, the
 grower's launches and host time a level, and whether each row's outputs
@@ -114,6 +114,12 @@ def kernel_rows(d: dict) -> dict:
 #   alone at each search's chunk (`grower_alone`: launches and host us a
 #   level) with a digest of its tree.
 # - G at phase 9's and 10's roots, deepest levels and T4's final level.
+# - M1 at phase 3's BASELINE #5 and regressor shapes, alone and with
+#   the output layer's bias gradient (M1's own `db`, or in a tree whose
+#   M1 has none, M1 then `G.sum(dim=1)`); its digest holds wsum and G,
+#   whose bits the fold weights' whole numbers keep.
+# - S1 (rbf) at phase 8's n=10000 (X X^T), its (2000, 10000) prediction
+#   and a 2000-row centred fold (the scaler + SVC pipeline's shape).
 # - M3 (relu, forward and backward) at phase 3's BASELINE #5 and
 #   regressor shapes, with `threshold_backward` on the backward's inputs;
 #   M2 at phase 3's adam, sgd and regressor shapes, on a copy of the
@@ -295,6 +301,33 @@ for path, shape, adam in (("adam", {}, True), ("sgd", {}, False),
     rows[f"mlp_opt_step {path}"] = {
         "ms": cs.graph_ms(fn), "host_us": host_us(fn),
         "bits": digest([s[n] for n in names])}
+for path, shape in (("baseline5", {}),
+                    ("regressor", dict(B=6, k=1, d=cs.D_REG,
+                                       alphas=cs.MLP_REG_ALPHAS))):
+    t = cs.mlp_step_inputs(0, **shape)
+    kw = {"y": t["y"]} if path == "baseline5" else {"Yt": t["Yt"]}
+    fn = lambda: mk.mlp_loss_grad(t["Z"], t["w"], **kw)
+    if len(fn()) == 4:
+        with_db = fn
+    else:
+        with_db = lambda: (lambda o: o + (o[2].sum(dim=1),))(fn())
+    for part, call in (("", fn), ("+db", with_db)):
+        rows[f"mlp_loss_grad{part} {path}"] = {
+            "ms": cs.graph_ms(call), "host_us": host_us(call),
+            "bits": digest(call()[1:3])}
+X = torch.as_tensor(cs.mnist_like(0)[0], device="cuda")
+Xp = X[:2000] - X[:2000].mean(dim=0)
+for label, X1, X2 in (("rbf", X, X), ("rbf_predict", X[:2000], X),
+                      ("rbf_pipeline", Xp, Xp)):
+    gamma = 1.0 / (X1.shape[1] * float(X1.var()))
+    G0 = X1 @ X2.T
+    work = G0.clone()
+    fn = lambda: svk.gram_epilogue(work, X1, X2, "rbf", gamma, 3, 0.0)
+    rows[f"svm_gram_epilogue {label}"] = {
+        "ms": cs.graph_ms(fn, reps=20), "host_us": host_us(fn),
+        "bits": digest([svk.gram_epilogue(G0.clone(), X1, X2, "rbf", gamma,
+                                          3, 0.0)])}
+    del G0, work
 *fold, step = cs.svm_pair_inputs(0, C=1.0, folds=3, n=2000)
 for shape, inputs in (
         ("", cs.svm_step_inputs(0)),

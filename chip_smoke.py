@@ -79,7 +79,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the CPU (the same best candidate, scores within 5e-3).
 
 Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
-whose norms are summed apart) and S2 (SVC and NuSVC projections; the
+whose norms are summed apart; each timed as a CUDA graph's replay,
+between events and on the host a call, its device time split by kernel
+by the profiler) and S2 (SVC and NuSVC projections; the
 staged plan, and the streamed one forced for its time) against their
 plain versions at phase 8's shapes (n=10000, d=784; 225 subproblem rows
 of 10000: phase 8's own structure, 45 class pairs x 5 folds with 16% of
@@ -102,7 +104,9 @@ timed alone and with its grouping, beside `index_add_` (T1, T4),
 `torch.sort` (G, timed as a CUDA graph's replay and between events),
 its byte bound and its order bound (the longest chain
 of one sum x 4 clocks at the SM clock read under load); and the MLP
-step's M1 (loss and cotangent), M2 (adam step; `torch._fused_adam_`
+step's M1 (loss, cotangent and the output bias gradient; the host time
+a call, and `G.sum(dim=1)`, the step's reduction it replaced, timed
+beside it), M2 (adam step; `torch._fused_adam_`
 timed beside it, and `torch._fused_sgd_` beside the sgd step) and M3
 (bias and activation, forward and backward; relu's backward beside
 `torch.ops.aten.threshold_backward`) at
@@ -206,6 +210,52 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """The host's time a call of `fn()` (us): the best of 7 loops of
+    `calls` calls, each begun on an idle device (too few calls to fill
+    the launch queue)."""
+    import torch
+    best = float("inf")
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
+def device_split(fn, calls: int = 10) -> dict:
+    """{kernel name: device ms a call} over `calls` calls of `fn()`, from
+    the profiler's records: the kernels a wrapper launches and how its
+    device time divides among them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            split[e.name()] = (split.get(e.name(), 0.0)
+                               + e.duration_ns() / 1e6 / calls)
+    return split
+
+
+def three_times(fn, graph_reps: int = 50) -> dict:
+    """A wrapper's device time in a CUDA graph (`ms`), between events
+    around eager calls (`events_ms`, its host cost included where that is
+    longer) and its host time a call (`host_us`)."""
+    return {"ms": graph_ms(fn, reps=graph_reps), "events_ms": cuda_ms(fn),
+            "host_us": host_us(fn)}
 
 
 def kernel_inputs(k: int, seed: int, B: int = N_C * N_FOLDS):
@@ -464,11 +514,33 @@ def svm_ops(kind: str, M: int = SVM_ROWS, n: int = N_SVM,
 
 
 def svm_symbol(name: str, variant) -> str:
-    """Part of the mangled name of an S1/S2 kernel instantiation (S2: its
-    mode's, the staged plan)."""
+    """Part of the mangled name of an S1/S2 kernel instantiation (S1: rbf's
+    cooperative kernel or poly's and sigmoid's, 16 bytes a thread; S2:
+    its mode's, the staged plan)."""
     if name == "svm_gram_epilogue":
-        return f"gram_epilogueILi{variant}E"
+        return ("gram_rbfILb1E" if variant == 1 else
+                f"gram_elementwiseILi{variant}ELb1E")
     return f"dual_stepILi{int(variant == 'nu')}ELb1E"
+
+
+def short_name(kernel: str) -> str:
+    """A profiler's kernel name without its namespace and arguments."""
+    m = re.search(r"(\w+(<[^>(]*>)?)\(", kernel)
+    return m.group(1) if m else kernel[:40]
+
+
+def s1_times(fn) -> dict:
+    """S1's wrapper timed three ways (`three_times`: `ms` is the CUDA
+    graph's) and its device time a call split by kernel (`split`)."""
+    return {**three_times(fn, graph_reps=20), "split": device_split(fn)}
+
+
+def s1_times_text(t: dict) -> str:
+    split = ", ".join(f"{short_name(name)} {ms:.4f}"
+                      for name, ms in sorted(t["split"].items()))
+    return (f"graph {t['ms']:.4f} ms, events {t['events_ms']:.4f} ms, host "
+            f"{t['host_us']:.1f} us a call; device ms a call by kernel: "
+            f"{split}")
 
 
 def phase_svm_kernels(seed: int, ptxas: dict):
@@ -501,8 +573,9 @@ def phase_svm_kernels(seed: int, ptxas: dict):
         if kind == "rbf" and not bool((got.diagonal() == 1.0).all()):
             raise AssertionError("S1 rbf: a diagonal value is not 1")
         work = G.clone()
-        ms = cuda_ms(lambda: svk.gram_epilogue(work, X, X, kind, g, deg,
-                                               c0))
+        times = s1_times(lambda: svk.gram_epilogue(work, X, X, kind, g, deg,
+                                                   c0))
+        ms = times["ms"]
         plain_ms = cuda_ms(lambda: svk.gram_epilogue_plain(
             G, X, X, kind, g, deg, c0), reps=5, warmup=1)
         nbytes = 2 * G.nbytes
@@ -511,9 +584,10 @@ def phase_svm_kernels(seed: int, ptxas: dict):
         regs, spill = next((v for f, v in ptxas.items()
                             if svm_symbol("svm_gram_epilogue", variant) in f),
                            (None, None))
-        plan = {"grid": (-(-N_SVM // 1024), N_SVM), "block": 256}
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = svk.gram_plan(N_SVM, N_SVM, kind, n_sm)
         rows[("svm_gram_epilogue", kind)] = {
-            "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": float(err.max()), **times, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "ops": svm_ops(kind), "plan": plan, "registers": regs,
             "spill_bytes": spill}
@@ -521,8 +595,8 @@ def phase_svm_kernels(seed: int, ptxas: dict):
               f"(plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
               f"{bound_by}, bound/time {bound_ms / ms:.3f}), max abs err "
               f"{float(err.max()):.3g}, bitwise repeatable; plan grid "
-              f"{plan['grid']} block 256; {regs} registers, {spill} bytes "
-              "spilled")
+              f"{plan}; {regs} registers, {spill} bytes "
+              f"spilled; {s1_times_text(times)}")
         del got, again, want, work, err
     del G
 
@@ -541,8 +615,9 @@ def phase_svm_kernels(seed: int, ptxas: dict):
         raise AssertionError(f"S1 rbf predict disagrees with its plain "
                              f"version: max abs err {float(err.max())}")
     work = G.clone()
-    ms = cuda_ms(lambda: svk.gram_epilogue(work, X1, X, "rbf", gamma, 3,
-                                           0.0))
+    times = s1_times(lambda: svk.gram_epilogue(work, X1, X, "rbf", gamma, 3,
+                                               0.0))
+    ms = times["ms"]
     plain_ms = cuda_ms(lambda: svk.gram_epilogue_plain(
         G, X1, X, "rbf", gamma, 3, 0.0), reps=5, warmup=1)
     # reads G, X1 and X (the norms), writes K
@@ -551,14 +626,14 @@ def phase_svm_kernels(seed: int, ptxas: dict):
     ops = 6 * G.numel() + 2 * (X1.numel() + X.numel())
     bound_ms, bound_by = bound(nbytes, ops)
     rows[("svm_gram_epilogue", "rbf_predict")] = {
-        "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": float(err.max()), **times, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
         "ops": ops, "shape": {"n1": N_SVM_CHECK, "n2": N_SVM, "d": D_SVM}}
     print(f"  S1 svm_gram_epilogue rbf  ({N_SVM_CHECK}, {N_SVM}), norms "
           f"summed apart: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms by {bound_by}, bound/time "
           f"{bound_ms / ms:.3f}), max abs err {float(err.max()):.3g}, "
-          "bitwise repeatable")
+          f"bitwise repeatable; {s1_times_text(times)}")
     del got, again, want, work, err, G, X1, X
     torch.cuda.empty_cache()
 
@@ -685,13 +760,14 @@ def phase_pipeline_svm_kernels(seed: int, ptxas: dict):
                 raise AssertionError(
                     f"{name} ({variant}) disagrees with its plain version: "
                     f"max abs err {errs[-1]}, atol {atol}, rtol 1e-5")
-        ms = cuda_ms(fn)
+        times = s1_times(fn)
+        ms = times["ms"]
         plain_ms = cuda_ms(plain, reps=5, warmup=1)
         bound_ms, bound_by = bound(nbytes, ops)
         regs, spill = next((v for f, v in ptxas.items() if sym in f),
                            (None, None))
         rows[(name, variant)] = {
-            "max_abs_err": max(errs[:3]), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs[:3]), **times, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "ops": ops, "registers": regs, "spill_bytes": spill,
             "shape": shape}
@@ -700,7 +776,8 @@ def phase_pipeline_svm_kernels(seed: int, ptxas: dict):
         print(f"  {name} {variant} {shape}: {ms:.4f} ms (plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
               f"bound/time {bound_ms / ms:.3f}), max abs err {errs}, "
-              f"bitwise repeatable; {regs} registers, {spill} bytes spilled")
+              f"bitwise repeatable; {regs} registers, {spill} bytes "
+              f"spilled; {s1_times_text(times)}")
 
     def s1(g0):
         return [svk.gram_epilogue(g0.clone(), Xf, Xf, "rbf", gamma, 3, 0.0)]
@@ -2123,10 +2200,12 @@ def mlp_step_inputs(seed: int, B: int = MLP_LANES, R: int = MLP_BATCH,
     return t
 
 
-#: M1 loss sums rtol 1e-5, G atol 1e-6, wsum equal; M2 p, m, v rtol 1e-5
+#: M1 loss sums rtol 1e-5, G and db atol 1e-6, wsum equal; M2 p, m, v
+#: rtol 1e-5
 #: atol 1e-7, acc rtol 1e-5; M3 forward rtol 1e-6 atol 1e-6, backward
 #: atol 1e-6
-MLP_TOLS = {"mlp_loss_grad": [(1e-5, 1e-6), (0.0, 0.0), (0.0, 1e-6)],
+MLP_TOLS = {"mlp_loss_grad": [(1e-5, 1e-6), (0.0, 0.0), (0.0, 1e-6),
+                              (0.0, 1e-6)],
             "mlp_opt_step": [(1e-5, 1e-7)] * 3 + [(1e-5, 0.0)],
             "mlp_act_forward": [(1e-6, 1e-6)],
             "mlp_act_backward": [(0.0, 1e-6)]}
@@ -2166,13 +2245,14 @@ def mlp_step_calls(t, classifier: bool, adam: bool = True):
         return (s["p"], s["m"]) + ((s["v"],) if adam else ()) + (s["acc"],)
 
     H = mk.mlp_act_forward_plain(t["A"], t["b"], "relu")
-    per_row = 7 * k + 6 if classifier else 4 * k + 3
+    # a row's operations, and one add a logit for db
+    per_row = (8 * k + 6) if classifier else (5 * k + 3)
     return {
         "mlp_loss_grad": (
             lambda: mk.mlp_loss_grad(t["Z"], t["w"], **kw),
             lambda: mk.mlp_loss_grad_plain(t["Z"], t["w"], kw.get("y"),
                                            kw.get("Yt")),
-            2 * t["Z"].nbytes + t["w"].nbytes + 8 * B
+            2 * t["Z"].nbytes + t["w"].nbytes + 8 * B + 4 * B * k
             + (t["y"].nbytes if classifier else t["Yt"].nbytes),
             B * R * per_row),
         "mlp_opt_step": (lambda: opt(mk.mlp_opt_step),
@@ -2243,18 +2323,21 @@ def phase_mlp_kernels(seed: int, ptx: dict):
         ms, plain_ms = graph_ms(fn), graph_ms(plain, reps=20)
         lib_ms = graph_ms(library) if library else None
         wrapper_ms = cuda_ms(fn, reps=50, warmup=5)
+        call_us = host_us(fn)
         regs, spill = mlp_symbol(ptx, syms[name], sym)
         rows[(name, variant)] = {
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "wrapper_ms": wrapper_ms, "bytes": nbytes, "ops": ops,
-            "registers": regs, "spill_bytes": spill, "shape": shape}
+            "wrapper_ms": wrapper_ms, "host_us": call_us, "bytes": nbytes,
+            "ops": ops, "registers": regs, "spill_bytes": spill,
+            "shape": shape}
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
         print(f"  {name:16s} {variant:9s} {shape}: {ms:.4f} ms (plain "
               f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.5f} ms by "
               f"{bound_by}, bound/time {bound_ms / ms:.4f}; eager wrapper "
-              f"{wrapper_ms:.4f} ms), max abs err {max_abs:.3g}, {regs} "
-              f"registers, {spill} bytes spilled, bitwise repeatable")
+              f"{wrapper_ms:.4f} ms, host {call_us:.1f} us a call), max abs "
+              f"err {max_abs:.3g}, {regs} registers, {spill} bytes "
+              "spilled, bitwise repeatable")
 
     for path, (shape, classifier) in steps.items():
         t = mlp_step_inputs(seed, **shape)
@@ -2291,11 +2374,21 @@ def phase_mlp_kernels(seed: int, ptx: dict):
                           if opt else None),
                    library=libraries.get(name),
                    sym={"mlp_opt_step": "ILb1E",
-                        "mlp_loss_grad": "ILb0E" if classifier else "ILb1E",
+                        # staged tiles
+                        "mlp_loss_grad": ("ILb0ELb1E" if classifier
+                                          else "ILb1ELb1E"),
                         # relu (1), 16 bytes a thread
                         "mlp_act_forward": "4ILi1E",
                         "mlp_act_backward": "4ILi1E"}[name],
                    shape=dims)
+        # the output layer's bias gradient as a torch reduction over M1's
+        # G (`dz.sum(dim=1)`, the step's launch before M1 returned it)
+        kw = {"y": t["y"]} if classifier else {"Yt": t["Yt"]}
+        G_out = mk.mlp_loss_grad(t["Z"], t["w"], **kw)[2]
+        rows[("db_sum", path)] = {**three_times(lambda: G_out.sum(dim=1)),
+                                  "shape": dims}
+        print(f"  G.sum(dim=1)     {path:9s} {dims}: "
+              f"{rows[('db_sum', path)]}")
         if classifier:
             # sgd with momentum, the family's other solver;
             # `torch._fused_sgd_` (the momentum core alone) beside it
@@ -2658,6 +2751,7 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             **({"events_ms": head["events_ms"]} if "events_ms" in head
                else {}),
+            **({"host_us": head["host_us"]} if "host_us" in head else {}),
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "plan": head["plan"],
             "registers": head["registers"],
@@ -2730,7 +2824,8 @@ def main() -> int:
     mlp_meta = {
         "mlp_loss_grad": ("spark_sklearn_tpu/models/mlp.py:155",
                           ("mlp_loss_grad",),
-                          "loss rtol 1e-5, G atol 1e-6, wsum equal"),
+                          "loss rtol 1e-5, G and db atol 1e-6, wsum "
+                          "equal"),
         "mlp_opt_step": ("spark_sklearn_tpu/models/mlp.py:167",
                          ("mlp_opt_step",), "p, m, v rtol 1e-5 atol 1e-7; "
                          "acc rtol 1e-5"),
@@ -2776,6 +2871,10 @@ def main() -> int:
             "agreement": {label: a["max_abs_err"][part]
                           for label, a in agreement.items()
                           for part in parts if part in a["max_abs_err"]},
+            **({"host_us": head["host_us"],
+                "torch_db_sum": {key[1]: r for key, r in mlp_rows.items()
+                                 if key[0] == "db_sum"}}
+               if name == "mlp_loss_grad" else {"host_us": head["host_us"]}),
         })
     main_run["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -13,12 +13,14 @@
 //
 // M1  mlp_loss_grad  replaces spark_sklearn_tpu/models/mlp.py:155-164 and
 //     :104-107 (classifier), :399-401 (regressor), with the cotangent of
-//     the logits that `jax.value_and_grad` takes at :248:
+//     the logits that `jax.value_and_grad` takes at :248 and the output
+//     layer's bias gradient:
 //       wsum[b] = max(sum_r w[b,r], 1)
 //       loss[b] = sum_r w[b,r] * (lse(Z[b,r,:]) - Z[b,r,y[r]])
 //                 or sum_r w[b,r] * 0.5 * |Z[b,r,:] - Yt[r,:]|^2
 //       G[b,r,:] = w[b,r] / wsum[b] * (softmax(Z[b,r,:]) - onehot(y[r]))
 //                  or w[b,r] / wsum[b] * (Z[b,r,:] - Yt[r,:])
+//       db[b,:] = sum_r G[b,r,:]
 // M2  mlp_opt_step   replaces mlp.py:167-193 (`update`: adam, or sgd with
 //     momentum) plus the L2 term of :163-164 and the epoch's loss sum of
 //     :253-256, for the lanes whose `active` flag is set (a lane that has
@@ -42,10 +44,29 @@
 // an H100's 3.35 TB/s: the step is bound by its launches, and these
 // kernels exist to make fewer of them.
 //
-// Design: simple and deterministic.  M1 runs one block per lane; each
-// thread walks rows with a block stride and the block adds its threads'
-// partial sums in shared memory in a fixed tree order, so launches on the
-// same inputs give the same bits (no atomics).  M3 is an elementwise
+// Design: deterministic, no atomics: launches on the same inputs give
+// the same bits.  M1 runs one block a lane and one thread a row of a
+// tile of up to kThreads rows; its time is latency (0.06 us of bytes at
+// BASELINE #5), so it keeps every step it can off global memory and off
+// the critical path: each warp stages its own 32 rows' logits (and
+// targets) and weights by cp.async, 16 bytes a copy where the lane's
+// offset allows, and waits for its own copies alone; every warp sums the
+// lane's weights itself (a butterfly, the same bits in every warp), their
+// loads issued before the rows and their sum taken after the rows' own
+// work, which needs w / wsum only for its last multiply, so no barrier
+// and no wait on the weights stands before the rows.  A row's operations
+// are the earlier design's, in its order and with its roundings (a zero
+// numerator of a division skips the division's slow path, with the same
+// result), G written over the staged logits.  After the block's one
+// barrier, G leaves in 16-byte stores and each warp sums its columns of
+// the tile into db (lanes over rows in order, a butterfly, then the tiles
+// in order): the output bias gradient, a torch launch of its own before.
+// The loss: a butterfly a warp, the warps' partials added in order by one
+// thread.  A lane whose tile outgrows the stage goes in tiles of rows; a
+// row wider than the stage is read from global memory (its exp computed
+// twice, not stored).  With whole-number fold weights, G and wsum keep
+// the earlier design's bits (a row's arithmetic is unchanged; such sums
+// are exact in any order).  M3 is an elementwise
 // pass (0.6 MB read and written at BASELINE #5: 0.2-0.55 us of bytes, so
 // its launch and one load's latency are its time): a thread takes 16
 // bytes, one float4 load per tensor, where h (forward) or the total
@@ -75,7 +96,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
+constexpr int kLossMaxSmem = 49152;  // M1: the stage, at most (no opt-in)
+constexpr int kWBatch = 8;           // M1: weights a lane loads first
 constexpr int kOptRounds = 4;        // M2: rounds of kThreads a block a wave
 constexpr int kOptMaxCluster = 8;    // M2: blocks a lane, at most
 
@@ -93,54 +117,240 @@ __device__ float block_sum(float v, float* red) {
   return total;
 }
 
+// A warp's sum by the xor butterfly: every lane ends with the same bits
+// (each pair adds the same two values).
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The float offset (0-3) of p within its 16 bytes.
+__device__ __forceinline__ int quad_offset(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// n floats of src into dst by the calling warp's cp.async copies, 16
+// bytes a copy between a head and a tail of 4-byte copies; dst lies at
+// src's offset within 16 bytes (`quad_offset`).
+__device__ __forceinline__ void warp_stage(float* dst, const float* src,
+                                           int n, int lane) {
+  const int head = min((4 - quad_offset(src)) & 3, n);
+  if (lane < head) cp_async4(dst + lane, src + lane);
+  const int quads = (n - head) >> 2;
+  for (int q = lane; q < quads; q += 32)
+    cp_async16(dst + head + 4 * q, src + head + 4 * q);
+  for (int e = head + 4 * quads + lane; e < n; e += 32)
+    cp_async4(dst + e, src + e);
+}
+
+// A region of the M1 stage: n floats and the 3 of slack that place its
+// first float at its source's offset within 16 bytes, rounded to 16 bytes.
+__host__ __device__ constexpr int stage_floats(int n) {
+  return (n + 3 + 3) / 4 * 4;
+}
+
+// x / y, rounded as IEEE division, for y >= 1 or NaN (a lane's clamped
+// weight sum, a row's sum of exp(z - max)): a zero numerator, which
+// would take the division's slow path, returns x itself, which is what
+// the division gives for such y.
+__device__ __forceinline__ float quotient(float x, float y) {
+  const float q = (x == 0.f ? 1.f : x) / y;
+  return x == 0.f && y == y ? x : q;
+}
+
+// One row's loss term (returned) and its G before the lane's scale
+// (written to g, which may be the row's staged logits z), each in the
+// earlier design's order: d = z - t (regressor) or e / se - onehot
+// (classifier), which `scale_row` then multiplies by w / wsum, as the
+// earlier design's one rounding of each.  The classifier keeps exp(z -
+// max) in g where `keep_e` (g is the stage) or computes it again (g is
+// global memory).
 template <bool kRegress>
+__device__ __forceinline__ float loss_row(const float* z, const float* t,
+                                          float* g, int k, int yr, float wr,
+                                          bool keep_e) {
+  if (kRegress) {
+    float sq = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const float d = z[j] - t[j];
+      sq += d * d;
+      g[j] = d;
+    }
+    return wr * (0.5f * sq);
+  }
+  const float zy = z[yr];
+  float mx = -INFINITY;
+  for (int j = 0; j < k; ++j) mx = fmaxf(mx, z[j]);
+  float se = 0.f;
+  for (int j = 0; j < k; ++j) {
+    const float e = expf(z[j] - mx);
+    if (keep_e) g[j] = e;            // exp(z - max), divided below
+    se += e;
+  }
+  for (int j = 0; j < k; ++j) {
+    const float e = keep_e ? g[j] : expf(z[j] - mx);
+    g[j] = quotient(e, se) - (j == yr ? 1.f : 0.f);
+  }
+  return wr * (mx + logf(se) - zy);
+}
+
+__device__ __forceinline__ void scale_row(float* g, int k, float scale) {
+  for (int j = 0; j < k; ++j) g[j] = scale * g[j];
+}
+
+// The sum of x[0], x[s], ..., x[(n - 1) s] over a warp: lane l adds
+// elements l, l + 32, ... in order, kBatch loads in flight at a time (the
+// padding adds +0, which changes no sum that starts at +0), then the
+// butterfly.  Every lane gets the same bits.
+__device__ __forceinline__ float warp_strided_sum(const float* x, int n,
+                                                  int s, int lane) {
+  constexpr int kBatch = 8;
+  float acc = 0.f;
+  for (int i0 = lane; i0 < n; i0 += 32 * kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = i0 + 32 * q;
+      v[q] = i < n ? x[static_cast<size_t>(i) * s] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) acc += v[q];
+  }
+  return warp_sum(acc);
+}
+
+// M1, one block a lane, one thread a row of a tile of T rows (the block's
+// threads: T rounded up to a warp).  Staged: each warp copies its 32 rows'
+// logits (and targets) and weights by cp.async into shared memory and waits
+// for its own copies alone; the rows' G is written over their logits and,
+// after the block's one barrier, leaves in 16-byte stores while each warp
+// sums its columns of the tile into db.  Unstaged (a row wider than the
+// stage): the rows read global memory and write G there, the classifier
+// computing exp twice instead of storing it.
+template <bool kRegress, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 loss_grad(const float* __restrict__ Z, const int* __restrict__ y,
           const float* __restrict__ Yt, const float* __restrict__ w,
           float* __restrict__ G, float* __restrict__ loss,
-          float* __restrict__ wsum, int R, int k) {
-  __shared__ float red[kThreads];
+          float* __restrict__ wsum, float* __restrict__ db, int R, int k,
+          int T) {
+  extern __shared__ float4 stage4[];
+  float* stage = reinterpret_cast<float*>(stage4);
   const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
   const float* Zb = Z + static_cast<size_t>(b) * R * k;
   const float* wb = w + static_cast<size_t>(b) * R;
   float* Gb = G + static_cast<size_t>(b) * R * k;
+  const int zcap = kStaged ? stage_floats(T * k) : 0;
+  float* zbase = stage;
+  float* tbase = stage + zcap;
+  float* wbase = tbase + (kRegress ? zcap : 0);
+  float* red = kStaged ? wbase + stage_floats(T) : stage;
 
-  float s = 0.f;
-  for (int r = threadIdx.x; r < R; r += kThreads) s += wb[r];
-  const float ws = fmaxf(block_sum(s, red), 1.f);
-
-  float acc = 0.f;
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    const float wr = wb[r];
-    const float scale = wr / ws;
-    const float* z = Zb + static_cast<size_t>(r) * k;
-    float* g = Gb + static_cast<size_t>(r) * k;
-    if (kRegress) {
-      const float* t = Yt + static_cast<size_t>(r) * k;
-      float sq = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const float d = z[j] - t[j];
-        sq += d * d;
-        g[j] = scale * d;
-      }
-      acc += wr * (0.5f * sq);
-    } else {
-      float mx = -INFINITY;
-      for (int j = 0; j < k; ++j) mx = fmaxf(mx, z[j]);
-      float se = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const float e = expf(z[j] - mx);
-        g[j] = e;                 // exp(z - max), scaled below
-        se += e;
-      }
-      const int yr = y[r];
-      acc += wr * (mx + logf(se) - z[yr]);
-      for (int j = 0; j < k; ++j)
-        g[j] = scale * (g[j] / se - (j == yr ? 1.f : 0.f));
+  float acc = 0.f, ws = 0.f;
+  for (int r0 = 0; r0 < R; r0 += T) {
+    const int rows = min(T, R - r0);
+    const size_t off = static_cast<size_t>(r0) * k;
+    float* zs = zbase + quad_offset(Zb + off);
+    float* ts = tbase + (kRegress ? quad_offset(Yt + off) : 0);
+    float* wsh = wbase + quad_offset(wb + r0);
+    if (kStaged) {
+      // this warp's rows [32 warp, 32 warp + 32) of the tile
+      const int lo = min(32 * warp, rows), hi = min(32 * warp + 32, rows);
+      warp_stage(zs + lo * k, Zb + off + lo * k, (hi - lo) * k, lane);
+      if (kRegress)
+        warp_stage(ts + lo * k, Yt + off + lo * k, (hi - lo) * k, lane);
+      warp_stage(wsh + lo, wb + r0 + lo, hi - lo, lane);
     }
+    const int yr = !kRegress && tid < rows ? y[r0 + tid] : 0;
+    // the lane's first weights a lane, loaded now and summed after the
+    // rows' own work (which waits for them only to scale G)
+    float wv[kWBatch];
+    if (r0 == 0) {
+#pragma unroll
+      for (int q = 0; q < kWBatch; ++q)
+        wv[q] = lane + 32 * q < R ? wb[lane + 32 * q] : 0.f;
+    }
+    if (kStaged) {
+      cp_async_wait_all();
+      __syncwarp();
+    }
+    const float wr = tid < rows ? (kStaged ? wsh[tid] : wb[r0 + tid]) : 0.f;
+    float* g = kStaged ? zs + tid * k : Gb + off + tid * k;
+    if (tid < rows) {
+      const float* z = kStaged ? zs + tid * k : Zb + off + tid * k;
+      const float* t = kRegress ? (kStaged ? ts : Yt + off) + tid * k
+                                : nullptr;
+      acc += loss_row<kRegress>(z, t, g, k, yr, wr, kStaged);
+    }
+    if (r0 == 0) {
+      // every warp sums the lane's weights in one order: lane l adds
+      // elements l, l + 32, ... (the padding adds +0, which changes no
+      // sum that starts at +0), then the butterfly: the same bits in
+      // every warp
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < kWBatch; ++q) s += wv[q];
+      for (int r = lane + 32 * kWBatch; r < R; r += 32) s += wb[r];
+      ws = fmaxf(warp_sum(s), 1.f);
+    }
+    if (tid < rows) scale_row(g, k, quotient(wr, ws));
+    const bool last = r0 + T >= R;
+    if (last) {
+      const float part = warp_sum(acc);
+      if (lane == 0) red[warp] = part;
+    }
+    __syncthreads();
+    if (kStaged) {
+      // the tile's G, 16 bytes a store where G's offset allows
+      float* gg = Gb + off;
+      const int n = rows * k;
+      const int head = min((4 - quad_offset(gg)) & 3, n);
+      if (tid < head) gg[tid] = zs[tid];
+      const int quads = (n - head) >> 2;
+      const bool vec_src = quad_offset(zs + head) == 0;
+      for (int q = tid; q < quads; q += blockDim.x) {
+        const float* src = zs + head + 4 * q;
+        *reinterpret_cast<float4*>(gg + head + 4 * q) =
+            vec_src ? *reinterpret_cast<const float4*>(src)
+                    : make_float4(src[0], src[1], src[2], src[3]);
+      }
+      for (int e = head + 4 * quads + tid; e < n; e += blockDim.x)
+        gg[e] = zs[e];
+    }
+    // db: warp `warp` takes columns warp, warp + warps, ...; lane l adds
+    // rows l, l + 32, ... of the tile in order, then the butterfly, then
+    // the tiles in order
+    const float* gt = kStaged ? zs : Gb + off;
+    for (int j = warp; j < k; j += warps) {
+      const float s = warp_strided_sum(gt + j, rows, k, lane);
+      if (lane == 0) {
+        float* d = db + static_cast<size_t>(b) * k + j;
+        *d = r0 == 0 ? s : *d + s;
+      }
+    }
+    if (!last) __syncthreads();
   }
-  const float total = block_sum(acc, red);
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
+    float total = 0.f;
+    for (int i = 0; i < warps; ++i) total += red[i];
     loss[b] = total;
     wsum[b] = ws;
   }
@@ -366,14 +576,38 @@ int launch_act_backward(const float* dH, const float* H, float* dA,
 
 extern "C" {
 
+// M1.  T rows a tile (threads: T rounded up to a warp, at most
+// kThreads), `staged` in smem bytes of shared memory, as mlp_kernels.py
+// `loss_plan` chooses them; db (B, k) gets the output bias gradient.
 int mlp_loss_grad(const float* Z, const int* y, const float* Yt,
-                  const float* w, float* G, float* loss, float* wsum, int B,
-                  int R, int k, int regress, void* stream) {
+                  const float* w, float* G, float* loss, float* wsum,
+                  float* db, int B, int R, int k, int regress, int T,
+                  int staged, int smem, void* stream) {
+  if (B < 1 || R < 1 || k < 1 || T < 1 || T > kThreads || smem < 0 ||
+      smem > kLossMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = (T + 31) / 32 * 32;
+  const int warps = threads / 32;
+  const int need = staged ? 4 * ((regress ? 2 : 1) * stage_floats(T * k) +
+                                 stage_floats(T) + warps)
+                          : 4 * warps;
+  if (smem < need) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (regress)
-    loss_grad<true><<<B, kThreads, 0, s>>>(Z, y, Yt, w, G, loss, wsum, R, k);
-  else
-    loss_grad<false><<<B, kThreads, 0, s>>>(Z, y, Yt, w, G, loss, wsum, R, k);
+  if (regress) {
+    if (staged)
+      loss_grad<true, true><<<B, threads, smem, s>>>(Z, y, Yt, w, G, loss,
+                                                     wsum, db, R, k, T);
+    else
+      loss_grad<true, false><<<B, threads, smem, s>>>(Z, y, Yt, w, G, loss,
+                                                      wsum, db, R, k, T);
+  } else {
+    if (staged)
+      loss_grad<false, true><<<B, threads, smem, s>>>(Z, y, Yt, w, G, loss,
+                                                      wsum, db, R, k, T);
+    else
+      loss_grad<false, false><<<B, threads, smem, s>>>(Z, y, Yt, w, G, loss,
+                                                       wsum, db, R, k, T);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,18 +12,35 @@
 //       poly     K = (gamma G_ij + coef0)^degree
 //       sigmoid  K = tanh(gamma G_ij + coef0)
 //     For rbf it first takes the squared row norms: of X X^T (the kernel
-//     matrix of a fit), from the product's own diagonal, copied out before
-//     the epilogue rewrites it, so d2_ii = G_ii - 2 G_ii + G_ii is exactly
-//     0 and the diagonal exactly 1, whatever order the norms would be
-//     summed in; of X1 X2^T (a prediction), by a row-norms kernel (one warp
-//     a row, a fixed-order shuffle sum).  Bound: bytes.  It reads G once
-//     and writes K once: at n = 10000, 800 MB, ~0.24 ms at an H100 SXM's
-//     3.35 TB/s (data sheet, 700 W); one expf a value is ~2% of that on
-//     the FMA pipe and SFUs.  Full-precision expf/tanhf/powf, no
+//     matrix of a fit), from the product's own diagonal, read before the
+//     epilogue rewrites it, so d2_ii = G_ii - 2 G_ii + G_ii is exactly 0
+//     and the diagonal exactly 1, whatever order the norms would be
+//     summed in; of X1 X2^T (a prediction), a warp a row, the lane-strided
+//     fmaf sum and a fixed-order shuffle-down.  Bound: bytes.  It reads G
+//     once and writes K once: at n = 10000, 800 MB, ~0.24 ms at an H100
+//     SXM's 3.35 TB/s (data sheet, 700 W); one expf a value is ~2% of that
+//     on the FMA pipe and SFUs.  Full-precision expf/tanhf/powf, no
 //     intrinsics: K feeds every ascent product of the solve, so its error
 //     compounds.  The products and sums round like the plain version's
 //     separate operations (__f*_rn, no contraction into FMA).
 //
+// Design of S1: one launch a call, in every variant (the norms used to
+// take one or two launches of their own before the epilogue's).
+// - An epilogue tile is the earlier design's block: a row's chunk of
+//   kEpiCols columns, a float4 a thread where n2 % 4 == 0 and G is
+//   16-byte aligned, else 4 floats kEpiThreads apart.
+// - rbf: one cooperative launch, phase 1 the norms, a grid sync, phase 2
+//   the tiles walked by a persistent grid of kEpiBlocksPerSm blocks an
+//   SM, each block's next tile loaded before its current one is
+//   computed.  On the H100 a persistent grid streams G slower than a
+//   block a tile scheduled by the card (grid-stride, 2D, contiguous and
+//   counter-queue walks all measured so; PERF.md), and a counter
+//   that orders a block-a-tile launch's norms before its epilogue costs
+//   more again: the norms' own launch was the cheaper part.
+// - poly and sigmoid need no norms: a block a tile.
+// - Every element's arithmetic is kernel_value, as before: K keeps its
+//   bits in every variant.
+
 // S2  svm_dual_step       replaces one Nesterov step of `_box_fista`
 //     (svm.py:94-99, :113-122) after the ascent product V = (z*yb) K, with
 //     its projection: `_project_box_hyperplane` (:132-155, SVC) or NuSVC's
@@ -85,17 +102,20 @@
 // - Maxima propagate NaN as jnp.max and torch.amax do, and the clip is
 //   written as min(max(x, 0), b) with NaN passing through, as jnp.clip.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kNormWarps = 8;              // rows of one norms block
 constexpr int kEpiThreads = 256;
-constexpr int kEpiPerThread = 4;           // elements a thread, loads first
-constexpr int kMaxGridY = 65535;
+constexpr int kEpiCols = 4 * kEpiThreads;  // S1: columns of a tile
+constexpr int kEpiBlocksPerSm = 8;         // S1: rbf's co-resident blocks
 constexpr int kStepThreads = 512;          // S2: threads a row
 constexpr int kStepWarps = kStepThreads / 32;
 constexpr int kBisect = 40;                // svm.py:132 n_bisect
@@ -113,25 +133,6 @@ enum Kind { kLinear = 0, kRbf = 1, kPoly = 2, kSigmoid = 3 };
 // S1
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kNormWarps * 32)
-row_sq_norms(const float* __restrict__ X, float* __restrict__ sq, int n,
-             int d) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kNormWarps + (threadIdx.x >> 5);
-  if (row >= n) return;
-  const float* x = X + static_cast<size_t>(row) * d;
-  float s = 0.0f;
-  for (int j = lane; j < d; j += 32) s = fmaf(x[j], x[j], s);
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(kFull, s, o);
-  if (lane == 0) sq[row] = s;
-}
-
-__global__ void __launch_bounds__(256)
-copy_diagonal(const float* __restrict__ G, float* __restrict__ sq, int n) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i < n) sq[i] = G[static_cast<size_t>(i) * n + i];
-}
-
 template <int KIND>
 __device__ __forceinline__ float kernel_value(float g, float s1, float s2,
                                               float gamma, float degree,
@@ -146,29 +147,123 @@ __device__ __forceinline__ float kernel_value(float g, float s1, float s2,
   return tanhf(a);
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(kEpiThreads)
-gram_epilogue(float* __restrict__ G, const float* __restrict__ sq1,
-              const float* __restrict__ sq2, int n1, int n2, float gamma,
-              float degree, float coef0) {
-  const int j0 = blockIdx.x * (kEpiThreads * kEpiPerThread) + threadIdx.x;
-  for (int row = blockIdx.y; row < n1; row += gridDim.y) {
-    float* g = G + static_cast<size_t>(row) * n2;
-    const float s1 = KIND == kRbf ? sq1[row] : 0.0f;
-    float v[kEpiPerThread];
+// An epilogue tile's loads: row t / chunks, chunk t % chunks of
+// kEpiCols columns (the earlier design's blocks, in its order); a thread
+// takes a float4 (kVec) or 4 floats kEpiThreads apart.
+template <bool kVec>
+__device__ __forceinline__ void tile_load(const float* G, int n2, int chunks,
+                                          long long t, float (&v)[4],
+                                          int& row, int& j0) {
+  row = static_cast<int>(t / chunks);
+  const int c = static_cast<int>(t - static_cast<long long>(row) * chunks);
+  const float* g = G + static_cast<size_t>(row) * n2;
+  if constexpr (kVec) {
+    j0 = c * kEpiCols + 4 * threadIdx.x;
+    if (j0 < n2) {                      // n2 % 4 == 0: all four or none
+      const float4 x = *reinterpret_cast<const float4*>(g + j0);
+      v[0] = x.x;
+      v[1] = x.y;
+      v[2] = x.z;
+      v[3] = x.w;
+    }
+  } else {
+    j0 = c * kEpiCols + threadIdx.x;
 #pragma unroll
-    for (int q = 0; q < kEpiPerThread; ++q) {
+    for (int q = 0; q < 4; ++q) {
       const int j = j0 + q * kEpiThreads;
       v[q] = j < n2 ? g[j] : 0.0f;
     }
+  }
+}
+
+// The tile's values through kernel_value, stored where they were loaded.
+template <int KIND, bool kVec>
+__device__ __forceinline__ void tile_store(float* G, const float* sq1,
+                                           const float* sq2, int n2, int row,
+                                           int j0, const float (&v)[4],
+                                           float gamma, float degree,
+                                           float coef0) {
+  float* g = G + static_cast<size_t>(row) * n2;
+  const float s1 = KIND == kRbf ? sq1[row] : 0.0f;
+  if constexpr (kVec) {
+    if (j0 >= n2) return;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (KIND == kRbf) s = *reinterpret_cast<const float4*>(sq2 + j0);
+    *reinterpret_cast<float4*>(g + j0) = make_float4(
+        kernel_value<KIND>(v[0], s1, s.x, gamma, degree, coef0),
+        kernel_value<KIND>(v[1], s1, s.y, gamma, degree, coef0),
+        kernel_value<KIND>(v[2], s1, s.z, gamma, degree, coef0),
+        kernel_value<KIND>(v[3], s1, s.w, gamma, degree, coef0));
+  } else {
 #pragma unroll
-    for (int q = 0; q < kEpiPerThread; ++q) {
+    for (int q = 0; q < 4; ++q) {
       const int j = j0 + q * kEpiThreads;
       if (j < n2)
         g[j] = kernel_value<KIND>(v[q], s1, KIND == kRbf ? sq2[j] : 0.0f,
                                   gamma, degree, coef0);
     }
   }
+}
+
+// S1 rbf, one cooperative launch of at most kEpiBlocksPerSm blocks an SM:
+// phase 1 the norms (X X^T: G's diagonal; X1 X2^T: a warp a row of X1
+// then X2, the lane-strided fmaf sum and the shuffle-down tree of the
+// earlier row-norms kernel), a grid sync, phase 2 the epilogue tiles,
+// block b taking tiles b, b + gridDim.x, ..., the next tile's loads
+// issued before the current tile is computed.  sq1 and sq2 are written
+// and read in one launch: no __restrict__, no read-only cache path.
+template <bool kVec>
+__global__ void __launch_bounds__(kEpiThreads, kEpiBlocksPerSm)
+gram_rbf(float* G, const float* __restrict__ X1, const float* __restrict__ X2,
+         float* sq1, float* sq2, int n1, int n2, int d, int same, int chunks,
+         float gamma) {
+  const int threads = static_cast<int>(gridDim.x) * kEpiThreads;
+  const int gt = static_cast<int>(blockIdx.x) * kEpiThreads + threadIdx.x;
+  if (same) {
+    for (int i = gt; i < n1; i += threads)
+      sq1[i] = G[static_cast<size_t>(i) * n2 + i];
+  } else {
+    const int lane = threadIdx.x & 31;
+    for (int row = gt >> 5; row < n1 + n2; row += threads >> 5) {
+      const float* x = row < n1 ? X1 + static_cast<size_t>(row) * d
+                                : X2 + static_cast<size_t>(row - n1) * d;
+      float s = 0.0f;
+      for (int j = lane; j < d; j += 32) s = fmaf(x[j], x[j], s);
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(kFull, s, o);
+      if (lane == 0) (row < n1 ? sq1[row] : sq2[row - n1]) = s;
+    }
+  }
+  cg::this_grid().sync();
+  const float* s2 = same ? sq1 : sq2;
+  const long long tiles = static_cast<long long>(n1) * chunks;
+  long long t = blockIdx.x;
+  float cur[4];
+  int row = 0, j0 = 0;
+  if (t < tiles) tile_load<kVec>(G, n2, chunks, t, cur, row, j0);
+  for (; t < tiles; t += gridDim.x) {
+    float nxt[4];
+    int nrow = 0, nj0 = 0;
+    if (t + gridDim.x < tiles)
+      tile_load<kVec>(G, n2, chunks, t + gridDim.x, nxt, nrow, nj0);
+    tile_store<kRbf, kVec>(G, sq1, s2, n2, row, j0, cur, gamma, 0.0f, 0.0f);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) cur[q] = nxt[q];
+    row = nrow;
+    j0 = nj0;
+  }
+}
+
+// S1 poly and sigmoid: no norms, so a block a tile over as many blocks as
+// tiles, scheduled by the card.
+template <int KIND, bool kVec>
+__global__ void __launch_bounds__(kEpiThreads)
+gram_elementwise(float* __restrict__ G, int n2, int chunks, float gamma,
+                 float degree, float coef0) {
+  float v[4];
+  int row = 0, j0 = 0;
+  tile_load<kVec>(G, n2, chunks, blockIdx.x, v, row, j0);
+  tile_store<KIND, kVec>(G, nullptr, nullptr, n2, row, j0, v, gamma, degree,
+                         coef0);
 }
 
 // ---------------------------------------------------------------------------
@@ -620,51 +715,59 @@ int launch_step(const float* V, const float* Z, const float* X,
 
 extern "C" {
 
-// S1: G (n1, n2) = X1 X2^T in, the kernel matrix out, in place.  sq1 (n1)
-// and sq2 (n2) are scratch for the rbf row norms; `same` says X2 is X1
-// (then the norms are G's diagonal, sq2 is not written and sq1 serves
-// both sides).  kind: 1 rbf, 2 poly, 3 sigmoid (linear needs no launch).
-// Returns the first nonzero cudaGetLastError() of its launches (0 =
-// launched).
+// S1: G (n1, n2) = X1 X2^T in, the kernel matrix out, in place, in one
+// launch.  sq1 (n1) and sq2 (n2, 16-byte aligned) are scratch for the rbf
+// row norms; `same` says X2 is X1 (then the norms are G's diagonal, sq2
+// is not written and sq1 serves both sides).  kind: 1 rbf, 2 poly, 3
+// sigmoid (linear needs no launch).  `grid` blocks: rbf's cooperative
+// grid (at most kEpiBlocksPerSm an SM), else a block an epilogue tile;
+// `vec` 16 bytes a thread (n2 % 4 == 0, G 16-byte aligned), as
+// svm_kernels.py `gram_plan` and `gram_vec` choose them.  Returns the
+// launch's error (0 = launched).
 int svm_gram_epilogue(float* G, const float* X1, const float* X2,
                       float* sq1, float* sq2, int n1, int n2, int d,
                       int same, int kind, float gamma, float degree,
-                      float coef0, void* stream) {
-  if (n1 < 1 || n2 < 1 || d < 1)
+                      float coef0, int grid, int vec, void* stream) {
+  const int chunks = (n2 + kEpiCols - 1) / kEpiCols;
+  const long long tiles = static_cast<long long>(n1) * chunks;
+  if (n1 < 1 || n2 < 1 || d < 1 || grid < 1 || (same && n1 != n2) ||
+      kind < kRbf || kind > kSigmoid ||
+      (kind != kRbf && grid != tiles) ||
+      (vec && (n2 % 4 != 0 ||
+               (reinterpret_cast<uintptr_t>(G) & 15) != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (same && n1 != n2) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned g = static_cast<unsigned>(grid);
   if (kind == kRbf) {
-    if (same) {
-      copy_diagonal<<<(n1 + 255) / 256, 256, 0, s>>>(G, sq1, n1);
-    } else {
-      row_sq_norms<<<(n1 + kNormWarps - 1) / kNormWarps, kNormWarps * 32, 0,
-                     s>>>(X1, sq1, n1, d);
-      row_sq_norms<<<(n2 + kNormWarps - 1) / kNormWarps, kNormWarps * 32, 0,
-                     s>>>(X2, sq2, n2, d);
-    }
-    const int rc = static_cast<int>(cudaGetLastError());
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(g);
+    cfg.blockDim = dim3(kEpiThreads);
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;   // the grid sync
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const int rc = static_cast<int>(
+        vec ? cudaLaunchKernelEx(&cfg, gram_rbf<true>, G, X1, X2, sq1, sq2,
+                                 n1, n2, d, same, chunks, gamma)
+            : cudaLaunchKernelEx(&cfg, gram_rbf<false>, G, X1, X2, sq1, sq2,
+                                 n1, n2, d, same, chunks, gamma));
     if (rc != 0) return rc;
-  }
-  const float* s2 = same ? sq1 : sq2;
-  const dim3 grid((n2 + kEpiThreads * kEpiPerThread - 1) /
-                      (kEpiThreads * kEpiPerThread),
-                  n1 < kMaxGridY ? n1 : kMaxGridY);
-  switch (kind) {
-    case kRbf:
-      gram_epilogue<kRbf><<<grid, kEpiThreads, 0, s>>>(G, sq1, s2, n1, n2,
-                                                       gamma, degree, coef0);
-      break;
-    case kPoly:
-      gram_epilogue<kPoly><<<grid, kEpiThreads, 0, s>>>(G, sq1, s2, n1, n2,
-                                                        gamma, degree, coef0);
-      break;
-    case kSigmoid:
-      gram_epilogue<kSigmoid><<<grid, kEpiThreads, 0, s>>>(
-          G, sq1, s2, n1, n2, gamma, degree, coef0);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (kind == kPoly) {
+    if (vec)
+      gram_elementwise<kPoly, true><<<g, kEpiThreads, 0, s>>>(
+          G, n2, chunks, gamma, degree, coef0);
+    else
+      gram_elementwise<kPoly, false><<<g, kEpiThreads, 0, s>>>(
+          G, n2, chunks, gamma, degree, coef0);
+  } else {
+    if (vec)
+      gram_elementwise<kSigmoid, true><<<g, kEpiThreads, 0, s>>>(
+          G, n2, chunks, gamma, degree, coef0);
+    else
+      gram_elementwise<kSigmoid, false><<<g, kEpiThreads, 0, s>>>(
+          G, n2, chunks, gamma, degree, coef0);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -330,11 +330,13 @@ class MLPClassifierFamily(Family):
         mean data loss; M2 adds the L2 term)."""
         hs = []
         Z = forward(p, Xb, sizes, act, hs)
-        loss, wsum, dz = mk.mlp_loss_grad(Z, w, y=y, Yt=Yt)
+        # M1 also returns the output layer's bias gradient, dz summed over
+        # the rows
+        loss, wsum, dz, db = mk.mlp_loss_grad(Z, w, y=y, Yt=Yt)
         grads = []
         for i, (W, _) in reversed(list(enumerate(layers(p, sizes)))):
             h = hs[i]
-            grads.append(dz.sum(dim=1))
+            grads.append(db if i == len(hs) - 1 else dz.sum(dim=1))
             grads.append(torch.matmul(h.transpose(-1, -2), dz).flatten(1))
             if i:
                 dz = mk.mlp_act_backward(torch.bmm(dz, W.transpose(1, 2)),

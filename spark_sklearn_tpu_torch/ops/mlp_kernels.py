@@ -2,11 +2,14 @@
 hand-written CUDA kernel (``csrc/mlp_step.cu``) with its plain PyTorch
 version beside it.
 
-- M1 `mlp_loss_grad(Z, w, y=None, Yt=None) -> (loss (B,), wsum (B,), G)`:
-  per lane the weighted loss sum of a minibatch's logits Z (B, R, k), the
-  lane's clamped weight sum and the cotangent G of the mean loss.
+- M1 `mlp_loss_grad(Z, w, y=None, Yt=None) -> (loss (B,), wsum (B,), G,
+  db (B, k))`: per lane the weighted loss sum of a minibatch's logits Z
+  (B, R, k), the lane's clamped weight sum, the cotangent G of the mean
+  loss and its sum over the rows, the output layer's bias gradient.
   Replaces `spark_sklearn_tpu/models/mlp.py:155-164, 104-107, 399-401`
-  and the logits' cotangent of `jax.value_and_grad` at `:248`.
+  and the logits' cotangent of `jax.value_and_grad` at `:248` (with the
+  output bias's).  A block a lane stages tiles of rows in shared memory
+  (`loss_plan`).
 - M2 `mlp_opt_step(...)`: the L2 term, the adam or sgd-momentum update
   and the epoch's loss sum, in place on the flat (B, P) parameters and
   optimizer state, only where a lane is active.  Replaces `mlp.py:167-193`
@@ -96,6 +99,46 @@ def opt_plan(P: int) -> dict:
     return {"cluster": C, "rounds": rb, "waves": -(-K // (C * rb))}
 
 
+#: M1's most threads a block (`kThreads`) and the most bytes of shared
+#: memory a tile of rows is staged in (logits, targets, weights)
+LOSS_THREADS = 256
+LOSS_STAGE_BYTES = 32768
+
+
+def _stage_floats(n: int) -> int:
+    """A region of M1's stage: n floats and the 3 that place the first at
+    its source's offset within 16 bytes, rounded to 16 bytes (as
+    `stage_floats`)."""
+    return (n + 6) // 4 * 4
+
+
+def loss_smem(T: int, k: int, regress: bool, staged: bool) -> int:
+    """M1's shared memory for tiles of T rows: the logits (and targets)
+    and weights of a tile where staged, and a float a warp."""
+    warps = -(-T // 32)
+    if not staged:
+        return 4 * warps
+    return 4 * ((2 if regress else 1) * _stage_floats(T * k)
+                + _stage_floats(T) + warps)
+
+
+@functools.lru_cache(maxsize=256)
+def loss_plan(R: int, k: int, regress: bool) -> dict:
+    """M1's launch for R rows of k logits a lane: tiles of `rows` rows
+    (at most `LOSS_THREADS`, a thread a row, `threads` a warp's multiple),
+    staged in `smem` bytes of shared memory while a tile fits
+    `LOSS_STAGE_BYTES`; a row wider than that goes unstaged, in tiles of
+    `LOSS_THREADS` rows read from global memory."""
+    T = min(LOSS_THREADS, R)
+    while T > 0 and loss_smem(T, k, regress, True) > LOSS_STAGE_BYTES:
+        T -= 1
+    staged = T > 0
+    if not staged:
+        T = min(LOSS_THREADS, R)
+    return {"rows": T, "threads": -(-T // 32) * 32, "tiles": -(-R // T),
+            "staged": staged, "smem": loss_smem(T, k, regress, staged)}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -107,7 +150,8 @@ def reset_launches() -> None:
 
 def mlp_loss_grad_plain(Z, w, y=None, Yt=None):
     """M1's plain version: softmax cross-entropy against labels `y`, or
-    half the squared error against targets `Yt` (R, k)."""
+    half the squared error against targets `Yt` (R, k); db is G summed
+    over the rows."""
     wsum = torch.clamp_min(w.sum(dim=1), 1.0)
     scale = (w / wsum[:, None])[:, :, None]
     if Yt is not None:
@@ -120,7 +164,7 @@ def mlp_loss_grad_plain(Z, w, y=None, Yt=None):
         per = lse - torch.gather(Z, 2, idx)[..., 0]
         y1h = torch.nn.functional.one_hot(y.long(), Z.shape[2]).to(Z.dtype)
         G = scale * (torch.softmax(Z, dim=2) - y1h[None])
-    return (w * per).sum(dim=1), wsum, G
+    return (w * per).sum(dim=1), wsum, G, G.sum(dim=1)
 
 
 def mlp_opt_step_plain(p, g, m, v, t, wmask, alpha, wsum, lr, active, loss,
@@ -185,7 +229,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("mlp_step")
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
-    lib.mlp_loss_grad.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.mlp_loss_grad.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                  i, i, p]
     lib.mlp_opt_step.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
                                  i, i, i, i, i, f, f, f, f, p]
     lib.mlp_act_forward.argtypes = [p, p, p, i, i, i, ll, i, i, i, p]
@@ -227,9 +272,10 @@ def _stream(dev):
 
 
 def mlp_loss_grad(Z, w, y=None, Yt=None):
-    """M1: per-lane loss sum (B,), clamped weight sum (B,) and G (B, R,
-    k).  Pass `y` (R,) int32 labels for the classifier or `Yt` (R, k)
-    float32 targets for the regressor."""
+    """M1: per-lane loss sum (B,), clamped weight sum (B,), G (B, R, k)
+    and db = G summed over the rows (B, k).  Pass `y` (R,) int32 labels
+    for the classifier or `Yt` (R, k) float32 targets for the
+    regressor."""
     if (y is None) == (Yt is None):
         raise ValueError("pass exactly one of y (labels) and Yt (targets)")
     if not _on_card(Z):
@@ -247,15 +293,19 @@ def mlp_loss_grad(Z, w, y=None, Yt=None):
     G = torch.empty_like(Z)
     loss = torch.empty(B, dtype=Z.dtype, device=dev)
     wsum = torch.empty(B, dtype=Z.dtype, device=dev)
+    db = torch.empty((B, k), dtype=Z.dtype, device=dev)
+    regress = Yt is not None
+    plan = loss_plan(R, k, regress)
     with torch.cuda.device(dev):
         rc = _lib().mlp_loss_grad(
             Z.data_ptr(), None if y is None else y.data_ptr(),
             None if Yt is None else Yt.data_ptr(), w.data_ptr(),
-            G.data_ptr(), loss.data_ptr(), wsum.data_ptr(), B, R, k,
-            int(Yt is not None), _stream(dev))
+            G.data_ptr(), loss.data_ptr(), wsum.data_ptr(), db.data_ptr(),
+            B, R, k, int(regress), plan["rows"], int(plan["staged"]),
+            plan["smem"], _stream(dev))
     _raise_on(rc, "mlp_loss_grad")
     LAUNCHES["mlp_loss_grad"] += 1
-    return loss, wsum, G
+    return loss, wsum, G, db
 
 
 def mlp_opt_step(p, g, m, v, t, wmask, alpha, wsum, lr, active, loss, acc,

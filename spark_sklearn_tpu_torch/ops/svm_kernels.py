@@ -9,7 +9,10 @@ version beside it.
   G, rewritten in place; the linear kernel is G and launches nothing.
   For X X^T the kernel takes the rbf norms from G's diagonal, so the
   diagonal of K is exactly 1 (the plain version sums the norms apart, as
-  the reference does, and agrees to rounding).
+  the reference does, and agrees to rounding).  One launch a call
+  (`gram_plan`): rbf's norms, a grid sync and the epilogue in one
+  cooperative launch; poly and sigmoid a block a tile; 16 bytes a thread
+  where `gram_vec` allows.
 - S2 `dual_step(V, z, x, yb, bound, step, coef, target=None)`: one
   Nesterov step of `_box_fista` (svm.py:94-99, :113-122) after the ascent
   product V = (z∘yb) K, with its 40-step bisection projection: onto the
@@ -48,6 +51,13 @@ LAUNCHES = {"svm_gram_epilogue": 0, "svm_dual_step": 0}
 
 #: S1's kernel kinds, as `Kind` in csrc/svm_dual.cu
 KINDS = {"linear": 0, "rbf": 1, "poly": 2, "sigmoid": 3}
+
+#: S1's threads a block, columns of an epilogue tile (4 a thread) and
+#: rbf's cooperative blocks an SM (held by `__launch_bounds__`), as
+#: `kEpiThreads`, `kEpiCols` and `kEpiBlocksPerSm`
+GRAM_THREADS = 256
+GRAM_COLS = 4 * GRAM_THREADS
+GRAM_BLOCKS_PER_SM = 8
 
 #: most elements of a row S2 stages in shared memory (9 bytes each), as
 #: `kStagedMaxN` in csrc/svm_dual.cu
@@ -152,7 +162,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("svm_dual")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.svm_gram_epilogue.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f,
-                                      p]
+                                      i, i, p]
     lib.svm_gram_epilogue.restype = i
     lib.svm_dual_step.argtypes = [p, p, p, p, p, p, f, p, p, p, p, p, i, i,
                                   i, i, p]
@@ -181,9 +191,33 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gram_plan(n1: int, n2: int, kind: str, n_sm: int) -> dict:
+    """S1's launch for an (n1, n2) matrix: n1 x `chunks` epilogue tiles
+    (tile t: row t // chunks, the `GRAM_COLS` columns of chunk t %
+    chunks).  rbf: a cooperative `grid` of at most `GRAM_BLOCKS_PER_SM`
+    blocks an SM, block b taking tiles b, b + grid, ... after the norms;
+    poly and sigmoid: a block a tile."""
+    chunks = -(-n2 // GRAM_COLS)
+    tiles = n1 * chunks
+    grid = min(tiles, n_sm * GRAM_BLOCKS_PER_SM) if kind == "rbf" else tiles
+    return {"chunks": chunks, "tiles": tiles, "grid": grid,
+            "threads": GRAM_THREADS}
+
+
+def gram_vec(n2: int, G) -> bool:
+    """Whether S1 takes 16 bytes a thread: rows a multiple of 4 floats and
+    G 16-byte aligned."""
+    return n2 % 4 == 0 and G.data_ptr() % 16 == 0
+
+
 def gram_epilogue(G, X1, X2, kind, gamma, degree, coef0):
     """S1: the kernel matrix from G = X1 X2ᵀ (see the module docstring).
-    On the card G is rewritten in place and returned."""
+    On the card G is rewritten in place and returned, in one launch."""
     if G.device.type == "cpu":
         return gram_epilogue_plain(G, X1, X2, kind, gamma, degree, coef0)
     if G.device.type != "cuda":
@@ -198,13 +232,22 @@ def gram_epilogue(G, X1, X2, kind, gamma, degree, coef0):
     if kind == "linear":
         return G
     same = X1.data_ptr() == X2.data_ptr() and X1.shape == X2.shape
-    sq1 = torch.empty(n1, dtype=G.dtype, device=G.device)
-    sq2 = sq1 if same else torch.empty(n2, dtype=G.dtype, device=G.device)
+    # the norms' scratch, one allocation (sq2 16-byte aligned after sq1:
+    # the kernel reads it a float4 at a time)
+    sq = sq1 = sq2 = None
+    if kind == "rbf":
+        n1_4 = -(-n1 // 4) * 4
+        sq = torch.empty(n1 if same else n1_4 + n2, dtype=G.dtype,
+                         device=G.device)
+        sq1 = sq.data_ptr()
+        sq2 = sq1 if same else sq1 + 4 * n1_4
+    plan = gram_plan(n1, n2, kind, _sm_count(G.device.index))
     with torch.cuda.device(G.device):
         rc = _lib().svm_gram_epilogue(
-            G.data_ptr(), X1.data_ptr(), X2.data_ptr(), sq1.data_ptr(),
-            sq2.data_ptr(), n1, n2, d, int(same), KINDS[kind], float(gamma),
-            float(degree), float(coef0), _stream(G.device))
+            G.data_ptr(), X1.data_ptr(), X2.data_ptr(), sq1, sq2, n1, n2, d,
+            int(same), KINDS[kind], float(gamma), float(degree),
+            float(coef0), plan["grid"], int(gram_vec(n2, G)),
+            _stream(G.device))
     _raise_on(rc, "svm_gram_epilogue")
     LAUNCHES["svm_gram_epilogue"] += 1
     return G

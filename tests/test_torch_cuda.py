@@ -276,27 +276,80 @@ def _gram_inputs(device, n1=300, n2=257, d=50, seed=0):
             for a in (X1, X2)]
 
 
+# (n1, n2, d, G one float off 16-byte alignment): n2 % 4 != 0 with n1 >
+# n2 (a float a thread), the scaler + SVC pipeline's n = 2000 (16 bytes a
+# thread), n1 < n2, and an unaligned G
+GRAM_SHAPES = [(300, 257, 50, False), (2000, 2000, 784, False),
+               (257, 1100, 50, False), (300, 300, 50, True)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2,d,shifted", GRAM_SHAPES)
 @pytest.mark.parametrize("same", [True, False])
 @pytest.mark.parametrize("kind", ["rbf", "poly", "sigmoid", "linear"])
-def test_gram_epilogue_matches_plain(cuda_device, kind, same):
+def test_gram_epilogue_matches_plain(cuda_device, kind, same, n1, n2, d,
+                                     shifted):
     """Tolerance: rtol 1e-5, atol 1e-6 — the kernel takes the norms of
     X X^T from the product's diagonal and sums the others in another
     order than torch's, and expf/powf/tanhf round differently from
     torch's kernels by a few ulp.  The rbf diagonal of X X^T is exactly
-    1."""
-    X1, X2 = _gram_inputs(cuda_device)
+    1.  One launch a call in every variant, and two launches give the
+    same bits."""
+    X1, X2 = _gram_inputs(cuda_device, n1=n1, n2=n2, d=d)
     if same:
         X2 = X1
-    G = X1 @ X2.T
-    want = svk.gram_epilogue_plain(G.clone(), X1, X2, kind, 0.07, 3.0, 0.5)
+    G0 = X1 @ X2.T
+
+    def fresh():
+        flat = torch.empty(G0.numel() + int(shifted), device=cuda_device)
+        G = flat[int(shifted):].view(G0.shape)
+        return G.copy_(G0)
+
+    want = svk.gram_epilogue_plain(G0.clone(), X1, X2, kind, 0.07, 3.0, 0.5)
     n0 = svk.LAUNCHES["svm_gram_epilogue"]
-    got = svk.gram_epilogue(G.clone(), X1, X2, kind, 0.07, 3.0, 0.5)
+    got = svk.gram_epilogue(fresh(), X1, X2, kind, 0.07, 3.0, 0.5)
     torch.cuda.synchronize()
     assert svk.LAUNCHES["svm_gram_epilogue"] == n0 + (kind != "linear")
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     if kind == "rbf" and same:
         assert torch.all(got.diagonal() == 1.0)
+    again = svk.gram_epilogue(fresh(), X1, X2, kind, 0.07, 3.0, 0.5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(2000, 2000), (300, 257), (1, 1),
+                                   (5000, 3)])
+def test_gram_epilogue_repeats_and_replays_in_a_graph(cuda_device, n1, n2):
+    """rbf's cooperative launch (norms, a grid sync, the epilogue): calls
+    in a row, alternating X X^T and X1 X2^T, give the first call's bits,
+    and so do a CUDA graph's replays of it (the card captures the
+    cooperative launch)."""
+    X1, X2 = _gram_inputs(cuda_device, n1=n1, n2=n2, d=784)
+    outs = {}
+    for label, A, B in (("same", X1, X1), ("pair", X1, X2)):
+        G0 = A @ B.T
+        outs[label] = (G0, A, B, svk.gram_epilogue(G0.clone(), A, B, "rbf",
+                                                   0.01, 3.0, 0.0))
+    for _ in range(3):
+        for G0, A, B, want in outs.values():
+            got = svk.gram_epilogue(G0.clone(), A, B, "rbf", 0.01, 3.0, 0.0)
+            assert torch.equal(got, want)
+    for G0, A, B, want in outs.values():
+        work = G0.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            svk.gram_epilogue(work, A, B, "rbf", 0.01, 3.0, 0.0)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            work.copy_(G0)
+            svk.gram_epilogue(work, A, B, "rbf", 0.01, 3.0, 0.0)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(work, want)
 
 
 def _step_inputs(device, M, n, seed=0, pairs=False):
@@ -976,22 +1029,72 @@ def _mlp_inputs(device, B=12, R=200, k=10, h=64, P=4874, seed=0):
 @pytest.mark.parametrize("regress", [False, True])
 @pytest.mark.parametrize("B,R,k", [(12, 200, 10), (3, 37, 2), (5, 300, 1),
                                    (1, 1, 17), (4, 1, 10), (6, 45, 10),
-                                   (6, 200, 1), (2, 700, 3), (3, 33, 1)])
+                                   (6, 200, 1), (2, 700, 3), (3, 33, 1),
+                                   (4, 201, 3), (3, 150, 300),
+                                   (2, 1000, 10), (2, 1000, 1),
+                                   (2, 7, 9000)])
 def test_mlp_loss_grad_matches_plain(cuda_device, regress, B, R, k):
-    """Tolerance: rtol 1e-5 on the loss sums, atol 1e-6 on G; wsum equal.
-    Two launches give the same bits (no atomics).  R = 1, R not a
-    multiple of 32, R above the block's 256 threads (a thread takes two
-    and three rows); k = 1 and k = 10."""
+    """Tolerance: rtol 1e-5 on the loss sums, atol 1e-6 on G and on db
+    (the output bias gradient, G summed over the rows); wsum equal.  Two
+    launches give the same bits (no atomics).  R = 1, R not a multiple of
+    32, R above the block's 256 threads (several tiles of rows: 700, 1000
+    at k = 1 and 10), R k not a multiple of 4 (a lane's logits start off
+    16-byte alignment), k = 1 and k = 10, k = 300 (tiles of a few dozen
+    rows) and k = 9000 (a row wider than the stage: unstaged)."""
     t = _mlp_inputs(cuda_device, B=B, R=R, k=k)
     kw = {"Yt": t["Yt"]} if regress else {"y": t["y"]}
     got = mk.mlp_loss_grad(t["Z"], t["w"], **kw)
     want = mk.mlp_loss_grad_plain(t["Z"], t["w"], t["y"] if not regress
                                   else None, t["Yt"] if regress else None)
+    assert got[3].shape == (B, k)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-6)
     again = mk.mlp_loss_grad(t["Z"], t["w"], **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _loss_grad_rows(Z, w, y=None, Yt=None):
+    """M1's G and wsum with each row's operations in the kernel's order
+    (the max over j, exp(z - max) summed over j in order, scale (e / se -
+    onehot)), on the card's own expf and IEEE division; the plain
+    version's softmax sums its row in another order."""
+    wsum = torch.clamp_min(w.sum(dim=1), 1.0)
+    scale = (w / wsum[:, None])[:, :, None]
+    if Yt is not None:
+        return wsum, scale * (Z - Yt[None])
+    e = torch.exp(Z - Z.amax(dim=2, keepdim=True))
+    se = torch.zeros_like(e[..., 0])
+    for j in range(Z.shape[2]):
+        se = se + e[..., j]
+    onehot = torch.nn.functional.one_hot(y.long(), Z.shape[2]).to(Z.dtype)
+    return wsum, scale * (e / se[..., None] - onehot[None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regress", [False, True])
+@pytest.mark.parametrize("B,R,k,shift", [(12, 200, 10, 0), (6, 200, 1, 0),
+                                         (4, 201, 3, 1), (2, 1000, 10, 3),
+                                         (3, 150, 300, 2), (2, 7, 9000, 0)])
+def test_mlp_loss_grad_keeps_g_and_wsum_bits_with_whole_weights(
+        cuda_device, regress, B, R, k, shift):
+    """With fold weights of 0 and 1, wsum is exact in any order, and G's
+    per-row arithmetic is the plain version's (the regressor) or the
+    kernel's row order above (the classifier): both bit for bit.  Z
+    `shift` floats off 16-byte alignment."""
+    t = _mlp_inputs(cuda_device, B=B, R=R, k=k)
+    flat = torch.empty(B * R * k + shift, device=cuda_device)
+    Z = flat[shift:].view(B, R, k)
+    Z.copy_(t["Z"])
+    kw = {"Yt": t["Yt"]} if regress else {"y": t["y"]}
+    _, wsum, G, _ = mk.mlp_loss_grad(Z, t["w"], **kw)
+    want_wsum, want_G = _loss_grad_rows(Z, t["w"], **kw)
+    assert torch.equal(wsum, want_wsum)
+    assert torch.equal(G, want_G)
+    if regress:
+        plain = mk.mlp_loss_grad_plain(Z, t["w"], None, t["Yt"])
+        assert torch.equal(G, plain[2]) and torch.equal(wsum, plain[1])
 
 
 @pytest.mark.cuda
@@ -1006,7 +1109,7 @@ def test_mlp_loss_grad_clamps_an_all_zero_lane(cuda_device, regress):
     want = mk.mlp_loss_grad_plain(t["Z"], t["w"], t["y"] if not regress
                                   else None, t["Yt"] if regress else None)
     assert float(got[1][2]) == 1.0 and float(got[0][2]) == 0.0
-    assert not bool(got[2][2].any())
+    assert not bool(got[2][2].any()) and not bool(got[3][2].any())
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)

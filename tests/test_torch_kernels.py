@@ -76,6 +76,45 @@ def test_loss_grad_plain_matches_jax(k):
                                rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.parametrize("regress", [False, True])
+def test_mlp_loss_grad_db_matches_jax_bias_grad(regress):
+    """M1's db, G summed over a minibatch's rows, is the JAX package's
+    gradient of the mean data loss (`batch_loss` of
+    spark_sklearn_tpu/models/mlp.py without its L2 term) with respect to
+    the output layer's bias, on the same parameters and rows; with M1's
+    loss and wsum beside it."""
+    from spark_sklearn_tpu.models import mlp as jm
+    from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
+
+    fam = jm.MLPRegressorFamily if regress else jm.MLPClassifierFamily
+    R, d, h, k = 57, 9, 7, (3 if regress else 5)
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((R, d)).astype(np.float32)
+    w = (rng.random(R) < 0.67).astype(np.float32)
+    y = rng.integers(0, k, R).astype(np.int32)
+    Yt = rng.standard_normal((R, k)).astype(np.float32)
+    data = {"y_target": jnp.asarray(Yt)} if regress else {
+        "y1h": jnp.asarray(np.eye(k, dtype=np.float32)[y])}
+    params = jm._init_params(jax.random.PRNGKey(3), (d, h, k), jnp.float32)
+    act = jm._activation("relu")
+
+    def mean_loss(p):
+        wsum = jnp.maximum(jnp.sum(w), 1.0)
+        return fam._loss_terms(jm._forward(p, jnp.asarray(X), act), data,
+                               jnp.asarray(w)) / wsum
+
+    want_db = np.asarray(jax.grad(mean_loss)(params)[-1]["b"])
+    Z = np.asarray(jm._forward(params, jnp.asarray(X), act))[None]
+    loss, wsum, _, db = mk.mlp_loss_grad(
+        *_t(Z, w[None]), y=None if regress else torch.as_tensor(y),
+        Yt=torch.as_tensor(Yt) if regress else None)
+    assert db.shape == (1, k)
+    np.testing.assert_allclose(db[0].numpy(), want_db, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(float(loss[0] / wsum[0]),
+                               float(mean_loss(params)), rtol=1e-5)
+
+
 @pytest.mark.parametrize("k", [2, 10])
 def test_trial_loss_plain_matches_jax(k):
     """The trial evaluation of spark_sklearn_tpu/ops/solvers.py:292-298

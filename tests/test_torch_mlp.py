@@ -204,7 +204,7 @@ def test_loss_grad_plain_matches_autograd(regress):
                       dtype=torch.int32)
     Yt = _rand(3, R, k)
     kw = {"Yt": Yt} if regress else {"y": y}
-    loss, wsum, G = mk.mlp_loss_grad(Z.detach(), w, **kw)
+    loss, wsum, G, _ = mk.mlp_loss_grad(Z.detach(), w, **kw)
     if regress:
         per = 0.5 * ((Z - Yt[None]) ** 2).sum(2)
     else:
@@ -217,6 +217,65 @@ def test_loss_grad_plain_matches_autograd(regress):
     torch.testing.assert_close(loss, want_loss.detach(), rtol=1e-5,
                                atol=1e-6)
     torch.testing.assert_close(G, Z.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("regress", [False, True])
+def test_loss_grad_plain_db_matches_autograd_bias_grad(regress):
+    """M1's db is the output layer's bias gradient: Z = H W + b, and db
+    is autograd's gradient of the mean data loss with respect to b."""
+    B, R, h, k = 4, 37, 6, 5
+    H = _rand(0, B, R, h)
+    W = _rand(1, B, h, k)
+    b = _rand(2, B, k).requires_grad_()
+    w = (_rand(3, B, R) > 0).float()
+    w[1] = 0.0
+    y = torch.randint(0, k, (R,), generator=torch.Generator().manual_seed(4),
+                      dtype=torch.int32)
+    Yt = _rand(5, R, k)
+    Z = torch.matmul(H, W) + b[:, None, :]
+    lab, tgt = (None, Yt) if regress else (y, None)
+    loss, wsum, _, db = mk.mlp_loss_grad_plain(Z.detach(), w, lab, tgt)
+    (mk.mlp_loss_grad_plain(Z, w, lab, tgt)[0] / wsum).sum().backward()
+    torch.testing.assert_close(db, b.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("k,regress", [(1, True), (3, True), (10, False),
+                                       (10, True), (37, False),
+                                       (300, False), (300, True),
+                                       (5000, False), (9000, True)])
+def test_loss_plan_covers_every_row_once_and_fits(k, regress):
+    """M1's plan at R from 1 to 2000: its tiles give every row to one
+    thread once, a tile fits its block and (staged) the stage's bytes,
+    and the stage holds every region as `loss_grad` lays it out; a row
+    wider than the stage goes unstaged."""
+    for R in (1, 2, 31, 32, 33, 200, 255, 256, 257, 700, 1000, 1797, 2000):
+        plan = mk.loss_plan(R, k, regress)
+        T = plan["rows"]
+        assert 1 <= T <= mk.LOSS_THREADS and T <= R
+        assert plan["threads"] % 32 == 0 and T <= plan["threads"] <= 256
+        seen = np.zeros(R, int)
+        for r0 in range(0, R, T):
+            rows = min(T, R - r0)
+            for t in range(plan["threads"]):
+                if t < rows:
+                    seen[r0 + t] += 1
+        np.testing.assert_array_equal(seen, 1)
+        assert plan["tiles"] == -(-R // T)
+        per = 4 * ((2 if regress else 1) * k + 1)
+        if plan["staged"]:
+            assert plan["smem"] <= mk.LOSS_STAGE_BYTES
+            # the regions at their worst offsets (3 floats each) and the
+            # warps' loss partials
+            need = ((2 if regress else 1) * (T * k + 3) + T + 3
+                    + plan["threads"] // 32)
+            assert 4 * need <= plan["smem"]
+            # the tile is as tall as the stage allows
+            assert T == min(R, mk.LOSS_THREADS) or \
+                mk.loss_smem(T + 1, k, regress, True) > mk.LOSS_STAGE_BYTES
+        else:
+            assert per + 96 > mk.LOSS_STAGE_BYTES
+            assert T == min(R, mk.LOSS_THREADS)
+            assert plan["smem"] == 4 * (plan["threads"] // 32)
 
 
 @pytest.mark.parametrize("act", ["relu", "tanh", "logistic", "identity"])
@@ -254,6 +313,62 @@ def test_hand_backward_matches_autograd(kind, act, digits, diabetes):
     (want / wsum).sum().backward()
     torch.testing.assert_close(loss, want.detach(), rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(g, p.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["classifier", "regressor"])
+def test_batch_grad_takes_m1s_db_for_the_output_bias(kind, digits, diabetes,
+                                                     monkeypatch):
+    """The step's flat gradient holds M1's db, as M1 returned it, in the
+    output layer's bias slot (the last out floats); the hidden layers'
+    biases are their own row sums."""
+    X, y, W, _, pfam = _problem(kind, digits, diabetes)
+    data, meta = pfam.prepare_data(X[:50], y[:50])
+    sizes = (X.shape[1], 16, 8, pfam._out_dim(meta))
+    p = 0.3 * _rand(4, 3, pm.param_layout(sizes)[1])
+    Xb = torch.as_tensor(data["X"]).expand(3, -1, -1)
+    w = torch.as_tensor(W[:3, :50])
+    lab, tgt = pfam._targets({k: torch.as_tensor(v)
+                              for k, v in data.items()})
+    seen = []
+    m1 = mk.mlp_loss_grad
+
+    def marked(Z, w, y=None, Yt=None):
+        loss, wsum, G, db = m1(Z, w, y=y, Yt=Yt)
+        seen.append(db + 0.5)          # not the rows' sum: M1's own output
+        return loss, wsum, G, seen[-1]
+
+    monkeypatch.setattr(mk, "mlp_loss_grad", marked)
+    _, _, g = pfam._batch_grad(p, Xb, w, lab, tgt, sizes, "relu")
+    out = sizes[-1]
+    assert len(seen) == 1
+    assert torch.equal(g[:, -out:], seen[0])
+
+
+@pytest.mark.filterwarnings("ignore::sklearn.exceptions.ConvergenceWarning")
+@pytest.mark.parametrize("kind", ["classifier", "regressor"])
+def test_two_layer_search_matches_reference(kind, digits, diabetes):
+    """A small search whose step takes the output bias gradient from M1
+    and the hidden layers' from their own sums: hidden (8, 6), 2 alphas x
+    KFold(3), against the JAX package's search at the repo's tolerance
+    (mean test scores within 5e-3, the same best candidate)."""
+    import spark_sklearn_tpu as sst
+    import spark_sklearn_tpu_torch as port
+    from sklearn.model_selection import KFold
+    from sklearn.neural_network import MLPClassifier, MLPRegressor
+
+    X, y, _, _, _ = _problem(kind, digits, diabetes)
+    est = (MLPClassifier if kind == "classifier" else MLPRegressor)(
+        hidden_layer_sizes=(8, 6), max_iter=8, batch_size=64,
+        random_state=0)
+    grid = {"alpha": [1e-4, 1e-1]}
+    kw = dict(cv=KFold(3), refit=False)
+    ours = port.GridSearchCV(est, grid, config=port.TorchConfig(
+        device="cpu"), **kw).fit(X, y)
+    ref = sst.GridSearchCV(est, grid, **kw).fit(X, y)
+    np.testing.assert_allclose(ours.cv_results_["mean_test_score"],
+                               ref.cv_results_["mean_test_score"], rtol=0,
+                               atol=5e-3)
+    assert ours.best_params_ == ref.best_params_
 
 
 @pytest.mark.parametrize("adam", [True, False])

@@ -96,6 +96,62 @@ def test_kernel_matches_reference(digits, kind):
         assert torch.all(K.diagonal() == 1.0)
 
 
+@pytest.mark.parametrize("n1,n2", [(300, 257), (2000, 2000), (257, 1100),
+                                   (1, 1), (40, 10000), (3, 5000),
+                                   (1500, 3001)])
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("kind,same,n_sm", [
+    ("rbf", True, 132), ("rbf", False, 132), ("rbf", True, 1),
+    ("rbf", False, 2), ("poly", False, 132)])
+def test_gram_plan_covers_every_element_once(n1, n2, vec, kind, same,
+                                             n_sm):
+    """S1's launch as the kernel walks it (`gram_rbf`,
+    `gram_elementwise` in csrc/svm_dual.cu), on an H100's 132 SMs and on
+    grids small enough that a block takes many tiles: rbf's phase 1
+    writes every norm once (X Xᵀ: the diagonal, a thread an element
+    grid-stride; else X1's rows then X2's, a warp a row), at most
+    `GRAM_BLOCKS_PER_SM` blocks an SM (the cooperative launch's bound);
+    the epilogue tiles, row t // chunks and chunk t % chunks, write every
+    element once, a float4 or 4 floats `GRAM_THREADS` apart a thread."""
+    if same:
+        n2 = n1
+    if vec and n2 % 4:
+        n2 += 4 - n2 % 4
+        n1 = n2 if same else n1
+    plan = sk.gram_plan(n1, n2, kind, n_sm)
+    T, cols, grid = sk.GRAM_THREADS, sk.GRAM_COLS, plan["grid"]
+    assert plan["tiles"] == n1 * plan["chunks"]
+    if kind == "rbf":
+        assert 1 <= grid <= n_sm * sk.GRAM_BLOCKS_PER_SM
+        threads = grid * T
+        norms = np.zeros(n1 if same else n1 + n2, dtype=np.int64)
+        for gt in range(threads):
+            if same:
+                np.add.at(norms, np.arange(gt, n1, threads), 1)
+            elif gt % 32 == 0:         # a warp's lane 0 writes its rows
+                np.add.at(norms, np.arange(gt >> 5, n1 + n2, threads >> 5),
+                          1)
+        np.testing.assert_array_equal(norms, 1)
+        # block b takes tiles b, b + grid, ...
+        tiles = np.concatenate([np.arange(b, plan["tiles"], grid)
+                                for b in range(grid)])
+    else:
+        assert grid == plan["tiles"]
+        tiles = np.arange(grid)
+    row, c = tiles // plan["chunks"], tiles % plan["chunks"]
+    t = np.arange(T)
+    q = np.arange(4)
+    col = (c[:, None, None] * cols
+           + (4 * t[None, :, None] + q if vec else t[None, :, None]
+              + q * T))
+    ok = col < n2
+    if vec:                          # a float4 is all in or all out
+        assert (ok == ok[:, :, :1]).all()
+    count = np.zeros(n1 * n2, dtype=np.int32)
+    np.add.at(count, (row[:, None, None] * n2 + col)[ok], 1)
+    np.testing.assert_array_equal(count, 1)
+
+
 def _projection_inputs(seed=0, M=6, n=80):
     rng = np.random.default_rng(seed)
     Z = (2.0 * rng.normal(size=(M, n))).astype(np.float32)
