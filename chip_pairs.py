@@ -52,6 +52,8 @@ def warm_walls(d: dict) -> dict:
     w["[10] rf_regressor"] = d["rf"]["regressor"]["warm_s"]
     if "mlp" in d:
         w["[11] baseline5"] = d["mlp"]["classifier"]["warm_s"]
+    for name, r in d.get("slice", {}).items():
+        w[f"[12] {name}"] = r["warm_s"]
     w["total (whole script)"] = d["main"]["wall_s"]
     return w
 

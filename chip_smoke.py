@@ -76,7 +76,21 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    6's data (M1's regressor variant) and Pipeline(StandardScaler + SVC)
    over 2 C x 3 folds on 2000 rows of phase 8's data (S1 and S2 on
    per-fold inputs); each with its kernels' launches and cuda against
-   the CPU (the same best candidate, scores within 5e-3).
+   the CPU (the same best candidate, scores within 5e-3);
+12. naive Bayes, LDA, KNN and KMeans with the port's own classes, each
+   search cold (with its kernels' launches), warm and profiled (busy ms,
+   device launches, idle share), then against the CPU on its first 2000
+   rows with a smaller grid and 3 folds: GaussianNB (var_smoothing, 12
+   values in [1e-11, 1e-5]) x StratifiedKFold(5) = 60 lanes on phase 10's
+   covtype-shaped data (B1), accuracy and neg_log_loss; MultinomialNB,
+   ComplementNB, BernoulliNB and CategoricalNB (alpha, 20 values in
+   [1e-3, 10]) on phase 4's digits as counts 0-16; LDA(solver="lsqr",
+   shrinkage in {0, 0.01, 0.1, 0.5, 0.9}) and KNeighborsClassifier
+   (n_neighbors 1, 3, ..., 15 x weights uniform/distance) on phase 8's
+   MNIST-shaped data (N1); a KNeighborsRegressor over the same
+   n_neighbors on phase 6's data (N1); KMeans(n_clusters=8, n_init=1,
+   random_state=0) over tol {1e-5, 1e-4, 1e-3, 1e-2} x KFold(5) on the
+   covtype-shaped data with its default scorer, -inertia (C1).
 
 Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
 whose norms are summed apart; each timed as a CUDA graph's replay,
@@ -112,7 +126,13 @@ timed beside it, and `torch._fused_sgd_` beside the sgd step) and M3
 `torch.ops.aten.threshold_backward`) at
 every shape phase 11 gives them: the BASELINE #5 step (12 lanes, 200
 rows, k=10, h=64) and the MLPRegressor's (6 lanes, k=1, d=8), timed; the
-refit's one lane and the views' whole folds, checked.
+refit's one lane and the views' whole folds, checked; and N1 (KNN's
+fold-masked top-k: phase 12's KNN classifier and regressor chunks,
+beside `torch.topk` on each fold's masked distances), C1 (k-means
+assignment: its Lloyd step, beside `torch.min` on the formed distances)
+and B1 (GaussianNB's joint log-likelihood: its views on the family's own
+fit), each equal to (N1, C1) or within rtol 1e-5 of (B1) its plain
+version, timed in a CUDA graph and between events.
 
 It prints one JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -834,16 +854,21 @@ def search(X, y, Cs, device):
 
 
 def profile_busy(run, warm: float, iters: int, out_name: str,
-                 with_kernels: bool = False):
+                 with_kernels: bool = False, top: int = 12,
+                 primed: bool = False):
     """Profile one `run()` and print the device's busy time against the
     warm wall `warm` (idle share), per solver iteration where `iters` > 1,
-    and the largest kernels; the time and count of every kernel go to
+    and the largest `top` kernels; the time and count of every kernel go to
     chiprun_out/`out_name`.  Returns the kernels' busy seconds (and, with
     `with_kernels`, {kernel name: (device ns, launches)}).
 
     The device events are summed from the profiler's raw records: the
     profiler's own per-op tables take tens of seconds to build over the
-    ~10^5 events of a 1000-iteration solve."""
+    ~10^5 events of a 1000-iteration solve.  With `primed` the profile
+    runs `run()` twice, a marker kernel between, and counts the device
+    events after the marker: a single profiled run of a short search has
+    come back without its first tens of ms of device events (phase 12's
+    KNN searches), which a run of seconds hardly notices."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -851,11 +876,25 @@ def profile_busy(run, warm: float, iters: int, out_name: str,
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if primed:
+            run()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)            # the marker: a spin kernel
+            torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    if primed:
+        marks = [e for e in events if "spin_kernel" in e.name()]
+        after = (marks[0].start_ns() + marks[0].duration_ns() if marks
+                 else float("inf"))
+        # without its marker the second run cannot be told apart: no
+        # device time is then counted (busy reads "not measured")
+        events = [e for e in events if e.start_ns() >= after]
     by_name = {}
-    for e in prof.profiler.kineto_results.events():
+    for e in events:
         if e.device_type() == DeviceType.CUDA:
             ns, count = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (ns + e.duration_ns(), count + 1)
@@ -875,7 +914,7 @@ def profile_busy(run, warm: float, iters: int, out_name: str,
     else:
         print("  profiled: no device time recorded (idle share not "
               "measured)")
-    for name, (ns, count) in kernels[:12]:
+    for name, (ns, count) in kernels[:top]:
         print(f"    {ns / 1e6:10.3f} ms  {count:6d}x  {name[:90]}")
     print(f"    (profiled run {t_run:.1f} s, whole profile "
           f"{time.perf_counter() - t0:.1f} s)")
@@ -2619,6 +2658,324 @@ def phase_mlp(seed: int):
     return out
 
 
+# --- naive Bayes, LDA, KNN and KMeans: the kernel check and phase 12 -----
+
+NB_SMOOTHING = np.logspace(-11, -5, 12)        # phase 12's GaussianNB grid
+NB_ALPHAS = np.logspace(-3, 1, 20)             # the discrete NB families'
+LDA_SHRINKAGE = [0.0, 0.01, 0.1, 0.5, 0.9]
+KNN_K = [1, 3, 5, 7, 9, 11, 13, 15]
+KMEANS_TOL = [1e-5, 1e-4, 1e-3, 1e-2]
+KMEANS_K = 8
+N_SLICE_CHECK = 2000                   # rows of the slice's cuda/cpu checks
+
+
+def train_masks(y, splitter):
+    """(folds, n) float32 train masks of `splitter` over labels y."""
+    from spark_sklearn_tpu_torch.parallel.taskgrid import build_fold_masks
+    return build_fold_masks(list(splitter.split(np.zeros(len(y)), y)),
+                            len(y))[0]
+
+
+def slice_symbol(ptxas: dict, part: str):
+    """(registers, spilled bytes) of the first kernel whose mangled name
+    holds `part`."""
+    return next((v for f, v in ptxas.items() if part in f), (None, None))
+
+
+def phase_slice_kernels(seed: int, ptxas: dict):
+    """N1, C1 and B1 against their plain versions at phase 12's shapes:
+    N1 at the KNN classifier's (MNIST-shaped, n=10000, 5 folds, max_k 15)
+    and regressor's (n=20640) searches, C1 at the KMeans search's Lloyd
+    step (covtype-shaped, n=100000, 20 lanes of 8 centers), B1 at the
+    GaussianNB search's views (n=100000, d=54, 60 lanes, 7 classes, the
+    family's own fit on the card); each timed in a CUDA graph and between
+    events, with its bound, registers and a bitwise repeat check, beside
+    the plain version and the library call that computes the same
+    (torch.topk per fold for N1, torch.min for C1; none for B1).
+    Returns {(name, variant): row}."""
+    import torch
+
+    from spark_sklearn_tpu_torch import KFold, StratifiedKFold
+    from spark_sklearn_tpu_torch.models.naive_bayes import GaussianNBFamily
+    from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
+    from spark_sklearn_tpu_torch.ops import knn_kernels as knk
+    from spark_sklearn_tpu_torch.ops import nb_kernels as nbk
+
+    rows = {}
+
+    def record(key, fn, plain, nbytes, ops, err, part, shape, library=None,
+               extra=None):
+        a, b = fn(), fn()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{key}: two launches on the same inputs "
+                                 "differ")
+        bound_ms, bound_by = bound(nbytes, ops)
+        ms = graph_ms(fn, reps=20)
+        events = cuda_ms(fn, reps=10)
+        plain_ms = cuda_ms(plain, reps=1, warmup=0)
+        lib_ms = cuda_ms(library, reps=5) if library else None
+        regs, spill = slice_symbol(ptxas, part)
+        rows[key] = {"ms": ms, "events_ms": events, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "max_abs_err": err,
+                     "bytes": nbytes, "ops": ops, "registers": regs,
+                     "spill_bytes": spill, "shape": shape, **(extra or {})}
+        lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"  {key[0]:14s} {key[1]:13s} {shape}: {ms:.4f} ms in a "
+              f"graph, {events:.4f} ms between events (plain {plain_ms:.4f}"
+              f" ms{lib}; bound {bound_ms:.5f} ms by {bound_by}, "
+              f"bound/time {bound_ms / ms:.4f}), max abs err {err:.3g}, "
+              f"{regs} registers, {spill} bytes spilled, bitwise "
+              f"repeatable{'; ' + str(extra) if extra else ''}")
+
+    # N1 at the KNN searches' chunks
+    maxk = max(KNN_K)
+    for variant, (X, y, splitter) in (
+            ("knn", (*mnist_like(seed), StratifiedKFold(N_FOLDS))),
+            ("knn_regressor", (*california_like(seed), KFold(N_FOLDS)))):
+        Xt = torch.as_tensor(X, device="cuda")
+        G = Xt @ Xt.T
+        sq = (Xt * Xt).sum(dim=1)
+        masks = torch.as_tensor(train_masks(y, splitter), device="cuda")
+        n, F = len(X), masks.shape[0]
+        d2, idx = knk.knn_fold_topk(G, sq, sq, masks, maxk)
+        pd2, pidx = knk.knn_fold_topk_plain(G, sq, sq, masks, maxk)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, pidx) and torch.equal(d2, pd2)):
+            bad = int((idx != pidx).sum())
+            raise AssertionError(f"knn_fold_topk ({variant}): {bad} "
+                                 "neighbors differ from the plain version")
+        D = knk.sq_dists(G, sq, sq)
+        inf = torch.tensor(float("inf"), device="cuda")
+        Dm = [torch.where(masks[f] > 0, D, inf) for f in range(F)]
+        del D
+        plan = knk.topk_plan(n, maxk)
+        record(("knn_fold_topk", variant),
+               lambda: knk.knn_fold_topk(G, sq, sq, masks, maxk),
+               lambda: knk.knn_fold_topk_plain(G, sq, sq, masks, maxk),
+               4 * (n * n + F * n + 2 * n) + 8 * F * n * maxk, 3 * n * n,
+               0.0, "knn_topk_kernelILb1E" if plan["plan"] == "staged"
+               else "knn_topk_kernelILb0E",
+               {"m": n, "n": n, "F": F, "maxk": maxk, "d": X.shape[1]},
+               library=lambda: [torch.topk(Dm[f], maxk, dim=1,
+                                           largest=False)
+                                for f in range(F)],
+               extra={"plan": plan["plan"], "smem": plan["smem"]})
+        del G, Dm, d2, idx, pd2, pidx
+
+    # C1 at the KMeans search's Lloyd step
+    Xc, yc = covtype_like(seed)
+    Xk = torch.as_tensor(Xc, device="cuda")
+    n, d = Xc.shape
+    B = len(KMEANS_TOL) * N_FOLDS
+    rng = np.random.default_rng(seed)
+    C = Xk[torch.as_tensor(rng.integers(0, n, (B, KMEANS_K)),
+                           device="cuda")]                   # (B, k, d)
+    XC = Xk @ C.reshape(B * KMEANS_K, d).T
+    xx = (Xk * Xk).sum(dim=1)
+    cc = (C * C).sum(dim=2)
+    w = torch.as_tensor(np.tile(train_masks(yc, KFold(N_FOLDS)),
+                                (len(KMEANS_TOL), 1)), device="cuda")
+    a, m, s = kmk.kmeans_assign(XC, xx, cc, w)
+    pa, pm, ps = kmk.kmeans_assign_plain(XC, xx, cc, w)
+    torch.cuda.synchronize()
+    if not (torch.equal(a, pa) and torch.equal(m, pm)):
+        raise AssertionError("kmeans_assign: assignments or distances "
+                             "differ from the plain version")
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=0.0)
+    d2 = kmk.assign_distances(XC, xx, cc).contiguous()
+    record(("kmeans_assign", "kmeans"),
+           lambda: kmk.kmeans_assign(XC, xx, cc, w),
+           lambda: kmk.kmeans_assign_plain(XC, xx, cc, w),
+           4 * (XC.numel() + n + B * KMEANS_K + B * n) + 8 * B * n + 4 * B,
+           4 * n * B * KMEANS_K, float((m - pm).abs().max()),
+           "assign_kernel", {"n": n, "B": B, "k": KMEANS_K},
+           library=lambda: torch.min(d2, dim=-1),
+           extra={"inertia_max_rel_err": float(
+               ((s - ps).abs() / ps.abs()).max())})
+    del XC, d2, w
+
+    # B1 at the GaussianNB search's views, on the family's own fit
+    data_np, meta = GaussianNBFamily.prepare_data(Xc, yc)
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data_np.items()}
+    folds = train_masks(yc, StratifiedKFold(N_FOLDS))
+    B = len(NB_SMOOTHING) * N_FOLDS
+    model = GaussianNBFamily.fit_task_batched(
+        {"var_smoothing": torch.as_tensor(
+            np.repeat(NB_SMOOTHING, N_FOLDS).astype(np.float32),
+            device="cuda")},
+        {"__n_folds__": N_FOLDS}, data,
+        torch.as_tensor(np.tile(folds, (len(NB_SMOOTHING), 1)),
+                        device="cuda"), meta)
+    args = (data["X"], model["theta"], model["var"], model["log_prior"])
+    got, want = nbk.gnb_jll(*args), nbk.gnb_jll_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    k = meta["n_classes"]
+    plan = nbk.jll_plan(k, d)
+    record(("gnb_jll", "gaussian_nb"), lambda: (nbk.gnb_jll(*args),),
+           lambda: (nbk.gnb_jll_plain(*args),),
+           4 * (n * d + 2 * B * k * d + B * k + B * n * k),
+           4 * B * n * k * d, float((got - want).abs().max()),
+           "gnb_jll_kernel", {"m": n, "d": d, "B": B, "k": k},
+           extra={"max_rel_err": float(((got - want).abs()
+                                        / want.abs().clamp_min(1.0)).max()),
+                  "plan": plan})
+    del got, want, data, model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def slice_check(label, run, keys, tol, relative=False):
+    """`run(device)` on cuda and on the CPU: each mean_test_<key> within
+    `tol` (times the largest |score| where `relative`), and the same best
+    candidate where the CPU's best leads its second by more than twice
+    that."""
+    res, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = run(dev)
+        secs[dev] = time.perf_counter() - t0
+    out = {"cpu_s": secs["cpu"], "cuda_s": secs["cuda"]}
+    for key in keys:
+        a = res["cuda"].cv_results_[f"mean_test_{key}"]
+        b = res["cpu"].cv_results_[f"mean_test_{key}"]
+        diff = float(np.abs(a - b).max())
+        limit = tol * float(np.abs(b).max()) if relative else tol
+        top = np.sort(b)[::-1]
+        gap = float(top[0] - top[1]) if len(top) > 1 else None
+        same = int(np.argmax(a)) == int(np.argmax(b))
+        print(f"  {label} cuda against cpu ({key}): max |d mean_test| "
+              f"{diff:.3g} (tolerance {limit:.3g}), same best {same}, cpu "
+              f"gap to the second {gap}; cuda {secs['cuda']:.1f} s, cpu "
+              f"{secs['cpu']:.1f} s")
+        if not diff <= limit:
+            raise AssertionError(f"{label}: cuda and cpu differ by {diff}")
+        if gap is not None and gap > 2 * limit and not same:
+            raise AssertionError(f"{label}: the best candidate differs")
+        out[key] = {"max_abs": diff, "tolerance": limit,
+                    "cpu_best_gap": gap, "same_best": same}
+    return out
+
+
+def slice_search(label, est, grid, X, y, cv, scoring, kernels, check,
+                 min_score=None):
+    """One search of phase 12 on cuda with the port's own classes: cold
+    with its kernels' launches, warm, profiled (busy ms, device launches,
+    idle share), then `check` = (rows, grid, cv, tolerance, relative)
+    against the CPU on a subset."""
+    import torch
+
+    from spark_sklearn_tpu_torch import GridSearchCV, TorchConfig
+
+    def run(device, Xs=X, ys=y, g=grid, folds=cv):
+        return GridSearchCV(est, g, cv=folds, scoring=scoring, refit=False,
+                            config=TorchConfig(device=device)).fit(Xs, ys)
+
+    for mod in kernels:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    gs = run("cuda")
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = {name: c for mod in kernels for name, c in
+                mod.LAUNCHES.items()}
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} never launched on {label}'s path")
+    keys = list(scoring) if isinstance(scoring, list) else ["score"]
+    for key in keys:
+        sc = gs.cv_results_[f"mean_test_{key}"]
+        if not np.all(np.isfinite(sc)):
+            raise AssertionError(f"{label}: non-finite {key} {sc}")
+    best = float(np.max(gs.cv_results_[f"mean_test_{keys[0]}"]))
+    if min_score is not None and not best > min_score:
+        raise AssertionError(f"{label}: best {keys[0]} {best}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gs_w = run("cuda")
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fits = len(gs_w.cv_results_["params"]) * gs_w.n_splits_
+    busy, by_name = profile_busy(lambda: run("cuda"), warm, 1,
+                                 f"chip_smoke_{label}.txt",
+                                 with_kernels=True, top=4, primed=True)
+    n_launch = sum(count for _, count in by_name.values())
+    iters = [c.get("n_iter_exec") for c in gs_w.chunks_]
+    print(f"  {label}: {fits} fits ({len(gs_w.chunks_)} chunks, lanes "
+          f"{[c['lanes'] for c in gs_w.chunks_]}, iterations {iters}), "
+          f"cold {cold:.3f} s, warm {warm:.3f} s, {fits / warm:.1f} fits/s,"
+          f" busy {busy * 1e3:.3f} ms, {n_launch} device launches, idle "
+          f"share {1 - busy / warm:.4f}, peak {peak / 2**20:.1f} MiB, "
+          f"kernel launches {launches}, best {keys[0]} {best:.4f}")
+    rows_c, grid_c, cv_c, tol, relative = check
+    sub = slice(0, rows_c)
+    return {"cold_s": cold, "warm_s": warm, "fits": fits,
+            "fits_per_s": fits / warm, "device_busy_s": busy,
+            "device_launches": n_launch, "idle_share": 1 - busy / warm,
+            "peak_bytes": peak, "launches": launches, "best": best,
+            "chunks": gs_w.chunks_,
+            "check": slice_check(
+                label, lambda dev: run(dev, X[sub], None if y is None
+                                       else y[sub], grid_c, cv_c),
+                keys, tol, relative)}
+
+
+def phase_slice(seed: int):
+    """The slice's searches at full width on the card (module docstring,
+    phase 12), each against the CPU on a subset."""
+    from spark_sklearn_tpu_torch import (
+        BernoulliNB, CategoricalNB, ComplementNB, GaussianNB, KFold, KMeans,
+        KNeighborsClassifier, KNeighborsRegressor,
+        LinearDiscriminantAnalysis, MultinomialNB, StratifiedKFold)
+    from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
+    from spark_sklearn_tpu_torch.ops import knn_kernels as knk
+    from spark_sklearn_tpu_torch.ops import nb_kernels as nbk
+
+    Xc, yc = covtype_like(seed)
+    Xd, yd = digits_like(seed)
+    counts = np.round(Xd * 16.0)
+    Xm, ym = mnist_like(seed)
+    Xr, yr = california_like(seed)
+    skf, kf = StratifiedKFold(N_FOLDS), KFold(N_FOLDS)
+    skf3, kf3 = StratifiedKFold(3), KFold(3)
+    out = {"gaussian_nb": slice_search(
+        "gaussian_nb", GaussianNB(), {"var_smoothing": NB_SMOOTHING}, Xc,
+        yc, skf, ["accuracy", "neg_log_loss"], [nbk],
+        (N_SLICE_CHECK, {"var_smoothing": NB_SMOOTHING[::4]}, skf3, 5e-3,
+         False), min_score=0.3)}
+    for label, est, X in (
+            ("multinomial_nb", MultinomialNB(), counts),
+            ("complement_nb", ComplementNB(), counts),
+            ("bernoulli_nb", BernoulliNB(), counts),
+            ("categorical_nb", CategoricalNB(), counts.astype(np.int64))):
+        out[label] = slice_search(
+            label, est, {"alpha": NB_ALPHAS}, X, yd, skf, "accuracy", [],
+            (N_SLICE_CHECK, {"alpha": NB_ALPHAS[::5]}, skf3, 5e-3, False),
+            min_score=0.2)
+    out["lda"] = slice_search(
+        "lda", LinearDiscriminantAnalysis(solver="lsqr"),
+        {"shrinkage": LDA_SHRINKAGE}, Xm, ym, skf, "accuracy", [],
+        (N_SLICE_CHECK, {"shrinkage": [0.01, 0.5]}, skf3, 5e-3, False),
+        min_score=0.2)
+    out["knn"] = slice_search(
+        "knn", KNeighborsClassifier(),
+        {"n_neighbors": KNN_K, "weights": ["uniform", "distance"]}, Xm, ym,
+        skf, "accuracy", [knk],
+        (N_SLICE_CHECK, {"n_neighbors": [1, 5],
+                         "weights": ["uniform", "distance"]}, skf3, 5e-3,
+         False), min_score=0.2)
+    out["knn_regressor"] = slice_search(
+        "knn_regressor", KNeighborsRegressor(), {"n_neighbors": KNN_K}, Xr,
+        yr, kf, "r2", [knk],
+        (N_SLICE_CHECK, {"n_neighbors": [1, 5]}, kf3, 5e-3, False))
+    out["kmeans"] = slice_search(
+        "kmeans", KMeans(n_clusters=KMEANS_K, n_init=1, random_state=0),
+        {"tol": KMEANS_TOL}, Xc, None, kf, None, [kmk],
+        (N_SLICE_CHECK, {"tol": KMEANS_TOL[1::2]}, kf3, 1e-3, True))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2643,7 +3000,7 @@ def main() -> int:
 
     header("[2] build", t_start)
     report = _build.build(["glm_epilogue", "svm_dual", "tree_hist",
-                           "mlp_step"])
+                           "mlp_step", "naive_bayes", "knn_topk", "kmeans"])
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.2f} s")
@@ -2651,7 +3008,7 @@ def main() -> int:
     for fn, (regs, spill) in sorted(ptxas.items()):
         print(f"    {regs:4d} registers {spill:5d} bytes spilled  {fn}")
 
-    header("[3] kernels at the headline and phase-8/9/10/11 shapes",
+    header("[3] kernels at the headline and phase-8/9/10/11/12 shapes",
            t_start)
     rows = phase_kernels(args.seed, n_sm, sm_mhz, ptxas)
     svm_rows = phase_svm_kernels(args.seed, ptxas)
@@ -2659,6 +3016,7 @@ def main() -> int:
     tree_rows = phase_tree_kernels(args.seed, ptxas)
     mlp_rows = phase_mlp_kernels(
         args.seed, ptxas_table(str(report["mlp_step"]["log"])))
+    slice_rows = phase_slice_kernels(args.seed, ptxas)
 
     header("[4] main path: 1000 C x 5 folds on cuda", t_start)
     X, y = digits_like(args.seed)
@@ -2692,6 +3050,12 @@ def main() -> int:
            "StandardScaler, MLPClassifier)) 4 alphas x 3 folds, n=1797, "
            "d=64", t_start)
     mlp_run = phase_mlp(args.seed)
+
+    header("[12] naive Bayes, LDA, KNN and KMeans: GaussianNB on "
+           f"covtype-shaped data (n={N_RF}), the discrete NBs on digits "
+           "counts, LDA and KNN on MNIST-shaped data, a KNN regressor, "
+           "KMeans", t_start)
+    slice_run = phase_slice(args.seed)
 
     meta = {
         "glm_loss_grad": "spark_sklearn_tpu/models/linear.py:221",
@@ -2876,13 +3240,54 @@ def main() -> int:
                                  if key[0] == "db_sum"}}
                if name == "mlp_loss_grad" else {"host_us": head["host_us"]}),
         })
+    slice_meta = {
+        "knn_fold_topk": ("knn_topk", "spark_sklearn_tpu/models/"
+                          "neighbors.py:71", "knn", "knn_regressor",
+                          {"knn": slice_run["knn"],
+                           "knn_regressor": slice_run["knn_regressor"]},
+                          "equal to the plain version (d2 and idx)"),
+        "kmeans_assign": ("kmeans", "spark_sklearn_tpu/models/"
+                          "cluster.py:31", "kmeans", None,
+                          {"kmeans": slice_run["kmeans"]},
+                          "assign and min_d2 equal to the plain version, "
+                          "inertia rtol 1e-5"),
+        "gnb_jll": ("naive_bayes", "spark_sklearn_tpu/models/"
+                    "naive_bayes.py:174", "gaussian_nb", None,
+                    {"gaussian_nb": slice_run["gaussian_nb"]},
+                    "rtol 1e-5, atol 1e-3"),
+    }
+    for name, (src, replaces, main_v, other_v, paths, tol) in \
+            slice_meta.items():
+        head = slice_rows[(name, main_v)]
+        main_path = next(iter(paths.values()))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"spark_sklearn_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces,
+            "launches": main_path["launches"][name],
+            "launches_by_path": {p: r["launches"][name]
+                                 for p, r in paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for key, r in
+                               slice_rows.items() if key[0] == name),
+            "ms": head["ms"], "events_ms": head["events_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library": {"knn_fold_topk": "torch.topk(largest=False) on "
+                                         "each fold's masked distances",
+                        "kmeans_assign": "torch.min(dim=-1) on the formed "
+                                         "distances"}.get(name),
+            "registers": head["registers"],
+            "spill_bytes": head["spill_bytes"], "tolerance": tol,
+            "shape": head["shape"],
+            **({other_v: slice_rows[(name, other_v)]} if other_v else {}),
+        })
     main_run["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "main": main_run,
                    "regressors": regressors, "l1": l1_run,
                    "svm": svm_run, "gb": gb_run, "rf": rf_run,
-                   "mlp": mlp_run,
+                   "mlp": mlp_run, "slice": slice_run,
                    "card": nvidia_smi("name,power.limit")}, f, indent=1)
     print(f"  total {main_run['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,11 +11,15 @@ Entry points run on ``cuda`` unless the caller passes
 
 Public API so far:
   - GridSearchCV, RandomizedSearchCV  (compiled linear-family,
-    SVC/NuSVC, tree-ensemble, MLP and Pipeline searches)
+    SVC/NuSVC, tree-ensemble, MLP, naive Bayes, LDA, KNN, KMeans and
+    Pipeline searches)
   - TorchConfig
   - LogisticRegression, Ridge, LinearRegression, ElasticNet, Lasso, SVC,
     NuSVC (sklearn-free estimators)
   - MLPClassifier, MLPRegressor (sklearn-free estimators)
+  - GaussianNB, MultinomialNB, ComplementNB, BernoulliNB, CategoricalNB,
+    LinearDiscriminantAnalysis (solver="lsqr"), KNeighborsClassifier,
+    KNeighborsRegressor, KMeans (sklearn-free estimators)
   - Pipeline, StandardScaler, MinMaxScaler, MaxAbsScaler, Normalizer,
     PCA (sklearn-free; a search over a Pipeline of these steps and a
     ported final refits on the device)
@@ -26,14 +30,23 @@ Public API so far:
 """
 
 from spark_sklearn_tpu_torch.models.estimators import (
+    BernoulliNB,
+    CategoricalNB,
+    ComplementNB,
     ElasticNet,
+    GaussianNB,
+    KMeans,
+    KNeighborsClassifier,
+    KNeighborsRegressor,
     Lasso,
+    LinearDiscriminantAnalysis,
     LinearRegression,
     LogisticRegression,
     MaxAbsScaler,
     MinMaxScaler,
     MLPClassifier,
     MLPRegressor,
+    MultinomialNB,
     Normalizer,
     NuSVC,
     PCA,
@@ -73,6 +86,15 @@ __all__ = [
     "NuSVC",
     "MLPClassifier",
     "MLPRegressor",
+    "GaussianNB",
+    "MultinomialNB",
+    "ComplementNB",
+    "BernoulliNB",
+    "CategoricalNB",
+    "LinearDiscriminantAnalysis",
+    "KNeighborsClassifier",
+    "KNeighborsRegressor",
+    "KMeans",
     "Pipeline",
     "StandardScaler",
     "MinMaxScaler",

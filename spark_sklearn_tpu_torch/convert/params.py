@@ -9,6 +9,14 @@ A fitted standalone SVC of the JAX package (`models/standalone.py`:
 training X `_X_train`, signed alphas `_alphas` (P, n), `_intercepts` (P,)
 and `classes_`) becomes the port's `SVC` with `svc_from_jax`.
 
+A fitted naive Bayes, LDA or KMeans model of the JAX families
+(`models/naive_bayes.py`: theta/var/log_prior, or feature_log_prob,
+class_log_prior, class_count and Bernoulli's log_neg_prob;
+`discriminant.py`: coef, intercept; `cluster.py`: centers, inertia,
+n_iter), one fit or a lane stack, becomes the port's with `nb_from_jax`,
+`lda_from_jax` and `kmeans_from_jax`: the same keys and shapes, float32
+and int32.  KNN has no fitted parameters to carry.
+
 A tree grown by the JAX package's histogram grower (`ops/trees.py`
 `Tree`) becomes the port's, lane axis and all, with `tree_from_jax`.
 
@@ -135,3 +143,40 @@ def pipeline_from_jax(model, device=None):
     steps = [{k: conv(v) for k, v in state.items()}
              for state in model["steps"]]
     return {"steps": steps, "final": mlp_from_jax(model["final"], device)}
+
+
+def _fitted_from_jax(model, keys, device):
+    from spark_sklearn_tpu_torch.parallel.device import (
+        TorchConfig,
+        resolve_device,
+    )
+
+    dev = resolve_device(TorchConfig(device=device))
+    out = {}
+    for key in keys:
+        if key not in model:
+            continue
+        a = np.asarray(model[key])
+        a = a.astype(np.float32 if a.dtype.kind == "f" else np.int32)
+        out[key] = torch.as_tensor(a, device=dev)
+    return out
+
+
+def nb_from_jax(model, device=None):
+    """A naive Bayes family's fitted dict (any of the five) as the port's
+    tensors.  `device` None means ``cuda``."""
+    return _fitted_from_jax(
+        model, ("theta", "var", "log_prior", "feature_log_prob",
+                "log_neg_prob", "class_log_prior", "class_count"), device)
+
+
+def lda_from_jax(model, device=None):
+    """LDA's fitted {coef (.., k, d), intercept (.., k)} as the port's
+    tensors.  `device` None means ``cuda``."""
+    return _fitted_from_jax(model, ("coef", "intercept"), device)
+
+
+def kmeans_from_jax(model, device=None):
+    """KMeans' fitted {centers, inertia, n_iter} as the port's tensors.
+    `device` None means ``cuda``."""
+    return _fitted_from_jax(model, ("centers", "inertia", "n_iter"), device)

@@ -19,6 +19,14 @@ LinearRegression) fit in float64 here too.
 keep the representer form (training X, signed alphas, intercepts), so
 they predict new X with one kernel matrix.
 
+The five naive Bayes classes, `LinearDiscriminantAnalysis`,
+`KNeighborsClassifier`/`Regressor` and `KMeans` (the reference's
+`models/naive_bayes.py`, `discriminant.py`, `neighbors.py`,
+`cluster.py`) hold sklearn's constructor defaults.  The naive Bayes
+classes, LDA and KMeans fit one lane of their family's batched fit; KNN
+keeps its training rows and predicts new X through N1 (one all-ones
+mask); KMeans' `predict` and `score` run C1.
+
 `MLPClassifier` and `MLPRegressor` (the reference's `models/
 standalone.py:117-168`, with the stopping and schedule knobs its family
 reads) fit one lane of the batched minibatch fit.  `StandardScaler`,
@@ -37,6 +45,11 @@ import inspect
 import numpy as np
 import torch
 
+from spark_sklearn_tpu_torch.models import naive_bayes as nb
+from spark_sklearn_tpu_torch.models.cluster import KMeansFamily
+from spark_sklearn_tpu_torch.models.discriminant import (
+    LinearDiscriminantFamily,
+)
 from spark_sklearn_tpu_torch.models.linear import (
     ElasticNetFamily,
     LinearRegressionFamily,
@@ -46,6 +59,11 @@ from spark_sklearn_tpu_torch.models.linear import (
 from spark_sklearn_tpu_torch.models.mlp import (
     MLPClassifierFamily,
     MLPRegressorFamily,
+)
+from spark_sklearn_tpu_torch.models.neighbors import (
+    KNeighborsClassifierFamily,
+    KNeighborsRegressorFamily,
+    check_metric,
 )
 from spark_sklearn_tpu_torch.models import preprocessing as prep
 from spark_sklearn_tpu_torch.models.svm import NuSVCFamily, SVCFamily
@@ -101,6 +119,10 @@ class _Estimator:
         w = (np.ones(X.shape[0], dtype) if sample_weight is None
              else np.asarray(sample_weight, dtype))
         static = family.extract_params(self)
+        if hasattr(family, "observe_candidates"):
+            # the family's host-side checks of its parameters (priors,
+            # min_categories, the LDA solver), as a search runs them
+            family.observe_candidates([], static, meta)
         model = family.fit_task_batched(
             {}, static, data, torch.as_tensor(w[None, :], device=dev), meta)
         self._model = {k: v[0] for k, v in model.items()}
@@ -328,6 +350,217 @@ class MLPRegressor(_MLP):
 
     _family = MLPRegressorFamily
     __init__ = MLPClassifier.__init__
+
+
+class _ClosedForm(_Estimator):
+    """A classifier fitted as one lane of its family's batched fit."""
+
+    def _X(self, X):
+        return torch.as_tensor(np.asarray(X, np.float32),
+                               device=self._device)
+
+    def predict(self, X):
+        idx = self._family.predict(self._model, self._static, self._X(X),
+                                   self._meta)
+        return self.classes_[idx.cpu().numpy()]
+
+    def predict_proba(self, X):
+        return self._family.predict_proba(
+            self._model, self._static, self._X(X), self._meta).cpu().numpy()
+
+
+class GaussianNB(_ClosedForm):
+    """Gaussian naive Bayes; its joint log-likelihood is B1."""
+
+    _family = nb.GaussianNBFamily
+
+    def __init__(self, priors=None, var_smoothing=1e-9, device=None):
+        self.priors = priors
+        self.var_smoothing = var_smoothing
+        self.device = device
+
+
+class MultinomialNB(_ClosedForm):
+    _family = nb.MultinomialNBFamily
+
+    def __init__(self, alpha=1.0, force_alpha=True, fit_prior=True,
+                 class_prior=None, device=None):
+        self.alpha = alpha
+        self.force_alpha = force_alpha
+        self.fit_prior = fit_prior
+        self.class_prior = class_prior
+        self.device = device
+
+
+class ComplementNB(_ClosedForm):
+    _family = nb.ComplementNBFamily
+
+    def __init__(self, alpha=1.0, force_alpha=True, fit_prior=True,
+                 class_prior=None, norm=False, device=None):
+        self.alpha = alpha
+        self.force_alpha = force_alpha
+        self.fit_prior = fit_prior
+        self.class_prior = class_prior
+        self.norm = norm
+        self.device = device
+
+
+class BernoulliNB(_ClosedForm):
+    _family = nb.BernoulliNBFamily
+
+    def __init__(self, alpha=1.0, force_alpha=True, binarize=0.0,
+                 fit_prior=True, class_prior=None, device=None):
+        self.alpha = alpha
+        self.force_alpha = force_alpha
+        self.binarize = binarize
+        self.fit_prior = fit_prior
+        self.class_prior = class_prior
+        self.device = device
+
+
+class CategoricalNB(_ClosedForm):
+    """Categorical naive Bayes on non-negative integer codes; a code past
+    a feature's fitted categories raises IndexError, as sklearn's."""
+
+    _family = nb.CategoricalNBFamily
+
+    def __init__(self, alpha=1.0, force_alpha=True, fit_prior=True,
+                 class_prior=None, min_categories=None, device=None):
+        self.alpha = alpha
+        self.force_alpha = force_alpha
+        self.fit_prior = fit_prior
+        self.class_prior = class_prior
+        self.min_categories = min_categories
+        self.device = device
+
+    def _X(self, X):
+        self._family.check_predict_X(X, self._meta)
+        return torch.as_tensor(np.asarray(X, np.int32), device=self._device)
+
+
+class LinearDiscriminantAnalysis(_ClosedForm):
+    """LDA; only solver="lsqr" is ported (sklearn's default, "svd",
+    raises at fit)."""
+
+    _family = LinearDiscriminantFamily
+
+    def __init__(self, solver="svd", shrinkage=None, priors=None,
+                 n_components=None, store_covariance=False, tol=1e-4,
+                 covariance_estimator=None, device=None):
+        self.solver = solver
+        self.shrinkage = shrinkage
+        self.priors = priors
+        self.n_components = n_components
+        self.store_covariance = store_covariance
+        self.tol = tol
+        self.covariance_estimator = covariance_estimator
+        self.device = device
+
+    def decision_function(self, X):
+        return self._family.decision(
+            self._model, self._static, self._X(X), self._meta).cpu().numpy()
+
+
+class KNeighborsClassifier(_Estimator):
+    """Brute-force euclidean k-nearest neighbors: `fit` keeps the training
+    rows on the device, `predict` votes through N1."""
+
+    _family = KNeighborsClassifierFamily
+
+    def __init__(self, n_neighbors=5, weights="uniform", algorithm="auto",
+                 leaf_size=30, p=2, metric="minkowski", metric_params=None,
+                 n_jobs=None, device=None):
+        self.n_neighbors = n_neighbors
+        self.weights = weights
+        self.algorithm = algorithm
+        self.leaf_size = leaf_size
+        self.p = p
+        self.metric = metric
+        self.metric_params = metric_params
+        self.n_jobs = n_jobs
+        self.device = device
+
+    def fit(self, X, y):
+        dev = resolve_device(TorchConfig(device=self.device))
+        family = self._family
+        data_np, meta = family.prepare_data(np.asarray(X), np.asarray(y))
+        self._static = family.extract_params(self)
+        check_metric(self._static)
+        self._train = {k: torch.as_tensor(v, device=dev)
+                       for k, v in data_np.items()}
+        self._meta, self._device = meta, dev
+        for k, v in family.sklearn_attrs({}, self._static, meta).items():
+            setattr(self, k, v)
+        self.n_samples_fit_ = int(data_np["X"].shape[0])
+        return self
+
+    def _votes(self, X):
+        return self._family.predict_new(
+            self._train["X"], self._train["y"],
+            torch.as_tensor(np.asarray(X, np.float32), device=self._device),
+            self._static, self._meta)
+
+    def predict(self, X):
+        proba = self._votes(X)
+        return self.classes_[torch.argmax(proba, dim=1).cpu().numpy()]
+
+    def predict_proba(self, X):
+        return self._votes(X).cpu().numpy()
+
+
+class KNeighborsRegressor(KNeighborsClassifier):
+    """Brute-force euclidean k-nearest-neighbor regression."""
+
+    _family = KNeighborsRegressorFamily
+
+    def predict(self, X):
+        return self._votes(X).cpu().numpy()
+
+    def predict_proba(self, X):
+        raise AttributeError(
+            "'KNeighborsRegressor' object has no attribute 'predict_proba'")
+
+
+class KMeans(_Estimator):
+    """k-means by Lloyd's iterations after k-means++ or random seeding;
+    `predict` and `score` run C1."""
+
+    _family = KMeansFamily
+
+    def __init__(self, n_clusters=8, init="k-means++", n_init="auto",
+                 max_iter=300, tol=1e-4, verbose=0, random_state=None,
+                 copy_x=True, algorithm="lloyd", device=None):
+        self.n_clusters = n_clusters
+        self.init = init
+        self.n_init = n_init
+        self.max_iter = max_iter
+        self.tol = tol
+        self.verbose = verbose
+        self.random_state = random_state
+        self.copy_x = copy_x
+        self.algorithm = algorithm
+        self.device = device
+
+    def fit(self, X, y=None, sample_weight=None):
+        super().fit(X, None, sample_weight)
+        self.labels_ = self.predict(X)
+        return self
+
+    def _X(self, X):
+        return torch.as_tensor(np.asarray(X, np.float32),
+                               device=self._device)
+
+    def _views(self, X, needed):
+        model = {k: v[None] for k, v in self._model.items()}
+        return self._family.views_task_batched(
+            model, self._static, {"X": self._X(X)}, self._meta, needed)
+
+    def predict(self, X):
+        return self._views(X, {"pred"})["pred"][0].cpu().numpy()
+
+    def score(self, X, y=None):
+        """-inertia of X's rows to the fitted centers (sklearn's)."""
+        return -float(self._views(X, {"min_d2"})["min_d2"][0].sum())
 
 
 class _Transformer(_Estimator):

@@ -5,7 +5,8 @@ first use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``
 into ``spark_sklearn_tpu_torch/_build/`` (listed in ``.gitignore``), under
 a name keyed by the source's and flags' digest, then loaded with
 ``ctypes``.  Nothing is built at import time: the CPU tests import every
-module on a machine with no ``nvcc``.
+module on a machine with no ``nvcc``.  `check_tensor` is the argument
+check the wrappers run before they hand a pointer to a kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -92,3 +95,17 @@ def load_library(name: str) -> ctypes.CDLL:
     Cached: one ``CDLL`` per process."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def check_tensor(name, t, shape, device, dtype=torch.float32) -> None:
+    """Raise unless `t` has `dtype`, `shape` and `device` and is
+    contiguous: a kernel reads its memory through a bare pointer."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,141 @@
+"""KNN's fold-masked top-k over the distance Gram (N1) as a hand-written
+CUDA kernel (``csrc/knn_topk.cu``) with its plain PyTorch version beside
+it.
+
+- N1 `knn_fold_topk(G (m, n), sq_rows (m,), sq_cols (n,), train_masks
+  (F, n), maxk) -> (d2 (F, m, maxk), idx (F, m, maxk))`: for every fold
+  f and row i, the maxk smallest of
+
+      D[i, j] = max((sq_rows[i] + sq_cols[j]) - 2 G[i, j], 0)
+
+  over the columns j with train_masks[f, j] > 0 (the others count as
+  +inf), ascending by (D, j), and their column indices (int32).  G is
+  the library GEMM X Xᵀ (the search) or X_new X_trainᵀ (the holder's
+  predict, one all-ones mask).  Replaces `spark_sklearn_tpu/models/
+  neighbors.py:64-79` (`_sq_dists` after its GEMM, and `_fold_neighbors`'
+  mask and `lax.top_k`, run once a fold there).  A fold with fewer train
+  columns than maxk ends in +inf entries on the lowest-indexed masked
+  columns, as `lax.top_k` gives them.
+- A block takes one row: it forms the row's distances once and keeps
+  them in shared memory for all F folds where n <= `STAGED_MAX_N`
+  ("staged"; above, "streamed": each pass forms them again from G), then
+  per fold finds the maxk-th smallest key by a 4-pass radix select,
+  gathers the keys below it and the lowest-indexed keys equal to it, and
+  sorts those maxk by (D, j) with a bitonic sort (`topk_plan`).
+
+maxk is at most `MAX_K`; the wrapper raises above it, and where maxk
+exceeds n.  All tensors float32 and contiguous.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises — it never falls back.  `LAUNCHES` counts
+kernel launches (plain runs are not counted).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from spark_sklearn_tpu_torch.ops import _build
+
+#: kernel name -> number of launches in this process
+LAUNCHES = {"knn_fold_topk": 0}
+
+#: the largest maxk N1 takes (its sort's width), as `kMaxK` in
+#: csrc/knn_topk.cu
+MAX_K = 1024
+#: most columns a row keeps in shared memory (8 bytes each: the distance
+#: and a fold's key), as `kStagedMaxN`
+STAGED_MAX_N = 26000
+#: threads a block (one block a row), as `kThreads`
+TOPK_THREADS = 256
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def sq_dists(G, sq_rows, sq_cols):
+    """The reference's squared distances from the product G:
+    max((sq_i + sq_j) - 2 G_ij, 0) (`_sq_dists`, neighbors.py:64)."""
+    return torch.clamp_min((sq_rows[:, None] + sq_cols[None, :]) - 2.0 * G,
+                           0.0)
+
+
+def knn_fold_topk_plain(G, sq_rows, sq_cols, train_masks, maxk: int):
+    """N1's plain version: a stable ascending sort of each fold's masked
+    distances (ties to the lower column, as lax.top_k), cut at maxk."""
+    D = sq_dists(G, sq_rows, sq_cols)                         # (m, n)
+    inf = torch.tensor(float("inf"), dtype=D.dtype, device=D.device)
+    d2, idx = [], []
+    for f in range(train_masks.shape[0]):
+        Dm = torch.where(train_masks[f][None, :] > 0, D, inf)
+        v, i = torch.sort(Dm, dim=1, stable=True)
+        d2.append(v[:, :maxk])
+        idx.append(i[:, :maxk].to(torch.int32))
+    return torch.stack(d2), torch.stack(idx)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library("knn_topk")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.knn_fold_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.knn_fold_topk.restype = i
+    return lib
+
+
+def topk_plan(n: int, maxk: int) -> dict:
+    """N1's launch for rows of n columns: "staged" (the row's distances
+    and a fold's keys in shared memory) up to `STAGED_MAX_N` columns, else
+    "streamed"; the sort's width `P`, the power of two at or above maxk;
+    `smem` bytes of shared memory a block."""
+    P = 1
+    while P < maxk:
+        P *= 2
+    staged = n <= STAGED_MAX_N
+    # the sort's entries, the histogram and counters (`Shared`), the row
+    smem = 8 * P + 1072 + (8 * n if staged else 0)
+    return {"plan": "staged" if staged else "streamed", "P": P,
+            "smem": smem, "threads": TOPK_THREADS}
+
+
+def knn_fold_topk(G, sq_rows, sq_cols, train_masks, maxk: int):
+    """N1: the fold-masked top-k of every row (see the module docstring);
+    one launch for all folds."""
+    maxk = int(maxk)
+    if G.device.type == "cpu":
+        return knn_fold_topk_plain(G, sq_rows, sq_cols, train_masks, maxk)
+    if G.device.type != "cuda":
+        raise ValueError(f"unsupported device {G.device}")
+    m, n = G.shape
+    F = train_masks.shape[0]
+    dev = G.device
+    _build.check_tensor("G", G, (m, n), dev)
+    _build.check_tensor("sq_rows", sq_rows, (m,), dev)
+    _build.check_tensor("sq_cols", sq_cols, (n,), dev)
+    _build.check_tensor("train_masks", train_masks, (F, n), dev)
+    if not 1 <= maxk <= MAX_K:
+        raise ValueError(f"knn_fold_topk: maxk={maxk} is outside [1, "
+                         f"{MAX_K}], the kernel's limit")
+    if maxk > n:
+        raise ValueError(f"knn_fold_topk: maxk={maxk} exceeds the {n} "
+                         "columns")
+    if m < 1 or F < 1:
+        raise ValueError(f"knn_fold_topk: empty shape m={m} F={F}")
+    plan = topk_plan(n, maxk)
+    d2 = torch.empty((F, m, maxk), dtype=G.dtype, device=dev)
+    idx = torch.empty((F, m, maxk), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().knn_fold_topk(
+            G.data_ptr(), sq_rows.data_ptr(), sq_cols.data_ptr(),
+            train_masks.data_ptr(), d2.data_ptr(), idx.data_ptr(), m, n, F,
+            maxk, int(plan["plan"] == "staged"),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"knn_fold_topk launch failed: cudaError {rc}")
+    LAUNCHES["knn_fold_topk"] += 1
+    return d2, idx

@@ -1,8 +1,7 @@
 """`jax.random`'s threefry draws, bit for bit, as torch ops.
 
-The stochastic families (the tree ensembles and the MLP; KMeans in a
-later slice) match the reference only if they draw the same numbers
-from the same seed.  This module reproduces the few `jax.random`
+The stochastic families (the tree ensembles, the MLP and KMeans) match
+the reference only if they draw the same numbers from the same seed.  This module reproduces the few `jax.random`
 functions they call, as jax 0.9 computes them with
 ``jax_threefry_partitionable=True`` (its default):
 
@@ -28,7 +27,14 @@ functions they call, as jax 0.9 computes them with
   in ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each round under the
   second key of ``split(key)`` (the first carries on), with a stable
   sort (`lax.sort_key_val`): 1 round up to n = 1625, 2 from 1626;
-  `permutations` draws several keys' permutations in one pass.
+  `permutations` draws several keys' permutations in one pass;
+- `gumbel(key, shape)`: jax's default "low" mode (`_gumbel`,
+  jax/_src/random.py:1723), ``-log(-log(u))`` of ``uniform(key, shape,
+  minval=tiny, maxval=1)`` with tiny float32's smallest normal;
+- `choice(key, n, k, p)`: ``choice(key, n, (k,), replace=False, p=p)``,
+  the Gumbel top-k form (random.py:810): the k largest of ``gumbel(key,
+  (n,)) + log(p)``, ties to the lower index.  `p` may hold one row of
+  probabilities a lane, all drawn under the one key.
 
 Keys are numpy uint32 arrays, (2,) or (n, 2), and live on the host: a
 key is two words, and deriving one is a few dozen integer operations on
@@ -38,10 +44,11 @@ go to the `device` asked for, as int64 tensors masked to 32 bits
 shape take one pass: `uniform_many` draws a row per key,
 `uniform_ragged` one run of each length per key, and
 `poisson_one` draws its rounds 16 at a time (a log-product only falls,
-so rounds drawn past the loop's end count nothing).  The one float step
-that is not exact, the float32 `log` of Poisson's product, can differ
-from XLA's by an ulp; it changes a draw only where a log-product lands
-within that ulp of -lam.
+so rounds drawn past the loop's end count nothing).  The float steps
+that are not exact, the float32 `log` of Poisson's product and
+Gumbel's two logs, can differ from XLA's by an ulp; that changes a
+Poisson draw only where a log-product lands within that ulp of -lam, and
+a Gumbel-max choice only where two scores lie within a few ulp.
 """
 
 from __future__ import annotations
@@ -211,3 +218,25 @@ def permutations(keys, n: int, device=None):
         order = torch.sort(bits[r], dim=1, stable=True).indices
         x = torch.gather(x, 1, order)
     return x
+
+
+def gumbel(key, shape: Shape, device=None):
+    """jax.random.gumbel(key, shape) in float32, mode "low"."""
+    tiny = float(np.finfo(np.float32).tiny)
+    u = uniform(key, shape, device, minval=tiny, maxval=1.0)
+    return -torch.log(-torch.log(u))
+
+
+def choice(key, n: int, k: int, p, device=None):
+    """jax.random.choice(key, n, (k,), replace=False, p=p) as int64 (k,),
+    or (B, k) for `p` of shape (B, n): each row's draw under the same
+    key, as ``jax.vmap`` of the call over the rows of `p` gives."""
+    if k > n:
+        raise ValueError(
+            f"Cannot take a larger sample (size {k}) than population "
+            f"(size {n}) when 'replace=False'")
+    p = torch.as_tensor(p, device=device)
+    g = gumbel(key, (n,), p.device) + torch.log(p)
+    # lax.top_k: the k largest, ties to the lower index (a stable sort)
+    return torch.sort(g, dim=-1, descending=True, stable=True).indices[
+        ..., :k]

@@ -103,9 +103,12 @@ class _BaseSearch:
     estimator must resolve to a ported family: the port's or sklearn's
     `LogisticRegression`, `Ridge`, `LinearRegression`, `ElasticNet`,
     `Lasso`, `SVC`, `NuSVC`, `GradientBoostingRegressor`/`Classifier`,
-    `RandomForestClassifier`/`Regressor`, `MLPClassifier`/`Regressor`, or
-    a `Pipeline` of preprocessing steps and one of them.  `scoring` is
-    None (accuracy for classifiers, r2 for regressors), one of the scorer
+    `RandomForestClassifier`/`Regressor`, `MLPClassifier`/`Regressor`,
+    the five naive Bayes classes, `LinearDiscriminantAnalysis(solver=
+    "lsqr")`, `KNeighborsClassifier`/`Regressor`, `KMeans`, or a
+    `Pipeline` of preprocessing steps and one of them.  `scoring` is None
+    (the family's default: accuracy for classifiers, r2 for regressors,
+    -inertia for KMeans), one of the scorer
     names of `search/scorers.py` or a list of them; `cv` is None, an int,
     a splitter with ``.split(X, y)`` or an iterable of (train, test) index
     pairs.
@@ -127,7 +130,7 @@ class _BaseSearch:
 
     # -- fit --------------------------------------------------------------
 
-    def fit(self, X, y):
+    def fit(self, X, y=None):
         family = resolve_family(self.estimator)
         if family is None:
             raise NotImplementedError(
@@ -156,7 +159,7 @@ class _BaseSearch:
         config = self.config or TorchConfig()
         device = resolve_device(config)
         X = np.asarray(X)
-        y = np.asarray(y)
+        y = None if y is None else np.asarray(y)
         cv = check_cv(self.cv, y, classifier=family.is_classifier)
         splits = [(np.asarray(tr), np.asarray(te))
                   for tr, te in cv.split(X, y)]
@@ -208,11 +211,22 @@ class _BaseSearch:
             config.dtype is None
         dtype = np.float64 if use_f64 else np.float32
         data_np, meta = family.prepare_data(X, y, dtype=dtype)
+        if self.scoring is not None and "y" not in data_np:
+            # the reference's refusal (grid.py:1252-1258)
+            raise ValueError(
+                f"scoring={self.scoring!r} needs labels, but none reached "
+                f"the device ({family.name} is unsupervised: y was absent "
+                "or not numeric; only its default scorer applies)")
         check_scoring_target(self.scoring, family, meta)
         meta["logloss_clip_eps"] = _logloss_clip_eps(family, X.dtype)
         n_samples = X.shape[0]
         train_masks, test_masks = build_fold_masks(splits, n_samples,
                                                    dtype=dtype)
+        # for the families whose validity depends on the folds (KNN's
+        # n_neighbors <= the smallest train fold), as the reference
+        # records it (grid.py:1289-1293)
+        meta["min_fold_train_count"] = int(
+            np.sum(train_masks > 0, axis=1).min())
         data = {k: torch.as_tensor(v, device=device)
                 for k, v in data_np.items()}
         train_dev = torch.as_tensor(train_masks, device=device)
@@ -234,7 +248,8 @@ class _BaseSearch:
         if hasattr(family, "observe_candidates"):
             # the tree families read the grid's largest n_estimators (the
             # trees a chunk may grow) and warn once on capped depths, as
-            # the reference does (grid.py:1357-1361)
+            # the reference does (grid.py:1357-1361); the others check
+            # their grid host-side (priors, n_neighbors, min_categories)
             family.observe_candidates(candidates, base_params, meta)
         # bound the chunk: at most max_tasks_per_batch lanes, and fewer
         # where the family asks (SVC's kernel matrix and decision caches),
@@ -275,9 +290,10 @@ class _BaseSearch:
                 t1 = time.perf_counter()
                 views = family.views_task_batched(model, static, data,
                                                   meta, needed)
-                te = {s: sc.core(views, data["y"], w_test, meta)
+                y_dev = data.get("y")
+                te = {s: sc.core(views, y_dev, w_test, meta)
                       for s, sc in scorers.items()}
-                tr = ({s: sc.core(views, data["y"], w_fit, meta)
+                tr = ({s: sc.core(views, y_dev, w_fit, meta)
                        for s, sc in scorers.items()} if return_train
                       else {})
                 bad = ~_lane_finite(model, lanes)

@@ -8,7 +8,9 @@ the reference's 17 scorer names.  Each metric is a **view requirement**
     core(views, y, w, meta) -> (T,)
 
 with views (T, n[, k]), y (n,) encoded labels (classifiers) or targets
-(regressors) and w (T, n) the fold weight of each task (1.0 on the fold's
+(regressors; None for an unsupervised search, whose only scorer is its
+family's default, `FAMILY_DEFAULTS`) and w (T, n) the fold weight of
+each task (1.0 on the fold's
 samples, 0.0 elsewhere).  The search computes the views once per chunk
 for every task, from one GEMM.  Each core is the reference's per-task
 core with the task axis made explicit, and keeps its semantics, among
@@ -183,6 +185,12 @@ def _max_error(v, y, w, meta):
     return -(w * (y[None, :] - v["pred"]).abs()).amax(dim=1)
 
 
+def _neg_inertia(v, y, w, meta):
+    """KMeans' default scorer, sklearn's `KMeans.score`: -Σ w·min d² of
+    each lane's rows to its centers (`cluster.py:38-41`); y unused."""
+    return -(w * v["min_d2"]).sum(dim=1)
+
+
 SCORERS: Dict[str, Scorer] = {
     "accuracy": Scorer(("pred",), _accuracy),
     "balanced_accuracy": Scorer(("pred",), _balanced_accuracy),
@@ -201,6 +209,13 @@ SCORERS: Dict[str, Scorer] = {
     "neg_median_absolute_error": Scorer(("pred",), _neg_median_ae),
     "max_error": Scorer(("pred",), _max_error),        # legacy sklearn name
     "neg_max_error": Scorer(("pred",), _max_error),    # sklearn >= 1.6 name
+}
+
+#: a family's own default scorer, named by its `default_scorer`
+#: attribute and used where scoring is None (the reference's
+#: `family.default_scorer`, scorers.py:321)
+FAMILY_DEFAULTS: Dict[str, Scorer] = {
+    "neg_inertia": Scorer(("min_d2",), _neg_inertia),
 }
 
 #: scorers that need class structure (meta["n_classes"])
@@ -224,10 +239,14 @@ def _lookup(name):
 def resolve_scoring(scoring, family) -> Tuple[Dict[str, Scorer],
                                               Optional[str]]:
     """scoring arg -> (ordered {name: Scorer}, single-metric key or None).
-    None uses the estimator's default (accuracy for classifiers, r2 for
-    regressors); a string or a list of strings names metrics.  Anything
-    else raises NotImplementedError."""
+    None uses the estimator's default (the family's `default_scorer`
+    where it names one of `FAMILY_DEFAULTS`, else accuracy for
+    classifiers and r2 for regressors); a string or a list of strings
+    names metrics.  Anything else raises NotImplementedError."""
     if scoring is None:
+        own = getattr(family, "default_scorer", None)
+        if own is not None:
+            return {"score": FAMILY_DEFAULTS[own]}, "score"
         name = "accuracy" if family.is_classifier else "r2"
         return {"score": SCORERS[name]}, "score"
     if isinstance(scoring, str):

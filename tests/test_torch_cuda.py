@@ -2,8 +2,9 @@
 against their plain versions, and small searches, fits and scorer cores
 on cuda against the same on the CPU (logistic regression by L-BFGS and
 by FISTA, Ridge and LinearRegression in float64, ElasticNet, the 17
-scorers, SVC and NuSVC, the tree ensembles, and the MLP and Pipeline
-searches).  They skip where no card is visible.
+scorers, SVC and NuSVC, the tree ensembles, the MLP and Pipeline
+searches, and the naive Bayes, LDA, KNN and KMeans searches with N1, C1
+and B1).  They skip where no card is visible.
 
 This file imports neither JAX nor sklearn, so it also runs on a machine
 that has only PyTorch:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -16,7 +17,10 @@ import torch
 import spark_sklearn_tpu_torch as port
 from spark_sklearn_tpu_torch.models.linear import LogisticRegressionFamily
 from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
+from spark_sklearn_tpu_torch.ops import knn_kernels as knk
 from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
+from spark_sklearn_tpu_torch.ops import nb_kernels as nbk
 from spark_sklearn_tpu_torch.ops import svm_kernels as svk
 from spark_sklearn_tpu_torch.ops import tree_kernels as tk
 from spark_sklearn_tpu_torch.search.scorers import SCORERS
@@ -1257,3 +1261,190 @@ def test_pipeline_search_on_cuda_matches_cpu(cuda_device, kind):
                                rtol=0, atol=5e-3)
     assert runs["cuda"].best_params_ == runs["cpu"].best_params_
     assert runs["cuda"].best_estimator_.predict(X[:7]).shape == (7,)
+
+
+# --- N1 (knn_fold_topk), C1 (kmeans_assign), B1 (gnb_jll) -----------------
+
+def _topk_inputs(m, n, F, d=12, seed=0, dup=False, device="cuda"):
+    rng = np.random.default_rng(seed)
+    Xc = rng.standard_normal((n, d)).astype(np.float32)
+    if dup:
+        Xc[n // 2:] = Xc[:n - n // 2]                  # exact duplicates
+    Xr = Xc[:m] if m <= n else rng.standard_normal((m, d)).astype(
+        np.float32)
+    masks = (rng.random((F, n)) < 0.7).astype(np.float32)
+    Xr_t, Xc_t = (torch.as_tensor(a, device=device) for a in (Xr, Xc))
+    G = Xr_t @ Xc_t.T
+    return (G, (Xr_t * Xr_t).sum(1), (Xc_t * Xc_t).sum(1),
+            torch.as_tensor(masks, device=device))
+
+
+def _check_topk(G, sq_r, sq_c, masks, maxk):
+    n0 = knk.LAUNCHES["knn_fold_topk"]
+    d2, idx = knk.knn_fold_topk(G, sq_r, sq_c, masks, maxk)
+    torch.cuda.synchronize()
+    assert knk.LAUNCHES["knn_fold_topk"] == n0 + 1
+    pd2, pidx = knk.knn_fold_topk_plain(G, sq_r, sq_c, masks, maxk)
+    assert torch.equal(idx, pidx)
+    assert torch.equal(d2, pd2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,F,maxk,dup", [
+    (300, 300, 5, 1, False), (300, 300, 5, 15, False),
+    (257, 1500, 3, knk.MAX_K, False),        # maxk at its limit
+    (200, 200, 4, 9, True),                  # exact duplicates: ties
+    (61, 700, 1, 33, False),                 # m != n: new rows, one mask
+    (50, 30000, 2, 20, False),               # streamed: n past the stage
+])
+def test_knn_fold_topk_matches_plain(cuda_device, m, n, F, maxk, dup):
+    """Equal to the plain version (a stable sort): the same distances,
+    bit for bit, and the same columns in the same order."""
+    _check_topk(*_topk_inputs(m, n, F, dup=dup), maxk)
+
+
+@pytest.mark.cuda
+def test_knn_fold_topk_short_fold_and_limits(cuda_device):
+    """A fold with fewer train columns than maxk ends in +inf on the
+    lowest masked columns (as the plain sort); maxk above the limit or
+    above n raises, CPU inputs to a CUDA call raise."""
+    G, sq_r, sq_c, masks = _topk_inputs(120, 120, 2)
+    masks[1] = 0.0
+    masks[1, [5, 40, 77]] = 1.0
+    _check_topk(G, sq_r, sq_c, masks, 10)
+    with pytest.raises(ValueError, match="kernel's limit"):
+        knk.knn_fold_topk(G, sq_r, sq_c, masks, knk.MAX_K + 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        knk.knn_fold_topk(G[:, :5].contiguous(), sq_r, sq_c[:5],
+                          masks[:, :5].contiguous(), 6)
+    with pytest.raises(ValueError):
+        knk.knn_fold_topk(G, sq_r, sq_c, masks.cpu(), 3)
+    with pytest.raises(TypeError):
+        knk.knn_fold_topk(G.double(), sq_r, sq_c, masks, 3)
+
+
+def _assign_inputs(n, B, k, d=10, seed=0, ties=False):
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32),
+                        device="cuda")
+    C = torch.as_tensor(rng.standard_normal((B, k, d)).astype(np.float32),
+                        device="cuda")
+    if ties:
+        C[:, 1::2] = C[:, ::2][:, :C[:, 1::2].shape[1]]
+    w = torch.as_tensor((rng.random((B, n)) < 0.8).astype(np.float32),
+                        device="cuda")
+    w[0] = 0.0                                         # a zero-weight lane
+    XC = X @ C.reshape(B * k, d).T
+    return XC, (X * X).sum(1), (C * C).sum(2), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B,k,ties", [(1000, 4, 1, False),
+                                        (5000, 20, 8, False),
+                                        (777, 3, 6, True)])
+def test_kmeans_assign_matches_plain(cuda_device, n, B, k, ties):
+    """assign equal (the first center on ties), min_d2 equal (the same
+    expression), inertia rtol 1e-5 (another summation order), and two
+    calls give the same bits."""
+    XC, xx, cc, w = _assign_inputs(n, B, k, ties=ties)
+    n0 = kmk.LAUNCHES["kmeans_assign"]
+    a, m, s = kmk.kmeans_assign(XC, xx, cc, w)
+    a2, m2, s2 = kmk.kmeans_assign(XC, xx, cc, w)
+    torch.cuda.synchronize()
+    assert kmk.LAUNCHES["kmeans_assign"] == n0 + 2
+    pa, pm, ps = kmk.kmeans_assign_plain(XC, xx, cc, w)
+    assert torch.equal(a, pa) and torch.equal(m, pm)
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-6)
+    assert s[0].item() == 0.0
+    assert torch.equal(a, a2) and torch.equal(m, m2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+def test_kmeans_assign_nan_and_bad_input(cuda_device):
+    XC, xx, cc, w = _assign_inputs(300, 2, 4)
+    XC[7, 2] = float("nan")
+    a, m, s = kmk.kmeans_assign(XC, xx, cc, w)
+    pa, pm, ps = kmk.kmeans_assign_plain(XC, xx, cc, w)
+    assert torch.equal(a, pa)
+    assert a[0, 7].item() == 2 and torch.isnan(m[0, 7])
+    with pytest.raises(ValueError):
+        kmk.kmeans_assign(XC, xx, cc, w[:, :10].contiguous())
+    with pytest.raises(ValueError):
+        kmk.kmeans_assign(XC, xx.cpu(), cc, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,B,k,floor", [
+    (1000, 54, 6, 7, False), (333, 784, 3, 10, False),   # m % tile != 0
+    (100, 3000, 2, 5, False),                 # d past a tile of 32 rows
+    (257, 64, 4, 3, True),                    # var at its epsilon floor
+])
+def test_gnb_jll_matches_plain(cuda_device, m, d, B, k, floor):
+    """rtol 1e-5 against the plain version (another summation order over
+    d; the division kept), atol 1e-3 on jlls reaching ~1e5 at the
+    floor."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((m, d)).astype(np.float32)
+    theta = rng.standard_normal((B, k, d)).astype(np.float32)
+    var = rng.uniform(0.1, 2.0, (B, k, d)).astype(np.float32)
+    if floor:
+        var[:, :, ::3] = 1e-9 * var.max()
+    lp = np.log(rng.dirichlet(np.ones(k), B)).astype(np.float32)
+    t = [torch.as_tensor(a, device="cuda") for a in (X, theta, var, lp)]
+    n0 = nbk.LAUNCHES["gnb_jll"]
+    got = nbk.gnb_jll(*t)
+    torch.cuda.synchronize()
+    assert nbk.LAUNCHES["gnb_jll"] == n0 + 1
+    torch.testing.assert_close(got, nbk.gnb_jll_plain(*t), rtol=1e-5,
+                               atol=1e-3)
+    with pytest.raises(ValueError):
+        nbk.gnb_jll(t[0], t[1], t[2][:, :, :5].contiguous(), t[3])
+    with pytest.raises(TypeError):
+        nbk.gnb_jll(t[0].double(), *t[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "multinomial", "bernoulli",
+                                  "categorical", "lda", "knn", "knn_reg",
+                                  "kmeans"])
+def test_slice_search_on_cuda_matches_cpu(cuda_device, kind):
+    """Each family of the slice on cuda against the CPU: mean_test_score
+    within 5e-3 (the repo's oracle bound; 1e-3 relative for KMeans'
+    -inertia), the same best candidate, the kernel launched on the card
+    only, and the refit estimator predicting on the card."""
+    X, y = _digits_like()
+    counts = np.round(np.abs(X) * 3)
+    est, grid, data, launches = {
+        "gaussian": (port.GaussianNB(), {"var_smoothing": [1e-9, 1e-3]},
+                     (X, y), nbk.LAUNCHES),
+        "multinomial": (port.MultinomialNB(), {"alpha": [0.1, 1.0]},
+                        (counts, y), None),
+        "bernoulli": (port.BernoulliNB(binarize=0.2), {"alpha": [0.1, 1.0]},
+                      (X, y), None),
+        "categorical": (port.CategoricalNB(), {"alpha": [0.1, 1.0]},
+                        (counts.astype(np.int64), y), None),
+        "lda": (port.LinearDiscriminantAnalysis(solver="lsqr"),
+                {"shrinkage": [0.0, 0.1, 0.9]}, (X, y), None),
+        "knn": (port.KNeighborsClassifier(),
+                {"n_neighbors": [1, 5], "weights": ["uniform", "distance"]},
+                (X, y), knk.LAUNCHES),
+        "knn_reg": (port.KNeighborsRegressor(), {"n_neighbors": [1, 5]},
+                    (X, X[:, 0] * 2), knk.LAUNCHES),
+        "kmeans": (port.KMeans(n_clusters=4, random_state=0),
+                   {"tol": [1e-4, 1e-2]}, (X, None), kmk.LAUNCHES),
+    }[kind]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        if launches is not None:
+            for name in launches:
+                launches[name] = 0
+        runs[dev] = port.GridSearchCV(
+            est, grid, cv=3, config=port.TorchConfig(device=dev)).fit(*data)
+        if launches is not None:
+            assert (min(launches.values()) > 0) == (dev == "cuda")
+    a = runs["cuda"].cv_results_["mean_test_score"]
+    b = runs["cpu"].cv_results_["mean_test_score"]
+    tol = 1e-3 * np.abs(b).max() if kind == "kmeans" else 5e-3
+    np.testing.assert_allclose(a, b, rtol=0, atol=tol)
+    assert runs["cuda"].best_params_ == runs["cpu"].best_params_
+    assert runs["cuda"].best_estimator_.predict(data[0][:7]).shape == (7,)
