@@ -12,11 +12,13 @@ that difference is larger than the parent's spread; then, for the tree
 searches, each run's device busy time and cuda-against-cpu max |d
 mean_test_score|; then phase 3's kernel rows (ms between events, each
 kernel by shape and variant) with the change's mean over the parent's;
-then G, T2, S2, T3, M1, M2, M3 and S1 alone and `grow_tree` at the tree
-searches' chunks (`ALONE_ROWS`, again parent, change, change, parent): each
+then G, T2, S2, T3, M1, M2, M3, S1, N1 and C1 alone and `grow_tree` at
+the tree searches' chunks (`ALONE_ROWS`, again parent, change, change,
+parent): each
 tree's wrappers replayed in a CUDA graph, their host time a call, the
-grower's launches and host time a level, and whether each row's outputs
-have the same bits in the four runs.
+grower's launches and host time a level, whether each row's outputs
+have the same bits in the four runs, and how many of C1's assignments
+differ between the trees.
 
     python3 chip_pairs.py --parent .scratch/parent --change .
 
@@ -33,6 +35,8 @@ import shutil
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 OUT = os.path.join("chiprun_out", "pairs")
 
@@ -126,12 +130,24 @@ def kernel_rows(d: dict) -> dict:
 #   regressor shapes, with `threshold_backward` on the backward's inputs;
 #   M2 at phase 3's adam, sgd and regressor shapes, on a copy of the
 #   state a call.
+# - N1 at phase 12's KNN (MNIST-shaped, n=10000) and KNN regressor
+#   (California-shaped, n=20640) chunks: 5 folds, max_k 15, the plan the
+#   tree's `topk_plan` picks.
+# - C1 at phase 12's Lloyd step (covtype-shaped, n=100000, 20 lanes of 8
+#   centers), by either signature: where the tree's C1 takes the product
+#   XC, its library GEMM X C_allᵀ and C1; where it takes X and the
+#   centers, C1 alone.  Its assignments are saved beside the rows
+#   (`assign.npy` under the directory the script is given), so that the
+#   trees' assignments can be counted apart where their bits differ.
 ALONE_ROWS = """
 import hashlib
 import importlib.util
+import inspect
 import json
+import os
 import sys
 import time
+import numpy as np
 import torch
 spec = importlib.util.spec_from_file_location(
     "chip_smoke_change", sys.argv[1] + "/chip_smoke.py")
@@ -342,16 +358,51 @@ for shape, inputs in (
         rows[f"svm_dual_step {mode}{shape}"] = {
             "ms": cs.graph_ms(fn), "host_us": host_us(fn),
             "bits": digest(fn())}
+from spark_sklearn_tpu_torch import KFold, StratifiedKFold
+from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
+from spark_sklearn_tpu_torch.ops import knn_kernels as knk
+for label, (Xn, yn, splitter) in (
+        ("knn", (*cs.mnist_like(0), StratifiedKFold(cs.N_FOLDS))),
+        ("knn_regressor", (*cs.california_like(0), KFold(cs.N_FOLDS)))):
+    Xt = torch.as_tensor(Xn, device="cuda")
+    G = Xt @ Xt.T
+    sq = (Xt * Xt).sum(dim=1)
+    masks = torch.as_tensor(cs.train_masks(yn, splitter), device="cuda")
+    fn = lambda: knk.knn_fold_topk(G, sq, sq, masks, max(cs.KNN_K))
+    rows[f"knn_fold_topk {label}"] = {
+        "ms": cs.graph_ms(fn, reps=10), "host_us": host_us(fn, calls=10),
+        "bits": digest(fn())}
+    del G
+Xc, yc = cs.covtype_like(0)
+Xk = torch.as_tensor(Xc, device="cuda")
+n, d = Xc.shape
+B = len(cs.KMEANS_TOL) * cs.N_FOLDS
+rng = np.random.default_rng(0)
+C = Xk[torch.as_tensor(rng.integers(0, n, (B, cs.KMEANS_K)), device="cuda")]
+xx, cc = (Xk * Xk).sum(dim=1), (C * C).sum(dim=2)
+w = torch.as_tensor(np.tile(cs.train_masks(yc, KFold(cs.N_FOLDS)),
+                            (len(cs.KMEANS_TOL), 1)), device="cuda")
+if len(inspect.signature(kmk.kmeans_assign).parameters) == 5:
+    fn = lambda: kmk.kmeans_assign(Xk, C, xx, cc, w)
+else:
+    C_all = C.reshape(B * cs.KMEANS_K, d)
+    fn = lambda: kmk.kmeans_assign(Xk @ C_all.T, xx, cc, w)
+a, m, s = fn()
+np.save(os.path.join(sys.argv[2], "assign.npy"), a.cpu().numpy())
+rows["kmeans_assign lloyd"] = {
+    "ms": cs.graph_ms(fn), "host_us": host_us(fn), "bits": digest([a, m])}
 print(json.dumps(rows))
 """
 
 
-def alone_rows(tree: str, change: str) -> dict:
+def alone_rows(tree: str, change: str, out: str) -> dict:
     """{row: {ms, host_us, bits}} of ALONE_ROWS run in `tree`'s
-    directory on the inputs of `change`'s chip_smoke.py."""
+    directory on the inputs of `change`'s chip_smoke.py; C1's
+    assignments saved under `out`."""
+    os.makedirs(out, exist_ok=True)
     proc = subprocess.run([sys.executable, "-c", ALONE_ROWS,
-                           os.path.abspath(change)], cwd=tree,
-                          capture_output=True, text=True)
+                           os.path.abspath(change), os.path.abspath(out)],
+                          cwd=tree, capture_output=True, text=True)
     if proc.returncode != 0:
         print(proc.stderr[-4000:], file=sys.stderr)
         raise SystemExit(f"the kernels-alone timing failed in {tree}")
@@ -432,8 +483,11 @@ def main() -> int:
                  f"{sum(chg) / sum(par):14.3f}")
         print(f"{r:40s} {text} {ratio}")
     alone = {"parent": [], "change": []}
-    for label, tree in order:
-        alone[label].append(alone_rows(tree, args.change))
+    assigns = {"parent": [], "change": []}
+    for i, (label, tree) in enumerate(order, 1):
+        out = os.path.join(OUT, f"alone{i}_{label}")
+        alone[label].append(alone_rows(tree, args.change, out))
+        assigns[label].append(np.load(os.path.join(out, "assign.npy")))
     grow = [r for r in alone["change"][0] if r.startswith("grow_tree")]
     for key, title, fmt in (("ms", "kernels alone (ms, CUDA graph; "
                              "grow_tree events)", "9.4f"),
@@ -459,6 +513,12 @@ def main() -> int:
         print(f"{r:40s} " + ("equal" if len(runs) == 1 else
                              "differ" if same_change else
                              "the change's two runs differ"))
+    a_par, a_chg = assigns["parent"][0], assigns["change"][0]
+    print(f"\nC1's assignments at the Lloyd step, change against parent: "
+          f"{int((a_par != a_chg).sum())} of {a_par.size} differ (the "
+          f"trees' own repeats: "
+          f"{int((a_par != assigns['parent'][1]).sum())}, "
+          f"{int((a_chg != assigns['change'][1]).sum())})")
     return 0
 
 

@@ -129,7 +129,8 @@ rows, k=10, h=64) and the MLPRegressor's (6 lanes, k=1, d=8), timed; the
 refit's one lane and the views' whole folds, checked; and N1 (KNN's
 fold-masked top-k: phase 12's KNN classifier and regressor chunks,
 beside `torch.topk` on each fold's masked distances), C1 (k-means
-assignment: its Lloyd step, beside `torch.min` on the formed distances)
+assignment from X and the centers: its Lloyd step, beside the library
+GEMM X C_allᵀ then `torch.min` on the formed distances)
 and B1 (GaussianNB's joint log-likelihood: its views on the family's own
 fit), each equal to (N1, C1) or within rtol 1e-5 of (B1) its plain
 version, timed in a CUDA graph and between events.
@@ -2691,8 +2692,10 @@ def phase_slice_kernels(seed: int, ptxas: dict):
     family's own fit on the card); each timed in a CUDA graph and between
     events, with its bound, registers and a bitwise repeat check, beside
     the plain version and the library call that computes the same
-    (torch.topk per fold for N1, torch.min for C1; none for B1).
-    Returns {(name, variant): row}."""
+    (torch.topk per fold for N1; for C1 the library GEMM X C_allᵀ that
+    it took in, then torch.min on the formed distances; none for B1).
+    N1 runs the plan `topk_plan` picks, and its radix plan is checked and
+    timed beside it.  Returns {(name, variant): row}."""
     import torch
 
     from spark_sklearn_tpu_torch import KFold, StratifiedKFold
@@ -2749,21 +2752,32 @@ def phase_slice_kernels(seed: int, ptxas: dict):
         inf = torch.tensor(float("inf"), device="cuda")
         Dm = [torch.where(masks[f] > 0, D, inf) for f in range(F)]
         del D
-        plan = knk.topk_plan(n, maxk)
+        plan = knk.topk_plan(n, maxk, F)
+        radix = "staged" if n <= knk.STAGED_MAX_N else "streamed"
+        rd2, ridx = knk.knn_fold_topk(G, sq, sq, masks, maxk, plan=radix)
+        torch.cuda.synchronize()
+        if not (torch.equal(ridx, pidx) and torch.equal(rd2, pd2)):
+            raise AssertionError(f"knn_fold_topk ({variant}, {radix}): "
+                                 "differs from the plain version")
+        del rd2, ridx
+        radix_ms = graph_ms(lambda: knk.knn_fold_topk(G, sq, sq, masks, maxk,
+                                                      plan=radix), reps=10)
         record(("knn_fold_topk", variant),
                lambda: knk.knn_fold_topk(G, sq, sq, masks, maxk),
                lambda: knk.knn_fold_topk_plain(G, sq, sq, masks, maxk),
                4 * (n * n + F * n + 2 * n) + 8 * F * n * maxk, 3 * n * n,
-               0.0, "knn_topk_kernelILb1E" if plan["plan"] == "staged"
-               else "knn_topk_kernelILb0E",
+               0.0, {"warp": "knn_topk_warp_kernel",
+                     "staged": "knn_topk_kernelILb1E",
+                     "streamed": "knn_topk_kernelILb0E"}[plan["plan"]],
                {"m": n, "n": n, "F": F, "maxk": maxk, "d": X.shape[1]},
                library=lambda: [torch.topk(Dm[f], maxk, dim=1,
                                            largest=False)
                                 for f in range(F)],
-               extra={"plan": plan["plan"], "smem": plan["smem"]})
+               extra={"plan": plan["plan"], "smem": plan["smem"],
+                      f"{radix}_plan_ms": radix_ms})
         del G, Dm, d2, idx, pd2, pidx
 
-    # C1 at the KMeans search's Lloyd step
+    # C1 at the KMeans search's Lloyd step, from X and the centers
     Xc, yc = covtype_like(seed)
     Xk = torch.as_tensor(Xc, device="cuda")
     n, d = Xc.shape
@@ -2771,29 +2785,49 @@ def phase_slice_kernels(seed: int, ptxas: dict):
     rng = np.random.default_rng(seed)
     C = Xk[torch.as_tensor(rng.integers(0, n, (B, KMEANS_K)),
                            device="cuda")]                   # (B, k, d)
-    XC = Xk @ C.reshape(B * KMEANS_K, d).T
     xx = (Xk * Xk).sum(dim=1)
     cc = (C * C).sum(dim=2)
     w = torch.as_tensor(np.tile(train_masks(yc, KFold(N_FOLDS)),
                                 (len(KMEANS_TOL), 1)), device="cuda")
-    a, m, s = kmk.kmeans_assign(XC, xx, cc, w)
-    pa, pm, ps = kmk.kmeans_assign_plain(XC, xx, cc, w)
+    a, m, s = kmk.kmeans_assign(Xk, C, xx, cc, w)
+    pa, pm, ps = kmk.kmeans_assign_plain(Xk, C, xx, cc, w)
     torch.cuda.synchronize()
     if not (torch.equal(a, pa) and torch.equal(m, pm)):
         raise AssertionError("kmeans_assign: assignments or distances "
                              "differ from the plain version")
     torch.testing.assert_close(s, ps, rtol=1e-5, atol=0.0)
-    d2 = kmk.assign_distances(XC, xx, cc).contiguous()
+    C_all = C.reshape(B * KMEANS_K, d)
+
+    def gemm_then_min():
+        """The library route C1 took in: the GEMM X C_allᵀ, the distances
+        formed from it, and their min and argmin."""
+        XC = Xk @ C_all.T
+        d2 = torch.clamp_min((xx[:, None] - 2.0 * XC)
+                             + cc.reshape(1, B * KMEANS_K), 0.0)
+        return torch.min(d2.view(n, B, KMEANS_K), dim=-1)
+
+    lib_vals, lib_idx = gemm_then_min()
+    plan = kmk.assign_plan(n, d, B)
     record(("kmeans_assign", "kmeans"),
-           lambda: kmk.kmeans_assign(XC, xx, cc, w),
-           lambda: kmk.kmeans_assign_plain(XC, xx, cc, w),
-           4 * (XC.numel() + n + B * KMEANS_K + B * n) + 8 * B * n + 4 * B,
-           4 * n * B * KMEANS_K, float((m - pm).abs().max()),
-           "assign_kernel", {"n": n, "B": B, "k": KMEANS_K},
-           library=lambda: torch.min(d2, dim=-1),
+           lambda: kmk.kmeans_assign(Xk, C, xx, cc, w),
+           lambda: kmk.kmeans_assign_plain(Xk, C, xx, cc, w),
+           4 * (n * d + B * KMEANS_K * d + n + B * KMEANS_K + B * n)
+           + 8 * B * n + 4 * B,
+           2 * n * B * KMEANS_K * d + 4 * n * B * KMEANS_K,
+           float((m - pm).abs().max()),
+           f"assign_kernelILi{plan['vec']}E",
+           {"n": n, "d": d, "B": B, "k": KMEANS_K},
+           library=gemm_then_min,
            extra={"inertia_max_rel_err": float(
-               ((s - ps).abs() / ps.abs()).max())})
-    del XC, d2, w
+               ((s - ps).abs() / ps.abs()).max()),
+               "plan": {k: plan[k] for k in ("lanes", "rows", "dtile",
+                                             "dpad", "vec", "grid",
+                                             "smem")},
+               "library_assign_differs": int(
+                   (lib_idx.T.to(torch.int32) != a).sum()),
+               "library_min_d2_max_abs_diff": float(
+                   (lib_vals.T - m).abs().max())})
+    del w, lib_vals, lib_idx
 
     # B1 at the GaussianNB search's views, on the family's own fit
     data_np, meta = GaussianNBFamily.prepare_data(Xc, yc)
@@ -3274,8 +3308,9 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "library": {"knn_fold_topk": "torch.topk(largest=False) on "
                                          "each fold's masked distances",
-                        "kmeans_assign": "torch.min(dim=-1) on the formed "
-                                         "distances"}.get(name),
+                        "kmeans_assign": "X @ C_all.T (cuBLAS), the "
+                                         "distances formed from it, then "
+                                         "torch.min(dim=-1)"}.get(name),
             "registers": head["registers"],
             "spill_bytes": head["spill_bytes"], "tolerance": tol,
             "shape": head["shape"],

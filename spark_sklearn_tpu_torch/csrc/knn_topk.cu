@@ -13,26 +13,47 @@
 //       (D, j), with their columns j.
 //     G (m, n), masks (F, n), d2 (F, m, maxk) float32, idx (F, m, maxk)
 //     int32, row-major.  Bound: bytes.  It reads G once (at the KNN
-//     search's shape, m = n = 10000: 400 MB) and the masks and writes
-//     F*m*maxk results: ~0.12 ms at 3.35 TB/s.  Its work is a selection,
-//     not arithmetic: per row and fold a few passes over n keys.
+//     search's shape, m = n = 10000: 400 MB; the KNN regressor's,
+//     n = 20640: 1.7 GB) and the masks and writes F*m*maxk results:
+//     ~0.12 / 0.51 ms at 3.35 TB/s.
 //
-// Design.
+// Every entry is ordered by its 64-bit key (distance bits << 32 | column):
+// a non-negative float's bits order as the float (-0 is made +0; a masked
+// column's bits are +inf's), and the column breaks ties to the lower
+// index, which is lax.top_k's order.  The answer is the maxk smallest keys
+// of a fold, a set fixed by the inputs whatever order the columns are
+// visited in, so every plan gives the plain version's bits.
+//
+// Plan "warp" (maxk <= kWarpMaxK, a fold group's mask bits within
+// kWarpMaxMaskBytes): a warp a row, every fold of its group from one pass.
+// - The block stages its group's fold masks once, as bits (word w of fold
+//   f holds columns 32w .. 32w+31), then walks rows (a persistent grid:
+//   the masks are read once a block, not once a row).
+// - The warp streams its row of G once, 32 columns a load, kWarpUnroll
+//   loads in flight, and forms each column's distance in registers.
+// - Per fold, lane l holds the l-th smallest key so far (32 sorted keys
+//   across the warp, the maxk-th the fold's threshold).  A column whose
+//   distance is above every fold's threshold (the common case once the
+//   lists fill: maxk << n) costs one compare and one warp vote.  The
+//   others are tested per fold on their exact 64-bit key and inserted one
+//   at a time by a shuffle that shifts the larger keys one lane up.
+// - A group holds at most kWarpFolds folds (their lists in registers);
+//   F above that is split into even groups along the grid's y.
+// Plans "staged" / "streamed" (any maxk <= kMaxK; the large-maxk path):
 // - A block (256 threads) takes one row i.  "Staged" (n <= kStagedMaxN):
-//   it forms the row's n distances once, as their float bits (a
-//   non-negative float's bits order as the float; -0 is made +0), and
-//   keeps them in shared memory for all F folds, so G's row is read
-//   once; a fold's keys (the bits, or +inf's bits where masked) go to a
-//   second array.  "Streamed": no row in shared memory, every pass forms
-//   the keys again from G, sq and the mask.
+//   it forms the row's n distances once, as their float bits, and keeps
+//   them in shared memory for all F folds, so G's row is read once; a
+//   fold's keys (the bits, or +inf's bits where masked) go to a second
+//   array.  "Streamed": no row in shared memory, every pass forms the
+//   keys again from G, sq and the mask.
 // - Per fold, a radix select finds T, the maxk-th smallest key, in four
 //   passes of 8 bits (a 256-bin histogram in shared memory; a warp adds
 //   its equal bins first, __match_any_sync, then one atomicAdd each).
 //   The keys below T go to the selection in any order; then the keys
 //   equal to T, lowest columns first (a block-wide ordered count by warp
 //   ballots), until maxk are taken.  A bitonic sort of the selection as
-//   (key << 32 | column) puts it in (D, j) order, which is lax.top_k's
-//   order (ties to the lower index).  maxk <= kMaxK (the sort's width).
+//   (key << 32 | column) puts it in (D, j) order.  maxk <= kMaxK (the
+//   sort's width).
 // - Nothing depends on the order of the atomics: the selection is a set
 //   and its sort is total, so the same inputs give the same outputs.
 
@@ -41,12 +62,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;                 // one block a row
+constexpr int kThreads = 256;                 // radix: one block a row
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 1024;                   // the sort's width, at most
 constexpr int kStagedMaxN = 26000;            // 8 bytes a column staged
 constexpr unsigned kInfKey = 0x7f800000u;     // +inf's bits
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpMaxK = 32;                 // warp plan: a key a lane
+constexpr int kWarpFolds = 8;                 // folds a warp serves at once
+constexpr int kWarpThreads = 256;             // warp plan: 8 rows a block
+constexpr int kWarpUnroll = 8;                // 32-column loads in flight
+constexpr int kWarpMaxMaskBytes = 96 * 1024;  // a block's staged mask bits
 
 constexpr int kMaxDevices = 64;
 
@@ -83,6 +109,99 @@ __device__ __forceinline__ unsigned dist_key(float sq_i, float sq_j,
   v = (v < 0.0f) ? 0.0f : v;                  // max(v, 0), NaN kept
   return __float_as_uint(v + 0.0f);           // -0 -> +0
 }
+
+// The warp plan (see the head of the file).  Grid (row blocks, fold
+// groups); `fg` folds a group, the last group may hold fewer.
+__global__ void __launch_bounds__(kWarpThreads)
+    knn_topk_warp_kernel(const float* __restrict__ G,
+                         const float* __restrict__ sq_rows,
+                         const float* __restrict__ sq_cols,
+                         const float* __restrict__ masks,
+                         float* __restrict__ out_d2,
+                         int* __restrict__ out_idx, int m, int n, int F,
+                         int maxk, int fg, int words) {
+  extern __shared__ unsigned mask_bits[];                   // nf x words
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = kWarpThreads / 32;
+  const int f0 = blockIdx.y * fg;
+  const int nf = min(fg, F - f0);
+  for (int e = warp; e < nf * words; e += warps) {
+    const int f = e / words;
+    const int j = 32 * (e - f * words) + lane;
+    const bool on =
+        j < n && masks[static_cast<size_t>(f0 + f) * n + j] > 0.0f;
+    const unsigned word = __ballot_sync(kFull, on);
+    if (lane == 0) mask_bits[e] = word;
+  }
+  __syncthreads();
+  for (int i = blockIdx.x * warps + warp; i < m; i += gridDim.x * warps) {
+    const float* Grow = G + static_cast<size_t>(i) * n;
+    const float sq_i = sq_rows[i];
+    unsigned long long list[kWarpFolds];    // lane l: the l-th smallest
+    unsigned long long thr[kWarpFolds];     // the maxk-th, in every lane
+#pragma unroll
+    for (int f = 0; f < kWarpFolds; ++f) list[f] = thr[f] = ~0ull;
+    unsigned thr_hi = kFull;                // max over folds of thr >> 32
+    for (int base = 0; base < n; base += 32 * kWarpUnroll) {
+      float g[kWarpUnroll], sq[kWarpUnroll];
+#pragma unroll
+      for (int q = 0; q < kWarpUnroll; ++q) {
+        const int j = base + 32 * q + lane;
+        g[q] = j < n ? __ldcs(Grow + j) : 0.0f;
+        sq[q] = j < n ? sq_cols[j] : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kWarpUnroll; ++q) {
+        const int j = base + 32 * q + lane;
+        const unsigned key = dist_key(sq_i, sq[q], g[q]);
+        // the least key this column has in any fold (+inf where masked)
+        const bool maybe = j < n && min(key, kInfKey) <= thr_hi;
+        if (!__any_sync(kFull, maybe)) continue;
+        const int w = (base >> 5) + q;
+        bool changed = false;
+#pragma unroll
+        for (int f = 0; f < kWarpFolds; ++f) {
+          if (f >= nf) break;
+          const unsigned bits = (mask_bits[f * words + w] >> lane) & 1u;
+          const unsigned long long c =
+              (static_cast<unsigned long long>(bits ? key : kInfKey)
+               << 32) | static_cast<unsigned>(j);
+          const bool in = maybe && c < thr[f];
+          unsigned ball = __ballot_sync(kFull, in);
+          while (ball) {
+            const int src = __ffs(ball) - 1;
+            const unsigned long long v = __shfl_sync(kFull, c, src);
+            const unsigned long long prev = __shfl_up_sync(kFull, list[f], 1);
+            if (list[f] > v) list[f] = (lane == 0 || prev < v) ? v : prev;
+            thr[f] = __shfl_sync(kFull, list[f], maxk - 1);
+            ball &= ~(1u << src);
+            ball &= __ballot_sync(kFull, in && c < thr[f]);
+            changed = true;
+          }
+        }
+        if (changed) {
+          unsigned hi = 0;
+#pragma unroll
+          for (int f = 0; f < kWarpFolds; ++f)
+            if (f < nf) hi = max(hi, static_cast<unsigned>(thr[f] >> 32));
+          thr_hi = hi;
+        }
+      }
+    }
+    if (lane < maxk) {
+#pragma unroll
+      for (int f = 0; f < kWarpFolds; ++f) {
+        if (f >= nf) break;
+        const size_t out = (static_cast<size_t>(f0 + f) * m + i) * maxk +
+                           lane;
+        out_d2[out] = __uint_as_float(static_cast<unsigned>(list[f] >> 32));
+        out_idx[out] = static_cast<int>(list[f] & 0xffffffffull);
+      }
+    }
+  }
+}
+
 
 template <bool kStaged>
 __device__ __forceinline__ unsigned key_at(int j, const unsigned* keys,
@@ -259,21 +378,72 @@ int launch(const float* G, const float* sq_rows, const float* sq_cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The warp plan's persistent grid: as many blocks as fit on the card at
+// once (fewer where the rows run out), times the fold groups.
+int launch_warp(const float* G, const float* sq_rows, const float* sq_cols,
+                const float* masks, float* d2, int* idx, int m, int n,
+                int F, int maxk, cudaStream_t s) {
+  const int groups = (F + kWarpFolds - 1) / kWarpFolds;
+  const int fg = (F + groups - 1) / groups;       // even groups
+  const int words = (n + 31) / 32;
+  const size_t smem = sizeof(unsigned) * static_cast<size_t>(fg) * words;
+  if (smem > static_cast<size_t>(kWarpMaxMaskBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int raised[kMaxDevices] = {};
+  int rc = allow_smem(knn_topk_warp_kernel, smem, raised);
+  if (rc != 0) return rc;
+  // blocks an SM, asked once a device and shared-memory size (a launch
+  // captured in a CUDA graph after one of the same shape makes no query)
+  static int sms[kMaxDevices] = {}, fit_smem[kMaxDevices] = {},
+             fit_per_sm[kMaxDevices] = {};
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < kMaxDevices && sms[dev] > 0 &&
+      fit_smem[dev] == static_cast<int>(smem)) {
+    n_sm = sms[dev];
+    per_sm = fit_per_sm[dev];
+  } else {
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, knn_topk_warp_kernel, kWarpThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < kMaxDevices) {
+      sms[dev] = n_sm;
+      fit_smem[dev] = static_cast<int>(smem);
+      fit_per_sm[dev] = per_sm;
+    }
+  }
+  const int rows_per_block = kWarpThreads / 32;
+  const int need = (m + rows_per_block - 1) / rows_per_block;
+  const int fit = max(1, n_sm * per_sm / groups);
+  knn_topk_warp_kernel<<<dim3(min(need, fit), groups), kWarpThreads, smem,
+                         s>>>(G, sq_rows, sq_cols, masks, d2, idx, m, n, F,
+                              maxk, fg, words);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns the first nonzero cudaError of the launch (0 = launched).
+// plan: 0 warp, 1 staged, 2 streamed (`topk_plan`).  Returns the first
+// nonzero cudaError of the launch (0 = launched).
 int knn_fold_topk(const float* G, const float* sq_rows, const float* sq_cols,
                   const float* masks, float* d2, int* idx, int m, int n,
-                  int F, int maxk, int staged, void* stream) {
+                  int F, int maxk, int plan, void* stream) {
   if (m < 1 || n < 1 || F < 1 || maxk < 1 || maxk > kMaxK || maxk > n ||
-      (staged && n > kStagedMaxN))
+      plan < 0 || plan > 2 || (plan == 0 && maxk > kWarpMaxK) ||
+      (plan == 1 && n > kStagedMaxN))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (plan == 0)
+    return launch_warp(G, sq_rows, sq_cols, masks, d2, idx, m, n, F, maxk,
+                       s);
   int P = 1;
   while (P < maxk) P <<= 1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (staged)
+  if (plan == 1)
     return launch<true>(G, sq_rows, sq_cols, masks, d2, idx, m, n, F, maxk,
                         P, s);
   return launch<false>(G, sq_rows, sq_cols, masks, d2, idx, m, n, F, maxk, P,

@@ -11,10 +11,11 @@ updates:
   sampling without its local trials), `init="random"` by `choice`
   without replacement weighted by w; run t of `n_init` draws under
   ``fold_in(PRNGKey(random_state), t)``, the same keys for every lane;
-- a Lloyd iteration is one wide GEMM X C_allᵀ for every lane's centers,
-  C1 (`ops/kmeans_kernels.kmeans_assign`: the nearest centers), and the
-  center update as one batched GEMM of the weighted one-hot assignment
-  against X; an empty cluster keeps its center;
+- a Lloyd iteration is C1 (`ops/kmeans_kernels.kmeans_assign`: every
+  lane's distances from X and its centers, in a fixed summation order,
+  and the nearest centers; no GEMM before it) and the center update as
+  one batched GEMM of the weighted one-hot assignment against X; an
+  empty cluster keeps its center;
 - a lane runs while its iterations are below max_iter and its last
   shift (Σ ||C_new - C||²) is above tol x the weighted mean feature
   variance of its fold (sklearn's `_tolerance`), as `jax.vmap` runs the
@@ -85,10 +86,9 @@ class KMeansFamily(Family):
 
     @staticmethod
     def _assign(X, xx, C, w):
-        """C1 on every lane's centers C (B, k, d) from one wide GEMM."""
-        B, k, d = C.shape
-        XC = X @ C.reshape(B * k, d).T                       # (n, B*k)
-        return kmeans_assign(XC, xx, (C * C).sum(dim=2), w)
+        """C1 on every lane's centers C (B, k, d)."""
+        return kmeans_assign(X.contiguous(), C.contiguous(), xx,
+                             (C * C).sum(dim=2), w)
 
     @classmethod
     def _seed(cls, key, init, X, w, k):
@@ -179,7 +179,8 @@ class KMeansFamily(Family):
     @classmethod
     def views_task_batched(cls, models, static, data, meta, needed):
         """"pred" (T, n) nearest centers and "min_d2" (T, n) their
-        distances, from C1; "decision" (T, n, k) the negated distances."""
+        distances, from C1; "decision" (T, n, k) the negated distances in
+        C1's order (`assign_distances`), so that "pred" is its argmax."""
         X, C = data["X"], models["centers"]
         xx = (X * X).sum(dim=1)
         views = {}
@@ -189,9 +190,8 @@ class KMeansFamily(Family):
             assign, min_d2, _ = cls._assign(X, xx, C, ones)
             views["pred"], views["min_d2"] = assign.long(), min_d2
         if "decision" in needed:
-            T, k, d = C.shape
-            views["decision"] = -assign_distances(
-                X @ C.reshape(T * k, d).T, xx, (C * C).sum(dim=2))
+            views["decision"] = -assign_distances(X, C, xx,
+                                                  (C * C).sum(dim=2))
         return {v: views[v] for v in needed}
 
     @classmethod

@@ -16,12 +16,20 @@ it.
   mask and `lax.top_k`, run once a fold there).  A fold with fewer train
   columns than maxk ends in +inf entries on the lowest-indexed masked
   columns, as `lax.top_k` gives them.
-- A block takes one row: it forms the row's distances once and keeps
-  them in shared memory for all F folds where n <= `STAGED_MAX_N`
-  ("staged"; above, "streamed": each pass forms them again from G), then
-  per fold finds the maxk-th smallest key by a 4-pass radix select,
-  gathers the keys below it and the lowest-indexed keys equal to it, and
-  sorts those maxk by (D, j) with a bitonic sort (`topk_plan`).
+- `topk_plan` picks the launch.  "warp" (maxk <= `WARP_MAX_K`): a warp
+  a row streams its row of G once and serves every fold of its group
+  (up to `WARP_FOLDS`) from that pass; per fold the warp holds the 32
+  smallest (distance, column) keys so far, a key a lane, and most
+  columns are turned away by one compare against every fold's maxk-th
+  key.  The block stages its group's fold masks once as bits and walks
+  rows (a persistent grid).  Above `WARP_MAX_K`, or where a group's
+  mask bits pass `WARP_MAX_MASK_BYTES`, a block takes one row: it forms
+  the row's distances once and keeps them in shared memory for all F
+  folds where n <= `STAGED_MAX_N` ("staged"; above, "streamed": each
+  pass forms them again from G), then per fold finds the maxk-th
+  smallest key by a 4-pass radix select, gathers the keys below it and
+  the lowest-indexed keys equal to it, and sorts those maxk by (D, j)
+  with a bitonic sort.  Every plan gives the plain version's bits.
 
 maxk is at most `MAX_K`; the wrapper raises above it, and where maxk
 exceeds n.  All tensors float32 and contiguous.
@@ -49,8 +57,20 @@ MAX_K = 1024
 #: most columns a row keeps in shared memory (8 bytes each: the distance
 #: and a fold's key), as `kStagedMaxN`
 STAGED_MAX_N = 26000
-#: threads a block (one block a row), as `kThreads`
+#: threads a block of the staged and streamed plans (one block a row), as
+#: `kThreads`
 TOPK_THREADS = 256
+#: the largest maxk of the warp plan (a key a lane), as `kWarpMaxK`
+WARP_MAX_K = 32
+#: most folds a warp serves from one pass over its row, as `kWarpFolds`
+WARP_FOLDS = 8
+#: threads a block of the warp plan (a warp a row), as `kWarpThreads`
+WARP_THREADS = 256
+#: most bytes of fold-mask bits a warp-plan block stages, as
+#: `kWarpMaxMaskBytes`
+WARP_MAX_MASK_BYTES = 96 * 1024
+#: the plans' codes in the C interface
+PLANS = ("warp", "staged", "streamed")
 
 
 def reset_launches() -> None:
@@ -88,24 +108,46 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def topk_plan(n: int, maxk: int) -> dict:
-    """N1's launch for rows of n columns: "staged" (the row's distances
-    and a fold's keys in shared memory) up to `STAGED_MAX_N` columns, else
-    "streamed"; the sort's width `P`, the power of two at or above maxk;
-    `smem` bytes of shared memory a block."""
+def topk_plan(n: int, maxk: int, F: int = 1, plan: str | None = None
+              ) -> dict:
+    """N1's launch for rows of n columns under F fold masks: "warp" where
+    maxk <= `WARP_MAX_K` and a fold group's mask bits fit
+    `WARP_MAX_MASK_BYTES` (F in `groups` even groups of at most
+    `WARP_FOLDS`), else "staged" (the row's distances and a fold's keys in
+    shared memory) up to `STAGED_MAX_N` columns, else "streamed"; `smem`
+    bytes of shared memory a block; the radix plans' sort width `P`, the
+    power of two at or above maxk.  `plan` asks for one plan (the card
+    tests hold each to the plain version) and raises where it cannot
+    take the shape."""
+    groups = -(-F // WARP_FOLDS)
+    fg = -(-F // groups)
+    mask_bytes = 4 * fg * -(-n // 32)
+    warp_ok = maxk <= WARP_MAX_K and mask_bytes <= WARP_MAX_MASK_BYTES
+    if plan is None:
+        plan = ("warp" if warp_ok else
+                "staged" if n <= STAGED_MAX_N else "streamed")
+    if plan not in PLANS:
+        raise ValueError(f"unknown N1 plan {plan!r}; expected one of "
+                         f"{PLANS}")
+    if (plan == "warp" and not warp_ok) or \
+            (plan == "staged" and n > STAGED_MAX_N):
+        raise ValueError(f"N1's {plan!r} plan cannot take n={n}, "
+                         f"maxk={maxk}, F={F}")
+    if plan == "warp":
+        return {"plan": "warp", "groups": groups, "folds": fg,
+                "smem": mask_bytes, "threads": WARP_THREADS}
     P = 1
     while P < maxk:
         P *= 2
-    staged = n <= STAGED_MAX_N
     # the sort's entries, the histogram and counters (`Shared`), the row
-    smem = 8 * P + 1072 + (8 * n if staged else 0)
-    return {"plan": "staged" if staged else "streamed", "P": P,
-            "smem": smem, "threads": TOPK_THREADS}
+    smem = 8 * P + 1072 + (8 * n if plan == "staged" else 0)
+    return {"plan": plan, "P": P, "smem": smem, "threads": TOPK_THREADS}
 
 
-def knn_fold_topk(G, sq_rows, sq_cols, train_masks, maxk: int):
+def knn_fold_topk(G, sq_rows, sq_cols, train_masks, maxk: int,
+                  plan: str | None = None):
     """N1: the fold-masked top-k of every row (see the module docstring);
-    one launch for all folds."""
+    one launch for all folds, by `topk_plan`'s plan (or `plan`)."""
     maxk = int(maxk)
     if G.device.type == "cpu":
         return knn_fold_topk_plain(G, sq_rows, sq_cols, train_masks, maxk)
@@ -126,14 +168,14 @@ def knn_fold_topk(G, sq_rows, sq_cols, train_masks, maxk: int):
                          "columns")
     if m < 1 or F < 1:
         raise ValueError(f"knn_fold_topk: empty shape m={m} F={F}")
-    plan = topk_plan(n, maxk)
+    launch = topk_plan(n, maxk, F, plan)
     d2 = torch.empty((F, m, maxk), dtype=G.dtype, device=dev)
     idx = torch.empty((F, m, maxk), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().knn_fold_topk(
             G.data_ptr(), sq_rows.data_ptr(), sq_cols.data_ptr(),
             train_masks.data_ptr(), d2.data_ptr(), idx.data_ptr(), m, n, F,
-            maxk, int(plan["plan"] == "staged"),
+            maxk, PLANS.index(launch["plan"]),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"knn_fold_topk launch failed: cudaError {rc}")

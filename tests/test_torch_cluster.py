@@ -5,7 +5,9 @@ choices and center indices equal; the lane-batched fit (centers,
 inertia, n_iter per lane) against `jax.vmap` of the JAX `fit`, for
 `init` "k-means++" and "random"; the search with its default scorer and
 a supervised one against the JAX search; `kmeans_from_jax`; C1's plain
-version on ties and NaN; and the search's surface without labels.
+version on ties and NaN, and its distances against a numpy float32 loop
+in the order the kernel keeps (bit for bit); and the search's surface
+without labels.
 
 Tolerances: n_iter equal; centers atol 1e-4 and inertia rtol 1e-5
 (float32 sums in another order); Gumbel values atol 1e-5; mean_test
@@ -215,15 +217,49 @@ def test_refit_holder_and_kmeans_from_jax():
 
 def test_assign_plain_ties_and_nan():
     """C1's plain version: the first center on a tie, the first NaN where
-    one is (jnp.argmin's rule), NaN in min_d2 and the lane's sum."""
-    XC = torch.tensor([[1.0, 1.0, 0.5, 0.5],
-                       [0.0, float("nan"), 1.0, 1.0]])
-    xx = torch.tensor([2.0, 1.0])
-    cc = torch.tensor([[0.0, 0.0], [1.0, 1.0]])
-    w = torch.ones((2, 2))
-    assign, min_d2, inertia = kmk.kmeans_assign(XC, xx, cc, w)
-    np.testing.assert_array_equal(assign.numpy(), [[0, 1], [0, 0]])
-    assert np.isnan(min_d2[0, 1]) and torch.isnan(inertia[0])
-    np.testing.assert_array_equal(min_d2[1].numpy(), [2.0, 0.0])
-    ref = jnp.argmin(jnp.asarray(kmk.assign_distances(XC, xx, cc)[0]), -1)
-    np.testing.assert_array_equal(assign[0].numpy(), np.asarray(ref))
+    one is (jnp.argmin's rule), NaN in min_d2 and the lane's sum; a NaN
+    in X makes every center NaN, so its row takes center 0."""
+    X = torch.tensor([[1.0, 1.0], [0.0, 2.0], [float("nan"), 1.0]])
+    C = torch.tensor([[[1.0, 1.0], [float("nan"), 0.0]],     # NaN at j=1
+                      [[0.0, 1.0], [0.0, 1.0]]])              # a tie
+    xx, cc = (X * X).sum(dim=1), (C * C).sum(dim=2)
+    w = torch.ones((2, 3))
+    assign, min_d2, inertia = kmk.kmeans_assign(X, C, xx, cc, w)
+    np.testing.assert_array_equal(assign.numpy(), [[1, 1, 0], [0, 0, 0]])
+    assert torch.isnan(min_d2[0]).all() and torch.isnan(inertia).all()
+    np.testing.assert_array_equal(min_d2[1, :2].numpy(), [1.0, 1.0])
+    assert torch.isnan(min_d2[1, 2])
+    for b in range(2):
+        ref = jnp.argmin(jnp.asarray(kmk.assign_distances(X, C, xx, cc)[b]),
+                         -1)
+        np.testing.assert_array_equal(assign[b].numpy(), np.asarray(ref))
+    finite = kmk.kmeans_assign(X[:2], C[1:], xx[:2], cc[1:], w[1:, :2])
+    np.testing.assert_array_equal(finite[2].numpy(), [2.0])
+
+
+@pytest.mark.parametrize("n,d,B,k", [(37, 1, 2, 3), (64, 5, 3, 8),
+                                     (50, 54, 2, 9)])
+def test_assign_distances_follow_the_stated_order(n, d, B, k):
+    """C1's distances, bit for bit, are a float32 loop over t = 0 .. d-1
+    of acc + X[:, t] C[:, :, t], a product and a sum a step, then
+    max((xx - 2 acc) + cc, 0): the order the kernel keeps on the card."""
+    rng = np.random.default_rng(n + d)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    C = rng.standard_normal((B, k, d)).astype(np.float32)
+    xx = (X * X).sum(axis=1, dtype=np.float32)
+    cc = (C * C).sum(axis=2, dtype=np.float32)
+    acc = np.zeros((B, n, k), np.float32)
+    for t in range(d):
+        prod = X[None, :, None, t] * C[:, None, :, t]
+        acc = acc + prod
+    want = np.maximum((xx[None, :, None] - np.float32(2.0) * acc)
+                      + cc[:, None, :], np.float32(0.0))
+    got = kmk.assign_distances(*(torch.as_tensor(a) for a in (X, C, xx,
+                                                              cc))).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    a, m, _ = kmk.kmeans_assign_plain(
+        *(torch.as_tensor(v) for v in (X, C, xx, cc)),
+        torch.ones((B, n)))
+    np.testing.assert_array_equal(a.numpy(), want.argmin(axis=2))
+    np.testing.assert_array_equal(m.numpy().view(np.uint32),
+                                  want.min(axis=2).view(np.uint32))

@@ -1279,9 +1279,9 @@ def _topk_inputs(m, n, F, d=12, seed=0, dup=False, device="cuda"):
             torch.as_tensor(masks, device=device))
 
 
-def _check_topk(G, sq_r, sq_c, masks, maxk):
+def _check_topk(G, sq_r, sq_c, masks, maxk, plan=None):
     n0 = knk.LAUNCHES["knn_fold_topk"]
-    d2, idx = knk.knn_fold_topk(G, sq_r, sq_c, masks, maxk)
+    d2, idx = knk.knn_fold_topk(G, sq_r, sq_c, masks, maxk, plan=plan)
     torch.cuda.synchronize()
     assert knk.LAUNCHES["knn_fold_topk"] == n0 + 1
     pd2, pidx = knk.knn_fold_topk_plain(G, sq_r, sq_c, masks, maxk)
@@ -1295,28 +1295,56 @@ def _check_topk(G, sq_r, sq_c, masks, maxk):
     (257, 1500, 3, knk.MAX_K, False),        # maxk at its limit
     (200, 200, 4, 9, True),                  # exact duplicates: ties
     (61, 700, 1, 33, False),                 # m != n: new rows, one mask
-    (50, 30000, 2, 20, False),               # streamed: n past the stage
+    (50, 30000, 2, 20, False),               # n past the radix stage
+    (400, 2000, 5, knk.WARP_MAX_K, False),   # the warp plan's limit
+    (400, 2000, 5, knk.WARP_MAX_K + 1, False),   # just past it: radix
+    (300, 1000, 10, 7, False),               # two fold groups of 5
+    (129, 999, 9, 16, True),                 # groups of 5 and 4, ties
+    (20, 100003, 8, 5, False),               # mask bits past the stage
 ])
 def test_knn_fold_topk_matches_plain(cuda_device, m, n, F, maxk, dup):
     """Equal to the plain version (a stable sort): the same distances,
-    bit for bit, and the same columns in the same order."""
+    bit for bit, and the same columns in the same order, under the plan
+    `topk_plan` picks."""
     _check_topk(*_topk_inputs(m, n, F, dup=dup), maxk)
+
+
+@pytest.mark.cuda
+def test_knn_fold_topk_at_the_regressor_shape(cuda_device):
+    """The KNN regressor search's chunk: n=20640, d=8 (California-shaped),
+    5 folds, max_k 15, every row its own column; the warp plan."""
+    assert knk.topk_plan(20640, 15, 5)["plan"] == "warp"
+    _check_topk(*_topk_inputs(20640, 20640, 5, d=8, seed=3), 15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", knk.PLANS)
+@pytest.mark.parametrize("maxk,dup", [(1, False), (15, True), (32, False)])
+def test_knn_fold_topk_each_plan(cuda_device, plan, maxk, dup):
+    """Every plan, asked for by name, on the same inputs: each equal to
+    the plain version."""
+    _check_topk(*_topk_inputs(150, 3000, 6, dup=dup), maxk, plan=plan)
 
 
 @pytest.mark.cuda
 def test_knn_fold_topk_short_fold_and_limits(cuda_device):
     """A fold with fewer train columns than maxk ends in +inf on the
-    lowest masked columns (as the plain sort); maxk above the limit or
-    above n raises, CPU inputs to a CUDA call raise."""
+    lowest masked columns (as the plain sort), under every plan; maxk
+    above the limit or above n raises, as does a plan that cannot take
+    the shape; CPU inputs to a CUDA call raise."""
     G, sq_r, sq_c, masks = _topk_inputs(120, 120, 2)
     masks[1] = 0.0
     masks[1, [5, 40, 77]] = 1.0
-    _check_topk(G, sq_r, sq_c, masks, 10)
+    for plan in knk.PLANS:
+        _check_topk(G, sq_r, sq_c, masks, 10, plan=plan)
     with pytest.raises(ValueError, match="kernel's limit"):
         knk.knn_fold_topk(G, sq_r, sq_c, masks, knk.MAX_K + 1)
     with pytest.raises(ValueError, match="exceeds"):
         knk.knn_fold_topk(G[:, :5].contiguous(), sq_r, sq_c[:5],
                           masks[:, :5].contiguous(), 6)
+    with pytest.raises(ValueError, match="cannot take"):
+        knk.knn_fold_topk(G, sq_r, sq_c, masks, knk.WARP_MAX_K + 1,
+                          plan="warp")
     with pytest.raises(ValueError):
         knk.knn_fold_topk(G, sq_r, sq_c, masks.cpu(), 3)
     with pytest.raises(TypeError):
@@ -1334,25 +1362,32 @@ def _assign_inputs(n, B, k, d=10, seed=0, ties=False):
     w = torch.as_tensor((rng.random((B, n)) < 0.8).astype(np.float32),
                         device="cuda")
     w[0] = 0.0                                         # a zero-weight lane
-    XC = X @ C.reshape(B * k, d).T
-    return XC, (X * X).sum(1), (C * C).sum(2), w
+    return X, C, (X * X).sum(1), (C * C).sum(2), w
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,B,k,ties", [(1000, 4, 1, False),
-                                        (5000, 20, 8, False),
-                                        (777, 3, 6, True)])
-def test_kmeans_assign_matches_plain(cuda_device, n, B, k, ties):
-    """assign equal (the first center on ties), min_d2 equal (the same
-    expression), inertia rtol 1e-5 (another summation order), and two
-    calls give the same bits."""
-    XC, xx, cc, w = _assign_inputs(n, B, k, ties=ties)
+@pytest.mark.parametrize("n,B,k,d,ties", [
+    (1000, 4, 1, 10, False),
+    (5000, 20, 8, 54, False),                # the Lloyd step's lanes and d
+    (777, 3, 6, 10, True),                   # tied centers
+    (1001, 5, 64, 54, False),                # k in 8 chunks of 8
+    (333, 7, 13, 784, False),                # d in tiles, k = 8 + 5
+    (300, 8, 64, 784, False),                # B k d = 1.6 MB of centers
+    (129, 60, 7, 54, True),                  # 15 groups of 4 lanes, ties
+    (5, 2, 3, 3, False),                     # fewer rows than a warp
+])
+def test_kmeans_assign_matches_plain(cuda_device, n, B, k, d, ties):
+    """assign and min_d2 equal to the plain version bit for bit (the
+    same dot order, the first center on ties), inertia rtol 1e-5
+    (another summation order over the rows), and two calls give the same
+    bits."""
+    X, C, xx, cc, w = _assign_inputs(n, B, k, d=d, ties=ties)
     n0 = kmk.LAUNCHES["kmeans_assign"]
-    a, m, s = kmk.kmeans_assign(XC, xx, cc, w)
-    a2, m2, s2 = kmk.kmeans_assign(XC, xx, cc, w)
+    a, m, s = kmk.kmeans_assign(X, C, xx, cc, w)
+    a2, m2, s2 = kmk.kmeans_assign(X, C, xx, cc, w)
     torch.cuda.synchronize()
     assert kmk.LAUNCHES["kmeans_assign"] == n0 + 2
-    pa, pm, ps = kmk.kmeans_assign_plain(XC, xx, cc, w)
+    pa, pm, ps = kmk.kmeans_assign_plain(X, C, xx, cc, w)
     assert torch.equal(a, pa) and torch.equal(m, pm)
     torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-6)
     assert s[0].item() == 0.0
@@ -1360,17 +1395,30 @@ def test_kmeans_assign_matches_plain(cuda_device, n, B, k, ties):
 
 
 @pytest.mark.cuda
-def test_kmeans_assign_nan_and_bad_input(cuda_device):
-    XC, xx, cc, w = _assign_inputs(300, 2, 4)
-    XC[7, 2] = float("nan")
-    a, m, s = kmk.kmeans_assign(XC, xx, cc, w)
-    pa, pm, ps = kmk.kmeans_assign_plain(XC, xx, cc, w)
+def test_kmeans_assign_nan_and_bad_input(cuda_device, monkeypatch):
+    """A NaN in X makes every center of its row NaN: center 0 and a NaN
+    distance, as the plain version; bad shapes, devices and a grid past
+    its lane groups raise."""
+    X, C, xx, cc, w = _assign_inputs(300, 2, 4, d=54)
+    X[7, 20] = float("nan")
+    xx = (X * X).sum(1)
+    a, m, s = kmk.kmeans_assign(X, C, xx, cc, w)
+    pa, pm, ps = kmk.kmeans_assign_plain(X, C, xx, cc, w)
     assert torch.equal(a, pa)
-    assert a[0, 7].item() == 2 and torch.isnan(m[0, 7])
+    assert torch.equal(torch.isnan(m), torch.isnan(pm))
+    assert torch.equal(m[~torch.isnan(m)], pm[~torch.isnan(pm)])
+    assert a[1, 7].item() == 0 and torch.isnan(m[1, 7])
+    assert torch.isnan(s).all() and torch.isnan(ps).all()   # 0 x NaN
     with pytest.raises(ValueError):
-        kmk.kmeans_assign(XC, xx, cc, w[:, :10].contiguous())
+        kmk.kmeans_assign(X, C, xx, cc, w[:, :10].contiguous())
     with pytest.raises(ValueError):
-        kmk.kmeans_assign(XC, xx.cpu(), cc, w)
+        kmk.kmeans_assign(X, C, xx.cpu(), cc, w)
+    with pytest.raises(ValueError):
+        kmk.kmeans_assign(X, C[:, :, :5].contiguous(), xx, cc, w)
+    X, C, xx, cc, w = _assign_inputs(300, 9, 4, d=54)      # 9 groups of 1
+    monkeypatch.setattr(kmk, "MAX_LANE_GROUPS", 8)
+    with pytest.raises(ValueError, match="lane groups"):
+        kmk.kmeans_assign(X, C, xx, cc, w)
 
 
 @pytest.mark.cuda

@@ -4,8 +4,11 @@ replace, and the wrappers' routing and checks; T2's (tree_best_split)
 launch plan and its plain version's fallback index; S2's (svm_dual_step)
 launch plan and its kernel's arithmetic emulated in float32 (the lists of
 elements that can move, 1-3 bisection steps a pass) against the plain
-version.  The CUDA kernels themselves are tested on a card by
-tests/test_torch_cuda.py."""
+version; N1's (knn_fold_topk) plans and its warp plan's selection
+emulated (a sorted key a lane, the early compare, the inserts) against
+the plain version; C1's (kmeans_assign) plan: every (lane, row) once, a
+block within its shared memory.  The CUDA kernels themselves are tested
+on a card by tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +18,8 @@ import torch
 
 from spark_sklearn_tpu.ops.solvers import _bcast as jax_bcast
 from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
+from spark_sklearn_tpu_torch.ops import knn_kernels as knk
 from spark_sklearn_tpu_torch.ops import svm_kernels as svk
 from spark_sklearn_tpu_torch.ops import tree_kernels as tk
 
@@ -533,3 +538,158 @@ def test_skipped_nan_in_an_inert_element_still_propagates(mode):
     for a, b in zip(got[:3], want[:3]):
         torch.testing.assert_close(a[[0, 1, 3]], b[[0, 1, 3]], rtol=1e-5,
                                    atol=1e-5)
+
+
+# N1 (knn_fold_topk): its plans and its warp plan's selection, emulated
+
+@pytest.mark.parametrize("n,maxk,F,want", [
+    (10000, 15, 5, "warp"), (20640, 15, 5, "warp"), (20640, 32, 5, "warp"),
+    (20640, 33, 5, "staged"), (30000, 33, 5, "streamed"),
+    (100000, 15, 8, "streamed"), (100000, 15, 5, "warp"),
+    (1000, 7, 10, "warp"), (1000, 1024, 1, "staged"),
+])
+def test_topk_plan_picks_and_sizes_each_plan(n, maxk, F, want):
+    plan = knk.topk_plan(n, maxk, F)
+    assert plan["plan"] == want
+    if want == "warp":
+        g, fg = plan["groups"], plan["folds"]
+        assert fg <= knk.WARP_FOLDS and (g - 1) * fg < F <= g * fg
+        assert g == -(-F // knk.WARP_FOLDS)
+        assert plan["smem"] == 4 * fg * -(-n // 32) <= \
+            knk.WARP_MAX_MASK_BYTES
+    else:
+        assert plan["P"] >= maxk > plan["P"] // 2
+        assert plan["smem"] <= 232448
+    for forced in knk.PLANS:
+        ok = not ((forced == "warp" and maxk > knk.WARP_MAX_K)
+                  or (forced == "warp" and want == "streamed"
+                      and maxk <= knk.WARP_MAX_K)
+                  or (forced == "staged" and n > knk.STAGED_MAX_N))
+        if ok:
+            assert knk.topk_plan(n, maxk, F, forced)["plan"] == forced
+        else:
+            with pytest.raises(ValueError, match="cannot take"):
+                knk.topk_plan(n, maxk, F, forced)
+    with pytest.raises(ValueError, match="unknown"):
+        knk.topk_plan(n, maxk, F, "bitonic")
+
+
+def _warp_select(G, sq_r, sq_c, masks, maxk, unroll=8):
+    """The warp plan of csrc/knn_topk.cu, step by step in numpy: a warp a
+    row; per fold 32 keys sorted across the lanes; a column turned away
+    when its least key is above every fold's threshold's high word; the
+    others inserted one lane at a time by the shuffle's shift."""
+    m, n = G.shape
+    F = masks.shape[0]
+    inf_bits = np.uint64(0x7F800000)
+    full = np.uint64(0xFFFFFFFFFFFFFFFF)
+    d = np.maximum((sq_r[:, None] + sq_c[None, :]) - np.float32(2) * G,
+                   np.float32(0)) + np.float32(0)
+    bits = d.astype(np.float32).view(np.uint32).astype(np.uint64)
+    lanes = np.arange(32)
+    out_d2 = np.zeros((F, m, maxk), np.float32)
+    out_idx = np.zeros((F, m, maxk), np.int32)
+    for i in range(m):
+        lst = np.full((F, 32), full, np.uint64)
+        thr = np.full(F, full, np.uint64)
+        thr_hi = np.uint64(0xFFFFFFFF)
+        for base in range(0, n, 32 * unroll):
+            for q in range(unroll):
+                j = base + 32 * q + lanes
+                live = j < n
+                jj = np.minimum(j, n - 1)
+                key = bits[i, jj]
+                maybe = live & (np.minimum(key, inf_bits) <= thr_hi)
+                if not maybe.any():
+                    continue
+                changed = False
+                for f in range(F):
+                    kb = np.where(masks[f, jj] > 0, key, inf_bits)
+                    c = (kb << np.uint64(32)) | jj.astype(np.uint64)
+                    ball = maybe & (c < thr[f])
+                    while ball.any():
+                        src = int(np.flatnonzero(ball)[0])
+                        v = c[src]
+                        prev = np.concatenate([lst[f, :1], lst[f, :-1]])
+                        lst[f] = np.where(
+                            lst[f] > v,
+                            np.where((lanes == 0) | (prev < v), v, prev),
+                            lst[f])
+                        thr[f] = lst[f, maxk - 1]
+                        ball[src] = False
+                        ball &= maybe & (c < thr[f])
+                        changed = True
+                if changed:
+                    thr_hi = np.uint64(max(int(t >> np.uint64(32))
+                                           for t in thr))
+        out_d2[:, i] = (lst[:, :maxk] >> np.uint64(32)).astype(
+            np.uint32).view(np.float32)
+        out_idx[:, i] = (lst[:, :maxk] & np.uint64(0xFFFFFFFF)).astype(
+            np.int32)
+    return out_d2, out_idx
+
+
+@pytest.mark.parametrize("m,n,F,maxk,dup,unroll", [
+    (12, 300, 3, 5, False, 8), (9, 200, 2, 32, True, 2),
+    (7, 70, 4, 1, False, 1), (6, 97, 5, 15, True, 8),
+])
+def test_warp_select_matches_the_plain_sort(m, n, F, maxk, dup, unroll):
+    """The warp plan's selection gives the plain version's bits, ties,
+    duplicates and short folds included (fold 0 keeps 3 columns)."""
+    rng = np.random.default_rng(m * n)
+    Xc = rng.standard_normal((n, 4)).astype(np.float32)
+    if dup:
+        Xc[n // 2:] = Xc[:n - n // 2]
+    Xr = Xc[:m]
+    masks = (rng.random((F, n)) < 0.7).astype(np.float32)
+    masks[0] = 0.0
+    masks[0, [3, n // 2, n - 1]] = 1.0
+    G = Xr @ Xc.T
+    sq_r, sq_c = (Xr * Xr).sum(1), (Xc * Xc).sum(1)
+    got_d2, got_idx = _warp_select(G, sq_r, sq_c, masks, maxk, unroll)
+    want_d2, want_idx = knk.knn_fold_topk_plain(
+        *(torch.as_tensor(a) for a in (G, sq_r, sq_c, masks)), maxk)
+    np.testing.assert_array_equal(got_idx, want_idx.numpy())
+    np.testing.assert_array_equal(got_d2.view(np.uint32),
+                                  want_d2.numpy().view(np.uint32))
+
+
+# C1 (kmeans_assign): its plan
+
+@pytest.mark.parametrize("n,d,B", [
+    (100000, 54, 20), (2000, 54, 6), (300, 4, 9), (1000, 784, 60),
+    (5, 3, 2), (129, 54, 60), (4097, 10, 8), (3000, 100, 1),
+    (300, 784, 8),                    # the shared memory's limit
+])
+def test_assign_plan_covers_each_lane_and_row_once(n, d, B):
+    """The kernel's indexing over `assign_plan`'s grid (blocks, lane
+    groups) x 8 warps x 32 threads x 2 rows: every (lane, row) once;
+    the d-tiles cover t = 0 .. d-1 in order; shared memory within the
+    default 48 KB, a d-tile's quads whole; the copy width divides d and
+    the pointers' alignment; rows and a block's center rows powers of
+    two (the kernel's shifts)."""
+    plan = kmk.assign_plan(n, d, B)
+    lanes, rows = plan["lanes"], plan["rows"]
+    lane_warps = 8 // lanes
+    assert rows == 64 * lane_warps and plan["grid"] == (
+        -(-n // rows), -(-B // lanes))
+    seen = np.zeros((plan["groups"] * lanes, plan["blocks"] * rows), int)
+    for by in range(plan["groups"]):
+        for warp in range(8):
+            b = by * lanes + warp // lane_warps
+            for bx in range(plan["blocks"]):
+                rb = bx * rows + (warp % lane_warps) * 64 + np.arange(32)
+                for q in range(kmk.ROWS_PER_THREAD):
+                    seen[b, rb + 32 * q] += 1
+    assert (seen == 1).all()
+    assert -(-B // lanes) * lanes == min(-(-B // L) * L for L in (1, 2, 4, 8))
+    t0 = list(range(0, d, plan["dtile"]))
+    assert sum(min(plan["dtile"], d - t) for t in t0) == d
+    assert plan["dtile"] == d or plan["dtile"] % 4 == 0
+    assert plan["dpad"] == 4 * -(-plan["dtile"] // 4)
+    assert plan["smem"] == 4 * (rows + 8 * lanes) * plan["dpad"] \
+        <= kmk.ASSIGN_MAX_SMEM
+    assert rows & (rows - 1) == 0 and (8 * lanes) & (8 * lanes - 1) == 0
+    assert d % plan["vec"] == 0
+    assert kmk.assign_plan(n, d, B, align=8)["vec"] <= 2
+    assert kmk.assign_plan(n, d, B, align=4)["vec"] == 1
