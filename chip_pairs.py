@@ -10,15 +10,17 @@ the four runs, the parent's spread (its two runs' max - min) and the
 change's mean minus the parent's, and marks a phase "outside" where
 that difference is larger than the parent's spread; then, for the tree
 searches, each run's device busy time and cuda-against-cpu max |d
-mean_test_score|; then phase 3's kernel rows (ms between events, each
-kernel by shape and variant) with the change's mean over the parent's;
-then G, T2, S2, T3, M1, M2, M3, S1, N1 and C1 alone and `grow_tree` at
+mean_test_score|; then the SVM searches' busy time (phase 8's SVC,
+phase 13's profiled searches); then phase 3's kernel rows (ms between
+events, each kernel by shape and variant) with the change's mean over
+the parent's;
+then G, T2, S2, T3, M1, M2, M3, S1, N1, C1 and B1 alone and `grow_tree` at
 the tree searches' chunks (`ALONE_ROWS`, again parent, change, change,
 parent): each
 tree's wrappers replayed in a CUDA graph, their host time a call, the
 grower's launches and host time a level, whether each row's outputs
 have the same bits in the four runs, and how many of C1's assignments
-differ between the trees.
+and of B1's argmax classes differ between the trees.
 
     python3 chip_pairs.py --parent .scratch/parent --change .
 
@@ -58,6 +60,8 @@ def warm_walls(d: dict) -> dict:
         w["[11] baseline5"] = d["mlp"]["classifier"]["warm_s"]
     for name, r in d.get("slice", {}).items():
         w[f"[12] {name}"] = r["warm_s"]
+    for name, r in d.get("rest", {}).items():
+        w[f"[13] {name}"] = r["warm_s"]
     w["total (whole script)"] = d["main"]["wall_s"]
     return w
 
@@ -71,6 +75,16 @@ def tree_rows(d: dict) -> dict:
     return {f"[{9 if ph == 'gb' else 10}] {ph}_{kind}": (
         d[ph][kind]["device_busy_s"], d[ph][kind]["check"]["max_abs"])
         for ph, kind in TREE_SEARCHES}
+
+
+def svm_busy(d: dict) -> dict:
+    """{search: device busy s} of phase 8's SVC search and phase 13's
+    profiled searches (None where a run has no such search)."""
+    rows = {"[8] svc": d["svm"]["svc"].get("device_busy_s")}
+    for name, r in d.get("rest", {}).items():
+        if r.get("device_busy_s") is not None:
+            rows[f"[13] {name}"] = r["device_busy_s"]
+    return rows
 
 
 def kernel_rows(d: dict) -> dict:
@@ -87,7 +101,8 @@ def kernel_rows(d: dict) -> dict:
         subs += list((k.get("by_shape") or {}).items())
         subs += list((k.get("phase3_inputs") or {}).items())
         subs += [(v, k[v]) for v in ("nu", "nu_pairs", "poly",
-                                     "svc_pipeline", "rbf_predict")
+                                     "svc_pipeline", "rbf_predict",
+                                     "shared", "global")
                  if isinstance(k.get(v), dict)]
         for sub, r in subs:
             if isinstance(r, dict) and "ms" in r:
@@ -139,6 +154,11 @@ def kernel_rows(d: dict) -> dict:
 #   centers, C1 alone.  Its assignments are saved beside the rows
 #   (`assign.npy` under the directory the script is given), so that the
 #   trees' assignments can be counted apart where their bits differ.
+# - B1 at phase 12's GaussianNB views (covtype-shaped, n=100000, d=54,
+#   60 lanes, 7 classes, the family's own fit), by either design (the
+#   signature did not change); the argmax class of every (lane, row) is
+#   saved beside the rows (`jll_pred.npy`) and counted apart between the
+#   trees.
 ALONE_ROWS = """
 import hashlib
 import importlib.util
@@ -391,6 +411,26 @@ a, m, s = fn()
 np.save(os.path.join(sys.argv[2], "assign.npy"), a.cpu().numpy())
 rows["kmeans_assign lloyd"] = {
     "ms": cs.graph_ms(fn), "host_us": host_us(fn), "bits": digest([a, m])}
+del w, a, m, s
+from spark_sklearn_tpu_torch.models.naive_bayes import GaussianNBFamily
+from spark_sklearn_tpu_torch.ops import nb_kernels as nbk
+data_np, meta = GaussianNBFamily.prepare_data(Xc, yc)
+data = {k: torch.as_tensor(v, device="cuda") for k, v in data_np.items()}
+B = len(cs.NB_SMOOTHING) * cs.N_FOLDS
+model = GaussianNBFamily.fit_task_batched(
+    {"var_smoothing": torch.as_tensor(
+        np.repeat(cs.NB_SMOOTHING, cs.N_FOLDS).astype(np.float32),
+        device="cuda")}, {"__n_folds__": cs.N_FOLDS}, data,
+    torch.as_tensor(np.tile(cs.train_masks(yc, StratifiedKFold(cs.N_FOLDS)),
+                            (len(cs.NB_SMOOTHING), 1)), device="cuda"), meta)
+args = (data["X"], model["theta"], model["var"], model["log_prior"])
+fn = lambda: nbk.gnb_jll(*args)
+jll = fn()
+np.save(os.path.join(sys.argv[2], "jll_pred.npy"),
+        jll.argmax(dim=2).cpu().numpy())
+rows["gnb_jll gaussian_nb"] = {
+    "ms": cs.graph_ms(fn, reps=20), "host_us": host_us(fn, calls=20),
+    "bits": digest([jll])}
 print(json.dumps(rows))
 """
 
@@ -442,11 +482,13 @@ def main() -> int:
     walls = {"parent": [], "change": []}
     trees = {"parent": [], "change": []}
     kernels = {"parent": [], "change": []}
+    busy = {"parent": [], "change": []}
     for i, (label, tree) in enumerate(order, 1):
         d = run(tree, label, i)
         walls[label].append(warm_walls(d))
         trees[label].append(tree_rows(d))
         kernels[label].append(kernel_rows(d))
+        busy[label].append(svm_busy(d))
     phases = list(walls["change"][0])
     print(f"\n{'phase':24s} {'parent 1':>10s} {'change 1':>10s} "
           f"{'change 2':>10s} {'parent 2':>10s} {'spread':>8s} "
@@ -471,6 +513,13 @@ def main() -> int:
                  trees["change"][1][p], trees["parent"][1][p]]
         print(f"{p:24s} " + " ".join(f"{b:10.4f} s, {x:9.3g}"
                                      for b, x in cells))
+    print(f"\n{'SVM search busy (s)':24s} {'parent 1':>10s} {'change 1':>10s} "
+          f"{'change 2':>10s} {'parent 2':>10s}")
+    for p in busy["change"][0]:
+        cells = [busy["parent"][0].get(p), busy["change"][0][p],
+                 busy["change"][1][p], busy["parent"][1].get(p)]
+        print(f"{p:24s} " + " ".join(
+            f"{c:10.4f}" if c is not None else f"{'-':>10s}" for c in cells))
     print(f"\n{'phase 3 row (ms)':40s} {'parent 1':>9s} {'change 1':>9s} "
           f"{'change 2':>9s} {'parent 2':>9s} {'change/parent':>14s}")
     for r in kernels["change"][0]:
@@ -484,10 +533,14 @@ def main() -> int:
         print(f"{r:40s} {text} {ratio}")
     alone = {"parent": [], "change": []}
     assigns = {"parent": [], "change": []}
+    preds = {"parent": [], "change": []}
     for i, (label, tree) in enumerate(order, 1):
         out = os.path.join(OUT, f"alone{i}_{label}")
         alone[label].append(alone_rows(tree, args.change, out))
-        assigns[label].append(np.load(os.path.join(out, "assign.npy")))
+        for name, keep in (("assign.npy", assigns), ("jll_pred.npy", preds)):
+            # read, then removed: the four runs' files are tens of MB each
+            keep[label].append(np.load(os.path.join(out, name)))
+            os.remove(os.path.join(out, name))
     grow = [r for r in alone["change"][0] if r.startswith("grow_tree")]
     for key, title, fmt in (("ms", "kernels alone (ms, CUDA graph; "
                              "grow_tree events)", "9.4f"),
@@ -519,6 +572,12 @@ def main() -> int:
           f"trees' own repeats: "
           f"{int((a_par != assigns['parent'][1]).sum())}, "
           f"{int((a_chg != assigns['change'][1]).sum())})")
+    p_par, p_chg = preds["parent"][0], preds["change"][0]
+    print(f"B1's argmax class at the GaussianNB views, change against "
+          f"parent: {int((p_par != p_chg).sum())} of {p_par.size} differ "
+          f"(the trees' own repeats: "
+          f"{int((p_par != preds['parent'][1]).sum())}, "
+          f"{int((p_chg != preds['change'][1]).sum())})")
     return 0
 
 

@@ -90,7 +90,18 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    MNIST-shaped data (N1); a KNeighborsRegressor over the same
    n_neighbors on phase 6's data (N1); KMeans(n_clusters=8, n_init=1,
    random_state=0) over tol {1e-5, 1e-4, 1e-3, 1e-2} x KFold(5) on the
-   covtype-shaped data with its default scorer, -inertia (C1).
+   covtype-shaped data with its default scorer, -inertia (C1);
+13. the rest of the SVMs with the port's own classes, each search cold
+   (with its kernels' launches), warm and profiled, then against the CPU
+   on 2000 rows with a smaller grid and 3 folds: phase 8's SVC(rbf)
+   search (3 C x 3 gamma, StratifiedKFold(5), MNIST-shaped) with
+   probability=True, scored by accuracy and neg_log_loss, refit on
+   accuracy and its predict_proba on the card (P1, P2); GridSearchCV(
+   SVR(kernel="rbf"), C {1, 10, 100} x epsilon {0.1, 0.5}, KFold(5)) and
+   NuSVR over nu {0.25, 0.5, 0.75} on phase 6's California-shaped data
+   (S1 and S2's SVR mode); LinearSVC (C {0.01, 0.1, 1} x loss hinge,
+   squared_hinge) on phase 8's data and LinearSVR (C {0.01, 0.1, 1} x
+   both losses) on phase 6's (library GEMMs and torch ops).
 
 Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
 whose norms are summed apart; each timed as a CUDA graph's replay,
@@ -133,7 +144,12 @@ assignment from X and the centers: its Lloyd step, beside the library
 GEMM X C_allᵀ then `torch.min` on the formed distances)
 and B1 (GaussianNB's joint log-likelihood: its views on the family's own
 fit), each equal to (N1, C1) or within rtol 1e-5 of (B1) its plain
-version, timed in a CUDA graph and between events.
+version, timed in a CUDA graph and between events; and phase 13's P1
+(Platt fits of the SVC probability search's 2025 (task, pair) rows), P2
+(the coupling of its 45 tasks x 10000 rows, register and shared-memory
+plans) and S2's SVR mode (epsilon-SVR and nu-SVR steps at the SVR
+searches' 5 folds of 20640 pairs), each against its plain version with
+its tolerance, bound and registers.
 
 It prints one JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -147,6 +163,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -161,6 +178,7 @@ REG_SCORING = ["r2", "neg_mean_squared_error", "neg_mean_absolute_error",
                "neg_median_absolute_error"]
 N_L1 = 200                             # the l1 path's RandomizedSearchCV
 N_SVM, D_SVM, K_SVM = 10000, 784, 10   # MNIST-10k: samples, pixels, classes
+SVC_KERNELS = ("svm_gram_epilogue", "svm_dual_step")  # S1, S2: SVC's path
 SVM_C = [1.0, 10.0, 100.0]             # phase 8's grid: C x gamma factors
 SVM_GAMMA = [0.5, 1.0, 2.0]            # x 1/(d var X), sklearn's "scale"
 SVM_NU = [0.1, 0.3]
@@ -178,6 +196,8 @@ MLP_LANES = len(MLP_ALPHAS) * MLP_FOLDS
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12                  # H100 SXM float32, non-tensor-core
 SFU_PER_CLOCK_PER_SM = 16              # exp2/log2 results (CUDA guide, 9.0)
+P1_GRAD_OPS, P1_TRIAL_OPS = 33, 416   # P1's FP32 operations an element a
+                                       # pass (its SASS; phase 3)
 
 
 def header(title: str, t_start: float) -> None:
@@ -1288,7 +1308,7 @@ def phase_svm(seed: int, kernel_rows: dict):
     pred = best.predict(X[:N_SVM_CHECK])
     # the search, the refit and its prediction (S1 with the norms summed
     # apart)
-    launches = dict(svk.LAUNCHES)
+    launches = {name: svk.LAUNCHES[name] for name in SVC_KERNELS}
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"{name} never launched on the SVC path")
@@ -1349,13 +1369,14 @@ def phase_svm(seed: int, kernel_rows: dict):
     nu_scores = nu.cv_results_["mean_test_score"]
     if not np.all(np.isfinite(nu_scores)) or not nu.best_score_ > 0.3:
         raise AssertionError(f"NuSVC: scores {nu_scores}")
-    if min(svk.LAUNCHES.values()) == 0:
-        raise AssertionError(f"NuSVC: launches {svk.LAUNCHES}")
+    nu_launch = {name: svk.LAUNCHES[name] for name in SVC_KERNELS}
+    if min(nu_launch.values()) == 0:
+        raise AssertionError(f"NuSVC: launches {nu_launch}")
     print(f"  NuSVC nu {SVM_NU} x {N_FOLDS} folds: {nu_s:.3f} s, steps "
           f"{[c['n_iter_exec'] for c in nu.chunks_]}, scores "
-          f"{np.round(nu_scores, 4).tolist()}, launches {dict(svk.LAUNCHES)}")
+          f"{np.round(nu_scores, 4).tolist()}, launches {nu_launch}")
     out["nusvc"] = {"wall_s": nu_s, "scores": nu_scores.tolist(),
-                    "launches": dict(svk.LAUNCHES)}
+                    "launches": nu_launch}
 
     # cuda against the CPU at a reduced size: mean_test_score within 5e-3
     # (the repo's oracle bound) and the same best candidate
@@ -2643,7 +2664,7 @@ def phase_mlp(seed: int):
     t0 = time.perf_counter()
     gv = run_svc()
     wall = time.perf_counter() - t0
-    v_launch = dict(svk.LAUNCHES)
+    v_launch = {name: svk.LAUNCHES[name] for name in SVC_KERNELS}
     v_scores = gv.cv_results_["mean_test_score"]
     if min(v_launch.values()) == 0 or not np.all(np.isfinite(v_scores)) \
             or not v_scores.max() > 0.3:
@@ -2681,6 +2702,29 @@ def slice_symbol(ptxas: dict, part: str):
     """(registers, spilled bytes) of the first kernel whose mangled name
     holds `part`."""
     return next((v for f, v in ptxas.items() if part in f), (None, None))
+
+
+def mufu_counts(lib, part: str) -> dict:
+    """{MUFU op: count} in the SASS of the first kernel of `lib` whose
+    mangled name holds `part` (cuobjdump -sass), or {} without
+    cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {}
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, inside = {}, False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if inside:
+                break
+            inside = part in m.group(1)
+        elif inside:
+            op = re.search(r"MUFU\.(\w+)", line)
+            if op:
+                counts[op.group(1)] = counts.get(op.group(1), 0) + 1
+    return counts
 
 
 def phase_slice_kernels(seed: int, ptxas: dict):
@@ -2845,12 +2889,15 @@ def phase_slice_kernels(seed: int, ptxas: dict):
     got, want = nbk.gnb_jll(*args), nbk.gnb_jll_plain(*args)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
     k = meta["n_classes"]
-    plan = nbk.jll_plan(k, d)
+    plan = nbk.jll_plan(n, d, B, k,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
     record(("gnb_jll", "gaussian_nb"), lambda: (nbk.gnb_jll(*args),),
            lambda: (nbk.gnb_jll_plain(*args),),
            4 * (n * d + 2 * B * k * d + B * k + B * n * k),
            4 * B * n * k * d, float((got - want).abs().max()),
-           "gnb_jll_kernel", {"m": n, "d": d, "B": B, "k": k},
+           f"gnb_jll_kernelILi{plan['kc']}E", {"m": n, "d": d, "B": B,
+                                               "k": k},
            extra={"max_rel_err": float(((got - want).abs()
                                         / want.abs().clamp_min(1.0)).max()),
                   "plan": plan})
@@ -2946,7 +2993,8 @@ def slice_search(label, est, grid, X, y, cv, scoring, kernels, check,
     sub = slice(0, rows_c)
     return {"cold_s": cold, "warm_s": warm, "fits": fits,
             "fits_per_s": fits / warm, "device_busy_s": busy,
-            "device_launches": n_launch, "idle_share": 1 - busy / warm,
+            "device_launches": n_launch,
+            "idle_share": None if busy is None else 1 - busy / warm,
             "peak_bytes": peak, "launches": launches, "best": best,
             "chunks": gs_w.chunks_,
             "check": slice_check(
@@ -3010,6 +3058,357 @@ def phase_slice(seed: int):
     return out
 
 
+# --- the rest of the SVMs: the kernel check and phase 13 -----------------
+
+SVR_C = [1.0, 10.0, 100.0]             # phase 13's SVR grid: C x epsilon
+SVR_EPS = [0.1, 0.5]
+SVR_NU = [0.25, 0.5, 0.75]             # NuSVR's nu
+LIN_C = [0.01, 0.1, 1.0]               # LinearSVC's and LinearSVR's C
+N_REST_CHECK = 2000                    # rows of phase 13's cuda/cpu checks
+
+
+def proba_inputs(seed: int):
+    """P1's and P2's inputs at phase 13's SVC search: the 45 tasks (9
+    candidates x StratifiedKFold(5)) of MNIST-shaped labels, their fold
+    weights and a (45, 10000, 45) cache of pair decisions, N(0, 1.5)
+    moved by +1 on the pair's first class and -1 on its second (trained
+    decisions' sign), made on the card from `seed`."""
+    import torch
+
+    from spark_sklearn_tpu_torch import StratifiedKFold
+    from spark_sklearn_tpu_torch.models.svm import _pairs
+
+    _, y = mnist_like(seed)
+    pairs = _pairs(K_SVM)
+    tasks = len(SVM_C) * len(SVM_GAMMA) * N_FOLDS
+    masks = train_masks(y, StratifiedKFold(N_FOLDS))
+    tw = torch.as_tensor(np.tile(masks, (tasks // N_FOLDS, 1)),
+                         device="cuda")
+    yt = torch.as_tensor(y.astype(np.int32), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dec = 1.5 * torch.randn((tasks, N_SVM, len(pairs)), generator=g,
+                            device="cuda")
+    pt = torch.as_tensor(pairs, device="cuda").long()
+    sign = ((yt.long()[:, None] == pt[None, :, 0]).float()
+            - (yt.long()[:, None] == pt[None, :, 1]).float())    # (n, P)
+    dec += sign[None]
+    return dec.contiguous(), yt, tw, pairs
+
+
+def svr_step_inputs(seed: int, mode: str):
+    """One S2 SVR-mode step at phase 13's SVR search (KFold(5) folds of
+    the California-shaped rows, C = 10; n = 20640 pairs a row, streamed):
+    iterates inside the box, a product of the size a solve sees."""
+    import torch
+
+    from spark_sklearn_tpu_torch import KFold
+
+    _, y = california_like(seed)
+    masks = train_masks(y, KFold(N_FOLDS))
+    M, n = masks.shape
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    bh = 10.0 * torch.as_tensor(masks, device="cuda")
+    z = bh.repeat(1, 2) * torch.rand((M, 2 * n), generator=g,
+                                     device="cuda")
+    x = bh.repeat(1, 2) * torch.rand((M, 2 * n), generator=g,
+                                     device="cuda")
+    V = torch.randn((M, n), generator=g, device="cuda")
+    yt = torch.as_tensor(y, device="cuda")
+    step = torch.tensor(0.01, device="cuda")
+    if mode == "svr":
+        return (V, z, x, yt, torch.full((M,), 0.1, device="cuda"), bh, step,
+                0.3, None)
+    return (V, z, x, yt, None, bh, step, 0.3, 0.25 * bh.sum(dim=1))
+
+
+def phase_proba_kernels(seed: int, n_sm: int, sm_mhz: float, ptxas: dict):
+    """P1 (Platt fit), P2 (pairwise coupling, each plan) and S2's SVR
+    mode (epsilon-SVR and nu-SVR) against their plain versions at phase
+    13's shapes, each timed between CUDA events (S2 also in a CUDA
+    graph), with its bound, registers and a bitwise repeat check; no
+    single PyTorch call computes any of them (library_ms null).
+    Returns {(name, variant): row}."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import _build
+    from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+    from spark_sklearn_tpu_torch.ops import svm_proba_kernels as pk
+
+    rows = {}
+    sfu_per_ms = n_sm * SFU_PER_CLOCK_PER_SM * sm_mhz * 1e3
+
+    def record(key, fn, plain, err, nbytes, ops, part, shape, graph=False,
+               sfu=0, tol="", extra=None):
+        a, b = fn(), fn()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{key}: two launches on the same inputs "
+                                 "differ")
+        bound_ms, bound_by = bound(nbytes, ops)
+        if sfu / sfu_per_ms > bound_ms:
+            bound_ms, bound_by = sfu / sfu_per_ms, "operations"
+        events = cuda_ms(fn, reps=10)
+        ms = graph_ms(fn, reps=20) if graph else events
+        plain_ms = cuda_ms(plain, reps=1, warmup=0)
+        regs, spill = slice_symbol(ptxas, part)
+        rows[key] = {"ms": ms, "events_ms": events, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None, "max_abs_err": err,
+                     "bytes": nbytes, "ops": ops, "sfu_ops": sfu,
+                     "registers": regs, "spill_bytes": spill,
+                     "shape": shape, "tolerance": tol, **(extra or {})}
+        print(f"  {key[0]:17s} {key[1]:10s} {shape}: {ms:.4f} ms"
+              f"{' in a graph' if graph else ''}, {events:.4f} ms between "
+              f"events (plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms by"
+              f" {bound_by}, bound/time {bound_ms / ms:.4f}), max abs err "
+              f"{err:.3g} ({tol}), {regs} registers, {spill} bytes spilled,"
+              f" bitwise repeatable{'; ' + str(extra) if extra else ''}")
+
+    dec, y, tw, pairs = proba_inputs(seed)
+    B, n, P = dec.shape
+    A, Bo = pk.platt_fit(dec, y, tw, pairs, False)
+    pA, pB, trials = pk.platt_fit_rows_plain(dec, y, tw, pairs, False,
+                                             count_trials=True)
+    torch.cuda.synchronize()
+    err = max(float((A - pA).abs().max()), float((Bo - pB).abs().max()))
+    torch.testing.assert_close(A, pA, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(Bo, pB, rtol=1e-3, atol=1e-3)
+    pt = torch.as_tensor(pairs, device="cuda").long()
+    yl = y.long()
+    in_pair = (yl[None, :] == pt[:, 0:1]) | (yl[None, :] == pt[:, 1:2])
+    kept_rows = ((tw[:, None, :] > 0) & in_pair[None]).sum(dim=2).reshape(-1)
+    kept = int(kept_rows.sum())
+    # the work of this run's rows: every step's gradient pass over the
+    # kept elements and, at the steps whose gradient is at least 1e-5
+    # (counted by the plain fit), the trial pass.  Per element, from the
+    # kernel's SASS (cuobjdump -sass, an FFMA counted as 2): the gradient
+    # pass P1_GRAD_OPS FP32 operations and 2 SFU results (the sigmoid's
+    # MUFU.EX2 and MUFU.RCP), the trial pass P1_TRIAL_OPS and 8 (a
+    # MUFU.EX2 a halving; CUDA's log1pf is a polynomial on the FP32
+    # pipes, no MUFU).  The MUFU counts of this build are kept in the row.
+    mufu = mufu_counts(_build.library_path("svm_proba"),
+                       "platt_fit_kernelILb1E")
+    trial_el = int((kept_rows * trials).sum())
+    plan = pk.platt_plan(n)
+    record(("svm_platt_fit", "svc_proba"),
+           lambda: pk.platt_fit(dec, y, tw, pairs, False),
+           lambda: pk.platt_fit_rows_plain(dec, y, tw, pairs, False), err,
+           4 * (B * n * P + n + B * n + 2 * B * P) + 8 * P,
+           kept * pk.N_NEWTON * P1_GRAD_OPS + trial_el * P1_TRIAL_OPS,
+           "platt_fit_kernelILb1E", {"tasks": B, "n": n, "P": P},
+           sfu=kept * pk.N_NEWTON * 2 + trial_el * pk.N_HALVINGS,
+           tol="A and B rtol 1e-3 atol 1e-3 (float32 sums over ~1600 kept "
+               "elements in another order, through 50 Newton steps)",
+           extra={"plan": plan, "kept_elements": kept,
+                  "kept_share": kept / (B * n * P),
+                  "trial_steps_share": trial_el / (kept * pk.N_NEWTON),
+                  "sass_mufu": mufu})
+    del trials
+    platt = torch.stack([A, Bo], dim=1).reshape(B, P, 2).contiguous()
+    del pA, pB
+    want = pk.pair_coupling_plain(dec, platt, pairs, K_SVM)
+    k = K_SVM
+    # the reference's arithmetic: a sweep is Qp = Q p (2 k^2), pQp (2 k)
+    # and k steps of ~4 k + 11 (diff, pQp's update, Qp's and p's
+    # rescale); R and Q ~13 a pair.  SFUs: a pair's sigmoid (expf and a
+    # reciprocal), 1 / Q_tt once and 1 / (1 + diff) a step.
+    ops = B * n * (pk.N_SWEEPS * (6 * k * k + 13 * k) + 13 * P)
+    sfu = B * n * (2 * P + k + pk.N_SWEEPS * k)
+    nbytes = 4 * (B * n * P + 2 * B * P + B * n * k) + 8 * P
+    for variant in ("registers", "shared", "global"):
+        got = pk.pair_coupling(dec, platt, pairs, k, plan=variant)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        record(("svm_pair_coupling", variant),
+               lambda v=variant: (pk.pair_coupling(dec, platt, pairs, k,
+                                                   plan=v),),
+               lambda: (pk.pair_coupling_plain(dec, platt, pairs, k),),
+               float((got - want).abs().max()), nbytes, ops,
+               {"registers": "pair_coupling_regILi10E",
+                "shared": "pair_coupling_kernelILb0E",
+                "global": "pair_coupling_kernelILb1E"}[variant],
+               {"tasks": B, "n": n, "k": k},
+               sfu=sfu,
+               tol="atol 1e-4 on probabilities (the rescale by a "
+                   "reciprocal, sums in another order)",
+               extra={"plan": pk.coupling_plan(k, variant, B * n)})
+        del got
+    del dec, want, tw
+    torch.cuda.empty_cache()
+
+    for mode in ("svr", "nu"):
+        args = svr_step_inputs(seed, mode)
+        M, n = args[5].shape
+        got = svk.svr_dual_step(*args)
+        want = svk.svr_dual_step_plain(*args)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+        plan = svk.svr_step_plan(n)
+        # reads V, bound (M, n), z, x (M, 2n), y (n), eps or target (M);
+        # writes x', z' (M, 2n), beta' (M, n), resid (M).  Operations: the
+        # gradient (~6) and the last pass (~8) at every element, the 40
+        # bisection steps (~4) at the elements with a bound
+        kept = 2 * int((args[5] != 0).sum())
+        record(("svm_svr_step", mode), lambda a=args: svk.svr_dual_step(*a),
+               lambda a=args: svk.svr_dual_step_plain(*a), max(errs[:3]),
+               4 * (11 * M * n + n + 2 * M),
+               M * 2 * n * 14 + kept * svk.N_BISECT * 4,
+               f"svr_stepILi{0 if mode == 'svr' else 1}ELb0E",
+               {"M": M, "n": n, "mode": mode}, graph=True,
+               tol="x', z', beta' rtol 1e-5 atol 1e-4; the bisection's sums "
+                   "in another order",
+               extra={"plan": plan, "resid_max_abs_err": errs[3]})
+        del got, want, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rest_search(label, run, kernels, scoring, check, min_score=None,
+                path=None, profile=True):
+    """One search of phase 13 on cuda: cold, with the launches of the
+    kernel modules `kernels` (each kernel in `path`, all of them by
+    default, must launch), warm, profiled (busy ms, device launches, idle
+    share; `profile` False skips it: the profiler takes ~4x the warm wall
+    over the ~10^5 small launches of LinearSVC's and LinearSVR's loops),
+    then `check` = (run_small, tolerance) on cuda against the CPU."""
+    import torch
+
+    for mod in kernels:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    gs = run("cuda", True)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = {name: c for mod in kernels for name, c in
+                mod.LAUNCHES.items()}
+    for name in (launches if path is None else path):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on {label}'s path")
+    keys = list(scoring) if isinstance(scoring, list) else ["score"]
+    for key in keys:
+        sc = gs.cv_results_[f"mean_test_{key}"]
+        if not np.all(np.isfinite(sc)):
+            raise AssertionError(f"{label}: non-finite {key} {sc}")
+    best = float(np.max(gs.cv_results_[f"mean_test_{keys[0]}"]))
+    if min_score is not None and not best > min_score:
+        raise AssertionError(f"{label}: best {keys[0]} {best}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gs_w = run("cuda", False)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fits = len(gs_w.cv_results_["params"]) * gs_w.n_splits_
+    busy, by_name = (profile_busy(lambda: run("cuda", False), warm, 1,
+                                  f"chip_smoke_{label}.txt",
+                                  with_kernels=True, top=6)
+                     if profile else (None, {}))
+    n_launch = sum(count for _, count in by_name.values())
+    iters = [c.get("n_iter_exec") for c in gs_w.chunks_]
+    print(f"  {label}: {fits} fits (chunks {[c['lanes'] for c in gs_w.chunks_]}"
+          f", iterations {iters}), cold {cold:.3f} s, warm {warm:.3f} s, "
+          f"{fits / warm:.1f} fits/s, busy "
+          f"{'not measured' if busy is None else f'{busy * 1e3:.3f} ms'}, "
+          f"{n_launch} device launches, peak {peak / 2**20:.1f} MiB, kernel "
+          f"launches {launches}, best {keys[0]} {best:.4f}")
+    run_small, tol = check
+    return {"cold_s": cold, "warm_s": warm, "fits": fits,
+            "fits_per_s": fits / warm, "device_busy_s": busy,
+            "device_launches": n_launch,
+            "idle_share": None if busy is None else 1 - busy / warm,
+            "peak_bytes": peak, "launches": launches, "best": best,
+            "chunks": gs_w.chunks_,
+            "kernel_split_ms": {name: ns / 1e6 for name, (ns, _) in
+                                sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][0])[:8]},
+            "check": slice_check(label, run_small, keys, tol)}
+
+
+def phase_svm_rest(seed: int):
+    """The rest of the SVMs at their sources' widths (module docstring,
+    phase 13), each against the CPU on a subset."""
+    import warnings
+
+    import torch
+
+    from spark_sklearn_tpu_torch import (
+        SVC, SVR, GridSearchCV, KFold, LinearSVC, LinearSVR, NuSVR,
+        StratifiedKFold, TorchConfig)
+    from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+    from spark_sklearn_tpu_torch.ops import svm_proba_kernels as pk
+
+    Xm, ym = mnist_like(seed)
+    Xr, yr = california_like(seed)
+    gamma0 = 1.0 / (D_SVM * float(np.var(Xm)))
+    grid = {"C": SVM_C, "gamma": [f * gamma0 for f in SVM_GAMMA]}
+    per = N_REST_CHECK // K_SVM
+    idx = np.concatenate([np.where(ym == c)[0][:per] for c in range(K_SVM)])
+    out = {}
+
+    def search(est, g, X, y, cv, scoring, refit, device):
+        with warnings.catch_warnings():
+            # the reference's warning on in-sample Platt calibration
+            warnings.simplefilter("ignore", UserWarning)
+            return GridSearchCV(est, g, cv=cv, scoring=scoring, refit=refit,
+                                config=TorchConfig(device=device)).fit(X, y)
+
+    proba_scoring = ["accuracy", "neg_log_loss"]
+
+    def svc_run(device, cold):
+        gs = search(SVC(kernel="rbf", probability=True), grid, Xm, ym,
+                    StratifiedKFold(N_FOLDS), proba_scoring,
+                    "accuracy" if cold else False, device)
+        if cold:
+            # the refit SVC(probability=True) on the card: its Platt
+            # sigmoids and coupled probabilities of 2000 rows
+            proba = gs.best_estimator_.predict_proba(Xm[:N_SVM_CHECK])
+            if proba.shape != (N_SVM_CHECK, K_SVM) or not np.allclose(
+                    proba.sum(axis=1), 1.0, atol=1e-4):
+                raise AssertionError(f"SVC refit predict_proba: {proba}")
+            gs.refit_proba_ = proba
+        return gs
+
+    out["svc_proba"] = rest_search(
+        "svc_proba", svc_run, [svk, pk], proba_scoring,
+        (lambda dev: search(SVC(kernel="rbf", probability=True),
+                            {"C": SVM_C[:2], "gamma": [gamma0]}, Xm[idx],
+                            ym[idx], StratifiedKFold(3), proba_scoring,
+                            False, dev), 5e-3), min_score=0.3,
+        path=SVC_KERNELS + tuple(pk.LAUNCHES))
+    for label, est, g in (
+            ("svr", SVR(kernel="rbf"), {"C": SVR_C, "epsilon": SVR_EPS}),
+            ("nu_svr", NuSVR(kernel="rbf"), {"nu": SVR_NU})):
+        small = {k: v[:2] for k, v in g.items()}
+        out[label] = rest_search(
+            label, lambda dev, cold, e=est, gg=g: search(
+                e, gg, Xr, yr, KFold(N_FOLDS), "r2", False, dev),
+            [svk], "r2",
+            (lambda dev, e=est, gg=small: search(
+                e, gg, Xr[:N_REST_CHECK], yr[:N_REST_CHECK], KFold(3), "r2",
+                False, dev), 5e-3),
+            path=("svm_gram_epilogue", "svm_svr_step"))
+    lin_grid = {"C": LIN_C, "loss": ["hinge", "squared_hinge"]}
+    out["linear_svc"] = rest_search(
+        "linear_svc", lambda dev, cold: search(
+            LinearSVC(), lin_grid, Xm, ym, StratifiedKFold(N_FOLDS),
+            "accuracy", False, dev), [], "accuracy",
+        (lambda dev: search(LinearSVC(), {"C": LIN_C[:2], "loss": [
+            "hinge", "squared_hinge"]}, Xm[idx], ym[idx], StratifiedKFold(3),
+            "accuracy", False, dev), 5e-3), min_score=0.3, profile=False)
+    svr_grid = {"C": LIN_C, "loss": ["epsilon_insensitive",
+                                     "squared_epsilon_insensitive"]}
+    out["linear_svr"] = rest_search(
+        "linear_svr", lambda dev, cold: search(
+            LinearSVR(), svr_grid, Xr, yr, KFold(N_FOLDS), "r2", False,
+            dev), [], "r2",
+        (lambda dev: search(LinearSVR(), svr_grid, Xr[:N_REST_CHECK],
+                            yr[:N_REST_CHECK], KFold(3), "r2", False, dev),
+         5e-3), profile=False)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3034,7 +3433,8 @@ def main() -> int:
 
     header("[2] build", t_start)
     report = _build.build(["glm_epilogue", "svm_dual", "tree_hist",
-                           "mlp_step", "naive_bayes", "knn_topk", "kmeans"])
+                           "mlp_step", "naive_bayes", "knn_topk", "kmeans",
+                           "svm_proba"])
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.2f} s")
@@ -3042,7 +3442,7 @@ def main() -> int:
     for fn, (regs, spill) in sorted(ptxas.items()):
         print(f"    {regs:4d} registers {spill:5d} bytes spilled  {fn}")
 
-    header("[3] kernels at the headline and phase-8/9/10/11/12 shapes",
+    header("[3] kernels at the headline and phase-8/9/10/11/12/13 shapes",
            t_start)
     rows = phase_kernels(args.seed, n_sm, sm_mhz, ptxas)
     svm_rows = phase_svm_kernels(args.seed, ptxas)
@@ -3051,6 +3451,7 @@ def main() -> int:
     mlp_rows = phase_mlp_kernels(
         args.seed, ptxas_table(str(report["mlp_step"]["log"])))
     slice_rows = phase_slice_kernels(args.seed, ptxas)
+    proba_rows = phase_proba_kernels(args.seed, n_sm, sm_mhz, ptxas)
 
     header("[4] main path: 1000 C x 5 folds on cuda", t_start)
     X, y = digits_like(args.seed)
@@ -3090,6 +3491,11 @@ def main() -> int:
            "counts, LDA and KNN on MNIST-shaped data, a KNN regressor, "
            "KMeans", t_start)
     slice_run = phase_slice(args.seed)
+
+    header("[13] the rest of the SVMs: SVC(probability=True) on MNIST-shaped "
+           "data, SVR and NuSVR on California-shaped data, LinearSVC, "
+           "LinearSVR", t_start)
+    rest_run = phase_svm_rest(args.seed)
 
     meta = {
         "glm_loss_grad": "spark_sklearn_tpu/models/linear.py:221",
@@ -3316,13 +3722,44 @@ def main() -> int:
             "shape": head["shape"],
             **({other_v: slice_rows[(name, other_v)]} if other_v else {}),
         })
+    rest_meta = {
+        "svm_platt_fit": ("svm_proba", "spark_sklearn_tpu/models/svm.py:331",
+                          "svc_proba", {"svc_proba": "svc_proba"}),
+        "svm_pair_coupling": ("svm_proba",
+                              "spark_sklearn_tpu/models/svm.py:409",
+                              "registers", {"svc_proba": "svc_proba"}),
+        "svm_svr_step": ("svm_dual", "spark_sklearn_tpu/models/svr.py:48",
+                         "svr", {"svr": "svr", "nu_svr": "nu_svr"}),
+    }
+    for name, (src, replaces, main_v, paths) in rest_meta.items():
+        head = proba_rows[(name, main_v)]
+        main_path = rest_run[next(iter(paths))]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"spark_sklearn_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces,
+            "launches": main_path["launches"][name],
+            "launches_by_path": {p: rest_run[p]["launches"][name]
+                                 for p in paths},
+            "max_abs_err": max(r["max_abs_err"] for key, r in
+                               proba_rows.items() if key[0] == name),
+            "ms": head["ms"], "events_ms": head["events_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "library": "none: no single torch call computes it",
+            "registers": head["registers"],
+            "spill_bytes": head["spill_bytes"],
+            "tolerance": head["tolerance"], "shape": head["shape"],
+            **{v: row for (nm, v), row in proba_rows.items()
+               if nm == name and v != main_v},
+        })
     main_run["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "main": main_run,
                    "regressors": regressors, "l1": l1_run,
                    "svm": svm_run, "gb": gb_run, "rf": rf_run,
-                   "mlp": mlp_run, "slice": slice_run,
+                   "mlp": mlp_run, "slice": slice_run, "rest": rest_run,
                    "card": nvidia_smi("name,power.limit")}, f, indent=1)
     print(f"  total {main_run['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))

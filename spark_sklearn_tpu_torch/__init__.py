@@ -11,11 +11,12 @@ Entry points run on ``cuda`` unless the caller passes
 
 Public API so far:
   - GridSearchCV, RandomizedSearchCV  (compiled linear-family,
-    SVC/NuSVC, tree-ensemble, MLP, naive Bayes, LDA, KNN, KMeans and
+    SVC/NuSVC, SVR/NuSVR, LinearSVC/LinearSVR, tree-ensemble, MLP, naive Bayes, LDA, KNN, KMeans and
     Pipeline searches)
   - TorchConfig
   - LogisticRegression, Ridge, LinearRegression, ElasticNet, Lasso, SVC,
-    NuSVC (sklearn-free estimators)
+    NuSVC (with probability=True), SVR, NuSVR, LinearSVC, LinearSVR
+    (sklearn-free estimators)
   - MLPClassifier, MLPRegressor (sklearn-free estimators)
   - GaussianNB, MultinomialNB, ComplementNB, BernoulliNB, CategoricalNB,
     LinearDiscriminantAnalysis (solver="lsqr"), KNeighborsClassifier,
@@ -53,7 +54,11 @@ from spark_sklearn_tpu_torch.models.estimators import (
     Pipeline,
     Ridge,
     StandardScaler,
+    LinearSVC,
+    LinearSVR,
+    NuSVR,
     SVC,
+    SVR,
 )
 from spark_sklearn_tpu_torch.models.trees import (
     GradientBoostingClassifier,
@@ -84,6 +89,10 @@ __all__ = [
     "Lasso",
     "SVC",
     "NuSVC",
+    "SVR",
+    "NuSVR",
+    "LinearSVC",
+    "LinearSVR",
     "MLPClassifier",
     "MLPRegressor",
     "GaussianNB",

@@ -17,6 +17,12 @@ n_iter), one fit or a lane stack, becomes the port's with `nb_from_jax`,
 `lda_from_jax` and `kmeans_from_jax`: the same keys and shapes, float32
 and int32.  KNN has no fitted parameters to carry.
 
+The SVM families' task-batched models carry over with
+`svc_model_from_jax` (pair decisions and the Platt sigmoids of
+probability=True), `svr_model_from_jax` (SVR and NuSVR's regression
+values) and `linear_svm_from_jax` (LinearSVC and LinearSVR's coef and
+intercept): the same keys and shapes, float32 and int32.
+
 A tree grown by the JAX package's histogram grower (`ops/trees.py`
 `Tree`) becomes the port's, lane axis and all, with `tree_from_jax`.
 
@@ -180,3 +186,32 @@ def kmeans_from_jax(model, device=None):
     """KMeans' fitted {centers, inertia, n_iter} as the port's tensors.
     `device` None means ``cuda``."""
     return _fitted_from_jax(model, ("centers", "inertia", "n_iter"), device)
+
+
+def svc_model_from_jax(model, device=None):
+    """An SVC or NuSVC family's task-batched model (`pair_dec` (T, n, P),
+    `n_iter`, and with probability=True `platt` (T, 2) or `platt_pair`
+    (T, P, 2)) as the port's tensors: the port's `predict`, `decision`
+    and `predict_proba` on it give what the reference's give.  `device`
+    None means ``cuda``."""
+    return _fitted_from_jax(
+        model, ("pair_dec", "n_iter", "platt", "platt_pair"), device)
+
+
+def svr_model_from_jax(model, device=None):
+    """An SVR or NuSVR family's task-batched model (`f` (T, n), the
+    full-set regression values, and `n_iter`) as the port's tensors.
+    `device` None means ``cuda``."""
+    return _fitted_from_jax(model, ("f", "n_iter"), device)
+
+
+def linear_svm_from_jax(model, device=None):
+    """A LinearSVC or LinearSVR family's fitted dict (`coef`, `intercept`,
+    `converged`, `n_iter`; one fit or a lane stack) as the port's
+    tensors (`converged` as bool).  `device` None means ``cuda``."""
+    out = _fitted_from_jax(model, ("coef", "intercept", "n_iter"), device)
+    if "converged" in model:
+        out["converged"] = torch.as_tensor(
+            np.array(model["converged"], bool),
+            device=out["coef"].device)
+    return out

@@ -101,6 +101,16 @@
 //   kept elements) and writes x', z', w' for every element.
 // - Maxima propagate NaN as jnp.max and torch.amax do, and the clip is
 //   written as min(max(x, 0), b) with NaN passing through, as jnp.clip.
+//
+// S2's SVR mode  svm_svr_step   replaces a step of `_box_fista` on the
+//     epsilon-SVR and nu-SVR duals (spark_sklearn_tpu/models/svr.py:48-80,
+//     :117-170) over rows of the pairs (a, a*), 2n elements with signs
+//     (+1^n, -1^n).  Its own parts are the gradient (the linear term s y -
+//     eps, or s y, formed from y (n) and eps (M)), the two lists of a
+//     pair's halves (SvrList: the sign by list, 8 bytes a staged slot) and
+//     the last pass (both halves, and beta' = z'_a - z'_a* (M, n) for the
+//     next product).  The bisection (`bisect_levels`), the reductions, the
+//     brackets and the clip rules are S2's.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -120,6 +130,7 @@ constexpr int kStepThreads = 512;          // S2: threads a row
 constexpr int kStepWarps = kStepThreads / 32;
 constexpr int kBisect = 40;                // svm.py:132 n_bisect
 constexpr int kStagedMaxN = 20480;         // 9 bytes an element: 180 KB
+constexpr int kSvrStagedMaxN = 13824;      // SVR: 16 bytes a pair: 216 KB
 constexpr int kMaxNV = 6;                  // most values one reduction adds
 constexpr int kUnroll = 4;                 // S2: elements a thread loads
                                            // before it uses them
@@ -476,6 +487,14 @@ struct KeptList {
       gy[k] = yk;
     }
   }
+  // fn(u, b, yb) over the thread's first `cnt` slots, in slot order
+  template <typename Fn>
+  __device__ __forceinline__ void each(int cnt, Fn fn) const {
+    for (int q = 0; q < cnt; ++q) {
+      const int k = q * kStepThreads + threadIdx.x;
+      fn(u(k), b(k), yb(k));
+    }
+  }
 };
 
 // K steps of the bisection in one pass: the sums at the 2^K - 1 midpoints
@@ -484,10 +503,12 @@ struct KeptList {
 // there), one reduction, then the K sequential choices.  So the choices,
 // and lo and hi after them, are the sequential bisection's bit for bit.
 // MODE 0: sum of yb clip(u - mid yb, b) > 0 takes the upper half; MODE 1:
-// per half h, sum of clip(u - mid_h, b_h) > target.
-template <int MODE, int K, bool kStaged, bool kTame>
-__device__ __forceinline__ void bisect_levels(const KeptList<kStaged>& kept,
-                                              int cnt, float (&lo)[2],
+// per half h, sum of clip(u - mid_h, b_h) > target.  `List` is KeptList
+// (SVC, NuSVC) or SvrList (the SVR duals): its each(cnt, fn) calls fn(u,
+// b, yb) on the thread's kept elements in its own order.
+template <int MODE, int K, bool kTame, typename List, typename Count>
+__device__ __forceinline__ void bisect_levels(const List& kept, Count cnt,
+                                              float (&lo)[2],
                                               float (&hi)[2], float tgt,
                                               float* red, int& parity) {
   constexpr int P = (1 << K) - 1;          // midpoints a bisection
@@ -511,9 +532,7 @@ __device__ __forceinline__ void bisect_levels(const KeptList<kStaged>& kept,
   float g[H * P];
 #pragma unroll
   for (int q = 0; q < H * P; ++q) g[q] = 0.0f;
-  for (int q = 0; q < cnt; ++q) {
-    const int k = q * kStepThreads + threadIdx.x;
-    const float u = kept.u(k), b = kept.b(k), yb = kept.yb(k);
+  kept.each(cnt, [&](float u, float b, float yb) {
     if (MODE == 0) {
 #pragma unroll
       for (int j = 1; j <= P; ++j) {
@@ -529,7 +548,7 @@ __device__ __forceinline__ void bisect_levels(const KeptList<kStaged>& kept,
         g[P + j - 1] += clamp<kTame>(__fsub_rn(u, mid[1][j]), bm);
       }
     }
-  }
+  });
   block_sum<H * P>(g, red, parity);
 #pragma unroll
   for (int h = 0; h < H; ++h) {
@@ -647,12 +666,10 @@ dual_step(const float* __restrict__ V, const float* __restrict__ Z,
   int left = kBisect;
   if (tame) {
     for (; left >= 2; left -= 2)
-      bisect_levels<MODE, 2, kStaged, true>(kept, cnt, lo, hi, tgt, red,
-                                                parity);
+      bisect_levels<MODE, 2, true>(kept, cnt, lo, hi, tgt, red, parity);
   }
   for (; left > 0; --left)
-    bisect_levels<MODE, 1, kStaged, false>(kept, cnt, lo, hi, tgt, red,
-                                               parity);
+    bisect_levels<MODE, 1, false>(kept, cnt, lo, hi, tgt, red, parity);
   const float m0 = 0.5f * (lo[0] + hi[0]);
   const float m1 = MODE == 0 ? 0.0f : 0.5f * (lo[1] + hi[1]);
 
@@ -680,6 +697,23 @@ dual_step(const float* __restrict__ V, const float* __restrict__ Z,
   }
 }
 
+// Raises `kernel`'s dynamic shared-memory limit to the block's most, less
+// its static shared memory (the reductions'), once a device.
+template <typename Kernel>
+int allow_max_smem(Kernel kernel, bool* raised) {
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc != 0 || (dev < kMaxDevices && raised[dev])) return rc;
+  cudaFuncAttributes fa;
+  rc = static_cast<int>(cudaFuncGetAttributes(&fa, kernel));
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem - static_cast<int>(fa.sharedSizeBytes)));
+  if (rc == 0 && dev < kMaxDevices) raised[dev] = true;
+  return rc;
+}
+
 template <int MODE, bool kStaged>
 int launch_step(const float* V, const float* Z, const float* X,
                 const float* Yb, const float* Bd, const float* step,
@@ -691,23 +725,221 @@ int launch_step(const float* V, const float* Z, const float* X,
     smem = 9 * static_cast<size_t>((n + kStepThreads - 1) / kStepThreads) *
            kStepThreads;
     static bool raised[kMaxDevices] = {};
-    int dev = 0;
-    int rc = static_cast<int>(cudaGetDevice(&dev));
+    const int rc = allow_max_smem(dual_step<MODE, true>, raised);
     if (rc != 0) return rc;
-    if (dev >= kMaxDevices || !raised[dev]) {
-      // the block's most, less the reductions' static shared memory
-      cudaFuncAttributes fa;
-      rc = static_cast<int>(cudaFuncGetAttributes(&fa, dual_step<MODE, true>));
-      if (rc != 0) return rc;
-      rc = static_cast<int>(cudaFuncSetAttribute(
-          dual_step<MODE, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kMaxSmem - static_cast<int>(fa.sharedSizeBytes)));
-      if (rc != 0) return rc;
-      if (dev < kMaxDevices) raised[dev] = true;
-    }
   }
   dual_step<MODE, kStaged><<<M, kStepThreads, smem, s>>>(
       V, Z, X, Yb, Bd, step, coef, target, Xo, Zo, Wo, resid, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// S2, SVR mode
+// ---------------------------------------------------------------------------
+
+// A row of the (a, a*) iterate: 2n elements, a at [0, n), a* at [n, 2n),
+// signs s = +1 / -1 by position, bound bh[i] on both halves.  Thread t
+// walks the pairs i = t, t + kStepThreads, ... and keeps two lists: the a
+// elements that can move at slots q kStepThreads + t, the a* ones at
+// `half` + q kStepThreads + t (each below the element's own position, so
+// the streamed plan's lists fit in the rows of x' and z').  Staged: u
+// and the bound in shared memory (8 bytes a slot: the sign is the list's);
+// streamed: u in x', the bound in z'.  `bisect_levels` sums it as SVC's
+// KeptList, with yb the list's sign.
+template <bool kStaged>
+struct SvrList {
+  int cap;                                 // slots of each array
+  int half;                                // where the a* list starts
+  float* gu;
+  float* gb;
+  __device__ __forceinline__ float u(int k) const {
+    return kStaged ? s2_smem[k] : gu[k];
+  }
+  __device__ __forceinline__ float b(int k) const {
+    return kStaged ? s2_smem[cap + k] : gb[k];
+  }
+  __device__ __forceinline__ void put(int k, float uk, float bk) const {
+    if (kStaged) {
+      s2_smem[k] = uk;
+      s2_smem[cap + k] = bk;
+    } else {
+      gu[k] = uk;
+      gb[k] = bk;
+    }
+  }
+  // fn(u, b, s) over the first cnt.x slots of the a list (s = +1), then
+  // the first cnt.y of the a* list (s = -1)
+  template <typename Fn>
+  __device__ __forceinline__ void each(int2 cnt, Fn fn) const {
+    for (int q = 0; q < cnt.x; ++q) {
+      const int k = q * kStepThreads + threadIdx.x;
+      fn(u(k), b(k), 1.0f);
+    }
+    for (int q = 0; q < cnt.y; ++q) {
+      const int k = half + q * kStepThreads + threadIdx.x;
+      fn(u(k), b(k), -1.0f);
+    }
+  }
+};
+
+// u = z - step * grad of the SVR duals (svr.py:76-80, :149-153):
+// grad = -(lin - s v), lin = s y - eps (MODE 0, epsilon-SVR) or s y
+// (MODE 1, nu-SVR); z alone when there is no product.
+template <int MODE>
+__device__ __forceinline__ float svr_grad_step(bool has_v, float v, float z,
+                                               float s, float y, float eps,
+                                               float step) {
+  if (!has_v) return z;
+  const float sy = s * y;                  // exact: s is +-1
+  const float lin = MODE == 0 ? __fsub_rn(sy, eps) : sy;
+  const float grad = -__fsub_rn(lin, s * v);
+  return __fsub_rn(z, __fmul_rn(step, grad));
+}
+
+// One projected Nesterov step of the epsilon-SVR (MODE 0: the box and
+// the hyperplane sum(a - a*) = 0) or nu-SVR (MODE 1: sum a = sum a* =
+// target[row]) dual over a row of 2n elements, from the product V = beta K
+// (M, n), the labels y (n) and the row's epsilon (MODE 0).  Writes x' and
+// z' (M, 2n), beta' = z'_a - z'_a* (M, n) for the next product, and the
+// residual.  The same passes, brackets and clip rules as `dual_step`.
+template <int MODE, bool kStaged>
+__global__ void __launch_bounds__(kStepThreads, 2)
+svr_step(const float* __restrict__ V, const float* __restrict__ Z,
+         const float* __restrict__ X, const float* __restrict__ Y,
+         const float* __restrict__ eps_ptr, const float* __restrict__ Bh,
+         const float* __restrict__ step_ptr, float coef,
+         const float* __restrict__ target, float* Xo, float* Zo,
+         float* __restrict__ Beta, float* __restrict__ resid, int n) {
+  __shared__ float red[2 * (kStepWarps + 1) * kMaxNV];
+  int parity = 0;
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const size_t off2 = row * 2 * static_cast<size_t>(n);
+  const size_t offn = row * static_cast<size_t>(n);
+  const float step = *step_ptr;
+  const float eps = MODE == 0 && eps_ptr != nullptr ? eps_ptr[row] : 0.0f;
+  const int slots = (n + kStepThreads - 1) / kStepThreads;
+  const int half = kStaged ? slots * kStepThreads : n;
+  const SvrList<kStaged> kept = {2 * slots * kStepThreads, half, Xo + off2,
+                                 Zo + off2};
+  const bool has_v = V != nullptr;
+
+  float mx[2] = {0.0f, 0.0f};               // max|u|, max b
+  float neg_b = -INFINITY;
+  int cnt_a = 0, cnt_s = 0;
+  for (int i = tid; i < n; i += kStepThreads) {
+    const float b = Bh[offn + i], y = Y[i];
+    const float v = has_v ? V[offn + i] : 0.0f;
+    const float ua = svr_grad_step<MODE>(has_v, v, Z[off2 + i], 1.0f, y, eps,
+                                         step);
+    const float us = svr_grad_step<MODE>(has_v, v, Z[off2 + n + i], -1.0f, y,
+                                         eps, step);
+    mx[0] = max_nan(mx[0], max_nan(fabsf(ua), fabsf(us)));
+    mx[1] = max_nan(mx[1], b);
+    neg_b = max_nan(neg_b, -b);
+    const bool fin_b = isfinite(b);
+    if (b != 0.0f || !(isfinite(ua) && fin_b)) {
+      kept.put(cnt_a * kStepThreads + tid, ua, b);
+      ++cnt_a;
+    }
+    if (b != 0.0f || !(isfinite(us) && fin_b)) {
+      kept.put(half + cnt_s * kStepThreads + tid, us, b);
+      ++cnt_s;
+    }
+  }
+  float m[3] = {mx[0], mx[1], neg_b};
+  block_max<3>(m, red, parity);
+
+  float lo[2], hi[2], tgt = 0.0f;
+  if (MODE == 0) {
+    lo[0] = -__fadd_rn(m[0], m[1]);
+    hi[0] = -lo[0];
+    lo[1] = hi[1] = 0.0f;
+  } else {
+    tgt = target[row];
+    const float zmax = __fadd_rn(__fadd_rn(m[0], m[1]), 1.0f);
+    lo[0] = lo[1] = -zmax;
+    hi[0] = hi[1] = zmax;
+  }
+  const bool wide = !(hi[0] <= kHalfMax && hi[1] <= kHalfMax);
+  const bool tame = !wide && m[2] <= 0.0f;
+  if (wide) {
+    cnt_a = cnt_s = 0;
+    for (int i = tid; i < n; i += kStepThreads) {
+      const float b = Bh[offn + i], y = Y[i];
+      const float v = has_v ? V[offn + i] : 0.0f;
+      kept.put(cnt_a * kStepThreads + tid,
+               svr_grad_step<MODE>(has_v, v, Z[off2 + i], 1.0f, y, eps, step),
+               b);
+      ++cnt_a;
+      kept.put(half + cnt_s * kStepThreads + tid,
+               svr_grad_step<MODE>(has_v, v, Z[off2 + n + i], -1.0f, y, eps,
+                                   step),
+               b);
+      ++cnt_s;
+    }
+  }
+
+  const int2 cnt = make_int2(cnt_a, cnt_s);
+  int left = kBisect;
+  if (tame) {
+    for (; left >= 2; left -= 2)
+      bisect_levels<MODE, 2, true>(kept, cnt, lo, hi, tgt, red, parity);
+  }
+  for (; left > 0; --left)
+    bisect_levels<MODE, 1, false>(kept, cnt, lo, hi, tgt, red, parity);
+  const float m0 = 0.5f * (lo[0] + hi[0]);
+  const float m1 = MODE == 0 ? 0.0f : 0.5f * (lo[1] + hi[1]);
+
+  // last pass, every pair: both halves of x' and z', beta' and the
+  // residual (the lists are no longer read)
+  float r[1] = {0.0f};
+  for (int i = tid; i < n; i += kStepThreads) {
+    const float b = Bh[offn + i], y = Y[i];
+    const float v = has_v ? V[offn + i] : 0.0f;
+    const float za = Z[off2 + i], zs = Z[off2 + n + i];
+    const float ua = svr_grad_step<MODE>(has_v, v, za, 1.0f, y, eps, step);
+    const float us = svr_grad_step<MODE>(has_v, v, zs, -1.0f, y, eps, step);
+    float xa, xs;
+    if (MODE == 0) {
+      xa = clip(__fsub_rn(ua, m0), b);
+      xs = clip(__fadd_rn(us, m0), b);
+    } else {
+      xa = __fadd_rn(clip(__fsub_rn(ua, m0), b), clip(__fsub_rn(ua, m1), 0.0f));
+      xs = __fadd_rn(clip(__fsub_rn(us, m0), 0.0f), clip(__fsub_rn(us, m1), b));
+    }
+    const float na = __fadd_rn(xa, __fmul_rn(coef, __fsub_rn(xa, X[off2 + i])));
+    const float ns =
+        __fadd_rn(xs, __fmul_rn(coef, __fsub_rn(xs, X[off2 + n + i])));
+    r[0] = max_nan(r[0], max_nan(fabsf(__fsub_rn(xa, za)),
+                                 fabsf(__fsub_rn(xs, zs))));
+    Xo[off2 + i] = xa;
+    Xo[off2 + n + i] = xs;
+    Zo[off2 + i] = na;
+    Zo[off2 + n + i] = ns;
+    Beta[offn + i] = __fsub_rn(na, ns);
+  }
+  block_max<1>(r, red, parity);
+  if (tid == 0) resid[row] = __fdiv_rn(r[0], step);
+}
+
+template <int MODE, bool kStaged>
+int launch_svr(const float* V, const float* Z, const float* X, const float* Y,
+               const float* eps, const float* Bh, const float* step,
+               float coef, const float* target, float* Xo, float* Zo,
+               float* Beta, float* resid, int M, int n, cudaStream_t s) {
+  size_t smem = 0;
+  if (kStaged) {
+    // 8 bytes a slot, two lists of slots * kStepThreads
+    smem = 16 * static_cast<size_t>((n + kStepThreads - 1) / kStepThreads) *
+           kStepThreads;
+    static bool raised[kMaxDevices] = {};
+    const int rc = allow_max_smem(svr_step<MODE, true>, raised);
+    if (rc != 0) return rc;
+  }
+  svr_step<MODE, kStaged><<<M, kStepThreads, smem, s>>>(
+      V, Z, X, Y, eps, Bh, step, coef, target, Xo, Zo, Beta, resid, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -795,6 +1027,33 @@ int svm_dual_step(const float* V, const float* Z, const float* X,
                                        Xo, Zo, Wo, resid, M, n, s)
                 : launch_step<1, false>(V, Z, X, Yb, Bd, step, coef, target,
                                         Xo, Zo, Wo, resid, M, n, s);
+}
+
+// S2, SVR mode: one projected Nesterov step of the epsilon-SVR (mode 0)
+// or nu-SVR (mode 1) dual over M rows of 2n (a, a*) elements.  V (M, n)
+// may be null (a projection of z only); eps (M,) is read in mode 0,
+// target (M,) in mode 1; `step` is a device scalar.  staged = 1 takes the
+// shared-memory plan (n <= kSvrStagedMaxN).  Xo, Zo and Beta must not
+// alias the inputs.  Returns cudaGetLastError() of the launch.
+int svm_svr_step(const float* V, const float* Z, const float* X,
+                 const float* Y, const float* eps, const float* Bh,
+                 const float* step, float coef, const float* target,
+                 float* Xo, float* Zo, float* Beta, float* resid, int M,
+                 int n, int mode, int staged, void* stream) {
+  if (M < 1 || n < 1 || (staged && n > kSvrStagedMaxN) ||
+      (mode == 0 && eps == nullptr) || (mode == 1 && target == nullptr) ||
+      (mode != 0 && mode != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0)
+    return staged ? launch_svr<0, true>(V, Z, X, Y, eps, Bh, step, coef,
+                                        target, Xo, Zo, Beta, resid, M, n, s)
+                  : launch_svr<0, false>(V, Z, X, Y, eps, Bh, step, coef,
+                                         target, Xo, Zo, Beta, resid, M, n, s);
+  return staged ? launch_svr<1, true>(V, Z, X, Y, eps, Bh, step, coef, target,
+                                      Xo, Zo, Beta, resid, M, n, s)
+                : launch_svr<1, false>(V, Z, X, Y, eps, Bh, step, coef,
+                                       target, Xo, Zo, Beta, resid, M, n, s);
 }
 
 }  // extern "C"

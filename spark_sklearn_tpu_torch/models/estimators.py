@@ -17,7 +17,11 @@ LinearRegression) fit in float64 here too.
 
 `SVC` and `NuSVC` fit the full data with the search's dual solver and
 keep the representer form (training X, signed alphas, intercepts), so
-they predict new X with one kernel matrix.
+they predict new X with one kernel matrix; with `probability=True` they
+also calibrate Platt sigmoids on their training decisions and give
+`predict_proba`.  `SVR` and `NuSVR` keep (training X, β, b) the same
+way; `LinearSVC` and `LinearSVR` fit one lane of their family's batched
+fit (the reference's `models/svr.py`).
 
 The five naive Bayes classes, `LinearDiscriminantAnalysis`,
 `KNeighborsClassifier`/`Regressor` and `KMeans` (the reference's
@@ -67,6 +71,12 @@ from spark_sklearn_tpu_torch.models.neighbors import (
 )
 from spark_sklearn_tpu_torch.models import preprocessing as prep
 from spark_sklearn_tpu_torch.models.svm import NuSVCFamily, SVCFamily
+from spark_sklearn_tpu_torch.models.svr import (
+    LinearSVCFamily,
+    LinearSVRFamily,
+    NuSVRFamily,
+    SVRFamily,
+)
 from spark_sklearn_tpu_torch.parallel.device import TorchConfig, resolve_device
 
 
@@ -219,25 +229,10 @@ class Lasso(ElasticNet):
                          tol=tol, random_state=random_state, device=device)
 
 
-class SVC(_Estimator):
-    """Kernel SVM, one-vs-one for k > 2 classes, fitted by projected
-    Nesterov ascent on libsvm's dual (`models/svm.py`)."""
-
-    _family = SVCFamily
-
-    def __init__(self, C=1.0, kernel="rbf", gamma="scale", degree=3,
-                 coef0=0.0, max_iter=-1, tol=1e-3, class_weight=None,
-                 random_state=None, device=None):
-        self.C = C
-        self.kernel = kernel
-        self.gamma = gamma
-        self.degree = degree
-        self.coef0 = coef0
-        self.max_iter = max_iter
-        self.tol = tol
-        self.class_weight = class_weight
-        self.random_state = random_state
-        self.device = device
+class _KernelEstimator(_Estimator):
+    """The kernel SVMs' fit: the family's full-data representer form
+    (training X and its coefficients), which predicts new X with one
+    kernel matrix."""
 
     def fit(self, X, y):
         dev = resolve_device(TorchConfig(device=self.device))
@@ -263,6 +258,28 @@ class SVC(_Estimator):
         return torch.as_tensor(np.asarray(X, np.float32),
                                device=self._device)
 
+
+class SVC(_KernelEstimator):
+    """Kernel SVM, one-vs-one for k > 2 classes, fitted by projected
+    Nesterov ascent on libsvm's dual (`models/svm.py`)."""
+
+    _family = SVCFamily
+
+    def __init__(self, C=1.0, kernel="rbf", gamma="scale", degree=3,
+                 coef0=0.0, probability=False, max_iter=-1, tol=1e-3,
+                 class_weight=None, random_state=None, device=None):
+        self.C = C
+        self.kernel = kernel
+        self.gamma = gamma
+        self.degree = degree
+        self.coef0 = coef0
+        self.probability = probability
+        self.max_iter = max_iter
+        self.tol = tol
+        self.class_weight = class_weight
+        self.random_state = random_state
+        self.device = device
+
     def decision_function(self, X):
         return self._family.decision(
             self._model, self._static, self._X(X), self._meta).cpu().numpy()
@@ -271,6 +288,10 @@ class SVC(_Estimator):
         idx = self._family.predict(
             self._model, self._static, self._X(X), self._meta)
         return self.classes_[idx.cpu().numpy()]
+
+    def predict_proba(self, X):
+        return self._family.predict_proba(
+            self._model, self._static, self._X(X), self._meta).cpu().numpy()
 
 
 class NuSVC(SVC):
@@ -281,17 +302,111 @@ class NuSVC(SVC):
     _family = NuSVCFamily
 
     def __init__(self, nu=0.5, kernel="rbf", gamma="scale", degree=3,
-                 coef0=0.0, max_iter=-1, tol=1e-3, class_weight=None,
-                 random_state=None, device=None):
+                 coef0=0.0, probability=False, max_iter=-1, tol=1e-3,
+                 class_weight=None, random_state=None, device=None):
         self.nu = nu
         self.kernel = kernel
         self.gamma = gamma
         self.degree = degree
         self.coef0 = coef0
+        self.probability = probability
         self.max_iter = max_iter
         self.tol = tol
         self.class_weight = class_weight
         self.random_state = random_state
+        self.device = device
+
+
+class SVR(_KernelEstimator):
+    """Epsilon-SVR, fitted by projected Nesterov ascent on libsvm's dual
+    (`models/svr.py`); predicts K(X, X_train) β + b."""
+
+    _family = SVRFamily
+
+    def __init__(self, kernel="rbf", degree=3, gamma="scale", coef0=0.0,
+                 tol=1e-3, C=1.0, epsilon=0.1, max_iter=-1, device=None):
+        self.kernel = kernel
+        self.degree = degree
+        self.gamma = gamma
+        self.coef0 = coef0
+        self.tol = tol
+        self.C = C
+        self.epsilon = epsilon
+        self.max_iter = max_iter
+        self.device = device
+
+    def predict(self, X):
+        return self._family.predict(
+            self._model, self._static, self._X(X), self._meta).cpu().numpy()
+
+
+class NuSVR(SVR):
+    """nu-SVR: `nu` fixes the share of support vectors in place of
+    epsilon."""
+
+    _family = NuSVRFamily
+
+    def __init__(self, nu=0.5, C=1.0, kernel="rbf", degree=3,
+                 gamma="scale", coef0=0.0, tol=1e-3, max_iter=-1,
+                 device=None):
+        self.nu = nu
+        self.C = C
+        self.kernel = kernel
+        self.degree = degree
+        self.gamma = gamma
+        self.coef0 = coef0
+        self.tol = tol
+        self.max_iter = max_iter
+        self.device = device
+
+
+class LinearSVC(_Estimator):
+    """liblinear's LinearSVC (l2 penalty, one-vs-rest): squared hinge by
+    L-BFGS, hinge by its box dual; liblinear's regularised intercept."""
+
+    _family = LinearSVCFamily
+
+    def __init__(self, penalty="l2", loss="squared_hinge", tol=1e-4,
+                 C=1.0, multi_class="ovr", fit_intercept=True,
+                 intercept_scaling=1, class_weight=None, max_iter=1000,
+                 device=None):
+        self.penalty = penalty
+        self.loss = loss
+        self.tol = tol
+        self.C = C
+        self.multi_class = multi_class
+        self.fit_intercept = fit_intercept
+        self.intercept_scaling = intercept_scaling
+        self.class_weight = class_weight
+        self.max_iter = max_iter
+        self.device = device
+
+    def decision_function(self, X):
+        return self._family.decision(
+            self._model, self._static, self._X(X), self._meta).cpu().numpy()
+
+    def predict(self, X):
+        idx = self._family.predict(
+            self._model, self._static, self._X(X), self._meta)
+        return self.classes_[idx.cpu().numpy()]
+
+
+class LinearSVR(_Regressor):
+    """liblinear's LinearSVR: epsilon-insensitive by its dual, squared
+    epsilon-insensitive by L-BFGS; liblinear's regularised intercept."""
+
+    _family = LinearSVRFamily
+
+    def __init__(self, epsilon=0.0, tol=1e-4, C=1.0,
+                 loss="epsilon_insensitive", fit_intercept=True,
+                 intercept_scaling=1.0, max_iter=1000, device=None):
+        self.epsilon = epsilon
+        self.tol = tol
+        self.C = C
+        self.loss = loss
+        self.fit_intercept = fit_intercept
+        self.intercept_scaling = intercept_scaling
+        self.max_iter = max_iter
         self.device = device
 
 

@@ -80,6 +80,14 @@ class PipelineFamily:
     def prepare_data(self, X, y, dtype=np.float32):
         return self.final.prepare_data(X, y, dtype=dtype)
 
+    def observe_candidates(self, candidates, base_params, meta):
+        """The final's host-side check (SVC's probability warning), on its
+        own parameters."""
+        if hasattr(self.final, "observe_candidates"):
+            self.final.observe_candidates(
+                [self._final_static(c) for c in candidates],
+                self._final_static(base_params), meta)
+
     def _split_static(self, static):
         per_step: Dict[str, Dict[str, Any]] = {n: {} for n, _ in self.steps}
         per_step[self.final_name] = {}

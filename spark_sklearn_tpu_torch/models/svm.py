@@ -26,12 +26,18 @@ In a Pipeline the final SVC gets per-fold transformed inputs
 kernel matrix, and ``gamma="scale"`` follows the fold's transformed
 training rows (the reference's pipeline mode, svm.py:584-638).
 
-Not ported in this slice: `probability=True` (Platt scaling and pairwise
-coupling) and the converted-model probability path; they raise.
+`probability=True` calibrates a Platt sigmoid on each task's train-fold
+decisions (one a class pair, P1) and couples the pairs' probabilities
+by Wu and Lin's method (P2), both hand-written kernels
+(`ops/svm_proba_kernels.py`); the reference's approximation (in-sample
+decisions, not libsvm's internal 5-fold CV) is kept, with its warning.
+Not ported: the converted-model probability path (libsvm's probA/probB,
+which waits for the Converter).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict
 
 import numpy as np
@@ -44,6 +50,10 @@ from spark_sklearn_tpu_torch.models.base import (
     register_family,
 )
 from spark_sklearn_tpu_torch.ops.svm_kernels import dual_step, gram_epilogue
+from spark_sklearn_tpu_torch.ops.svm_proba_kernels import (
+    pair_coupling,
+    platt_fit,
+)
 
 #: iterations of the power method that sizes the ascent step (svm.py:69)
 POWER_STEPS = 20
@@ -100,7 +110,7 @@ def _box_fista(advance, x0, w0, max_iter, tol=None):
             x, z, w, _ = advance(x, z, w, coef)
         return x
     B = x0.shape[0]
-    tol_t = torch.tensor(tol, dtype=x0.dtype, device=x0.device)
+    tol_t = torch.as_tensor(tol, dtype=x0.dtype, device=x0.device)
     done = torch.zeros(B, dtype=torch.bool, device=x0.device)
     n_iter = torch.full((B,), max_iter, dtype=torch.int32, device=x0.device)
     it = 0
@@ -263,10 +273,6 @@ def _kernel_args(static):
         raise ValueError(
             "kernel='precomputed' is not compiled (the reference runs it on "
             "its host tier, which is not ported)")
-    if _probability_on(static):
-        raise NotImplementedError(
-            "SVC(probability=True) (Platt scaling and pairwise coupling) "
-            "waits for a later slice of the port")
     return kind, float(static.get("degree", 3)), \
         float(static.get("coef0", 0.0))
 
@@ -307,9 +313,25 @@ def _f32(v):
     return float(np.float32(v))
 
 
+def _platt_entries(pair_dec, y, train_w, meta):
+    """The Platt sigmoids of `probability=True` (svm.py:648-687), fitted
+    on the tasks' train-fold decisions by P1: {"platt": (B, 2)} when
+    binary, {"platt_pair": (B, P, 2)}, one a class pair, otherwise."""
+    k = meta["n_classes"]
+    B, _, P = pair_dec.shape
+    A, Bb = platt_fit(pair_dec, y, train_w, meta["pairs"], k == 2)
+    ab = torch.stack([A, Bb], dim=1)
+    if k == 2:
+        return {"platt": ab}
+    return {"platt_pair": ab.reshape(B, P, 2)}
+
+
 class SVCFamily(Family):
     name = "svc"
     is_classifier = True
+    #: libsvm computes probabilities in float64 whatever the input dtype,
+    #: so sklearn's log_loss clips them at float64's eps (svm.py:466)
+    proba_dtype_rule = "float64"
     #: a Pipeline hands it per-fold transformed inputs, data["X_folds"]
     accepts_fold_inputs = True
     dynamic_params = {"C": np.float32, "gamma": np.float32}
@@ -340,6 +362,19 @@ class SVCFamily(Family):
         p = max(1, k * (k - 1) // 2)
         budget = 1 << 30   # ~1 GiB of decision cache per launch
         return max(1, budget // max(1, n_samples * p * 4))
+
+    @classmethod
+    def observe_candidates(cls, candidates, base_params, meta):
+        """Host-side, once a fit: warn that the Platt calibration of
+        `probability=True` uses train-fold decisions (svm.py:500-513)."""
+        if _probability_on(base_params) or any(
+                _probability_on(c) for c in candidates):
+            warnings.warn(
+                "compiled SVC(probability=True): Platt calibration uses "
+                "train-fold decision values, not libsvm's internal "
+                "5-fold CV — probabilities are slightly overconfident "
+                "vs sklearn's (documented in docs/ROADMAP.md)",
+                UserWarning, stacklevel=2)
 
     @classmethod
     def prepare_data(cls, X, y, dtype=np.float32):
@@ -441,8 +476,11 @@ class SVCFamily(Family):
             pair_dec[c * n_folds:(c + 1) * n_folds] = last
             its.append(its[-1])
         n_iter = torch.stack(its).to(dev).to(torch.int32)
-        return {"pair_dec": pair_dec,
-                "n_iter": n_iter.repeat_interleave(n_folds)}
+        model = {"pair_dec": pair_dec,
+                 "n_iter": n_iter.repeat_interleave(n_folds)}
+        if _probability_on(static):
+            model.update(_platt_entries(pair_dec, y, train_w, meta))
+        return model
 
     @classmethod
     def fit_representer(cls, X, y, static, meta):
@@ -466,7 +504,15 @@ class SVCFamily(Family):
         alphas, b = cls._representer(K, p_c, base, yb, _power_step(K),
                                      _max_iter(static),
                                      _tol_or_default(static))
-        return {"sv_X": X, "alphas": alphas, "intercepts": b}
+        model = {"sv_X": X, "alphas": alphas, "intercepts": b}
+        if _probability_on(static):
+            # the calibration of a fit on all rows: its own training
+            # decisions, every row weighted 1
+            dec = (K @ alphas.T + b[None, :])[None]           # (1, n, P)
+            ones = torch.ones((1, n), dtype=X.dtype, device=X.device)
+            model.update({key: v[0] for key, v in _platt_entries(
+                dec.contiguous(), y, ones, meta).items()})
+        return model
 
     # -- prediction from cached decisions (search-internal) or from the
     # -- representer form (the standalone estimators) ----------------------
@@ -512,15 +558,36 @@ class SVCFamily(Family):
         return cls._votes(dec, meta)
 
     @classmethod
+    def predict_proba(cls, model, static, X, meta):
+        """Platt probabilities of `probability=True` (svm.py:739-776):
+        binary, one sigmoid of the decision; multiclass, the pairs'
+        sigmoids coupled by P2.  Over the tasks of a search's models
+        (decisions (T, n, P)) or one fitted estimator's (n, P)."""
+        dec = cls._pair_dec_of(model, static, X, meta)
+        if "platt" in model:
+            ab = model["platt"]
+            p1 = torch.sigmoid(-(ab[..., 0, None] * dec[..., 0]
+                                 + ab[..., 1, None]))
+            return torch.stack([1.0 - p1, p1], dim=-1)
+        if "platt_pair" in model:
+            k = meta["n_classes"]
+            ab = model["platt_pair"]
+            if dec.dim() == 2:
+                return pair_coupling(dec[None].contiguous(), ab[None],
+                                     meta["pairs"], k)[0]
+            return pair_coupling(dec.contiguous(), ab, meta["pairs"], k)
+        raise NotImplementedError(
+            "predict_proba requires SVC(probability=True)")
+
+    @classmethod
     def views_task_batched(cls, models, static, data, meta, needed):
         """Scorer views of all T tasks from the cached `pair_dec` (T, n,
-        P): "pred" (T, n) class indices and "decision" (T, n) for binary,
-        (T, n, k) votes otherwise."""
-        if "proba" in needed:
-            raise NotImplementedError(
-                "probability scorers of SVC (Platt scaling) wait for a later "
-                "slice of the port")
+        P): "pred" (T, n) class indices, "decision" (T, n) for binary,
+        (T, n, k) votes otherwise, and "proba" (T, n, k) where the search
+        fitted `probability=True`."""
         views = {}
+        if "proba" in needed:
+            views["proba"] = cls.predict_proba(models, static, None, meta)
         if "pred" in needed:
             views["pred"] = cls.predict(models, static, None, meta)
         if "decision" in needed:

@@ -22,6 +22,19 @@ version beside it.
   only.  Returns (x', z', w' = z'∘yb, resid), resid = max|x' − z| / step
   per row.
 
+- S2's SVR mode `svr_dual_step(V, z, x, y, eps, bound_half, step, coef,
+  target=None)`: the same step on the epsilon-SVR and nu-SVR duals
+  (`spark_sklearn_tpu/models/svr.py:48-80`, `:117-170`), whose rows hold
+  the pairs u = (a, a*) (M, 2n) with signs s = (+1ⁿ, −1ⁿ) and the bound
+  `bound_half` (M, n) on both halves.  The gradient carries the linear
+  term lin = s·[y, y] − eps (epsilon-SVR, eps (M,)) or s·[y, y] (nu-SVR:
+  eps None, `target` (M,) the sum of each half), formed in the kernel
+  from y (n,) and eps, so that no (M, 2n) tensor of it is written; V is
+  the product β K (M, n) of β = a − a*, used for both halves.  The
+  projection is S2's box-hyperplane with s for labels, or the two half
+  box-sums, by S2's bisection.  Returns (x', z', β' = z'_a − z'_a*,
+  resid): β' is the next product's operand.
+
 Shapes: X1 (n1, d), X2 (n2, d), G (n1, n2); V, z, x, yb, bound (M, n),
 one row per subproblem; yb holds -1, 0 or +1 and bound is >= 0; target
 (M,); step a 0-dim tensor (it stays on the device).  All float32.
@@ -47,7 +60,7 @@ import torch
 from spark_sklearn_tpu_torch.ops import _build
 
 #: kernel name -> number of launches in this process
-LAUNCHES = {"svm_gram_epilogue": 0, "svm_dual_step": 0}
+LAUNCHES = {"svm_gram_epilogue": 0, "svm_dual_step": 0, "svm_svr_step": 0}
 
 #: S1's kernel kinds, as `Kind` in csrc/svm_dual.cu
 KINDS = {"linear": 0, "rbf": 1, "poly": 2, "sigmoid": 3}
@@ -64,6 +77,9 @@ GRAM_BLOCKS_PER_SM = 8
 STAGED_MAX_N = 20480
 #: S2's threads a block (one block a row), as `kStepThreads`
 STEP_THREADS = 512
+#: most pairs of a row S2's SVR mode stages (16 bytes each), as
+#: `kSvrStagedMaxN`
+SVR_STAGED_MAX_N = 13824
 
 #: bisection steps of both projections (svm.py:132, :158 `n_bisect`)
 N_BISECT = 40
@@ -153,6 +169,36 @@ def dual_step_plain(V, z, x, yb, bound, step, coef, target=None):
     return x_new, z_new, z_new * yb, resid
 
 
+def svr_dual_step_plain(V, z, x, y, eps, bound_half, step, coef,
+                        target=None):
+    """S2's SVR mode, plain: the reference's step on the stacked (a, a*)
+    rows, term by term (svr.py:76-80 and :149-153 for the gradient, the
+    box-hyperplane or the two half box-sum projections)."""
+    n = y.shape[0]
+    one = torch.ones(n, dtype=y.dtype, device=y.device)
+    s = torch.cat([one, -one])
+    if V is None:
+        u = z
+    else:
+        lin = (s * torch.cat([y, y]))[None, :]
+        if target is None:
+            lin = lin - eps[:, None]
+        grad = -(lin - s * torch.cat([V, V], dim=1))
+        u = z - step * grad
+    if target is None:
+        x_new = project_box_hyperplane(
+            u, s.expand_as(u), torch.cat([bound_half, bound_half], dim=1))
+    else:
+        zero = torch.zeros_like(bound_half)
+        pos_b = torch.cat([bound_half, zero], dim=1)
+        neg_b = torch.cat([zero, bound_half], dim=1)
+        x_new = project_box_sum(u, pos_b, target) + \
+            project_box_sum(u, neg_b, target)
+    z_new = x_new + coef * (x_new - x)
+    resid = (x_new - z).abs().amax(dim=1) / step
+    return x_new, z_new, z_new[:, :n] - z_new[:, n:], resid
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -167,6 +213,9 @@ def _lib() -> ctypes.CDLL:
     lib.svm_dual_step.argtypes = [p, p, p, p, p, p, f, p, p, p, p, p, i, i,
                                   i, i, p]
     lib.svm_dual_step.restype = i
+    lib.svm_svr_step.argtypes = [p, p, p, p, p, p, p, f, p, p, p, p, p, i,
+                                 i, i, i, p]
+    lib.svm_svr_step.restype = i
     return lib
 
 
@@ -301,3 +350,61 @@ def dual_step(V, z, x, yb, bound, step, coef, target=None, plan=None):
     _raise_on(rc, "svm_dual_step")
     LAUNCHES["svm_dual_step"] += 1
     return x_new, z_new, w_new, resid
+
+
+def svr_step_plan(n: int, plan=None) -> dict:
+    """S2's SVR launch for rows of n pairs: thread t takes the pairs t, t
+    + threads, ... and keeps two lists (a and a*) of up to `slots` kept
+    elements each; "staged" holds them in `smem` bytes (u and the bound,
+    16 bytes a pair slot) up to `SVR_STAGED_MAX_N` pairs, "streamed" in
+    the rows of x' and z'."""
+    threads = STEP_THREADS
+    slots = -(-n // threads)
+    plan = plan or ("staged" if n <= SVR_STAGED_MAX_N else "streamed")
+    if plan not in ("staged", "streamed"):
+        raise ValueError(f"plan={plan!r} is not 'staged' or 'streamed'")
+    return {"plan": plan, "threads": threads, "slots": slots,
+            "smem": 16 * slots * threads if plan == "staged" else 0}
+
+
+def svr_dual_step(V, z, x, y, eps, bound_half, step, coef, target=None,
+                  plan=None):
+    """S2's SVR mode (see the module docstring): eps (M,) for
+    epsilon-SVR, or None with `target` (M,) for nu-SVR."""
+    if z.device.type == "cpu":
+        return svr_dual_step_plain(V, z, x, y, eps, bound_half, step, coef,
+                                   target)
+    if z.device.type != "cuda":
+        raise ValueError(f"unsupported device {z.device}")
+    M, n = bound_half.shape
+    dev = z.device
+    _check("z", z, (M, 2 * n), dev)
+    _check("x", x, (M, 2 * n), dev)
+    _check("y", y, (n,), dev)
+    _check("bound_half", bound_half, (M, n), dev)
+    if V is not None:
+        _check("V", V, (M, n), dev)
+    _check("step", step, (), dev)
+    if (eps is None) == (target is None):
+        raise ValueError("svr_dual_step takes eps (SVR) or target (nu-SVR)")
+    if eps is not None:
+        _check("eps", eps, (M,), dev)
+    if target is not None:
+        _check("target", target, (M,), dev)
+    plan = svr_step_plan(n, plan)
+    x_new = torch.empty_like(z)
+    z_new = torch.empty_like(z)
+    beta = torch.empty_like(bound_half)
+    resid = torch.empty(M, dtype=z.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().svm_svr_step(
+            None if V is None else V.data_ptr(), z.data_ptr(), x.data_ptr(),
+            y.data_ptr(), None if eps is None else eps.data_ptr(),
+            bound_half.data_ptr(), step.data_ptr(), float(coef),
+            None if target is None else target.data_ptr(), x_new.data_ptr(),
+            z_new.data_ptr(), beta.data_ptr(), resid.data_ptr(), M, n,
+            0 if target is None else 1, int(plan["plan"] == "staged"),
+            _stream(dev))
+    _raise_on(rc, "svm_svr_step")
+    LAUNCHES["svm_svr_step"] += 1
+    return x_new, z_new, beta, resid

@@ -1,0 +1,346 @@
+"""SVC/NuSVC `probability=True`: Platt scaling (P1) and Wu-Lin pairwise
+coupling (P2), each as a hand-written CUDA kernel
+(``csrc/svm_proba.cu``) with its plain PyTorch version beside it.
+
+- P1 `platt_fit(dec, y, train_w, pairs, binary) -> (A, B)`: the Platt
+  sigmoid of every (task, pair) row, rows = B·P, task-major.  dec (B, n,
+  P) is the family's cache of full-set pair decisions, y (n,) the encoded
+  labels, train_w (B, n) the tasks' fold weights, pairs (P, 2).  The
+  targets and weights are the reference's (`spark_sklearn_tpu/models/
+  svm.py:658-687`): the rows of the pair's two classes weighted by the
+  fold (all rows when binary), Platt's smoothed targets on the positive
+  class (classes_[1] when binary, the pair's first class otherwise); the
+  fit is `_platt_fit` (:331-393): 50 damped Newton steps from A = 0, each
+  taking the first of 8 halvings that does not raise the loss.
+- P2 `pair_coupling(dec, platt, pairs, k) -> p (T, n, k)`: the sigmoids
+  r = sigmoid(-(A f + B)) of each (task, row)'s P pair decisions, R from
+  them (`_pair_probs_to_R`, :396-406, with its clip), then libsvm's
+  `multiclass_probability` (`_pairwise_coupling`, :409-446): 100 sweeps
+  of k normalised Gauss-Seidel steps from p = 1/k.  dec (T, n, P), platt
+  (T, P, 2).
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises — it never falls back.  `LAUNCHES` counts
+kernel launches (plain runs are not counted).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from spark_sklearn_tpu_torch.ops import _build
+
+#: kernel name -> number of launches in this process
+LAUNCHES = {"svm_platt_fit": 0, "svm_pair_coupling": 0}
+
+#: P1's threads a block (one block a row) and most row elements it stages
+#: (9 bytes each), as `kPlattThreads`, `kPlattStagedMaxN`
+PLATT_THREADS = 256
+PLATT_STAGED_MAX_N = 20480
+#: Newton steps and step halvings of `_platt_fit` (svm.py:331, :366)
+N_NEWTON = 50
+N_HALVINGS = 8
+#: P2's most threads a block, shared memory a block (bytes, the block's
+#: most, as `kMaxSmem`), the largest k of its register plan (as
+#: `kRegMaxK`) and the scratch its global plan allows (bytes)
+COUPLING_THREADS = 128
+COUPLING_SMEM_MAX = 232448
+COUPLING_REG_MAX_K = 12
+COUPLING_SCRATCH_BUDGET = 256 * 2**20
+#: the coupling's sweeps (svm.py:409)
+N_SWEEPS = 100
+#: P2's plans, as `svm_pair_coupling`'s `plan`
+COUPLING_PLANS = {"shared": 0, "registers": 1, "global": 2}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def platt_inputs(dec, y, train_w, pairs, binary):
+    """(f, t, w), each (B·P, n): the decisions, smoothed targets and
+    weights `_platt_fit` is given, formed as the reference forms them
+    (svm.py:658-687)."""
+    B, n, P = dec.shape
+    dt = dec.dtype
+    if binary:
+        f = dec[:, :, 0]
+        yp = (y == 1).to(dt)[None, :]
+        np_w = (train_w * yp).sum(dim=1)
+        nn_w = (train_w * (1.0 - yp)).sum(dim=1)
+        t_pos = (np_w + 1.0) / (np_w + 2.0)
+        t_neg = 1.0 / (nn_w + 2.0)
+        t = torch.where(yp > 0, t_pos[:, None], t_neg[:, None])
+        return f, t, train_w
+    ypos = y[None, :] == pairs[:, 0][:, None]
+    yneg = y[None, :] == pairs[:, 1][:, None]
+    yp = ypos.to(dt)                                          # (P, n)
+    in_pair = (ypos | yneg).to(dt)
+    f_bp = dec.transpose(1, 2)                                # (B, P, n)
+    w_bp = train_w[:, None, :] * in_pair[None]
+    np_w = (w_bp * yp[None]).sum(dim=2)                       # (B, P)
+    nn_w = w_bp.sum(dim=2) - np_w
+    t_pos = (np_w + 1.0) / (np_w + 2.0)
+    t_neg = 1.0 / (nn_w + 2.0)
+    t = torch.where(yp[None] > 0, t_pos[..., None], t_neg[..., None])
+    return (f_bp.reshape(B * P, n), t.reshape(B * P, n),
+            w_bp.reshape(B * P, n))
+
+
+def platt_fit_plain(f, t, w, n_iter=N_NEWTON, count_trials=False):
+    """`_platt_fit` (svm.py:331-393), term by term: (A, B) per row, and
+    with `count_trials` the number of steps of each row whose gradient
+    was at least 1e-5, the steps whose trial losses P1 evaluates."""
+    R = f.shape[0]
+    dt, dev = f.dtype, f.device
+    wsum = w.sum(dim=1) + 1e-12
+    np_w = (w * t).sum(dim=1)
+    nn_w = wsum - np_w
+    A = torch.zeros(R, dtype=dt, device=dev)
+    Bb = torch.log((nn_w + 1.0) / (np_w + 1.0))
+
+    def loss(A, Bb):
+        u = A[..., None] * f + Bb[..., None]
+        zero = torch.zeros((), dtype=dt, device=dev)
+        return (w * (torch.logaddexp(zero, u) - (1.0 - t) * u)).sum(dim=-1)
+
+    halvings = 2.0 ** -torch.arange(N_HALVINGS, dtype=dt, device=dev)
+    trials = torch.zeros(R, dtype=torch.int64, device=dev)
+    for _ in range(n_iter):
+        u = A[:, None] * f + Bb[:, None]
+        s = torch.sigmoid(u)
+        r = w * (s - (1.0 - t))
+        gA = (r * f).sum(dim=1)
+        gB = r.sum(dim=1)
+        h = w * s * (1.0 - s)
+        hAA = (h * f * f).sum(dim=1) + 1e-9
+        hAB = (h * f).sum(dim=1)
+        hBB = h.sum(dim=1) + 1e-9
+        det = hAA * hBB - hAB * hAB
+        dA = (hBB * gA - hAB * gB) / det
+        dB = (hAA * gB - hAB * gA) / det
+        L0 = loss(A, Bb)
+        Ls = loss(A[None] - halvings[:, None] * dA[None],
+                  Bb[None] - halvings[:, None] * dB[None])     # (8, R)
+        ok = Ls <= L0[None, :]
+        first = torch.argmax(ok.to(torch.uint8), dim=0)
+        step = torch.where(ok.any(dim=0), halvings[first],
+                           torch.zeros((), dtype=dt, device=dev))
+        moving = torch.maximum(gA.abs(), gB.abs()) >= 1e-5
+        trials += moving
+        step = torch.where(moving, step,
+                           torch.zeros((), dtype=dt, device=dev))
+        upd = step > 0
+        A = torch.where(upd, A - step * dA, A)
+        Bb = torch.where(upd, Bb - step * dB, Bb)
+    return (A, Bb, trials) if count_trials else (A, Bb)
+
+
+def platt_fit_rows_plain(dec, y, train_w, pairs, binary,
+                         count_trials=False):
+    """P1's plain version: `platt_inputs`, then `platt_fit_plain`."""
+    pairs = torch.as_tensor(pairs, device=dec.device).long()
+    return platt_fit_plain(*platt_inputs(dec, y, train_w, pairs, binary),
+                           count_trials=count_trials)
+
+
+def pair_probs_to_R(r, pairs, k):
+    """`_pair_probs_to_R` (svm.py:396-406): (..., P) pair probabilities to
+    the (..., k, k) matrix R[i_p, j_p] = r_p, R[j_p, i_p] = 1 − r_p, r
+    clipped away from 0 and 1."""
+    r = torch.clamp(r, 1e-7, 1.0 - 1e-7)
+    pos = torch.nn.functional.one_hot(pairs[:, 0].long(), k).to(r.dtype)
+    neg = torch.nn.functional.one_hot(pairs[:, 1].long(), k).to(r.dtype)
+    return torch.einsum("...p,pi,pj->...ij", r, pos, neg) + \
+        torch.einsum("...p,pi,pj->...ij", 1.0 - r, neg, pos)
+
+
+def pairwise_coupling(R, n_iter=N_SWEEPS):
+    """`_pairwise_coupling` (svm.py:409-446): Wu and Lin's second
+    approach, libsvm's normalised Gauss-Seidel sweeps, over any leading
+    axes of R (..., k, k); returns (..., k)."""
+    k = R.shape[-1]
+    eye = torch.eye(k, dtype=R.dtype, device=R.device)
+    R0 = R * (1.0 - eye)
+    RT = R0.transpose(-1, -2)
+    Q = -(RT * R0)
+    Q = Q + eye * (RT ** 2).sum(dim=-1)[..., :, None]
+    p = torch.full(R.shape[:-1], 1.0 / k, dtype=R.dtype, device=R.device)
+    for _ in range(n_iter):
+        Qp = torch.einsum("...tj,...j->...t", Q, p)
+        pQp = (p * Qp).sum(dim=-1)
+        for t in range(k):
+            Qtt = Q[..., t, t]
+            diff = (-Qp[..., t] + pQp) / Qtt
+            pQp = (pQp + diff * (diff * Qtt + 2.0 * Qp[..., t])) \
+                / (1.0 + diff) ** 2
+            Qp = (Qp + diff[..., None] * Q[..., t, :]) \
+                / (1.0 + diff[..., None])
+            p = (p + diff[..., None] * eye[t]) / (1.0 + diff[..., None])
+    return p
+
+
+def pair_coupling_plain(dec, platt, pairs, k):
+    """P2's plain version: the pair sigmoids (svm.py:774), R, then the
+    coupling."""
+    pairs = torch.as_tensor(pairs, device=dec.device).long()
+    A = platt[..., 0][:, None, :]                              # (T, 1, P)
+    B = platt[..., 1][:, None, :]
+    r = torch.sigmoid(-(dec * A + B))
+    return pairwise_coupling(pair_probs_to_R(r, pairs, k))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library("svm_proba")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.svm_platt_fit.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.svm_platt_fit.restype = i
+    lib.svm_pair_coupling.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                      p]
+    lib.svm_pair_coupling.restype = i
+    return lib
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def platt_plan(n: int, plan=None) -> dict:
+    """P1's launch for rows of n elements: a block of `threads` a row,
+    thread t taking elements t, t + threads, ...; "staged" keeps a
+    thread's kept elements (decision, weight, positive flag: 9 bytes) at
+    slots q·threads + t of `smem` bytes up to `PLATT_STAGED_MAX_N`
+    elements, "streamed" reads the row in every pass (`plan` forces one)."""
+    threads = PLATT_THREADS
+    slots = -(-n // threads)
+    plan = plan or ("staged" if n <= PLATT_STAGED_MAX_N else "streamed")
+    if plan not in ("staged", "streamed"):
+        raise ValueError(f"plan={plan!r} is not 'staged' or 'streamed'")
+    return {"plan": plan, "threads": threads, "slots": slots,
+            "smem": 9 * slots * threads if plan == "staged" else 0}
+
+
+def _pairs_i32(pairs, dev):
+    return torch.as_tensor(pairs, device=dev).to(torch.int32).contiguous()
+
+
+def platt_fit(dec, y, train_w, pairs, binary, plan=None):
+    """P1 (see the module docstring): (A, B), each (B·P,)."""
+    if dec.device.type == "cpu":
+        return platt_fit_rows_plain(dec, y, train_w, pairs, binary)
+    if dec.device.type != "cuda":
+        raise ValueError(f"unsupported device {dec.device}")
+    B, n, P = dec.shape
+    dev = dec.device
+    _build.check_tensor("dec", dec, (B, n, P), dev)
+    _build.check_tensor("train_w", train_w, (B, n), dev)
+    yi = y.to(torch.int32).contiguous()
+    _build.check_tensor("y", yi, (n,), dev, torch.int32)
+    pi = _pairs_i32(pairs, dev)
+    _build.check_tensor("pairs", pi, (P, 2), dev, torch.int32)
+    if binary and P != 1:
+        raise ValueError("platt_fit: a binary fit has one pair")
+    plan = platt_plan(n, plan)
+    A = torch.empty(B * P, dtype=dec.dtype, device=dev)
+    Bo = torch.empty(B * P, dtype=dec.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().svm_platt_fit(
+            dec.data_ptr(), yi.data_ptr(), train_w.data_ptr(), pi.data_ptr(),
+            A.data_ptr(), Bo.data_ptr(), B, n, P, int(bool(binary)),
+            int(plan["plan"] == "staged"),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "svm_platt_fit")
+    LAUNCHES["svm_platt_fit"] += 1
+    return A, Bo
+
+
+def coupling_plan(k: int, plan=None, problems: int = 1) -> dict:
+    """P2's launch for `problems` problems of k classes: "registers" (3 <=
+    k <= `COUPLING_REG_MAX_K`) keeps a problem's Q, p and Qp in
+    registers; "shared" keeps them ((k² + 2k) floats) in shared memory,
+    `threads` a block (a multiple of 32 up to `COUPLING_THREADS`) within
+    `COUPLING_SMEM_MAX` bytes (k <= 41); "global" (any k, the default
+    above) keeps them in a scratch of `scratch` floats, `grid` blocks of
+    `threads` walking the problems, as many as `COUPLING_SCRATCH_BUDGET`
+    allows.  A thread a problem in the first two: `grid` covers them.
+    `plan` forces one."""
+    per = 4 * (k * k + 2 * k)
+    shared_threads = min(COUPLING_THREADS,
+                         32 * (COUPLING_SMEM_MAX // (32 * per)))
+    if plan is None:
+        plan = ("registers" if 3 <= k <= COUPLING_REG_MAX_K else
+                "shared" if shared_threads >= 32 else "global")
+    if plan == "registers":
+        if not 3 <= k <= COUPLING_REG_MAX_K:
+            raise ValueError(f"pair_coupling: no register plan for k={k}")
+        threads, smem = COUPLING_THREADS, 0
+    elif plan == "shared":
+        if shared_threads < 32:
+            raise ValueError(
+                f"pair_coupling: k={k} classes do not fit the kernel's "
+                f"shared memory ({COUPLING_SMEM_MAX} bytes a block)")
+        threads, smem = shared_threads, shared_threads * per
+    elif plan == "global":
+        threads = COUPLING_THREADS
+        grid = min(-(-problems // threads),
+                   max(1, COUPLING_SCRATCH_BUDGET // (threads * per)))
+        return {"plan": plan, "threads": threads, "smem": 0, "grid": grid,
+                "scratch": grid * threads * per // 4}
+    else:
+        raise ValueError(f"plan={plan!r} is not 'registers', 'shared' or "
+                         "'global'")
+    return {"plan": plan, "threads": threads, "smem": smem,
+            "grid": -(-problems // threads), "scratch": 0}
+
+
+def _lexicographic(pairs, k) -> bool:
+    want = [(i, j) for i in range(k) for j in range(i + 1, k)]
+    return [tuple(int(v) for v in row) for row in pairs.tolist()] == want
+
+
+def pair_coupling(dec, platt, pairs, k, plan=None):
+    """P2 (see the module docstring): p (T, n, k).  `plan` ("registers",
+    "shared" or "global") overrides `coupling_plan`'s choice."""
+    if dec.device.type == "cpu":
+        return pair_coupling_plain(dec, platt, pairs, k)
+    if dec.device.type != "cuda":
+        raise ValueError(f"unsupported device {dec.device}")
+    T, n, P = dec.shape
+    dev = dec.device
+    if P != k * (k - 1) // 2:
+        raise ValueError(f"pair_coupling: {P} pairs for k={k} classes")
+    _build.check_tensor("dec", dec, (T, n, P), dev)
+    _build.check_tensor("platt", platt, (T, P, 2), dev)
+    pi = _pairs_i32(pairs, dev)
+    _build.check_tensor("pairs", pi, (P, 2), dev, torch.int32)
+    if not _lexicographic(torch.as_tensor(pairs), k):
+        raise ValueError("pair_coupling: pairs must be (i, j), i < j, in "
+                         "lexicographic order")
+    plan = coupling_plan(k, plan, T * n)
+    out = torch.empty((T, n, k), dtype=dec.dtype, device=dev)
+    scratch = (torch.empty(plan["scratch"], dtype=dec.dtype, device=dev)
+               if plan["scratch"] else None)
+    with torch.cuda.device(dev):
+        rc = _lib().svm_pair_coupling(
+            dec.data_ptr(), platt.data_ptr(), pi.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            T, n, P, k, plan["threads"], plan["grid"],
+            COUPLING_PLANS[plan["plan"]],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "svm_pair_coupling")
+    LAUNCHES["svm_pair_coupling"] += 1
+    return out

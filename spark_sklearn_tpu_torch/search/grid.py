@@ -102,7 +102,8 @@ class _BaseSearch:
     Runs on `config.device` (default ``cuda``; see `TorchConfig`).  The
     estimator must resolve to a ported family: the port's or sklearn's
     `LogisticRegression`, `Ridge`, `LinearRegression`, `ElasticNet`,
-    `Lasso`, `SVC`, `NuSVC`, `GradientBoostingRegressor`/`Classifier`,
+    `Lasso`, `SVC`, `NuSVC` (with `probability=True`), `SVR`, `NuSVR`,
+    `LinearSVC`, `LinearSVR`, `GradientBoostingRegressor`/`Classifier`,
     `RandomForestClassifier`/`Regressor`, `MLPClassifier`/`Regressor`,
     the five naive Bayes classes, `LinearDiscriminantAnalysis(solver=
     "lsqr")`, `KNeighborsClassifier`/`Regressor`, `KMeans`, or a

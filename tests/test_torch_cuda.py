@@ -3,8 +3,10 @@ against their plain versions, and small searches, fits and scorer cores
 on cuda against the same on the CPU (logistic regression by L-BFGS and
 by FISTA, Ridge and LinearRegression in float64, ElasticNet, the 17
 scorers, SVC and NuSVC, the tree ensembles, the MLP and Pipeline
-searches, and the naive Bayes, LDA, KNN and KMeans searches with N1, C1
-and B1).  They skip where no card is visible.
+searches, the naive Bayes, LDA, KNN and KMeans searches with N1, C1 and
+B1, and the rest of the SVMs: P1 and P2 of probability=True, S2's SVR
+mode, and the SVC/NuSVC probability, SVR, NuSVR, LinearSVC and LinearSVR
+searches).  They skip where no card is visible.
 
 This file imports neither JAX nor sklearn, so it also runs on a machine
 that has only PyTorch:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -22,6 +24,7 @@ from spark_sklearn_tpu_torch.ops import knn_kernels as knk
 from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
 from spark_sklearn_tpu_torch.ops import nb_kernels as nbk
 from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+from spark_sklearn_tpu_torch.ops import svm_proba_kernels as pk
 from spark_sklearn_tpu_torch.ops import tree_kernels as tk
 from spark_sklearn_tpu_torch.search.scorers import SCORERS
 
@@ -512,7 +515,8 @@ def test_svm_search_on_cuda_matches_cpu(cuda_device, label):
         runs[dev] = port.GridSearchCV(
             est, grid, cv=port.StratifiedKFold(3),
             config=port.TorchConfig(device=dev)).fit(X, y)
-        launched = all(v > 0 for v in svk.LAUNCHES.values())
+        launched = all(svk.LAUNCHES[name] > 0 for name in
+                       ("svm_gram_epilogue", "svm_dual_step"))
         assert launched == (dev == "cuda")
     np.testing.assert_allclose(runs["cuda"].cv_results_["mean_test_score"],
                                runs["cpu"].cv_results_["mean_test_score"],
@@ -1429,7 +1433,8 @@ def test_kmeans_assign_nan_and_bad_input(cuda_device, monkeypatch):
 ])
 def test_gnb_jll_matches_plain(cuda_device, m, d, B, k, floor):
     """rtol 1e-5 against the plain version (another summation order over
-    d; the division kept), atol 1e-3 on jlls reaching ~1e5 at the
+    d; the kernel multiplies by the correctly rounded 1/var where the
+    plain version divides), atol 1e-3 on jlls reaching ~1e5 at the
     floor."""
     rng = np.random.default_rng(0)
     X = rng.standard_normal((m, d)).astype(np.float32)
@@ -1496,3 +1501,220 @@ def test_slice_search_on_cuda_matches_cpu(cuda_device, kind):
     np.testing.assert_allclose(a, b, rtol=0, atol=tol)
     assert runs["cuda"].best_params_ == runs["cpu"].best_params_
     assert runs["cuda"].best_estimator_.predict(data[0][:7]).shape == (7,)
+
+
+# --- B1 (second design), P1 (svm_platt_fit), P2 (svm_pair_coupling), S2's
+# --- SVR mode, and the rest of the SVMs' searches -------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,B,k", [
+    (257, 130, 5, 11),            # two X chunks, two class chunks, a tail
+    (3000, 54, 40, 7),            # several lane groups
+    (31, 7, 1, 1),
+])
+def test_gnb_jll_redesign_matches_plain_with_nan(cuda_device, m, d, B, k):
+    """B1 where its plan splits features, classes, lanes and rows: rtol
+    1e-5, atol 1e-3 against the plain version (the reciprocal of var
+    multiplied, not divided; sums in another order), and a NaN var's
+    class NaN in every row of its lane, as the plain version's."""
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((m, d)).astype(np.float32)
+    theta = rng.standard_normal((B, k, d)).astype(np.float32)
+    var = rng.uniform(0.1, 2.0, (B, k, d)).astype(np.float32)
+    var[0, k - 1, d // 2] = np.nan
+    lp = np.log(rng.dirichlet(np.ones(k), B)).astype(np.float32)
+    t = [torch.as_tensor(a, device="cuda") for a in (X, theta, var, lp)]
+    got = nbk.gnb_jll(*t)
+    want = nbk.gnb_jll_plain(*t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3,
+                               equal_nan=True)
+    assert bool(torch.isnan(got[0, :, k - 1]).all())
+    torch.testing.assert_close(got, nbk.gnb_jll(*t), rtol=0, atol=0,
+                               equal_nan=True)        # the same bits
+
+
+def _platt_inputs(binary, n=3000, B=4, k=5, seed=0):
+    rng = np.random.default_rng(seed)
+    kk = 2 if binary else k
+    pairs = np.array([(i, j) for i in range(kk) for j in range(i + 1, kk)],
+                     np.int32)
+    y = rng.integers(0, kk, n).astype(np.int32)
+    dec = rng.standard_normal((B, n, len(pairs))).astype(np.float32)
+    for p, (i, j) in enumerate(pairs):
+        sign = (y == i).astype(np.float32) - (y == j).astype(np.float32)
+        dec[:, :, p] += (-1.0 if binary else 1.0) * 1.5 * sign
+    tw = (rng.random((B, n)) < 0.8).astype(np.float32)
+    tw[-1] = 0.0                                  # an all-masked task
+    dec[0, 5, 0] = np.nan                         # a NaN decision
+    if B > 2:
+        dec[1] *= 40.0                            # near-separable rows
+    return [torch.as_tensor(a, device="cuda") for a in (dec, y, tw)] + \
+        [pairs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("plan", ["staged", "streamed"])
+def test_platt_fit_matches_plain(cuda_device, binary, plan):
+    """P1 against its plain version: A and B rtol 1e-3 atol 1e-3 (sums
+    over the kept elements in another order, through 50 Newton steps),
+    NaN rows, an all-masked task (no step taken: A 0) and near-separable
+    rows (rejected and halved steps) included; one launch, counted."""
+    dec, y, tw, pairs = _platt_inputs(binary)
+    n0 = pk.LAUNCHES["svm_platt_fit"]
+    A, B = pk.platt_fit(dec, y, tw, pairs, binary, plan=plan)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["svm_platt_fit"] == n0 + 1
+    pA, pB = pk.platt_fit_rows_plain(dec, y, tw, pairs, binary)
+    torch.testing.assert_close(A, pA, rtol=1e-3, atol=1e-3, equal_nan=True)
+    torch.testing.assert_close(B, pB, rtol=1e-3, atol=1e-3, equal_nan=True)
+    P = len(pairs)
+    assert bool((A[-P:] == 0).all())              # the all-masked task
+    again = pk.platt_fit(dec, y, tw, pairs, binary, plan=plan)
+    for a, b in ((A, again[0]), (B, again[1])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError):
+        pk.platt_fit(dec[:, :10].contiguous(), y, tw, pairs, binary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,plan", [(3, "registers"), (10, "registers"),
+                                    (12, "registers"), (10, "shared"),
+                                    (14, "shared"), (41, "shared"),
+                                    (42, None), (5, "global"),
+                                    (13, "global")])
+def test_pair_coupling_matches_plain(cuda_device, k, plan):
+    """P2 against its plain version under each plan, the shared plan up
+    to its limit (k = 41) and the global plan past it: probabilities atol
+    1e-4 (the rescale by a reciprocal, sums in another order), a NaN
+    decision's problem NaN as the plain version's; rows sum to 1 within
+    1e-4."""
+    rng = np.random.default_rng(k)
+    pairs = np.array([(i, j) for i in range(k) for j in range(i + 1, k)],
+                     np.int32)
+    T, n, P = 3, 500, len(pairs)
+    dec = torch.as_tensor(2 * rng.standard_normal((T, n, P)).astype(
+        np.float32), device="cuda")
+    dec[1, 7, 0] = float("nan")
+    platt = torch.as_tensor(rng.normal(-1.5, 0.3, (T, P, 2)).astype(
+        np.float32), device="cuda")
+    n0 = pk.LAUNCHES["svm_pair_coupling"]
+    got = pk.pair_coupling(dec, platt, pairs, k, plan=plan)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["svm_pair_coupling"] == n0 + 1
+    assert pk.coupling_plan(k, plan, T * n)["plan"] == (
+        plan or ("global" if k > 41 else "shared"))
+    want = pk.pair_coupling_plain(dec, platt, pairs, k)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4,
+                               equal_nan=True)
+    assert bool(torch.isnan(got[1, 7]).all())
+    ok = torch.isfinite(got).all(dim=-1)
+    assert float((got[ok].sum(dim=-1) - 1).abs().max()) < 1e-4
+    with pytest.raises(ValueError, match="lexicographic"):
+        pk.pair_coupling(dec, platt, pairs[::-1].copy(), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["svr", "nu", "project"])
+@pytest.mark.parametrize("n,plan", [(700, "staged"), (700, "streamed"),
+                                    (14000, None)])
+def test_svr_step_matches_plain(cuda_device, mode, n, plan):
+    """S2's SVR mode against its plain version: x', z' and β' rtol 1e-5
+    atol 1e-5 (the bisection's sums in another order), the residual
+    1e-5/step; a NaN in a masked element still propagates to its row."""
+    rng = np.random.default_rng(n)
+    M = 5
+    y = rng.standard_normal(n).astype(np.float32)
+    bh = ((rng.random((M, n)) < 0.8) * 3.0).astype(np.float32)
+    z = rng.uniform(-0.5, 3.5, (M, 2 * n)).astype(np.float32)
+    x = rng.uniform(0.0, 3.0, (M, 2 * n)).astype(np.float32)
+    V = rng.standard_normal((M, n)).astype(np.float32)
+    j = int(np.where(bh[2] == 0)[0][0])
+    z[2, j] = np.nan
+    c = [torch.as_tensor(a, device="cuda") for a in (V, z, x, y, bh)]
+    step = torch.tensor(0.02, device="cuda")
+    eps = torch.full((M,), 0.1, device="cuda") if mode == "svr" else None
+    target = None if mode == "svr" else 0.3 * c[4].sum(dim=1)
+    args = (None if mode == "project" else c[0], c[1], c[2], c[3], eps,
+            c[4], step, 0.4, target)
+    n0 = svk.LAUNCHES["svm_svr_step"]
+    got = svk.svr_dual_step(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert svk.LAUNCHES["svm_svr_step"] == n0 + 1
+    want = svk.svr_dual_step_plain(*args)
+    for a, b, atol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-5 / 0.02)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol,
+                                   equal_nan=True)
+    assert bool(torch.isnan(got[0][2]).all())
+    for a, b in zip(got[:3], svk.svr_dual_step(*args, plan=plan)[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                   equal_nan=True)    # the same bits
+    with pytest.raises(ValueError):
+        svk.svr_dual_step(args[0], c[1], c[2], c[3], eps, c[4], step, 0.4,
+                          0.3 * c[4].sum(dim=1) if mode == "svr" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["svc_proba", "nusvc_proba_binary", "svr",
+                                  "nu_svr", "linear_svc", "linear_svr",
+                                  "svc_proba_k13", "svc_proba_k42"])
+def test_svm_rest_search_on_cuda_matches_cpu(cuda_device, kind):
+    """The rest of the SVMs on cuda against the CPU: every mean_test
+    score within 5e-3 (the repo's oracle bound), the same best
+    candidate, the new kernels launched on the card only, and the refit
+    estimator predicting (and, with probability=True, giving
+    probabilities) on the card.  svc_proba_k13 and svc_proba_k42 take 13
+    and 42 classes, through P2's shared and global plans."""
+    import warnings
+
+    X, y = _digits_like()
+    yr = X[:, 0] * 2 + 0.3 * X[:, 1] ** 2
+    est, grid, data, scoring, launches = {
+        "svc_proba": (port.SVC(probability=True),
+                      {"C": [0.5, 5.0]}, (X, y),
+                      ["accuracy", "neg_log_loss"], pk.LAUNCHES),
+        "nusvc_proba_binary": (port.NuSVC(probability=True),
+                               {"nu": [0.2, 0.5]}, (X, y % 2),
+                               "neg_log_loss", {"svm_platt_fit": 0}),
+        "svr": (port.SVR(), {"C": [0.5, 5.0], "epsilon": [0.1]}, (X, yr),
+                None, {"svm_svr_step": 0}),
+        "nu_svr": (port.NuSVR(), {"nu": [0.3, 0.6]}, (X, yr), None,
+                   {"svm_svr_step": 0}),
+        "linear_svc": (port.LinearSVC(), {"C": [0.01, 1.0],
+                                          "loss": ["hinge",
+                                                   "squared_hinge"]},
+                       (X, y), None, None),
+        "linear_svr": (port.LinearSVR(), {"C": [0.1, 1.0]}, (X, yr), None,
+                       None),
+        "svc_proba_k13": (port.SVC(probability=True), {"C": [0.5, 5.0]},
+                          _class_problem(13, n=390),
+                          ["accuracy", "neg_log_loss"], pk.LAUNCHES),
+        "svc_proba_k42": (port.SVC(probability=True), {"C": [0.5, 5.0]},
+                          _class_problem(42, n=420),
+                          ["accuracy", "neg_log_loss"], pk.LAUNCHES),
+    }[kind]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        pk.reset_launches()
+        svk.reset_launches()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            refit = scoring[0] if isinstance(scoring, list) else True
+            runs[dev] = port.GridSearchCV(
+                est, grid, cv=3, scoring=scoring, refit=refit,
+                config=port.TorchConfig(device=dev)).fit(*data)
+        counts = {**pk.LAUNCHES, **svk.LAUNCHES}
+        if launches is not None:
+            assert (min(counts[name] for name in launches) > 0) == \
+                (dev == "cuda")
+    for key in (scoring if isinstance(scoring, list) else ["score"]):
+        np.testing.assert_allclose(
+            runs["cuda"].cv_results_[f"mean_test_{key}"],
+            runs["cpu"].cv_results_[f"mean_test_{key}"], rtol=0, atol=5e-3)
+    assert runs["cuda"].best_params_ == runs["cpu"].best_params_
+    best = runs["cuda"].best_estimator_
+    assert best.predict(data[0][:7]).shape == (7,)
+    if "proba" in kind:
+        proba = best.predict_proba(data[0][:7])
+        np.testing.assert_allclose(proba.sum(axis=1), 1.0, atol=1e-4)

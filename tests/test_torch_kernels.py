@@ -20,7 +20,9 @@ from spark_sklearn_tpu.ops.solvers import _bcast as jax_bcast
 from spark_sklearn_tpu_torch.ops import glm_kernels as gk
 from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
 from spark_sklearn_tpu_torch.ops import knn_kernels as knk
+from spark_sklearn_tpu_torch.ops import nb_kernels as nbk
 from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+from spark_sklearn_tpu_torch.ops import svm_proba_kernels as pk
 from spark_sklearn_tpu_torch.ops import tree_kernels as tk
 
 N, B = 97, 23
@@ -693,3 +695,114 @@ def test_assign_plan_covers_each_lane_and_row_once(n, d, B):
     assert d % plan["vec"] == 0
     assert kmk.assign_plan(n, d, B, align=8)["vec"] <= 2
     assert kmk.assign_plan(n, d, B, align=4)["vec"] == 1
+
+
+@pytest.mark.parametrize("m,d,B,k,n_sm", [
+    (100000, 54, 60, 7, 132),       # phase 12's GaussianNB views
+    (333, 784, 3, 10, 132),         # d in 13 feature chunks, 2 class chunks
+    (100, 3000, 2, 5, 132), (5, 3, 70, 20, 132), (1, 1, 1, 1, 132),
+    (257, 64, 4, 3, 8), (70000, 17, 1, 9, 132),
+])
+def test_jll_plan_covers_every_lane_row_and_class_once(m, d, B, k, n_sm):
+    """B1's blocks (row tiles x lane groups), as the kernel walks them:
+    every (lane, row, class) written once, each sum over every feature
+    once in feature order; the block's shared memory within 227 KB; the
+    grid's lane groups within CUDA's 65535."""
+    plan = nbk.jll_plan(m, d, B, k, n_sm)
+    seen = np.zeros((B, m, k), int)
+    for b, rows, classes, chunks in nbk.jll_tiles(plan, m, d, B, k):
+        assert [t for c in chunks for t in c] == list(range(d))
+        assert all(len(c) <= plan["tc"] for c in chunks)
+        seen[b, rows.start:rows.stop, classes.start:classes.stop] += 1
+    assert (seen == 1).all()
+    assert plan["kc"] == min(k, nbk.JLL_MAX_KC)
+    assert plan["tc"] * nbk.JLL_X_STRIDE * 4 <= nbk.JLL_X_BUDGET
+    assert plan["smem"] <= 232448 and plan["grid"][1] <= 65535
+    tiles = plan["grid"][0]
+    assert tiles * plan["grid"][1] >= min(
+        tiles * B, nbk.JLL_BLOCKS_PER_SM * n_sm)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 10000, 20480, 20481])
+def test_platt_plan_lays_out_a_slot_per_element(n):
+    """P1: a block a row, thread t taking elements t, t + threads, ...;
+    its q-th kept element at slot q·threads + t, within the staged
+    plan's 9 bytes a slot (<= 227 KB) or read again a pass (streamed)."""
+    plan = pk.platt_plan(n)
+    T, slots = plan["threads"], plan["slots"]
+    assert T == pk.PLATT_THREADS and T % 32 == 0
+    assert (slots - 1) * T < n <= slots * T
+    assert plan["plan"] == ("staged" if n <= pk.PLATT_STAGED_MAX_N
+                            else "streamed")
+    if plan["plan"] == "staged":
+        assert plan["smem"] == 9 * slots * T <= 232448 - 1024
+    for t in {0, min(T, n) - 1}:
+        owned = list(range(t, n, T))
+        assert len({q * T + t for q in range(len(owned))}) == len(owned)
+        assert max(q * T + t for q in range(len(owned))) < slots * T
+    with pytest.raises(ValueError):
+        pk.platt_plan(n, "cached")
+
+
+@pytest.mark.parametrize("k", [2, 3, 10, 12, 13, 26, 27, 41, 42, 120])
+def test_coupling_plan_fits_a_block(k):
+    """P2: the register plan for 3 <= k <= 12, else shared memory with a
+    whole number of warps a block within the block's most (k <= 41),
+    else the global plan, whose grid's threads each hold one problem's
+    state in a scratch within its budget; no k
+    is refused by the default choice, and the two first plans cover the
+    problems a thread each."""
+    problems = 450000
+    per = 4 * (k * k + 2 * k)
+    plan = pk.coupling_plan(k, problems=problems)
+    if 3 <= k <= pk.COUPLING_REG_MAX_K:
+        assert plan == {"plan": "registers",
+                        "threads": pk.COUPLING_THREADS, "smem": 0,
+                        "grid": -(-problems // pk.COUPLING_THREADS),
+                        "scratch": 0}
+    else:
+        assert plan["plan"] == ("shared" if k <= 41 else "global")
+        with pytest.raises(ValueError):
+            pk.coupling_plan(k, "registers")
+    if 32 * per > pk.COUPLING_SMEM_MAX:
+        with pytest.raises(ValueError, match="shared memory"):
+            pk.coupling_plan(k, "shared")
+    else:
+        sh = pk.coupling_plan(k, "shared", problems)
+        assert sh["threads"] % 32 == 0 and 32 <= sh["threads"] <= 128
+        assert sh["smem"] == sh["threads"] * per <= pk.COUPLING_SMEM_MAX
+        assert sh["grid"] * sh["threads"] >= problems > \
+            (sh["grid"] - 1) * sh["threads"]
+    gl = pk.coupling_plan(k, "global", problems)
+    assert gl["smem"] == 0 and gl["threads"] == pk.COUPLING_THREADS
+    assert 1 <= gl["grid"] <= -(-problems // gl["threads"])
+    assert gl["scratch"] == gl["grid"] * gl["threads"] * per // 4
+    assert 4 * gl["scratch"] <= max(pk.COUPLING_SCRATCH_BUDGET,
+                                    gl["threads"] * per)
+    with pytest.raises(ValueError):
+        pk.coupling_plan(k, "texture")
+
+
+@pytest.mark.parametrize("n", [1, 511, 512, 13824, 13825, 20640])
+def test_svr_step_plan_keeps_each_list_inside_its_rows(n):
+    """S2's SVR mode: thread t walks pairs i = t, t + threads, ...; its
+    q-th kept a element at slot q·threads + t (< n: at most its own
+    pair's position) and its q-th a* element at `half` + q·threads + t
+    (< 2n streamed, where the lists live in the rows of x' and z'; below
+    the staged plan's 16 bytes a pair slot, <= 227 KB)."""
+    plan = svk.svr_step_plan(n)
+    T, slots = plan["threads"], plan["slots"]
+    assert (slots - 1) * T < n <= slots * T
+    half = slots * T if plan["plan"] == "staged" else n
+    cap = 2 * slots * T if plan["plan"] == "staged" else 2 * n
+    for t in {0, min(T, n) - 1}:
+        owned = list(range(t, n, T))
+        a_slots = [q * T + t for q in range(len(owned))]
+        s_slots = [half + q * T + t for q in range(len(owned))]
+        assert a_slots == owned and max(a_slots) < half
+        assert max(s_slots) < cap
+    if plan["plan"] == "staged":
+        assert n <= svk.SVR_STAGED_MAX_N
+        assert plan["smem"] == 16 * slots * T <= 232448 - 1024
+    else:
+        assert n > svk.SVR_STAGED_MAX_N and plan["smem"] == 0

@@ -33,10 +33,14 @@ import spark_sklearn_tpu as sst
 import spark_sklearn_tpu_torch as port
 from spark_sklearn_tpu.models import svm as jsvm
 from spark_sklearn_tpu.models.standalone import SVC as JaxSVC
-from spark_sklearn_tpu_torch.convert.params import svc_from_jax
+from spark_sklearn_tpu_torch.convert.params import (
+    svc_from_jax,
+    svc_model_from_jax,
+)
 from spark_sklearn_tpu_torch.models import svm as psvm
 from spark_sklearn_tpu_torch.models.base import resolve_family
 from spark_sklearn_tpu_torch.ops import svm_kernels as sk
+from spark_sklearn_tpu_torch.ops import svm_proba_kernels as pk
 
 CPU = port.TorchConfig(device="cpu")
 
@@ -395,13 +399,12 @@ def test_infeasible_nu_gets_error_score(digits):
 
 def test_unported_options_raise(digits):
     X, y = _subset(digits, 3, 90)
-    with pytest.raises(NotImplementedError, match="probability"):
-        port.GridSearchCV(SkSVC(probability=True), {"C": [1.0]}, cv=3,
-                          refit=False, config=CPU).fit(X, y)
     with pytest.raises(ValueError, match="precomputed"):
         port.GridSearchCV(SkSVC(kernel="precomputed"), {"C": [1.0]}, cv=3,
                           refit=False, config=CPU).fit(X @ X.T, y)
-    with pytest.raises(NotImplementedError, match="Platt"):
+    # probability scorers need probability=True, as the reference's
+    # predict_proba does (svm.py:777-778)
+    with pytest.raises(NotImplementedError, match="probability=True"):
         port.GridSearchCV(SkSVC(), {"C": [1.0]}, cv=3, refit=False,
                           scoring="neg_log_loss", config=CPU).fit(X, y)
     # sklearn 1.9's "deprecated" default of probability is not True
@@ -559,3 +562,193 @@ def test_small_c_intercept_is_a_float_sensitivity_of_the_reference():
                              refit=False, config=CPU).fit(X, y)
     assert ref.cv_results_["mean_test_score"][0] < 0.15
     assert ours.cv_results_["mean_test_score"][0] > 0.4
+
+
+# ---------------------------------------------------------------------------
+# probability=True: Platt scaling (P1) and pairwise coupling (P2)
+# ---------------------------------------------------------------------------
+
+def _platt_case(case, seed=0, R=6, n=80):
+    rng = np.random.default_rng(seed)
+    y01 = rng.random((R, n)) < 0.5
+    f = (rng.standard_normal((R, n)) + np.where(y01, 1.5, -1.5)).astype(
+        np.float32)
+    t = np.where(y01, 0.9, 0.05).astype(np.float32)
+    w = (rng.random((R, n)) < 0.8).astype(np.float32)
+    if case == "separable":
+        # far apart decisions: full Newton steps overshoot and halve
+        f = np.where(y01, 8.0, -8.0).astype(np.float32) + \
+            0.01 * rng.standard_normal((R, n)).astype(np.float32)
+    elif case == "nan_and_empty":
+        f[0, 3] = np.nan                      # a NaN decision in row 0
+        w[1] = 0.0                            # an all-masked row
+    return f, t, w
+
+
+@pytest.mark.parametrize("case", ["informative", "separable",
+                                  "nan_and_empty"])
+def test_platt_fit_plain_matches_reference(case):
+    """P1's plain fit against `_platt_fit` (svm.py:331-393): A and B rtol
+    and atol 1e-3 (sums in another order can flip a step's acceptance or
+    the 1e-5 gradient stop near convergence: measured <= 1.6e-4), NaN
+    where the reference's is NaN."""
+    f, t, w = _platt_case(case)
+    A, B = jsvm._platt_fit(jnp.asarray(f), jnp.asarray(t), jnp.asarray(w))
+    a, b = pk.platt_fit_plain(_t(f), _t(t), _t(w))
+    np.testing.assert_allclose(a.numpy(), np.asarray(A), rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(b.numpy(), np.asarray(B), rtol=1e-3,
+                               atol=1e-3)
+    if case == "nan_and_empty":
+        # a rejected (non-finite) step leaves A and B where they started
+        assert a[0].item() == 0.0 and np.isfinite(b[0].item())
+        assert a[1].item() == 0.0
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_pair_coupling_plain_matches_reference(k):
+    """P2's plain version against `_pair_probs_to_R` and
+    `_pairwise_coupling` (atol 1e-6), probabilities at the clip's ends
+    and a NaN pair included; its sigmoid form against the reference's
+    (svm.py:774)."""
+    rng = np.random.default_rng(k)
+    pairs = jsvm._pairs(k)
+    P = len(pairs)
+    r = rng.random((28, P)).astype(np.float32)
+    r[0, 0], r[1, 0], r[7, -1] = 0.0, 1.0, np.nan
+    want = jsvm._pairwise_coupling(jsvm._pair_probs_to_R(
+        jnp.asarray(r), jnp.asarray(pairs), k))
+    got = pk.pairwise_coupling(pk.pair_probs_to_R(_t(r), _t(pairs), k))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    assert np.isnan(got[7].numpy()).all()
+    dec = rng.standard_normal((4, 7, P)).astype(np.float32)
+    platt = rng.standard_normal((4, P, 2)).astype(np.float32)
+    via = pk.pair_coupling(_t(dec), _t(platt), pairs, k)
+    sig = jax.nn.sigmoid(-(dec * platt[:, None, :, 0]
+                           + platt[:, None, :, 1]))
+    want = jsvm._pairwise_coupling(jsvm._pair_probs_to_R(
+        sig.reshape(28, P), jnp.asarray(pairs), k))
+    np.testing.assert_allclose(via.numpy().reshape(28, k), np.asarray(want),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("family,classes", [("svc", 2), ("svc", 3),
+                                            ("nu_svc", 3)])
+def test_probability_fit_matches_reference(digits, family, classes):
+    """fit_task_batched with probability=True: the Platt sigmoids of every
+    task (A, B atol 2e-3: fitted on decisions that agree to 1e-4), and the
+    port's predict_proba of the reference's model carried over by
+    `svc_model_from_jax` against the reference's per task (atol 1e-5)."""
+    X, y = _subset(digits, classes, 90)
+    n_folds, n = 3, len(y)
+    pfam = psvm.SVCFamily if family == "svc" else psvm.NuSVCFamily
+    jfam = jsvm.SVCFamily if family == "svc" else jsvm.NuSVCFamily
+    data, meta = jfam.prepare_data(X, y)
+    train = (((np.arange(n) % n_folds)[None]
+              != np.arange(n_folds)[:, None])).astype(np.float32)
+    static = {"kernel": "rbf", "__n_folds__": n_folds, "max_iter": 150,
+              "probability": True, "gamma": 0.03}
+    dyn = {jfam.primary_param: np.full(n_folds, 0.3 if family == "nu_svc"
+                                       else 2.0, np.float32)}
+    ref = jfam.fit_task_batched({k: jnp.asarray(v) for k, v in dyn.items()},
+                                static, {k: jnp.asarray(v)
+                                         for k, v in data.items()},
+                                jnp.asarray(train), meta)
+    got = pfam.fit_task_batched({k: _t(v) for k, v in dyn.items()}, static,
+                                {k: _t(v) for k, v in data.items()},
+                                _t(train), meta)
+    key = "platt" if classes == 2 else "platt_pair"
+    np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]),
+                               rtol=0, atol=2e-3)
+    carried = svc_model_from_jax(ref, device="cpu")
+    proba = pfam.views_task_batched(carried, static, None, meta,
+                                    {"proba"})["proba"]
+    for t in range(n_folds):
+        task = {"pair_dec": ref["pair_dec"][t], key: ref[key][t]}
+        np.testing.assert_allclose(
+            proba[t].numpy(),
+            np.asarray(jfam.predict_proba(task, static, None, meta)),
+            rtol=0, atol=1e-5)
+
+
+PROBA_SEARCHES = [
+    ("binary", "SVC", {"C": [0.3, 3.0]}, 2, ["neg_log_loss", "accuracy"]),
+    ("multiclass", "SVC", {"C": [0.5, 5.0], "gamma": [0.01, 0.05]}, 4,
+     ["neg_log_loss", "accuracy"]),
+    ("nusvc_binary", "NuSVC", {"nu": [0.2, 0.5]}, 2, "neg_log_loss"),
+    ("nusvc_multiclass", "NuSVC", {"nu": [0.1, 0.3]}, 3, "neg_log_loss"),
+]
+
+
+@pytest.mark.parametrize("case", PROBA_SEARCHES,
+                         ids=[c[0] for c in PROBA_SEARCHES])
+def test_probability_search_matches_reference(digits, case):
+    """probability=True searches on shared X: mean_test_<scorer> within
+    5e-3 of the JAX package's and the same best_params_; both warn that
+    the calibration is in-sample."""
+    label, name, grid, classes, scoring = case
+    X, y = _subset(digits, classes, 120)
+    est = (SkSVC if name == "SVC" else SkNuSVC)(probability=True)
+    refit = scoring[0] if isinstance(scoring, list) else True
+    with pytest.warns(UserWarning, match="train-fold decision values"):
+        ours = port.GridSearchCV(est, grid, cv=3, scoring=scoring,
+                                 refit=refit, config=CPU).fit(X, y)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = sst.GridSearchCV(est, grid, cv=3, scoring=scoring,
+                               refit=refit).fit(X, y)
+    for metric in (scoring if isinstance(scoring, list) else ["score"]):
+        np.testing.assert_allclose(
+            ours.cv_results_[f"mean_test_{metric}"],
+            ref.cv_results_[f"mean_test_{metric}"], rtol=0, atol=5e-3)
+    assert ours.best_params_ == ref.best_params_
+
+
+def test_probability_pipeline_search_matches_reference(digits):
+    """StandardScaler + SVC(probability=True) scored by neg_log_loss: each
+    fold's transformed rows, its own kernel matrix and Platt sigmoids;
+    within 5e-3 of the JAX package's."""
+    from sklearn.pipeline import Pipeline as SkPipeline
+    from sklearn.preprocessing import StandardScaler as SkScaler
+    X, y = _subset(digits, 3, 90)
+    pipe = SkPipeline([("sc", SkScaler()),
+                       ("svc", SkSVC(probability=True))])
+    grid = {"svc__C": [0.5, 5.0]}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ours = port.GridSearchCV(pipe, grid, cv=3, scoring="neg_log_loss",
+                                 refit=False, config=CPU).fit(X, y)
+        ref = sst.GridSearchCV(pipe, grid, cv=3, scoring="neg_log_loss",
+                               refit=False).fit(X, y)
+    np.testing.assert_allclose(ours.cv_results_["mean_test_score"],
+                               ref.cv_results_["mean_test_score"], rtol=0,
+                               atol=5e-3)
+
+
+@pytest.mark.parametrize("classes", [2, 3])
+def test_standalone_probability_is_its_search_fit(digits, classes):
+    """The port's SVC(probability=True): Platt sigmoids on its own
+    training decisions, every row weighted 1, as the search fits a task
+    with all-ones weights (predict_proba atol 1e-4); rows sum to 1 and
+    the refit of a search is such an estimator."""
+    X, y = _subset(digits, classes, 90)
+    est = port.SVC(C=2.0, gamma=0.03, probability=True,
+                   device="cpu").fit(X, y)
+    proba = est.predict_proba(X)
+    data, meta = psvm.SVCFamily.prepare_data(X, y)
+    model = psvm.SVCFamily.fit_task_batched(
+        {}, {"C": 2.0, "gamma": 0.03, "probability": True,
+             "__n_folds__": 1}, {k: _t(v) for k, v in data.items()},
+        torch.ones((1, len(y))), meta)
+    want = psvm.SVCFamily.predict_proba(model, {}, None, meta)[0]
+    np.testing.assert_allclose(proba, want.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(proba.sum(axis=1), 1.0, rtol=0, atol=1e-5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gs = port.GridSearchCV(port.SVC(probability=True), {"C": [1.0]},
+                               cv=3, scoring="neg_log_loss",
+                               config=CPU).fit(X, y)
+    assert gs.best_estimator_.predict_proba(X[:4]).shape == (4, classes)
+    with pytest.raises(NotImplementedError, match="probability=True"):
+        port.SVC(device="cpu").fit(X, y).predict_proba(X)
