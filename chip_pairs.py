@@ -14,7 +14,8 @@ mean_test_score|; then the SVM searches' busy time (phase 8's SVC,
 phase 13's profiled searches); then phase 3's kernel rows (ms between
 events, each kernel by shape and variant) with the change's mean over
 the parent's;
-then G, T2, S2, T3, M1, M2, M3, S1, N1, C1 and B1 alone and `grow_tree` at
+then G, T2, S2 (and its SVR mode), T3, M1, M2, M3, S1, N1, C1, B1 and P1
+alone and `grow_tree` at
 the tree searches' chunks (`ALONE_ROWS`, again parent, change, change,
 parent): each
 tree's wrappers replayed in a CUDA graph, their host time a call, the
@@ -102,7 +103,8 @@ def kernel_rows(d: dict) -> dict:
         subs += list((k.get("phase3_inputs") or {}).items())
         subs += [(v, k[v]) for v in ("nu", "nu_pairs", "poly",
                                      "svc_pipeline", "rbf_predict",
-                                     "shared", "global")
+                                     "shared", "global", "svr_c8", "nu_c8",
+                                     "staged_full")
                  if isinstance(k.get(v), dict)]
         for sub, r in subs:
             if isinstance(r, dict) and "ms" in r:
@@ -159,6 +161,10 @@ def kernel_rows(d: dict) -> dict:
 #   signature did not change); the argmax class of every (lane, row) is
 #   saved beside the rows (`jll_pred.npy`) and counted apart between the
 #   trees.
+# - S2's SVR mode at phase 13's SVR and NuSVR steps (5 folds of n=20640),
+#   by the plan each tree picks (a block a row in the parent of the
+#   cluster plan); P1 at phase 13's SVC probability search (2025 rows of
+#   n=10000), timed between events.
 ALONE_ROWS = """
 import hashlib
 import importlib.util
@@ -431,6 +437,20 @@ np.save(os.path.join(sys.argv[2], "jll_pred.npy"),
 rows["gnb_jll gaussian_nb"] = {
     "ms": cs.graph_ms(fn, reps=20), "host_us": host_us(fn, calls=20),
     "bits": digest([jll])}
+del data, model, args, jll
+from spark_sklearn_tpu_torch.ops import svm_proba_kernels as pk
+torch.cuda.empty_cache()
+for mode in ("svr", "nu"):
+    a = cs.svr_step_inputs(0, mode)
+    fn = lambda: svk.svr_dual_step(*a)
+    rows[f"svm_svr_step {mode}"] = {
+        "ms": cs.graph_ms(fn), "host_us": host_us(fn), "bits": digest(fn())}
+    del a
+dec, y, tw, pairs = cs.proba_inputs(0)
+fn = lambda: pk.platt_fit(dec, y, tw, pairs, False)
+rows["svm_platt_fit svc_proba"] = {
+    "ms": cs.cuda_ms(fn, reps=10), "host_us": host_us(fn, calls=3),
+    "bits": digest(fn())}
 print(json.dumps(rows))
 """
 

@@ -145,11 +145,15 @@ GEMM X C_allᵀ then `torch.min` on the formed distances)
 and B1 (GaussianNB's joint log-likelihood: its views on the family's own
 fit), each equal to (N1, C1) or within rtol 1e-5 of (B1) its plain
 version, timed in a CUDA graph and between events; and phase 13's P1
-(Platt fits of the SVC probability search's 2025 (task, pair) rows), P2
-(the coupling of its 45 tasks x 10000 rows, register and shared-memory
-plans) and S2's SVR mode (epsilon-SVR and nu-SVR steps at the SVR
-searches' 5 folds of 20640 pairs), each against its plain version with
-its tolerance, bound and registers.
+(Platt fits of the SVC probability search's 2025 (task, pair) rows, each
+leaving at its fixed point, its steps counted and its bits held to the
+same kernel's 50-step run, timed beside it), P2 (the coupling of its 45
+tasks x 10000 rows, register and shared-memory plans) and S2's SVR mode
+(epsilon-SVR and nu-SVR steps at the SVR searches' 5 folds of 20640
+pairs: a thread-block cluster a row as the plan picks it for the card,
+beside clusters of 8 CTAs, with how many clusters the card holds at once
+and five graph timings), each against its plain version with its
+tolerance, bound and registers.
 
 It prints one JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -160,6 +164,7 @@ JAX, nothing of the JAX package and no scikit-learn.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import re
@@ -3122,12 +3127,15 @@ def svr_step_inputs(seed: int, mode: str):
 
 
 def phase_proba_kernels(seed: int, n_sm: int, sm_mhz: float, ptxas: dict):
-    """P1 (Platt fit), P2 (pairwise coupling, each plan) and S2's SVR
-    mode (epsilon-SVR and nu-SVR) against their plain versions at phase
-    13's shapes, each timed between CUDA events (S2 also in a CUDA
-    graph), with its bound, registers and a bitwise repeat check; no
-    single PyTorch call computes any of them (library_ms null).
-    Returns {(name, variant): row}."""
+    """P1 (Platt fit: with its exit, and run for all 50 steps), P2
+    (pairwise coupling, each plan) and S2's SVR mode (epsilon-SVR and
+    nu-SVR, a cluster of CTAs a row as the plan picks it for this card,
+    and of 8 CTAs) against their plain versions at phase 13's shapes,
+    each timed between CUDA events (S2 also in a CUDA graph, five times,
+    with how many of its clusters the card holds at once), with its
+    bound, registers and a bitwise repeat check; no single PyTorch call
+    computes any of them (library_ms null).  Returns {(name, variant):
+    row}."""
     import torch
 
     from spark_sklearn_tpu_torch.ops import _build
@@ -3165,44 +3173,81 @@ def phase_proba_kernels(seed: int, n_sm: int, sm_mhz: float, ptxas: dict):
 
     dec, y, tw, pairs = proba_inputs(seed)
     B, n, P = dec.shape
-    A, Bo = pk.platt_fit(dec, y, tw, pairs, False)
-    pA, pB, trials = pk.platt_fit_rows_plain(dec, y, tw, pairs, False,
-                                             count_trials=True)
+    steps = torch.zeros((B * P, 2), dtype=torch.int32, device="cuda")
+    A, Bo = pk.platt_fit(dec, y, tw, pairs, False, steps=steps)
+    steps50 = torch.zeros_like(steps)
+    A50, B50 = pk.platt_fit(dec, y, tw, pairs, False, plan="staged_full",
+                            steps=steps50)
+    pA, pB = pk.platt_fit_rows_plain(dec, y, tw, pairs, False)
     torch.cuda.synchronize()
     err = max(float((A - pA).abs().max()), float((Bo - pB).abs().max()))
     torch.testing.assert_close(A, pA, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(Bo, pB, rtol=1e-3, atol=1e-3)
+    # the exit leaves every row at its fixed point: the 50-step bits
+    if not (torch.equal(A.view(torch.int32), A50.view(torch.int32)) and
+            torch.equal(Bo.view(torch.int32), B50.view(torch.int32))):
+        raise AssertionError("svm_platt_fit: the exit's A and B differ "
+                             "from the 50-step run's")
+    del A50, B50
     pt = torch.as_tensor(pairs, device="cuda").long()
     yl = y.long()
     in_pair = (yl[None, :] == pt[:, 0:1]) | (yl[None, :] == pt[:, 1:2])
     kept_rows = ((tw[:, None, :] > 0) & in_pair[None]).sum(dim=2).reshape(-1)
     kept = int(kept_rows.sum())
-    # the work of this run's rows: every step's gradient pass over the
-    # kept elements and, at the steps whose gradient is at least 1e-5
-    # (counted by the plain fit), the trial pass.  Per element, from the
-    # kernel's SASS (cuobjdump -sass, an FFMA counted as 2): the gradient
-    # pass P1_GRAD_OPS FP32 operations and 2 SFU results (the sigmoid's
+    # the work of this run's rows, from the kernel's own counts: each
+    # Newton step's gradient pass over the row's kept elements and, at
+    # the steps whose gradient is at least 1e-5, the trial pass; with the
+    # exit the steps up to the row's fixed point (`steps`), without it
+    # all 50 (`steps50`).  Per element, from the kernel's SASS
+    # (cuobjdump -sass, an FFMA counted as 2): the gradient pass
+    # P1_GRAD_OPS FP32 operations and 2 SFU results (the sigmoid's
     # MUFU.EX2 and MUFU.RCP), the trial pass P1_TRIAL_OPS and 8 (a
     # MUFU.EX2 a halving; CUDA's log1pf is a polynomial on the FP32
     # pipes, no MUFU).  The MUFU counts of this build are kept in the row.
     mufu = mufu_counts(_build.library_path("svm_proba"),
-                       "platt_fit_kernelILb1E")
-    trial_el = int((kept_rows * trials).sum())
+                       "platt_fit_kernelILb1ELb1E")
+
+    def work(st):
+        st = st.long()
+        grad_el = int((kept_rows * st[:, 0]).sum())
+        trial_el = int((kept_rows * st[:, 1]).sum())
+        return (grad_el * P1_GRAD_OPS + trial_el * P1_TRIAL_OPS,
+                grad_el * 2 + trial_el * pk.N_HALVINGS, grad_el, trial_el)
+
+    ops, sfu, grad_el, trial_el = work(steps)
+    ops50, sfu50, grad50, trial50 = work(steps50)
+    nbytes = 4 * (B * n * P + n + B * n + 2 * B * P) + 8 * P
+    st = steps[:, 0].float()
+    b50 = bound(nbytes, ops50)
+    if sfu50 / sfu_per_ms > b50[0]:
+        b50 = (sfu50 / sfu_per_ms, "operations")
+    tol = ("A and B rtol 1e-3 atol 1e-3 (float32 sums over ~1600 kept "
+           "elements in another order, through the Newton steps)")
     plan = pk.platt_plan(n)
     record(("svm_platt_fit", "svc_proba"),
            lambda: pk.platt_fit(dec, y, tw, pairs, False),
            lambda: pk.platt_fit_rows_plain(dec, y, tw, pairs, False), err,
-           4 * (B * n * P + n + B * n + 2 * B * P) + 8 * P,
-           kept * pk.N_NEWTON * P1_GRAD_OPS + trial_el * P1_TRIAL_OPS,
-           "platt_fit_kernelILb1E", {"tasks": B, "n": n, "P": P},
-           sfu=kept * pk.N_NEWTON * 2 + trial_el * pk.N_HALVINGS,
-           tol="A and B rtol 1e-3 atol 1e-3 (float32 sums over ~1600 kept "
-               "elements in another order, through 50 Newton steps)",
+           nbytes, ops, "platt_fit_kernelILb1ELb1E",
+           {"tasks": B, "n": n, "P": P}, sfu=sfu, tol=tol,
            extra={"plan": plan, "kept_elements": kept,
                   "kept_share": kept / (B * n * P),
+                  "steps_min_median_max": [int(st.min()),
+                                           float(st.median()),
+                                           int(st.max())],
+                  "steps_share": grad_el / (kept * pk.N_NEWTON),
                   "trial_steps_share": trial_el / (kept * pk.N_NEWTON),
-                  "sass_mufu": mufu})
-    del trials
+                  "ops_50_steps": ops50, "sfu_ops_50_steps": sfu50,
+                  "bound_ms_50_steps": b50[0], "bound_by_50_steps": b50[1],
+                  "equal_to_50_steps": True, "sass_mufu": mufu})
+    record(("svm_platt_fit", "staged_full"),
+           lambda: pk.platt_fit(dec, y, tw, pairs, False,
+                                plan="staged_full"),
+           lambda: pk.platt_fit_rows_plain(dec, y, tw, pairs, False), err,
+           nbytes, ops50, "platt_fit_kernelILb1ELb0E",
+           {"tasks": B, "n": n, "P": P}, sfu=sfu50, tol=tol,
+           extra={"plan": pk.platt_plan(n, "staged_full"),
+                  "trial_steps_share": trial50 / (kept * pk.N_NEWTON)})
+    del steps, steps50
     platt = torch.stack([A, Bo], dim=1).reshape(B, P, 2).contiguous()
     del pA, pB
     want = pk.pair_coupling_plain(dec, platt, pairs, K_SVM)
@@ -3238,28 +3283,39 @@ def phase_proba_kernels(seed: int, n_sm: int, sm_mhz: float, ptxas: dict):
     for mode in ("svr", "nu"):
         args = svr_step_inputs(seed, mode)
         M, n = args[5].shape
-        got = svk.svr_dual_step(*args)
-        want = svk.svr_dual_step_plain(*args)
-        torch.cuda.synchronize()
-        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
-        plan = svk.svr_step_plan(n)
+        m = 0 if mode == "svr" else 1
         # reads V, bound (M, n), z, x (M, 2n), y (n), eps or target (M);
         # writes x', z' (M, 2n), beta' (M, n), resid (M).  Operations: the
         # gradient (~6) and the last pass (~8) at every element, the 40
         # bisection steps (~4) at the elements with a bound
         kept = 2 * int((args[5] != 0).sum())
-        record(("svm_svr_step", mode), lambda a=args: svk.svr_dual_step(*a),
-               lambda a=args: svk.svr_dual_step_plain(*a), max(errs[:3]),
-               4 * (11 * M * n + n + 2 * M),
-               M * 2 * n * 14 + kept * svk.N_BISECT * 4,
-               f"svr_stepILi{0 if mode == 'svr' else 1}ELb0E",
-               {"M": M, "n": n, "mode": mode}, graph=True,
-               tol="x', z', beta' rtol 1e-5 atol 1e-4; the bisection's sums "
-                   "in another order",
-               extra={"plan": plan, "resid_max_abs_err": errs[3]})
-        del got, want, args
+        nbytes = 4 * (11 * M * n + n + 2 * M)
+        ops = M * 2 * n * 14 + kept * svk.N_BISECT * 4
+        want = svk.svr_dual_step_plain(*args)
+        held = functools.partial(svk.svr_clusters, torch.cuda.current_device(),
+                                 n, mode == "nu")
+        for variant, cluster in ((mode, None), (f"{mode}_c8", 8)):
+            sp = svk.svr_step_plan(n, M, cluster, held)
+            got = svk.svr_dual_step(*args, plan=sp)
+            torch.cuda.synchronize()
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+            fn = lambda a=args, p=sp: svk.svr_dual_step(*a, plan=p)
+            record(("svm_svr_step", variant), fn,
+                   lambda a=args: svk.svr_dual_step_plain(*a), max(errs[:3]),
+                   nbytes, ops, f"svr_cluster_stepILi{m}EE",
+                   {"M": M, "n": n, "mode": mode}, graph=True,
+                   tol="x', z', beta' rtol 1e-5 atol 1e-4; the bisection's "
+                       "sums in another order",
+                   extra={"plan": sp, "resid_max_abs_err": errs[3],
+                          "clusters_held": held(sp["cluster"]),
+                          "clusters_held_by_size": {
+                              C: held(C) for C in (16, 12, 8, 4)},
+                          "graph_ms_repeats": [graph_ms(fn, reps=20)
+                                               for _ in range(5)]})
+            del got
+        del want, args
     torch.cuda.empty_cache()
     return rows
 

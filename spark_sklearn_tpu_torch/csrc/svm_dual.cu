@@ -107,10 +107,37 @@
 //     :117-170) over rows of the pairs (a, a*), 2n elements with signs
 //     (+1^n, -1^n).  Its own parts are the gradient (the linear term s y -
 //     eps, or s y, formed from y (n) and eps (M)), the two lists of a
-//     pair's halves (SvrList: the sign by list, 8 bytes a staged slot) and
-//     the last pass (both halves, and beta' = z'_a - z'_a* (M, n) for the
-//     next product).  The bisection (`bisect_levels`), the reductions, the
-//     brackets and the clip rules are S2's.
+//     pair's halves (the sign by list) and the last pass (both halves,
+//     and beta' = z'_a - z'_a* (M, n) for the next product).  The
+//     brackets, the 40 steps with their comparison and final midpoint,
+//     and the clip rules are S2's.
+//     Bound: bytes.  It reads V, bound (M, n), z, x (M, 2n) and writes x',
+//     z' (M, 2n), beta' (M, n): at M = 5, n = 20640, 4.5 MB, ~0.0014 ms
+//     at 3.35 TB/s.  What bounds it is latency: 40 bisection steps, each
+//     ending in a sum over the row.
+//
+// Design of S2's SVR mode.
+// - A thread-block cluster of C CTAs a row (C <= 16, from n and from how
+//   many clusters of C the card holds at once: `svr_step_plan`; a
+//   search's 5 fold rows of 20640 pairs take 80 SMs, not 5).  CTA c owns
+//   a contiguous share of ceil(n / C) pairs and keeps its two lists (u
+//   and the bound, 16 bytes a pair slot) in its own shared memory, so the
+//   bisection passes read no global memory; the first and last passes
+//   spread over the C CTAs.  K steps a pass (`svr_levels`, as
+//   `bisect_levels`: lo and hi are the sequential bisection's bit for
+//   bit; K a constant a mode, kSvrLevelsSvr and kSvrLevelsNu), and each
+//   pass ends in one cluster reduction (`cluster_reduce`): a block
+//   reduction to the CTA's totals, which it stores into every CTA's
+//   shared memory (remote stores counted on the receiver's mbarrier: no
+//   cluster barrier a pass), then every CTA adds the C totals in rank
+//   order, so every CTA holds the same totals and takes the same branch,
+//   and two launches give the same bits.  The brackets' maxima and the
+//   residual are cluster maxima.
+// - A tame nu-SVR row sums each list into its own half only (the other
+//   half's clip to [0, 0] adds +-0).  The sums run in another order than
+//   the plain version's.
+// - Rows of more than 16 kSvrShareMax = 225280 pairs are refused: the
+//   product beta K before the step would read an (n, n) K of 203 GB.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -130,7 +157,6 @@ constexpr int kStepThreads = 512;          // S2: threads a row
 constexpr int kStepWarps = kStepThreads / 32;
 constexpr int kBisect = 40;                // svm.py:132 n_bisect
 constexpr int kStagedMaxN = 20480;         // 9 bytes an element: 180 KB
-constexpr int kSvrStagedMaxN = 13824;      // SVR: 16 bytes a pair: 216 KB
 constexpr int kMaxNV = 6;                  // most values one reduction adds
 constexpr int kUnroll = 4;                 // S2: elements a thread loads
                                            // before it uses them
@@ -503,9 +529,9 @@ struct KeptList {
 // there), one reduction, then the K sequential choices.  So the choices,
 // and lo and hi after them, are the sequential bisection's bit for bit.
 // MODE 0: sum of yb clip(u - mid yb, b) > 0 takes the upper half; MODE 1:
-// per half h, sum of clip(u - mid_h, b_h) > target.  `List` is KeptList
-// (SVC, NuSVC) or SvrList (the SVR duals): its each(cnt, fn) calls fn(u,
-// b, yb) on the thread's kept elements in its own order.
+// per half h, sum of clip(u - mid_h, b_h) > target.  `List` is KeptList:
+// its each(cnt, fn) calls fn(u, b, yb) on the thread's kept elements in
+// its own order.
 template <int MODE, int K, bool kTame, typename List, typename Count>
 __device__ __forceinline__ void bisect_levels(const List& kept, Count cnt,
                                               float (&lo)[2],
@@ -738,51 +764,6 @@ int launch_step(const float* V, const float* Z, const float* X,
 // S2, SVR mode
 // ---------------------------------------------------------------------------
 
-// A row of the (a, a*) iterate: 2n elements, a at [0, n), a* at [n, 2n),
-// signs s = +1 / -1 by position, bound bh[i] on both halves.  Thread t
-// walks the pairs i = t, t + kStepThreads, ... and keeps two lists: the a
-// elements that can move at slots q kStepThreads + t, the a* ones at
-// `half` + q kStepThreads + t (each below the element's own position, so
-// the streamed plan's lists fit in the rows of x' and z').  Staged: u
-// and the bound in shared memory (8 bytes a slot: the sign is the list's);
-// streamed: u in x', the bound in z'.  `bisect_levels` sums it as SVC's
-// KeptList, with yb the list's sign.
-template <bool kStaged>
-struct SvrList {
-  int cap;                                 // slots of each array
-  int half;                                // where the a* list starts
-  float* gu;
-  float* gb;
-  __device__ __forceinline__ float u(int k) const {
-    return kStaged ? s2_smem[k] : gu[k];
-  }
-  __device__ __forceinline__ float b(int k) const {
-    return kStaged ? s2_smem[cap + k] : gb[k];
-  }
-  __device__ __forceinline__ void put(int k, float uk, float bk) const {
-    if (kStaged) {
-      s2_smem[k] = uk;
-      s2_smem[cap + k] = bk;
-    } else {
-      gu[k] = uk;
-      gb[k] = bk;
-    }
-  }
-  // fn(u, b, s) over the first cnt.x slots of the a list (s = +1), then
-  // the first cnt.y of the a* list (s = -1)
-  template <typename Fn>
-  __device__ __forceinline__ void each(int2 cnt, Fn fn) const {
-    for (int q = 0; q < cnt.x; ++q) {
-      const int k = q * kStepThreads + threadIdx.x;
-      fn(u(k), b(k), 1.0f);
-    }
-    for (int q = 0; q < cnt.y; ++q) {
-      const int k = half + q * kStepThreads + threadIdx.x;
-      fn(u(k), b(k), -1.0f);
-    }
-  }
-};
-
 // u = z - step * grad of the SVR duals (svr.py:76-80, :149-153):
 // grad = -(lin - s v), lin = s y - eps (MODE 0, epsilon-SVR) or s y
 // (MODE 1, nu-SVR); z alone when there is no product.
@@ -797,121 +778,432 @@ __device__ __forceinline__ float svr_grad_step(bool has_v, float v, float z,
   return __fsub_rn(z, __fmul_rn(step, grad));
 }
 
+// x' of a pair (a, a*) from its gradient steps (ua, us) and the final
+// multipliers: MODE 0 the hyperplane's m0 (a - m0, a* + m0), MODE 1 the
+// two half box-sums' m0 (the a half) and m1 (the a* half).
+template <int MODE>
+__device__ __forceinline__ void svr_project(float ua, float us, float b,
+                                            float m0, float m1, float& xa,
+                                            float& xs) {
+  if (MODE == 0) {
+    xa = clip(__fsub_rn(ua, m0), b);
+    xs = clip(__fadd_rn(us, m0), b);
+  } else {
+    xa = __fadd_rn(clip(__fsub_rn(ua, m0), b), clip(__fsub_rn(ua, m1), 0.0f));
+    xs = __fadd_rn(clip(__fsub_rn(us, m0), 0.0f), clip(__fsub_rn(us, m1), b));
+  }
+}
+
+// --- a thread-block cluster a row ---
+//
+// A row's n pairs are cut into C contiguous shares of `share` pairs, one a
+// CTA of the row's cluster (C CTAs on C SMs, not one).  Each CTA keeps its
+// share's lists in its own shared memory, so the bisection passes read no
+// global memory, and every pass's sums end in one cluster reduction
+// (`cluster_reduce`): the first and last passes, the brackets' maxima and
+// the residual spread over the C CTAs as well.  K bisection steps a pass
+// (`svr_levels`, as `bisect_levels`: the sums at the 2^K - 1 midpoints the
+// steps can visit, then the sequential choices, so lo and hi are the
+// one-step-a-pass bisection's).  Every launch gives the same bits.
+
+constexpr int kSvrThreads = 256;           // threads of a CTA
+constexpr int kSvrWarps = kSvrThreads / 32;
+constexpr int kSvrMaxCluster = 16;         // CTAs a row (above 8
+                                           // non-portable)
+constexpr int kSvrLevelsSvr = 3;           // bisection steps a pass,
+constexpr int kSvrLevelsNu = 2;            // epsilon-SVR and nu-SVR
+constexpr int kSvrMaxNV = 30;              // most values a reduction adds
+                                           // (room for 4 steps a pass in
+                                           // either mode: nu 2 x 15)
+constexpr int kSvrShareMax = 14080;        // pairs of a share: 16 bytes
+                                           // each (u and the bound of
+                                           // both halves), 220 KB, beside
+                                           // the reductions' 4816 bytes
+
+// A CTA's lists of its share's kept elements: thread t's q-th kept a
+// element at slot q kSvrThreads + t of list 0, its a* ones in list 1,
+// each slot (u, bound).
+struct SvrShare {
+  float2* list;
+  int cap;                                 // slots of a list
+  __device__ __forceinline__ void put(int h, int q, float u, float b) const {
+    list[h * cap + q * kSvrThreads + threadIdx.x] = make_float2(u, b);
+  }
+  // fn(u, b) over the thread's first cnt slots of list h, in slot order
+  template <typename Fn>
+  __device__ __forceinline__ void each(int h, int cnt, Fn fn) const {
+    const float2* l = list + h * cap + threadIdx.x;
+    for (int q = 0; q < cnt; ++q) {
+      const float2 e = l[q * kSvrThreads];
+      fn(e.x, e.y);
+    }
+  }
+};
+
+// The pairs i = p0 + threadIdx.x + k kSvrThreads < p1 of a CTA's share,
+// kUnroll at a time (every load of a batch issued before the first is
+// used): fn(i, b, y, v, za, zs, xa, xs), v 0 without V, xa and xs 0
+// without X.
+template <typename Fn>
+__device__ __forceinline__ void share_batches(
+    const float* __restrict__ V, const float* __restrict__ Z,
+    const float* __restrict__ X, const float* __restrict__ Y,
+    const float* __restrict__ Bh, size_t offn, size_t off2, int n, int p0,
+    int p1, Fn fn) {
+  for (int i0 = p0 + threadIdx.x; i0 < p1; i0 += kUnroll * kSvrThreads) {
+    float b[kUnroll], y[kUnroll], v[kUnroll], za[kUnroll], zs[kUnroll],
+        xa[kUnroll], xs[kUnroll];
+#pragma unroll
+    for (int e = 0; e < kUnroll; ++e) {
+      const int i = i0 + e * kSvrThreads;
+      const bool in = i < p1;
+      b[e] = in ? Bh[offn + i] : 0.0f;
+      y[e] = in ? Y[i] : 0.0f;
+      v[e] = in && V != nullptr ? V[offn + i] : 0.0f;
+      za[e] = in ? Z[off2 + i] : 0.0f;
+      zs[e] = in ? Z[off2 + n + i] : 0.0f;
+      xa[e] = in && X != nullptr ? X[off2 + i] : 0.0f;
+      xs[e] = in && X != nullptr ? X[off2 + n + i] : 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < kUnroll; ++e) {
+      const int i = i0 + e * kSvrThreads;
+      if (i < p1) fn(i, b[e], y[e], v[e], za[e], zs[e], xa[e], xs[e]);
+    }
+  }
+}
+
+// The cluster's reductions.  `wpart`: the warps' results (value q of warp
+// w at q kSvrWarps + w).  `recv`: two alternating slots (a reduction's
+// `use` & 1) of kSvrMaxCluster x kSvrMaxNV floats, value q of the CTA of
+// rank r at r kSvrMaxNV + q, which every CTA of the cluster writes into
+// every CTA's copy; `bar`: the two slots' mbarriers, each completing a
+// phase when its C x NV values have landed.
+struct ClusterRed {
+  float* wpart;
+  float* recv;
+  uint64_t* bar;
+  int C;                                   // CTAs of the cluster
+  int rank;                                // this CTA's
+  int use;                                 // reductions so far
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address `addr` of this CTA's shared memory has in CTA `rank`'s.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// The phase's one arrival, and the bytes it waits for.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Until the phase of parity `parity` has completed: its values, written
+// by the other CTAs, are visible after it (acquire at cluster scope).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
+      "%1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// v into the shared memory of another CTA of the cluster (both addresses
+// from `cluster_addr`), its 4 bytes counted on that CTA's mbarrier.
+__device__ __forceinline__ void store_remote(uint32_t addr, float v,
+                                             uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];"
+      :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+// A warp's sums of values Q0.. of v into wpart, `warp_sums` 16 at a time.
+template <int NV, int Q0>
+__device__ __forceinline__ void warp_part(const float (&v)[NV], float* wpart,
+                                          int warp, int lane) {
+  constexpr int N = NV - Q0 < 16 ? NV - Q0 : 16;
+  constexpr int G = 32 / (N <= 1 ? 1 : N <= 2 ? 2 : N <= 4 ? 4
+                          : N <= 8 ? 8 : 16);   // lanes a value
+  float w[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) w[i] = v[Q0 + i];
+  const float s = warp_sums<N>(w, lane);
+  if (lane % G == 0 && lane / G < N)
+    wpart[(Q0 + lane / G) * kSvrWarps + warp] = s;
+  if constexpr (Q0 + 16 < NV) warp_part<NV, Q0 + 16>(v, wpart, warp, lane);
+}
+
+// Cluster-wide sums (kMax: maxima, NaN propagating) of NV values a
+// thread.  Each warp adds its lanes' values (`warp_sums`' pairs; maxima by
+// the shuffle-down tree), lane q of warp 0 adds the warps' results for
+// value q in warp order and sends the CTA's total to every CTA of the
+// cluster (a remote store that counts its bytes on the receiver's
+// mbarrier), and each CTA, once its mbarrier has seen all C x NV values,
+// adds them for value q in rank order in lane q of every warp.  So every
+// CTA holds the same totals, bit for bit, and takes the same branch; no
+// atomics, so two launches give the same bits.  Returns value q's total in
+// lane q (lanes >= NV: 0).  A slot is written again two reductions later,
+// which no CTA starts before every CTA has sent the reduction between,
+// and a CTA sends only after a block barrier that follows its reads.
+template <int NV, bool kMax>
+__device__ __forceinline__ float cluster_reduce(const float (&v)[NV],
+                                                ClusterRed& red) {
+  static_assert(NV <= kSvrMaxNV, "reduction too wide");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (kMax) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      float x = v[q];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        x = max_nan(x, __shfl_down_sync(kFull, x, o));
+      if (lane == 0) red.wpart[q * kSvrWarps + warp] = x;
+    }
+  } else {
+    warp_part<NV, 0>(v, red.wpart, warp, lane);
+  }
+  __syncthreads();
+  const int b = red.use & 1;
+  const uint32_t parity = (red.use >> 1) & 1;
+  float* slot = red.recv + b * kSvrMaxCluster * kSvrMaxNV;
+  if (threadIdx.x == 0)
+    mbar_expect(red.bar + b, static_cast<uint32_t>(red.C * NV * 4));
+  if (warp == 0 && lane < NV) {
+    float s = red.wpart[lane * kSvrWarps];
+#pragma unroll
+    for (int w = 1; w < kSvrWarps; ++w) {
+      const float x = red.wpart[lane * kSvrWarps + w];
+      s = kMax ? max_nan(s, x) : s + x;
+    }
+    const uint32_t to = smem_addr(slot + red.rank * kSvrMaxNV + lane);
+    const uint32_t bar = smem_addr(red.bar + b);
+    for (int r = 0; r < red.C; ++r)
+      store_remote(cluster_addr(to, r), s, cluster_addr(bar, r));
+  }
+  mbar_wait(red.bar + b, parity);
+  float t = 0.0f;
+  if (lane < NV) {
+    float p[kSvrMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kSvrMaxCluster; ++r)
+      p[r] = r < red.C ? slot[r * kSvrMaxNV + lane] : 0.0f;
+    t = p[0];
+#pragma unroll
+    for (int r = 1; r < kSvrMaxCluster; ++r)
+      if (r < red.C) t = kMax ? max_nan(t, p[r]) : t + p[r];
+  }
+  ++red.use;
+  return t;
+}
+
+// K bisection steps of the cluster plan in one pass, as `bisect_levels`:
+// the sums at the 2^K - 1 midpoints of the brackets the sequential steps
+// would hold, one cluster reduction, then the K sequential choices.  List
+// 0 holds the a elements (s = +1), list 1 the a* ones (s = -1).  MODE 0:
+// sum s clip(u - mid s, b) > 0 takes the upper half (s clip(u - mid s,
+// b) is clip(u - mid, b) on list 0 and -clip(u + mid, b) on list 1, the
+// same values); MODE 1: per half h, sum clip(u - mid_h, b_h) > target,
+// where the a half has its bound on list 0 only and the a* half on list 1
+// only.  In a tame row an element adds exactly +-0 to the other half's
+// sum (a clip to [0, 0] of a finite value), which a sum that starts at +0
+// keeps, so only its own half is summed; otherwise both, with clip's NaN.
+template <int MODE, int K, bool kTame>
+__device__ __forceinline__ void svr_levels(const SvrShare& kept, int2 cnt,
+                                           float (&lo)[2], float (&hi)[2],
+                                           float tgt, ClusterRed& red) {
+  constexpr int P = (1 << K) - 1;          // midpoints a bisection
+  constexpr int H = MODE == 0 ? 1 : 2;     // bisections
+  float mid[H][P + 1], from[H][P + 1], to[H][P + 1];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    from[h][1] = lo[h];
+    to[h][1] = hi[h];
+#pragma unroll
+    for (int j = 1; j <= P; ++j) {
+      mid[h][j] = 0.5f * (from[h][j] + to[h][j]);
+      if (2 * j <= P) {
+        from[h][2 * j] = from[h][j];
+        to[h][2 * j] = mid[h][j];
+        from[h][2 * j + 1] = mid[h][j];
+        to[h][2 * j + 1] = to[h][j];
+      }
+    }
+  }
+  float g[H * P];
+#pragma unroll
+  for (int q = 0; q < H * P; ++q) g[q] = 0.0f;
+  kept.each(0, cnt.x, [&](float u, float b) {
+#pragma unroll
+    for (int j = 1; j <= P; ++j) {
+      g[j - 1] += clamp<kTame>(__fsub_rn(u, mid[0][j]), b);
+      if constexpr (MODE == 1 && !kTame)
+        g[P + j - 1] += clamp<kTame>(__fsub_rn(u, mid[H - 1][j]), 0.0f);
+    }
+  });
+  kept.each(1, cnt.y, [&](float u, float b) {
+#pragma unroll
+    for (int j = 1; j <= P; ++j) {
+      if constexpr (MODE == 0) {
+        g[j - 1] -= clamp<kTame>(__fadd_rn(u, mid[0][j]), b);
+      } else {
+        if constexpr (!kTame)
+          g[j - 1] += clamp<kTame>(__fsub_rn(u, mid[0][j]), 0.0f);
+        g[H * P - P + j - 1] += clamp<kTame>(__fsub_rn(u, mid[H - 1][j]), b);
+      }
+    }
+  });
+  const float tot = cluster_reduce<H * P, false>(g, red);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    int j = 1;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const float gj = __shfl_sync(kFull, tot, h * P + j - 1);
+      float mj = 0.0f;
+#pragma unroll
+      for (int c = 1; c <= P; ++c)
+        if (c == j) mj = mid[h][c];
+      const bool take_hi = MODE == 0 ? gj > 0.0f : gj > tgt;
+      lo[h] = take_hi ? mj : lo[h];
+      hi[h] = take_hi ? hi[h] : mj;
+      j = 2 * j + (take_hi ? 1 : 0);
+    }
+  }
+}
+
 // One projected Nesterov step of the epsilon-SVR (MODE 0: the box and
 // the hyperplane sum(a - a*) = 0) or nu-SVR (MODE 1: sum a = sum a* =
-// target[row]) dual over a row of 2n elements, from the product V = beta K
-// (M, n), the labels y (n) and the row's epsilon (MODE 0).  Writes x' and
-// z' (M, 2n), beta' = z'_a - z'_a* (M, n) for the next product, and the
-// residual.  The same passes, brackets and clip rules as `dual_step`.
-template <int MODE, bool kStaged>
-__global__ void __launch_bounds__(kStepThreads, 2)
-svr_step(const float* __restrict__ V, const float* __restrict__ Z,
-         const float* __restrict__ X, const float* __restrict__ Y,
-         const float* __restrict__ eps_ptr, const float* __restrict__ Bh,
-         const float* __restrict__ step_ptr, float coef,
-         const float* __restrict__ target, float* Xo, float* Zo,
-         float* __restrict__ Beta, float* __restrict__ resid, int n) {
-  __shared__ float red[2 * (kStepWarps + 1) * kMaxNV];
-  int parity = 0;
-  const int tid = threadIdx.x;
-  const size_t row = blockIdx.x;
+// target[row]) dual over rows of 2n elements, from the product V = beta K
+// (M, n), the labels y (n) and the row's epsilon (MODE 0); the brackets,
+// the clip rules and the wide/tame cases are `dual_step`'s.  CTA `rank` of
+// row blockIdx.x / C owns the pairs [rank share, (rank + 1) share) of its
+// row.  Pass 1: the gradient step, the brackets' maxima (a cluster max)
+// and the thread's two lists (the elements with a bound, or a non-finite
+// value; a wide bracket lists every element).  The 40 bisection steps, K
+// a pass in a tame row, one a pass otherwise.  The last pass writes x',
+// z', beta' = z'_a - z'_a* over the share and the residual (a cluster
+// max, written by rank 0).
+template <int MODE>
+__global__ void __launch_bounds__(kSvrThreads)
+svr_cluster_step(const float* __restrict__ V, const float* __restrict__ Z,
+                 const float* __restrict__ X, const float* __restrict__ Y,
+                 const float* __restrict__ eps_ptr,
+                 const float* __restrict__ Bh,
+                 const float* __restrict__ step_ptr, float coef,
+                 const float* __restrict__ target, float* __restrict__ Xo,
+                 float* __restrict__ Zo, float* __restrict__ Beta,
+                 float* __restrict__ resid, int n, int share) {
+  __shared__ float wpart[kSvrMaxNV * kSvrWarps];
+  __shared__ float recv[2 * kSvrMaxCluster * kSvrMaxNV];
+  __shared__ __align__(8) uint64_t bar[2];
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  ClusterRed red = {wpart, recv, bar, C, rank, 0};
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cl.sync();          // every CTA's mbarriers are set before any sends
+  constexpr int K = MODE == 0 ? kSvrLevelsSvr : kSvrLevelsNu;
+  const size_t row = blockIdx.x / C;
   const size_t off2 = row * 2 * static_cast<size_t>(n);
   const size_t offn = row * static_cast<size_t>(n);
   const float step = *step_ptr;
-  const float eps = MODE == 0 && eps_ptr != nullptr ? eps_ptr[row] : 0.0f;
-  const int slots = (n + kStepThreads - 1) / kStepThreads;
-  const int half = kStaged ? slots * kStepThreads : n;
-  const SvrList<kStaged> kept = {2 * slots * kStepThreads, half, Xo + off2,
-                                 Zo + off2};
+  const float eps = MODE == 0 ? eps_ptr[row] : 0.0f;
+  const int p0 = min(n, rank * share);
+  const int p1 = min(n, p0 + share);
+  const SvrShare kept = {reinterpret_cast<float2*>(s2_smem),
+                         ((share + kSvrThreads - 1) / kSvrThreads) *
+                             kSvrThreads};
   const bool has_v = V != nullptr;
 
-  float mx[2] = {0.0f, 0.0f};               // max|u|, max b
-  float neg_b = -INFINITY;
+  float mx[3] = {0.0f, 0.0f, -INFINITY};   // max|u|, max b, max -b
   int cnt_a = 0, cnt_s = 0;
-  for (int i = tid; i < n; i += kStepThreads) {
-    const float b = Bh[offn + i], y = Y[i];
-    const float v = has_v ? V[offn + i] : 0.0f;
-    const float ua = svr_grad_step<MODE>(has_v, v, Z[off2 + i], 1.0f, y, eps,
-                                         step);
-    const float us = svr_grad_step<MODE>(has_v, v, Z[off2 + n + i], -1.0f, y,
-                                         eps, step);
+  share_batches(V, Z, nullptr, Y, Bh, offn, off2, n, p0, p1,
+                [&](int, float b, float y, float v, float za, float zs,
+                    float, float) {
+    const float ua = svr_grad_step<MODE>(has_v, v, za, 1.0f, y, eps, step);
+    const float us = svr_grad_step<MODE>(has_v, v, zs, -1.0f, y, eps, step);
     mx[0] = max_nan(mx[0], max_nan(fabsf(ua), fabsf(us)));
     mx[1] = max_nan(mx[1], b);
-    neg_b = max_nan(neg_b, -b);
+    mx[2] = max_nan(mx[2], -b);
     const bool fin_b = isfinite(b);
-    if (b != 0.0f || !(isfinite(ua) && fin_b)) {
-      kept.put(cnt_a * kStepThreads + tid, ua, b);
-      ++cnt_a;
-    }
-    if (b != 0.0f || !(isfinite(us) && fin_b)) {
-      kept.put(half + cnt_s * kStepThreads + tid, us, b);
-      ++cnt_s;
-    }
-  }
-  float m[3] = {mx[0], mx[1], neg_b};
-  block_max<3>(m, red, parity);
+    if (b != 0.0f || !(isfinite(ua) && fin_b)) kept.put(0, cnt_a++, ua, b);
+    if (b != 0.0f || !(isfinite(us) && fin_b)) kept.put(1, cnt_s++, us, b);
+  });
+  const float mt = cluster_reduce<3, true>(mx, red);
+  const float m_u = __shfl_sync(kFull, mt, 0);
+  const float m_b = __shfl_sync(kFull, mt, 1);
+  const float m_nb = __shfl_sync(kFull, mt, 2);
 
   float lo[2], hi[2], tgt = 0.0f;
   if (MODE == 0) {
-    lo[0] = -__fadd_rn(m[0], m[1]);
+    lo[0] = -__fadd_rn(m_u, m_b);
     hi[0] = -lo[0];
     lo[1] = hi[1] = 0.0f;
   } else {
     tgt = target[row];
-    const float zmax = __fadd_rn(__fadd_rn(m[0], m[1]), 1.0f);
+    const float zmax = __fadd_rn(__fadd_rn(m_u, m_b), 1.0f);
     lo[0] = lo[1] = -zmax;
     hi[0] = hi[1] = zmax;
   }
   const bool wide = !(hi[0] <= kHalfMax && hi[1] <= kHalfMax);
-  const bool tame = !wide && m[2] <= 0.0f;
+  const bool tame = !wide && m_nb <= 0.0f;
   if (wide) {
     cnt_a = cnt_s = 0;
-    for (int i = tid; i < n; i += kStepThreads) {
-      const float b = Bh[offn + i], y = Y[i];
-      const float v = has_v ? V[offn + i] : 0.0f;
-      kept.put(cnt_a * kStepThreads + tid,
-               svr_grad_step<MODE>(has_v, v, Z[off2 + i], 1.0f, y, eps, step),
-               b);
-      ++cnt_a;
-      kept.put(half + cnt_s * kStepThreads + tid,
-               svr_grad_step<MODE>(has_v, v, Z[off2 + n + i], -1.0f, y, eps,
-                                   step),
-               b);
-      ++cnt_s;
-    }
+    share_batches(V, Z, nullptr, Y, Bh, offn, off2, n, p0, p1,
+                  [&](int, float b, float y, float v, float za, float zs,
+                      float, float) {
+      kept.put(0, cnt_a++,
+               svr_grad_step<MODE>(has_v, v, za, 1.0f, y, eps, step), b);
+      kept.put(1, cnt_s++,
+               svr_grad_step<MODE>(has_v, v, zs, -1.0f, y, eps, step), b);
+    });
   }
 
   const int2 cnt = make_int2(cnt_a, cnt_s);
   int left = kBisect;
   if (tame) {
-    for (; left >= 2; left -= 2)
-      bisect_levels<MODE, 2, true>(kept, cnt, lo, hi, tgt, red, parity);
+    for (; left >= K; left -= K)
+      svr_levels<MODE, K, true>(kept, cnt, lo, hi, tgt, red);
+    for (; left > 0; --left)
+      svr_levels<MODE, 1, true>(kept, cnt, lo, hi, tgt, red);
   }
   for (; left > 0; --left)
-    bisect_levels<MODE, 1, false>(kept, cnt, lo, hi, tgt, red, parity);
+    svr_levels<MODE, 1, false>(kept, cnt, lo, hi, tgt, red);
   const float m0 = 0.5f * (lo[0] + hi[0]);
   const float m1 = MODE == 0 ? 0.0f : 0.5f * (lo[1] + hi[1]);
 
-  // last pass, every pair: both halves of x' and z', beta' and the
-  // residual (the lists are no longer read)
   float r[1] = {0.0f};
-  for (int i = tid; i < n; i += kStepThreads) {
-    const float b = Bh[offn + i], y = Y[i];
-    const float v = has_v ? V[offn + i] : 0.0f;
-    const float za = Z[off2 + i], zs = Z[off2 + n + i];
+  share_batches(V, Z, X, Y, Bh, offn, off2, n, p0, p1,
+                [&](int i, float b, float y, float v, float za, float zs,
+                    float xa0, float xs0) {
     const float ua = svr_grad_step<MODE>(has_v, v, za, 1.0f, y, eps, step);
     const float us = svr_grad_step<MODE>(has_v, v, zs, -1.0f, y, eps, step);
     float xa, xs;
-    if (MODE == 0) {
-      xa = clip(__fsub_rn(ua, m0), b);
-      xs = clip(__fadd_rn(us, m0), b);
-    } else {
-      xa = __fadd_rn(clip(__fsub_rn(ua, m0), b), clip(__fsub_rn(ua, m1), 0.0f));
-      xs = __fadd_rn(clip(__fsub_rn(us, m0), 0.0f), clip(__fsub_rn(us, m1), b));
-    }
-    const float na = __fadd_rn(xa, __fmul_rn(coef, __fsub_rn(xa, X[off2 + i])));
-    const float ns =
-        __fadd_rn(xs, __fmul_rn(coef, __fsub_rn(xs, X[off2 + n + i])));
+    svr_project<MODE>(ua, us, b, m0, m1, xa, xs);
+    const float na = __fadd_rn(xa, __fmul_rn(coef, __fsub_rn(xa, xa0)));
+    const float ns = __fadd_rn(xs, __fmul_rn(coef, __fsub_rn(xs, xs0)));
     r[0] = max_nan(r[0], max_nan(fabsf(__fsub_rn(xa, za)),
                                  fabsf(__fsub_rn(xs, zs))));
     Xo[off2 + i] = xa;
@@ -919,28 +1211,78 @@ svr_step(const float* __restrict__ V, const float* __restrict__ Z,
     Zo[off2 + i] = na;
     Zo[off2 + n + i] = ns;
     Beta[offn + i] = __fsub_rn(na, ns);
-  }
-  block_max<1>(r, red, parity);
-  if (tid == 0) resid[row] = __fdiv_rn(r[0], step);
+  });
+  const float rt = cluster_reduce<1, true>(r, red);
+  if (rank == 0 && threadIdx.x == 0) resid[row] = __fdiv_rn(rt, step);
+  cl.sync();          // no CTA leaves while its stores may be in flight
 }
 
-template <int MODE, bool kStaged>
+// A cluster kernel's attributes, once a device: clusters of more than 8
+// CTAs allowed, and the dynamic shared-memory limit raised as
+// `allow_max_smem` does.
+template <typename Kernel>
+int allow_cluster(Kernel kernel, bool* raised) {
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc != 0 || (dev < kMaxDevices && raised[dev])) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  if (rc != 0) return rc;
+  return allow_max_smem(kernel, raised);
+}
+
+// M clusters of C CTAs, each with 16 bytes a slot of its two lists.
+// `attr` holds the cluster's dimension.
+cudaLaunchConfig_t svr_config(int M, int n, int C, cudaLaunchAttribute* attr,
+                              cudaStream_t s) {
+  const int share = (n + C - 1) / C;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(M) * static_cast<unsigned>(C));
+  cfg.blockDim = dim3(kSvrThreads);
+  cfg.dynamicSmemBytes =
+      16 * static_cast<size_t>((share + kSvrThreads - 1) / kSvrThreads) *
+      kSvrThreads;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(C);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+bool svr_raised[2][kMaxDevices] = {};     // allow_cluster's, by mode
+
+// A launch the card refuses (a cluster it cannot place) returns its
+// error.
+template <int MODE>
 int launch_svr(const float* V, const float* Z, const float* X, const float* Y,
                const float* eps, const float* Bh, const float* step,
                float coef, const float* target, float* Xo, float* Zo,
-               float* Beta, float* resid, int M, int n, cudaStream_t s) {
-  size_t smem = 0;
-  if (kStaged) {
-    // 8 bytes a slot, two lists of slots * kStepThreads
-    smem = 16 * static_cast<size_t>((n + kStepThreads - 1) / kStepThreads) *
-           kStepThreads;
-    static bool raised[kMaxDevices] = {};
-    const int rc = allow_max_smem(svr_step<MODE, true>, raised);
-    if (rc != 0) return rc;
-  }
-  svr_step<MODE, kStaged><<<M, kStepThreads, smem, s>>>(
-      V, Z, X, Y, eps, Bh, step, coef, target, Xo, Zo, Beta, resid, n);
+               float* Beta, float* resid, int M, int n, int C,
+               cudaStream_t s) {
+  int rc = allow_cluster(svr_cluster_step<MODE>, svr_raised[MODE]);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = svr_config(M, n, C, attr, s);
+  rc = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, svr_cluster_step<MODE>, V, Z, X, Y, eps, Bh, step, coef, target,
+      Xo, Zo, Beta, resid, n, (n + C - 1) / C));
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of C CTAs the card holds at once for rows of n pairs
+// (cudaOccupancyMaxActiveClusters, on an idle card).
+template <int MODE>
+int svr_clusters(int n, int C, int* out) {
+  const int rc = allow_cluster(svr_cluster_step<MODE>, svr_raised[MODE]);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = svr_config(1, n, C, attr, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, svr_cluster_step<MODE>, &cfg));
 }
 
 }  // namespace
@@ -1030,30 +1372,39 @@ int svm_dual_step(const float* V, const float* Z, const float* X,
 }
 
 // S2, SVR mode: one projected Nesterov step of the epsilon-SVR (mode 0)
-// or nu-SVR (mode 1) dual over M rows of 2n (a, a*) elements.  V (M, n)
-// may be null (a projection of z only); eps (M,) is read in mode 0,
-// target (M,) in mode 1; `step` is a device scalar.  staged = 1 takes the
-// shared-memory plan (n <= kSvrStagedMaxN).  Xo, Zo and Beta must not
-// alias the inputs.  Returns cudaGetLastError() of the launch.
+// or nu-SVR (mode 1) dual over M rows of 2n (a, a*) elements, a cluster
+// of `cluster` CTAs a row (1 to 16, each CTA's share of ceil(n / cluster)
+// pairs at most kSvrShareMax).  V (M, n) may be null (a projection of z
+// only); eps (M,) is read in mode 0, target (M,) in mode 1; `step` is a
+// device scalar.  Xo, Zo and Beta must not alias the inputs.  Returns the
+// launch's error (0 = launched).
 int svm_svr_step(const float* V, const float* Z, const float* X,
                  const float* Y, const float* eps, const float* Bh,
                  const float* step, float coef, const float* target,
                  float* Xo, float* Zo, float* Beta, float* resid, int M,
-                 int n, int mode, int staged, void* stream) {
-  if (M < 1 || n < 1 || (staged && n > kSvrStagedMaxN) ||
+                 int n, int mode, int cluster, void* stream) {
+  if (M < 1 || n < 1 || cluster < 1 || cluster > kSvrMaxCluster ||
+      (n + cluster - 1) / cluster > kSvrShareMax ||
+      static_cast<long long>(M) * cluster > 2147483647LL ||
       (mode == 0 && eps == nullptr) || (mode == 1 && target == nullptr) ||
       (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 0)
-    return staged ? launch_svr<0, true>(V, Z, X, Y, eps, Bh, step, coef,
-                                        target, Xo, Zo, Beta, resid, M, n, s)
-                  : launch_svr<0, false>(V, Z, X, Y, eps, Bh, step, coef,
-                                         target, Xo, Zo, Beta, resid, M, n, s);
-  return staged ? launch_svr<1, true>(V, Z, X, Y, eps, Bh, step, coef, target,
-                                      Xo, Zo, Beta, resid, M, n, s)
-                : launch_svr<1, false>(V, Z, X, Y, eps, Bh, step, coef,
-                                       target, Xo, Zo, Beta, resid, M, n, s);
+  return mode == 0 ? launch_svr<0>(V, Z, X, Y, eps, Bh, step, coef, target,
+                                   Xo, Zo, Beta, resid, M, n, cluster, s)
+                   : launch_svr<1>(V, Z, X, Y, eps, Bh, step, coef, target,
+                                   Xo, Zo, Beta, resid, M, n, cluster, s);
+}
+
+// S2, SVR mode: into *out, how many clusters of `cluster` CTAs (rows of n
+// pairs, mode 0 or 1) the current device holds at once.  Returns the
+// query's error (0 = answered).
+int svm_svr_clusters(int n, int mode, int cluster, int* out) {
+  if (n < 1 || cluster < 1 || cluster > kSvrMaxCluster ||
+      (n + cluster - 1) / cluster > kSvrShareMax || (mode != 0 && mode != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return mode == 0 ? svr_clusters<0>(n, cluster, out)
+                   : svr_clusters<1>(n, cluster, out);
 }
 
 }  // extern "C"

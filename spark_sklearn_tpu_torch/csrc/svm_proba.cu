@@ -18,10 +18,12 @@
 //     each with the 2x2 solve and the first of 8 halvings 1, 1/2, ..,
 //     1/128 whose loss is <= the current one; no such halving, a
 //     non-finite step or max(|gA|, |gB|) < 1e-5 leaves A and B untouched.
-//     Bound: transcendentals.  Every kept element costs an expf a step
-//     (the sigmoid) and an expf and a log1pf for each of the 8 trial
-//     losses: 17 x 50 on the SFUs (16 a clock an SM) at every element
-//     whose weight is not 0; the sums are a few FMAs each.
+//     Bound: operations.  Every kept element costs, a Newton step, the
+//     gradient pass (33 FP32 operations in its SASS, an FFMA counted as
+//     2, and a MUFU.EX2 and a MUFU.RCP) and, where the gradient is at
+//     least 1e-5, the 8 trial losses (416 and 8 MUFU.EX2; CUDA's log1pf
+//     is a polynomial on the FP32 pipes).  The work the outputs need is
+//     each row's steps up to its exit.
 //
 // Design of P1.
 // - One block of 256 threads a row.  Pass 1 reads the row's decisions
@@ -30,7 +32,7 @@
 //   not finite: NaN propagates as in the reference), each thread in its
 //   own order at slot q 256 + t: f, w and the positive flag, 9 bytes a
 //   slot in shared memory ("staged", up to kPlattStagedMaxN rows), or
-//   none ("streamed": every pass reads the row again).  At phase 8's
+//   none ("streamed": every pass reads the row again).  At phase 13's
 //   multiclass rows ~16% of the elements are kept.
 // - Each Newton step is two passes over the kept elements: the gradient
 //   and Hessian sums (5 values, one block reduction), then the 8 trial
@@ -38,9 +40,22 @@
 //   carried: an accepted step's loss is the trial loss computed at the
 //   same A and B.  A step whose gradient is below 1e-5 skips its trial
 //   pass (its step is 0 whatever the losses).
+// - The exit: a step depends only on A, B and the carried loss, so the
+//   first step that leaves A and B bitwise as they were (a gradient under
+//   1e-5, no halving accepted, a non-finite step) is a fixed point, and
+//   the row leaves its Newton loop there with the 50-step run's outputs,
+//   bit for bit ("staged_full" runs all 50 steps, to show it).  Rows that
+//   never reach one (13.6% at phase 13: they accept steps of a few ulps
+//   of B back and forth) mostly repeat a state within a few steps: a
+//   state (A, B, loss) equal to the one p <= kCycle steps back repeats
+//   with period p, so the row leaves with the state the 50th step would
+//   give, bit for bit too.  Its block frees its SM's slot for the next
+//   row.
 // - Block sums: every warp by xor shuffles, then every thread adds the
 //   8 warps' values in warp order, so every thread holds the same total
-//   and takes the same branch, and two launches give the same bits.
+//   and takes the same branch (and the same exit), and two launches give
+//   the same bits.  Each thread sums its elements in the first version's
+//   order, so the outputs keep its bits.
 //
 // P2  svm_pair_coupling   replaces svm.py:396-446 (`_pair_probs_to_R` and
 //     `_pairwise_coupling`) on the sigmoids of svm.py:768-776: per (task,
@@ -81,9 +96,14 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPlattThreads = 256;
 constexpr int kPlattWarps = kPlattThreads / 32;
-constexpr int kPlattStagedMaxN = 20480;    // 9 bytes a slot: 180 KB
+constexpr int kPlattStagedMaxN = 20480;     // 9 bytes an element: 180 KB
+constexpr int kPlattMinBlocks = 2;          // blocks an SM a list of n =
+                                            // 10000 leaves room for (4, at
+                                            // most 64 registers, spilled)
 constexpr int kNewton = 50;                 // svm.py:331 n_iter
 constexpr int kHalvings = 8;                // svm.py:366
+constexpr int kCycle = 8;                   // P1: longest period the exit
+                                            // looks for
 constexpr int kMaxV = 8;                    // most values one reduction adds
 constexpr int kMaxSmem = 232448;            // 227 KB, an H100 block's most
 constexpr int kMaxDevices = 64;
@@ -122,6 +142,10 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], float* buf,
     v[q] = s;
   }
   parity ^= 1;
+}
+
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
 }
 
 // log(1 + e^u) as jnp.logaddexp(0, u): max(u, 0) + log1p(e^-|u|), NaN
@@ -174,12 +198,17 @@ struct PlattElems {
   }
 };
 
-template <bool kStaged>
-__global__ void __launch_bounds__(kPlattThreads)
+// kStaged: the row's kept elements in shared memory; kExit: leave the
+// Newton loop at the first step that leaves A and B as they were or
+// repeats a state.  `steps` (rows, 2), when not null, gets each row's
+// Newton steps run and trial passes run.
+template <bool kStaged, bool kExit>
+__global__ void __launch_bounds__(kPlattThreads, kPlattMinBlocks)
     platt_fit_kernel(const float* __restrict__ dec, const int* __restrict__ y,
                      const float* __restrict__ train_w,
                      const int* __restrict__ pairs, int n, int P, int binary,
-                     float* __restrict__ A_out, float* __restrict__ B_out) {
+                     float* __restrict__ A_out, float* __restrict__ B_out,
+                     int* __restrict__ steps) {
   __shared__ float red[2 * kPlattWarps * kMaxV];
   int parity = 0;
   const int r = blockIdx.x;
@@ -235,7 +264,21 @@ __global__ void __launch_bounds__(kPlattThreads)
   block_sum<1>(L0, red, parity);
   float loss0 = L0[0];
 
-  for (int it = 0; it < kNewton; ++it) {
+  // A step depends only on A, B and the carried loss, which changes only
+  // with an accepted step (to the trial loss at the new A and B).  So once
+  // a step leaves A and B bitwise as they were, every later step does too
+  // (the same gradient, the same trial losses, the same first acceptable
+  // halving), and the row's outputs are final: kExit leaves there.  And
+  // once the state (A, B, loss) after step s equals the state after step
+  // s - p, the states repeat with period p from there, so the state after
+  // the last step is known: kExit leaves with it (rows that accept steps
+  // of a few ulps back and forth).  hA, hB, hL hold the states after the
+  // last kCycle steps, newest first.  Every thread holds the same totals,
+  // so the block leaves together.
+  int it = 0, trials = 0, have = 0;
+  float hA[kCycle] = {}, hB[kCycle] = {}, hL[kCycle] = {};
+  while (it < kNewton) {
+    ++it;
     float g[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // gA gB hAA hAB hBB
     el.visit([&](float f, float w, bool yp) {
       const float u = __fadd_rn(__fmul_rn(A, f), B);
@@ -256,7 +299,11 @@ __global__ void __launch_bounds__(kPlattThreads)
     const float dB = (hAA * g[1] - hAB * g[0]) / det;
     const float ga = fabsf(g[0]), gb = fabsf(g[1]);
     const float gmax = (ga != ga || ga > gb) ? ga : gb;
-    if (!(gmax >= 1e-5f)) continue;          // converged: the step is 0
+    if (!(gmax >= 1e-5f)) {                  // converged: the step is 0
+      if (kExit) break;
+      continue;
+    }
+    ++trials;
     float Ls[kHalvings];
 #pragma unroll
     for (int k = 0; k < kHalvings; ++k) Ls[k] = 0.0f;
@@ -272,6 +319,7 @@ __global__ void __launch_bounds__(kPlattThreads)
       }
     });
     block_sum<kHalvings>(Ls, red, parity);
+    const float A0 = A, B0 = B, L0s = loss0;
     float st = 1.0f;
 #pragma unroll
     for (int k = 0; k < kHalvings; ++k) {
@@ -283,10 +331,46 @@ __global__ void __launch_bounds__(kPlattThreads)
       }
       st *= 0.5f;
     }
+    if (!kExit) continue;
+    if (same_bits(A, A0) && same_bits(B, B0)) break;    // a fixed point
+#pragma unroll
+    for (int j = kCycle - 1; j > 0; --j) {
+      hA[j] = hA[j - 1];
+      hB[j] = hB[j - 1];
+      hL[j] = hL[j - 1];
+    }
+    hA[0] = A0;
+    hB[0] = B0;
+    hL[0] = L0s;
+    have = have < kCycle ? have + 1 : kCycle;
+    // the state after step it against the one after step it - p
+    int period = 0;
+#pragma unroll
+    for (int p = kCycle; p >= 2; --p)
+      if (p <= have && same_bits(A, hA[p - 1]) && same_bits(B, hB[p - 1]) &&
+          same_bits(loss0, hL[p - 1]))
+        period = p;
+    if (period != 0) {
+      // after step kNewton: the state after step it - period + m, m =
+      // (kNewton - it) mod period, which is hA[period - m - 1] for m > 0
+      const int m = (kNewton - it) % period;
+#pragma unroll
+      for (int j = 0; j < kCycle; ++j) {
+        if (m != 0 && j == period - m - 1) {
+          A = hA[j];
+          B = hB[j];
+        }
+      }
+      break;
+    }
   }
   if (threadIdx.x == 0) {
     A_out[r] = A;
     B_out[r] = B;
+    if (steps != nullptr) {
+      steps[2 * r] = it;
+      steps[2 * r + 1] = trials;
+    }
   }
 }
 
@@ -462,6 +546,22 @@ int allow_smem(Kernel kernel, size_t smem, int* raised) {
   return static_cast<int>(e);
 }
 
+// P1's staged launches: 9 bytes a slot, a slot an element.
+template <bool kExit>
+int launch_platt_staged(const float* dec, const int* y, const float* train_w,
+                        const int* pairs, int n, int P, int binary, float* A,
+                        float* B, int* steps, unsigned grid, cudaStream_t s) {
+  const size_t smem =
+      9 * static_cast<size_t>((n + kPlattThreads - 1) / kPlattThreads) *
+      kPlattThreads;
+  static int raised[kMaxDevices] = {};
+  const int rc = allow_smem(platt_fit_kernel<true, kExit>, smem, raised);
+  if (rc != 0) return rc;
+  platt_fit_kernel<true, kExit><<<grid, kPlattThreads, smem, s>>>(
+      dec, y, train_w, pairs, n, P, binary, A, B, steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -469,33 +569,31 @@ extern "C" {
 // P1: A and B (rows = B * P) of the Platt sigmoids of every (task, pair)
 // row.  dec (B, n, P) float32 pair decisions; y (n) int32 class indices;
 // train_w (B, n) float32; pairs (P, 2) int32; binary: the positive class
-// is the pair's second (k = 2) instead of its first.  staged = 1 keeps
-// the rows' lists in shared memory (n <= kPlattStagedMaxN).  Returns the
-// launch's error (0 = launched).
+// is the pair's second (k = 2) instead of its first.  plan 1 ("staged",
+// n <= kPlattStagedMaxN) keeps each row's kept elements in shared memory
+// and leaves a row's Newton loop at its fixed point or first repeated
+// state; plan 2 ("staged_full") is plan 1 run for all 50 steps; plan 0
+// ("streamed") reads the row in every pass and leaves as plan 1.  steps
+// (rows, 2) int32 may be null, else it gets each row's Newton steps and
+// trial passes.  Returns the launch's error (0 = launched).
 int svm_platt_fit(const float* dec, const int* y, const float* train_w,
-                  const int* pairs, float* A, float* B, int tasks, int n,
-                  int P, int binary, int staged, void* stream) {
-  if (tasks < 1 || n < 1 || P < 1 || (staged && n > kPlattStagedMaxN) ||
+                  const int* pairs, float* A, float* B, int* steps,
+                  int tasks, int n, int P, int binary, int plan,
+                  void* stream) {
+  if (tasks < 1 || n < 1 || P < 1 || plan < 0 || plan > 2 ||
+      (plan != 0 && n > kPlattStagedMaxN) ||
       static_cast<long long>(tasks) * P > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(tasks * P);
-  if (staged) {
-    const size_t cap =
-        static_cast<size_t>((n + kPlattThreads - 1) / kPlattThreads) *
-        kPlattThreads;
-    const size_t smem = 9 * cap;
-    static int raised[kMaxDevices] = {};
-    const int rc = allow_smem(platt_fit_kernel<true>, smem, raised);
-    if (rc != 0) return rc;
-    if (smem > static_cast<size_t>(kMaxSmem))
-      return static_cast<int>(cudaErrorInvalidValue);
-    platt_fit_kernel<true><<<grid, kPlattThreads, smem, s>>>(
-        dec, y, train_w, pairs, n, P, binary, A, B);
-  } else {
-    platt_fit_kernel<false><<<grid, kPlattThreads, 0, s>>>(
-        dec, y, train_w, pairs, n, P, binary, A, B);
-  }
+  if (plan == 1)
+    return launch_platt_staged<true>(dec, y, train_w, pairs, n, P, binary, A,
+                                     B, steps, grid, s);
+  if (plan == 2)
+    return launch_platt_staged<false>(dec, y, train_w, pairs, n, P, binary,
+                                      A, B, steps, grid, s);
+  platt_fit_kernel<false, true><<<grid, kPlattThreads, 0, s>>>(
+      dec, y, train_w, pairs, n, P, binary, A, B, steps);
   return static_cast<int>(cudaGetLastError());
 }
 

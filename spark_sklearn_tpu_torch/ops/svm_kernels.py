@@ -47,7 +47,12 @@ non-finite value: any other element adds exactly ±0, so the sums keep
 their bits), kept in a list a thread in shared memory up to
 `STAGED_MAX_N` elements a row and in the output rows above
 (`step_plan`), and takes 2 bisection steps a pass (1 in a row with a
-non-finite value, a negative bound or a bracket past FLT_MAX / 2).
+non-finite value, a negative bound or a bracket past FLT_MAX / 2).  Its
+SVR mode runs a row on a thread-block cluster of C CTAs (`svr_step_plan`:
+C from n, at most 16, and no more than lets the card hold every row's
+cluster at once), each CTA with its share's lists in its own shared
+memory and one cluster reduction a pass, for rows of up to
+`SVR_MAX_N` pairs.
 """
 
 from __future__ import annotations
@@ -77,9 +82,18 @@ GRAM_BLOCKS_PER_SM = 8
 STAGED_MAX_N = 20480
 #: S2's threads a block (one block a row), as `kStepThreads`
 STEP_THREADS = 512
-#: most pairs of a row S2's SVR mode stages (16 bytes each), as
-#: `kSvrStagedMaxN`
-SVR_STAGED_MAX_N = 13824
+#: S2's SVR mode (a thread-block cluster a row): threads of a CTA, most
+#: CTAs a row, most pairs of a CTA's share (16 bytes each), as
+#: `kSvrThreads`, `kSvrMaxCluster`, `kSvrShareMax` in csrc/svm_dual.cu;
+#: the reductions' static shared memory (bytes) beside the lists; the most
+#: pairs of a row; the fewest pairs of a share the plan gives a CTA (256
+#: list elements, one a thread)
+SVR_THREADS = 256
+SVR_MAX_CLUSTER = 16
+SVR_SHARE_MAX = 14080
+SVR_STATIC_SMEM = 4816
+SVR_MAX_N = SVR_MAX_CLUSTER * SVR_SHARE_MAX
+SVR_MIN_SHARE = 128
 
 #: bisection steps of both projections (svm.py:132, :158 `n_bisect`)
 N_BISECT = 40
@@ -216,6 +230,8 @@ def _lib() -> ctypes.CDLL:
     lib.svm_svr_step.argtypes = [p, p, p, p, p, p, p, f, p, p, p, p, p, i,
                                  i, i, i, p]
     lib.svm_svr_step.restype = i
+    lib.svm_svr_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.svm_svr_clusters.restype = i
     return lib
 
 
@@ -352,25 +368,52 @@ def dual_step(V, z, x, yb, bound, step, coef, target=None, plan=None):
     return x_new, z_new, w_new, resid
 
 
-def svr_step_plan(n: int, plan=None) -> dict:
-    """S2's SVR launch for rows of n pairs: thread t takes the pairs t, t
-    + threads, ... and keeps two lists (a and a*) of up to `slots` kept
-    elements each; "staged" holds them in `smem` bytes (u and the bound,
-    16 bytes a pair slot) up to `SVR_STAGED_MAX_N` pairs, "streamed" in
-    the rows of x' and z'."""
-    threads = STEP_THREADS
-    slots = -(-n // threads)
-    plan = plan or ("staged" if n <= SVR_STAGED_MAX_N else "streamed")
-    if plan not in ("staged", "streamed"):
-        raise ValueError(f"plan={plan!r} is not 'staged' or 'streamed'")
-    return {"plan": plan, "threads": threads, "slots": slots,
-            "smem": 16 * slots * threads if plan == "staged" else 0}
+def svr_step_plan(n: int, rows: int = 1, cluster=None,
+                  clusters=None) -> dict:
+    """S2's SVR launch for `rows` rows of n pairs: a thread-block cluster
+    of `cluster` CTAs a row, CTA c owning the `share` pairs from c·share,
+    its thread t the pairs c·share + t, + `threads`, ..., and keeping two
+    lists (a and a*) of up to `slots` kept elements each in `smem` bytes
+    (u and the bound, 16 bytes a pair slot).  Unless `cluster` is given,
+    the most CTAs from ceil(n / `SVR_MIN_SHARE`) (at most
+    `SVR_MAX_CLUSTER`) down to the fewest the row fits, for which
+    `clusters(C)` (how many clusters of C CTAs the card holds at once;
+    None: no limit) holds every row's cluster, else the fewest."""
+    fewest = -(-n // SVR_SHARE_MAX)
+    if fewest > SVR_MAX_CLUSTER:
+        raise ValueError(f"svr_step_plan: {n} pairs are over the "
+                         f"{SVR_MAX_N} a row of {SVR_MAX_CLUSTER} CTAs "
+                         f"holds ({SVR_SHARE_MAX} pairs each)")
+    if cluster is None:
+        most = min(SVR_MAX_CLUSTER, max(fewest, -(-n // SVR_MIN_SHARE)))
+        cluster = next((C for C in range(most, fewest - 1, -1)
+                        if clusters is None or clusters(C) >= rows), fewest)
+    elif not fewest <= cluster <= SVR_MAX_CLUSTER:
+        raise ValueError(f"svr_step_plan: {n} pairs do not fit {cluster} "
+                         f"CTAs ({SVR_SHARE_MAX} pairs each, at most "
+                         f"{SVR_MAX_CLUSTER} a row)")
+    share = -(-n // cluster)
+    slots = -(-share // SVR_THREADS)
+    return {"threads": SVR_THREADS, "cluster": cluster, "share": share,
+            "slots": slots, "smem": 16 * slots * SVR_THREADS}
+
+
+@functools.cache
+def svr_clusters(index: int, n: int, nu: bool, cluster: int) -> int:
+    """How many clusters of `cluster` CTAs card `index` holds at once for
+    S2's SVR mode on rows of n pairs (cudaOccupancyMaxActiveClusters)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = _lib().svm_svr_clusters(n, int(nu), cluster, ctypes.byref(out))
+    _raise_on(rc, "svm_svr_clusters")
+    return out.value
 
 
 def svr_dual_step(V, z, x, y, eps, bound_half, step, coef, target=None,
                   plan=None):
     """S2's SVR mode (see the module docstring): eps (M,) for
-    epsilon-SVR, or None with `target` (M,) for nu-SVR."""
+    epsilon-SVR, or None with `target` (M,) for nu-SVR.  `plan`, a plan of
+    `svr_step_plan`, overrides the one it picks for this card."""
     if z.device.type == "cpu":
         return svr_dual_step_plain(V, z, x, y, eps, bound_half, step, coef,
                                    target)
@@ -391,7 +434,12 @@ def svr_dual_step(V, z, x, y, eps, bound_half, step, coef, target=None,
         _check("eps", eps, (M,), dev)
     if target is not None:
         _check("target", target, (M,), dev)
-    plan = svr_step_plan(n, plan)
+    nu = target is not None
+    if plan is None:
+        plan = svr_step_plan(n, M, clusters=functools.partial(
+            svr_clusters, dev.index, n, nu))
+    elif plan["cluster"] * plan["share"] < n:
+        raise ValueError("svr_dual_step: the plan does not cover n pairs")
     x_new = torch.empty_like(z)
     z_new = torch.empty_like(z)
     beta = torch.empty_like(bound_half)
@@ -403,8 +451,7 @@ def svr_dual_step(V, z, x, y, eps, bound_half, step, coef, target=None,
             bound_half.data_ptr(), step.data_ptr(), float(coef),
             None if target is None else target.data_ptr(), x_new.data_ptr(),
             z_new.data_ptr(), beta.data_ptr(), resid.data_ptr(), M, n,
-            0 if target is None else 1, int(plan["plan"] == "staged"),
-            _stream(dev))
+            int(nu), plan["cluster"], _stream(dev))
     _raise_on(rc, "svm_svr_step")
     LAUNCHES["svm_svr_step"] += 1
     return x_new, z_new, beta, resid

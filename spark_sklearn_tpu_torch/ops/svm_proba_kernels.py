@@ -11,7 +11,11 @@ coupling (P2), each as a hand-written CUDA kernel
   fold (all rows when binary), Platt's smoothed targets on the positive
   class (classes_[1] when binary, the pair's first class otherwise); the
   fit is `_platt_fit` (:331-393): 50 damped Newton steps from A = 0, each
-  taking the first of 8 halvings that does not raise the loss.
+  taking the first of 8 halvings that does not raise the loss.  The
+  kernel leaves a row's loop at the first step that leaves A and B
+  bitwise as they were, or that repeats a state of the last `N_CYCLE`
+  steps (the states then repeat with that period), with the 50-step
+  outputs bit for bit.
 - P2 `pair_coupling(dec, platt, pairs, k) -> p (T, n, k)`: the sigmoids
   r = sigmoid(-(A f + B)) of each (task, row)'s P pair decisions, R from
   them (`_pair_probs_to_R`, :396-406, with its clip), then libsvm's
@@ -40,9 +44,13 @@ LAUNCHES = {"svm_platt_fit": 0, "svm_pair_coupling": 0}
 #: (9 bytes each), as `kPlattThreads`, `kPlattStagedMaxN`
 PLATT_THREADS = 256
 PLATT_STAGED_MAX_N = 20480
-#: Newton steps and step halvings of `_platt_fit` (svm.py:331, :366)
+#: P1's plans, as `svm_platt_fit`'s `plan`
+PLATT_PLANS = {"streamed": 0, "staged": 1, "staged_full": 2}
+#: Newton steps and step halvings of `_platt_fit` (svm.py:331, :366), and
+#: the longest period of a row's states P1's exit looks for (`kCycle`)
 N_NEWTON = 50
 N_HALVINGS = 8
+N_CYCLE = 8
 #: P2's most threads a block, shared memory a block (bytes, the block's
 #: most, as `kMaxSmem`), the largest k of its register plan (as
 #: `kRegMaxK`) and the scratch its global plan allows (bytes)
@@ -95,10 +103,20 @@ def platt_inputs(dec, y, train_w, pairs, binary):
             w_bp.reshape(B * P, n))
 
 
-def platt_fit_plain(f, t, w, n_iter=N_NEWTON, count_trials=False):
-    """`_platt_fit` (svm.py:331-393), term by term: (A, B) per row, and
-    with `count_trials` the number of steps of each row whose gradient
-    was at least 1e-5, the steps whose trial losses P1 evaluates."""
+def platt_fit_plain(f, t, w, n_iter=N_NEWTON, exit_early=False,
+                    trace=False):
+    """`_platt_fit` (svm.py:331-393), term by term: (A, B) per row.  A step
+    depends only on A and B (the loss is recomputed from them), so once a
+    row's (A, B) after a step equals its (A, B) p steps earlier, its
+    states repeat with period p: p = 1 is a fixed point.  With
+    `exit_early` a row stops at its first such step (p <= `N_CYCLE`) and
+    takes the state the last step would give (P1's exit).  With `trace`
+    it also returns a dict of per-row counts: "steps" (the steps up to
+    and including that first repeat, n_iter where none), "period" (its p,
+    0 where none), "trials" (of those steps, the ones whose gradient was
+    at least 1e-5: the trial passes P1 runs with its exit), "trials_all"
+    (the same over all n_iter steps) and "unchanged" (n_iter, R): whether
+    each step left A and B bitwise as they were."""
     R = f.shape[0]
     dt, dev = f.dtype, f.device
     wsum = w.sum(dim=1) + 1e-12
@@ -112,15 +130,24 @@ def platt_fit_plain(f, t, w, n_iter=N_NEWTON, count_trials=False):
         zero = torch.zeros((), dtype=dt, device=dev)
         return (w * (torch.logaddexp(zero, u) - (1.0 - t) * u)).sum(dim=-1)
 
+    def bits(v):
+        return v.view(torch.int32)
+
     halvings = 2.0 ** -torch.arange(N_HALVINGS, dtype=dt, device=dev)
+    steps = torch.zeros(R, dtype=torch.int64, device=dev)
+    period = torch.zeros(R, dtype=torch.int64, device=dev)
     trials = torch.zeros(R, dtype=torch.int64, device=dev)
-    for _ in range(n_iter):
+    trials_all = torch.zeros(R, dtype=torch.int64, device=dev)
+    done = torch.zeros(R, dtype=torch.bool, device=dev)
+    unchanged = []
+    hist = [(A, Bb)]                 # the states after the last steps
+    for s in range(1, n_iter + 1):
         u = A[:, None] * f + Bb[:, None]
-        s = torch.sigmoid(u)
-        r = w * (s - (1.0 - t))
+        sg = torch.sigmoid(u)
+        r = w * (sg - (1.0 - t))
         gA = (r * f).sum(dim=1)
         gB = r.sum(dim=1)
-        h = w * s * (1.0 - s)
+        h = w * sg * (1.0 - sg)
         hAA = (h * f * f).sum(dim=1) + 1e-9
         hAB = (h * f).sum(dim=1)
         hBB = h.sum(dim=1) + 1e-9
@@ -135,21 +162,52 @@ def platt_fit_plain(f, t, w, n_iter=N_NEWTON, count_trials=False):
         step = torch.where(ok.any(dim=0), halvings[first],
                            torch.zeros((), dtype=dt, device=dev))
         moving = torch.maximum(gA.abs(), gB.abs()) >= 1e-5
-        trials += moving
         step = torch.where(moving, step,
                            torch.zeros((), dtype=dt, device=dev))
         upd = step > 0
-        A = torch.where(upd, A - step * dA, A)
-        Bb = torch.where(upd, Bb - step * dB, Bb)
-    return (A, Bb, trials) if count_trials else (A, Bb)
+        A_new = torch.where(upd, A - step * dA, A)
+        B_new = torch.where(upd, Bb - step * dB, Bb)
+        unchanged.append((bits(A_new) == bits(A)) & (bits(B_new) == bits(Bb)))
+        steps += ~done
+        trials += moving & ~done
+        trials_all += moving
+        # the first p (1 <= p <= N_CYCLE) whose state p steps back is this
+        # one, and the state the last step then gives: the one after step
+        # s - p + m, m = (n_iter - s) mod p
+        rep = torch.zeros(R, dtype=torch.int64, device=dev)
+        A_end, B_end = A_new, B_new
+        for p in range(min(N_CYCLE, s), 0, -1):
+            Ap, Bp = hist[-p]
+            hit = (bits(A_new) == bits(Ap)) & (bits(B_new) == bits(Bp))
+            rep = torch.where(hit, p, rep)
+        for p in range(2, min(N_CYCLE, s) + 1):
+            m = (n_iter - s) % p
+            if m:
+                Am, Bm = hist[-p + m]
+                A_end = torch.where(rep == p, Am, A_end)
+                B_end = torch.where(rep == p, Bm, B_end)
+        new = (rep > 0) & ~done
+        period = torch.where(new, rep, period)
+        if exit_early:
+            A_new = torch.where(done, A, torch.where(new, A_end, A_new))
+            B_new = torch.where(done, Bb, torch.where(new, B_end, B_new))
+        done = done | new
+        A, Bb = A_new, B_new
+        hist = (hist + [(A, Bb)])[-N_CYCLE:]
+    if not trace:
+        return A, Bb
+    return A, Bb, {"steps": steps, "period": period, "trials": trials,
+                   "trials_all": trials_all,
+                   "unchanged": torch.stack(unchanged) if unchanged else
+                   torch.zeros((0, R), dtype=torch.bool, device=dev)}
 
 
-def platt_fit_rows_plain(dec, y, train_w, pairs, binary,
-                         count_trials=False):
-    """P1's plain version: `platt_inputs`, then `platt_fit_plain`."""
+def platt_fit_rows_plain(dec, y, train_w, pairs, binary, **kw):
+    """P1's plain version: `platt_inputs`, then `platt_fit_plain` (`kw`:
+    its `exit_early` and `trace`)."""
     pairs = torch.as_tensor(pairs, device=dec.device).long()
     return platt_fit_plain(*platt_inputs(dec, y, train_w, pairs, binary),
-                           count_trials=count_trials)
+                           **kw)
 
 
 def pair_probs_to_R(r, pairs, k):
@@ -206,7 +264,7 @@ def pair_coupling_plain(dec, platt, pairs, k):
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("svm_proba")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.svm_platt_fit.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.svm_platt_fit.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.svm_platt_fit.restype = i
     lib.svm_pair_coupling.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                       p]
@@ -224,22 +282,33 @@ def platt_plan(n: int, plan=None) -> dict:
     thread t taking elements t, t + threads, ...; "staged" keeps a
     thread's kept elements (decision, weight, positive flag: 9 bytes) at
     slots q·threads + t of `smem` bytes up to `PLATT_STAGED_MAX_N`
-    elements, "streamed" reads the row in every pass (`plan` forces one)."""
+    elements and leaves a row's Newton loop at its fixed point or first
+    repeated state; "staged_full" is "staged" run for all `N_NEWTON`
+    steps; "streamed" reads the row in every pass and leaves as "staged"
+    (`plan` forces one)."""
     threads = PLATT_THREADS
     slots = -(-n // threads)
     plan = plan or ("staged" if n <= PLATT_STAGED_MAX_N else "streamed")
-    if plan not in ("staged", "streamed"):
-        raise ValueError(f"plan={plan!r} is not 'staged' or 'streamed'")
+    if plan not in PLATT_PLANS:
+        raise ValueError(f"plan={plan!r} is not one of "
+                         f"{sorted(PLATT_PLANS)}")
+    if plan != "streamed" and n > PLATT_STAGED_MAX_N:
+        raise ValueError(f"platt_plan: {n} elements do not fit the staged "
+                         f"list ({PLATT_STAGED_MAX_N} slots)")
     return {"plan": plan, "threads": threads, "slots": slots,
-            "smem": 9 * slots * threads if plan == "staged" else 0}
+            "smem": 9 * slots * threads if plan != "streamed" else 0,
+            "exit": plan != "staged_full"}
 
 
 def _pairs_i32(pairs, dev):
     return torch.as_tensor(pairs, device=dev).to(torch.int32).contiguous()
 
 
-def platt_fit(dec, y, train_w, pairs, binary, plan=None):
-    """P1 (see the module docstring): (A, B), each (B·P,)."""
+def platt_fit(dec, y, train_w, pairs, binary, plan=None, steps=None):
+    """P1 (see the module docstring): (A, B), each (B·P,).  `plan`
+    ("staged", "staged_full" or "streamed") overrides `platt_plan`'s
+    choice; `steps`, an int32 (B·P, 2) tensor on the card, gets each
+    row's Newton steps and trial passes."""
     if dec.device.type == "cpu":
         return platt_fit_rows_plain(dec, y, train_w, pairs, binary)
     if dec.device.type != "cuda":
@@ -252,6 +321,8 @@ def platt_fit(dec, y, train_w, pairs, binary, plan=None):
     _build.check_tensor("y", yi, (n,), dev, torch.int32)
     pi = _pairs_i32(pairs, dev)
     _build.check_tensor("pairs", pi, (P, 2), dev, torch.int32)
+    if steps is not None:
+        _build.check_tensor("steps", steps, (B * P, 2), dev, torch.int32)
     if binary and P != 1:
         raise ValueError("platt_fit: a binary fit has one pair")
     plan = platt_plan(n, plan)
@@ -260,8 +331,9 @@ def platt_fit(dec, y, train_w, pairs, binary, plan=None):
     with torch.cuda.device(dev):
         rc = _lib().svm_platt_fit(
             dec.data_ptr(), yi.data_ptr(), train_w.data_ptr(), pi.data_ptr(),
-            A.data_ptr(), Bo.data_ptr(), B, n, P, int(bool(binary)),
-            int(plan["plan"] == "staged"),
+            A.data_ptr(), Bo.data_ptr(),
+            None if steps is None else steps.data_ptr(), B, n, P,
+            int(bool(binary)), PLATT_PLANS[plan["plan"]],
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "svm_platt_fit")
     LAUNCHES["svm_platt_fit"] += 1

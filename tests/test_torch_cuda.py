@@ -1555,7 +1555,7 @@ def _platt_inputs(binary, n=3000, B=4, k=5, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("binary", [True, False])
-@pytest.mark.parametrize("plan", ["staged", "streamed"])
+@pytest.mark.parametrize("plan", ["staged", "streamed", "staged_full"])
 def test_platt_fit_matches_plain(cuda_device, binary, plan):
     """P1 against its plain version: A and B rtol 1e-3 atol 1e-3 (sums
     over the kept elements in another order, through 50 Newton steps),
@@ -1576,6 +1576,36 @@ def test_platt_fit_matches_plain(cuda_device, binary, plan):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
     with pytest.raises(ValueError):
         pk.platt_fit(dec[:, :10].contiguous(), y, tw, pairs, binary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False])
+def test_platt_fit_exit_equals_full_run(cuda_device, binary):
+    """P1 leaving each row's Newton loop at its fixed point ("staged" and
+    "streamed") gives the same kernel's 50-step run ("staged_full") bit
+    for bit, NaN rows, an all-masked task and near-separable rows
+    included; the rows' step counts: at most 50, the trial passes at most
+    the steps, every row 50 steps without the exit."""
+    dec, y, tw, pairs = _platt_inputs(binary)
+    R = dec.shape[0] * len(pairs)
+    runs = {}
+    for plan in ("staged_full", "staged", "streamed"):
+        steps = torch.zeros((R, 2), dtype=torch.int32, device="cuda")
+        A, B = pk.platt_fit(dec, y, tw, pairs, binary, plan=plan,
+                            steps=steps)
+        runs[plan] = (A, B, steps.cpu())
+    torch.cuda.synchronize()
+    full = runs["staged_full"]
+    assert bool((full[2][:, 0] == pk.N_NEWTON).all())
+    for plan in ("staged", "streamed"):
+        A, B, steps = runs[plan]
+        assert torch.equal(A.view(torch.int32), full[0].view(torch.int32))
+        assert torch.equal(B.view(torch.int32), full[1].view(torch.int32))
+        assert bool(((steps[:, 0] >= 1) & (steps[:, 0] <= pk.N_NEWTON)).all())
+        assert bool((steps[:, 1] <= steps[:, 0]).all())
+        assert bool((steps[:, 1] <= full[2][:, 1]).all())
+        assert int(steps[:, 0].min()) < pk.N_NEWTON
+    assert torch.equal(runs["staged"][2], runs["streamed"][2])
 
 
 @pytest.mark.cuda
@@ -1617,12 +1647,16 @@ def test_pair_coupling_matches_plain(cuda_device, k, plan):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["svr", "nu", "project"])
-@pytest.mark.parametrize("n,plan", [(700, "staged"), (700, "streamed"),
-                                    (14000, None)])
-def test_svr_step_matches_plain(cuda_device, mode, n, plan):
+@pytest.mark.parametrize("n,cluster", [(700, None), (700, 1), (14000, None),
+                                       (13825, 2), (20640, None),
+                                       (20640, 2)])
+def test_svr_step_matches_plain(cuda_device, mode, n, cluster):
     """S2's SVR mode against its plain version: x', z' and β' rtol 1e-5
     atol 1e-5 (the bisection's sums in another order), the residual
-    1e-5/step; a NaN in a masked element still propagates to its row."""
+    1e-5/step; a NaN in a masked element still propagates to its row; a
+    row with every bound 0 and a row whose bracket passes FLT_MAX / 2
+    (every element listed) included.  A cluster of CTAs a row, as the
+    plan picks it for the card or of 1 and 2 CTAs."""
     rng = np.random.default_rng(n)
     M = 5
     y = rng.standard_normal(n).astype(np.float32)
@@ -1632,12 +1666,15 @@ def test_svr_step_matches_plain(cuda_device, mode, n, plan):
     V = rng.standard_normal((M, n)).astype(np.float32)
     j = int(np.where(bh[2] == 0)[0][0])
     z[2, j] = np.nan
+    bh[0] = 0.0                                  # every bound 0
+    z[4, int(np.where(bh[4] > 0)[0][-1])] = 2e38  # a wide bracket
     c = [torch.as_tensor(a, device="cuda") for a in (V, z, x, y, bh)]
     step = torch.tensor(0.02, device="cuda")
     eps = torch.full((M,), 0.1, device="cuda") if mode == "svr" else None
     target = None if mode == "svr" else 0.3 * c[4].sum(dim=1)
     args = (None if mode == "project" else c[0], c[1], c[2], c[3], eps,
             c[4], step, 0.4, target)
+    plan = None if cluster is None else svk.svr_step_plan(n, M, cluster)
     n0 = svk.LAUNCHES["svm_svr_step"]
     got = svk.svr_dual_step(*args, plan=plan)
     torch.cuda.synchronize()
@@ -1653,6 +1690,38 @@ def test_svr_step_matches_plain(cuda_device, mode, n, plan):
     with pytest.raises(ValueError):
         svk.svr_dual_step(args[0], c[1], c[2], c[3], eps, c[4], step, 0.4,
                           0.3 * c[4].sum(dim=1) if mode == "svr" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["svr", "nu"])
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8, 12, 16])
+def test_svr_step_cluster_plans_match_plain(cuda_device, mode, cluster):
+    """S2's SVR mode at cluster sizes from 1 to 16 CTAs a row
+    (non-portable above 8): x', z', β' rtol 1e-5 atol 1e-5 against the
+    plain version, two launches equal bit for bit; the card holds at
+    least one cluster of each."""
+    rng = np.random.default_rng(cluster)
+    M, n = 4, 3001
+    y = rng.standard_normal(n).astype(np.float32)
+    bh = ((rng.random((M, n)) < 0.3) * 2.0).astype(np.float32)
+    z = rng.uniform(-0.5, 2.5, (M, 2 * n)).astype(np.float32)
+    x = rng.uniform(0.0, 2.0, (M, 2 * n)).astype(np.float32)
+    V = rng.standard_normal((M, n)).astype(np.float32)
+    c = [torch.as_tensor(a, device="cuda") for a in (V, z, x, y, bh)]
+    step = torch.tensor(0.02, device="cuda")
+    eps = torch.full((M,), 0.2, device="cuda") if mode == "svr" else None
+    target = None if mode == "svr" else 0.4 * c[4].sum(dim=1)
+    args = (c[0], c[1], c[2], c[3], eps, c[4], step, 0.3, target)
+    plan = svk.svr_step_plan(n, cluster=cluster)
+    assert svk.svr_clusters(torch.cuda.current_device(), n, mode == "nu",
+                            cluster) >= 1
+    got = svk.svr_dual_step(*args, plan=plan)
+    want = svk.svr_dual_step_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, atol in zip(got, want, (1e-5, 1e-5, 1e-5, 1e-5 / 0.02)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+    for a, b in zip(got, svk.svr_dual_step(*args, plan=plan)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

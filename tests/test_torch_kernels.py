@@ -727,21 +727,78 @@ def test_jll_plan_covers_every_lane_row_and_class_once(m, d, B, k, n_sm):
 def test_platt_plan_lays_out_a_slot_per_element(n):
     """P1: a block a row, thread t taking elements t, t + threads, ...;
     its q-th kept element at slot q·threads + t, within the staged
-    plan's 9 bytes a slot (<= 227 KB) or read again a pass (streamed)."""
+    plans' 9 bytes a slot (<= 227 KB; "staged_full" the same list) or
+    read again a pass (streamed)."""
     plan = pk.platt_plan(n)
     T, slots = plan["threads"], plan["slots"]
     assert T == pk.PLATT_THREADS and T % 32 == 0
     assert (slots - 1) * T < n <= slots * T
     assert plan["plan"] == ("staged" if n <= pk.PLATT_STAGED_MAX_N
                             else "streamed")
+    assert plan["exit"]
     if plan["plan"] == "staged":
         assert plan["smem"] == 9 * slots * T <= 232448 - 1024
+        full = pk.platt_plan(n, "staged_full")
+        assert full["smem"] == plan["smem"] and not full["exit"]
+    else:
+        assert plan["smem"] == 0
+        with pytest.raises(ValueError, match="do not fit"):
+            pk.platt_plan(n, "staged")
     for t in {0, min(T, n) - 1}:
         owned = list(range(t, n, T))
         assert len({q * T + t for q in range(len(owned))}) == len(owned)
         assert max(q * T + t for q in range(len(owned))) < slots * T
     with pytest.raises(ValueError):
         pk.platt_plan(n, "cached")
+
+
+def _platt_bound_case(case, seed=0):
+    """Phase 13-like multiclass labels (10 classes, fold weights holding
+    about a fifth out), binary labels, or the multiclass case with
+    non-finite decisions."""
+    rng = np.random.default_rng(seed)
+    B, n = 6, 3000
+    k = 2 if case == "binary" else 10
+    y = rng.integers(0, k, n).astype(np.int32)
+    pairs = np.array([(i, j) for i in range(k) for j in range(i + 1, k)],
+                     np.int32)
+    tw = (rng.random((B, n)) < 0.8).astype(np.float32)
+    tw[1, : n // 2] = 0.0                         # a fold holding half out
+    dec = rng.standard_normal((B, n, len(pairs))).astype(np.float32)
+    if case == "nan":
+        dec[0, 5, :] = np.nan                     # NaN in every pair
+        dec[2, np.where(tw[2] > 0)[0][:3], 0] = np.nan
+        dec[3, np.where(tw[3] == 0)[0][:400], 1] = np.inf
+    return dec, y, tw, pairs
+
+
+@pytest.mark.parametrize("case", ["multiclass", "binary", "nan"])
+def test_platt_plan_list_covers_every_row(case):
+    """P1's staged list holds every (task, pair) row's kept elements as
+    the kernel keeps them (a weight not 0 in the pair's classes, or a
+    non-finite decision: `platt_inputs`' weights, or a non-finite f), on
+    phase 13-like labels, on binary labels and with non-finite decisions
+    on weighted and unweighted elements: thread t's q-th kept element at
+    slot q·threads + t, each in its own slot, all below the list's
+    slots·threads."""
+    dec, y, tw, pairs = _platt_bound_case(case)
+    B, n, P = dec.shape
+    f, _, w = pk.platt_inputs(torch.as_tensor(dec), torch.as_tensor(y),
+                              torch.as_tensor(tw), torch.as_tensor(pairs),
+                              case == "binary")
+    kept = ((w != 0) | ~torch.isfinite(f)).numpy()            # (B·P, n)
+    plan = pk.platt_plan(n)
+    T, cap = plan["threads"], plan["slots"] * plan["threads"]
+    assert plan["smem"] == 9 * cap
+    for row in kept:
+        slots = []
+        for t in range(T):
+            q = np.arange(int(row[t::T].sum()))
+            slots.extend((q * T + t).tolist())
+        assert len(slots) == int(row.sum()) == len(set(slots))
+        assert max(slots, default=-1) < cap
+    if case == "nan":
+        assert (kept & (w == 0).numpy()).any()
 
 
 @pytest.mark.parametrize("k", [2, 3, 10, 12, 13, 26, 27, 41, 42, 120])
@@ -783,26 +840,80 @@ def test_coupling_plan_fits_a_block(k):
         pk.coupling_plan(k, "texture")
 
 
-@pytest.mark.parametrize("n", [1, 511, 512, 13824, 13825, 20640])
+@pytest.mark.parametrize("n", [1, 511, 512, 13824, 13825, 20640,
+                               svk.SVR_MAX_N, svk.SVR_MAX_N + 1])
 def test_svr_step_plan_keeps_each_list_inside_its_rows(n):
-    """S2's SVR mode: thread t walks pairs i = t, t + threads, ...; its
-    q-th kept a element at slot q·threads + t (< n: at most its own
-    pair's position) and its q-th a* element at `half` + q·threads + t
-    (< 2n streamed, where the lists live in the rows of x' and z'; below
-    the staged plan's 16 bytes a pair slot, <= 227 KB)."""
+    """S2's SVR mode: CTA c of the row's cluster owns the pairs [c·share,
+    (c + 1)·share), its thread t keeps its q-th kept a and a* elements at
+    slot q·threads + t of its two lists, below the `slots`·threads a list
+    holds (16 bytes a pair slot, within 227 KB beside the reductions'
+    static shared memory); a row longer than 16 CTAs' lists is
+    refused."""
+    if n > svk.SVR_MAX_N:
+        with pytest.raises(ValueError, match="are over"):
+            svk.svr_step_plan(n)
+        return
     plan = svk.svr_step_plan(n)
     T, slots = plan["threads"], plan["slots"]
-    assert (slots - 1) * T < n <= slots * T
-    half = slots * T if plan["plan"] == "staged" else n
-    cap = 2 * slots * T if plan["plan"] == "staged" else 2 * n
-    for t in {0, min(T, n) - 1}:
-        owned = list(range(t, n, T))
-        a_slots = [q * T + t for q in range(len(owned))]
-        s_slots = [half + q * T + t for q in range(len(owned))]
-        assert a_slots == owned and max(a_slots) < half
-        assert max(s_slots) < cap
-    if plan["plan"] == "staged":
-        assert n <= svk.SVR_STAGED_MAX_N
-        assert plan["smem"] == 16 * slots * T <= 232448 - 1024
-    else:
-        assert n > svk.SVR_STAGED_MAX_N and plan["smem"] == 0
+    C, share = plan["cluster"], plan["share"]
+    assert C * share >= n > (C - 1) * share
+    assert (slots - 1) * T < share <= slots * T
+    assert plan["smem"] == 16 * slots * T <= 232448 - svk.SVR_STATIC_SMEM
+    for c in {0, C - 1}:
+        for t in {0, T - 1}:
+            owned = range(c * share + t, min(n, (c + 1) * share), T)
+            assert all(q * T + t < slots * T for q in range(len(owned)))
+
+
+@pytest.mark.parametrize("n,cluster", [(1, None), (511, None),
+                                       (13825, None), (20640, None),
+                                       (13825, 1), (20640, 3), (20640, 16),
+                                       (svk.SVR_MAX_N, None)])
+def test_svr_cluster_plan_gives_each_pair_one_slot(n, cluster):
+    """S2's SVR plan: every pair of a row lies in exactly one CTA's share
+    and takes exactly one of its thread's slots (both lists alike), each
+    CTA's shared memory within 227 KB, 1 to 16 CTAs a row (a CTA past a
+    short row's end holds none); a cluster too small for the row's
+    lists, or too large, is refused."""
+    plan = svk.svr_step_plan(n, cluster=cluster)
+    C, share, T, slots = (plan[k] for k in ("cluster", "share", "threads",
+                                            "slots"))
+    assert 1 <= C <= svk.SVR_MAX_CLUSTER and C == (cluster or C)
+    assert plan["smem"] + svk.SVR_STATIC_SMEM <= 232448
+    assert share <= svk.SVR_SHARE_MAX
+    seen = np.zeros(n, int)
+    for c in range(C):
+        slots_used = set()
+        for t in range(T):
+            for q, i in enumerate(range(c * share + t,
+                                        min(n, (c + 1) * share), T)):
+                assert q < slots
+                slots_used.add(q * T + t)
+                seen[i] += 1
+        assert len(slots_used) == max(0, min(n, (c + 1) * share)
+                                      - c * share)
+    assert (seen == 1).all()
+    with pytest.raises(ValueError, match="are over"):
+        svk.svr_step_plan(svk.SVR_MAX_N + 1)
+    with pytest.raises(ValueError, match="do not fit"):
+        svk.svr_step_plan(n, cluster=svk.SVR_MAX_CLUSTER + 1)
+    if n > svk.SVR_SHARE_MAX:
+        with pytest.raises(ValueError, match="do not fit"):
+            svk.svr_step_plan(n, cluster=1)
+
+
+@pytest.mark.parametrize("n,rows,held,want", [
+    (1, 5, None, 1), (500, 5, None, 4), (1000, 5, None, 8),
+    (2000, 5, None, 16), (20640, 5, None, 16),
+    # the card holds 7 clusters of 16 (a GPC's 16-18 SMs each) and 33 of 4
+    (20640, 5, {16: 7}, 16), (20640, 8, {16: 7, 15: 7, 14: 8}, 14),
+    (20640, 30, {16: 7, 8: 16, 5: 26, 4: 33}, 4),
+    (20640, 1000, {2: 66}, 2), (1000, 5, {8: 1, 7: 2, 6: 5}, 6)])
+def test_svr_step_plan_picks_clusters_the_card_holds(n, rows, held, want):
+    """S2's SVR plan picks C from n (a share of at least 128 pairs, at
+    most 16 CTAs), then the most CTAs down to the fewest the row fits for
+    which the card holds every row's cluster at once (`clusters`, the
+    card's count: cudaOccupancyMaxActiveClusters), else the fewest."""
+    clusters = None if held is None else (lambda C: held.get(C, 0))
+    plan = svk.svr_step_plan(n, rows, clusters=clusters)
+    assert plan["cluster"] == want

@@ -605,6 +605,103 @@ def test_platt_fit_plain_matches_reference(case):
         assert a[1].item() == 0.0
 
 
+def _platt_rows(case, seed):
+    """P1's row inputs as the family hands them: binary labels (one pair)
+    or 4 classes (6 pairs), 3 tasks' fold weights with zeros, a task
+    with no weight at all, a NaN decision and near-separable rows; or
+    ("cycles") 2 KFold(5)-like tasks of 10000 rows and 4 classes, whose
+    sums are long enough that some rows end accepting steps of a few ulps
+    back and forth, repeating their states."""
+    rng = np.random.default_rng(seed)
+    if case == "cycles":
+        k, B, n = 4, 2, 10000
+        pairs = np.array([(i, j) for i in range(k)
+                          for j in range(i + 1, k)], np.int32)
+        y = rng.integers(0, k, n).astype(np.int32)
+        dec = 1.5 * rng.standard_normal((B, n, len(pairs))).astype(
+            np.float32)
+        dec += ((y[:, None] == pairs[None, :, 0]).astype(np.float32)
+                - (y[:, None] == pairs[None, :, 1]))[None]
+        tw = np.ones((B, n), np.float32)
+        for b in range(B):
+            tw[b, b::5] = 0.0
+        return (_t(dec), _t(y), _t(tw), pairs, False)
+    k, B, n = (2, 3, 300) if case == "binary" else (4, 3, 300)
+    pairs = np.array([(i, j) for i in range(k) for j in range(i + 1, k)],
+                     np.int32)
+    y = rng.integers(0, k, n).astype(np.int32)
+    dec = rng.standard_normal((B, n, len(pairs))).astype(np.float32)
+    for p, (i, j) in enumerate(pairs):
+        sign = (y == i).astype(np.float32) - (y == j).astype(np.float32)
+        dec[:, :, p] += (-1.0 if case == "binary" else 1.0) * 1.5 * sign
+    dec[1] *= 30.0                                 # near-separable rows
+    tw = (rng.random((B, n)) < 0.8).astype(np.float32)
+    tw[2] = 0.0                                    # an all-masked task
+    dec[0, 7, 0] = np.nan                          # a NaN decision
+    return (_t(dec), _t(y), _t(tw), pairs, case == "binary")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", ["binary", "pairs"])
+def test_platt_fit_plain_fixed_point_is_final(case, seed):
+    """P1's exit rests on this: once a Newton step leaves a row's A and B
+    bitwise as they were, no later step moves them (a step depends only
+    on A, B and the carried loss).  Over seeded binary and pair rows,
+    with zero weights, an all-masked task and a NaN decision, the
+    "unchanged" mask of a row never turns back to moving; rows reach it
+    at different steps."""
+    _, _, tr = pk.platt_fit_rows_plain(*_platt_rows(case, seed), trace=True)
+    unchanged = tr["unchanged"]
+    assert unchanged.shape[0] == pk.N_NEWTON
+    assert bool((unchanged[1:] | ~unchanged[:-1]).all())
+    first = tr["steps"]
+    assert bool((unchanged.sum(dim=0) == pk.N_NEWTON - first + 1)[
+        unchanged[-1]].all())
+    assert int(first.min()) < int(first.max())
+    assert bool((tr["trials"] <= tr["trials_all"]).all())
+    assert bool((tr["trials"] <= first).all())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", ["binary", "pairs"])
+def test_platt_fit_plain_exit_equals_full_run(case, seed):
+    """`platt_fit_plain` stopped at each row's first unchanged step gives
+    the 50-step result bit for bit (NaN rows included), as P1's exit
+    must."""
+    rows = _platt_rows(case, seed)
+    A, B, tr = pk.platt_fit_rows_plain(*rows, trace=True)
+    A2, B2 = pk.platt_fit_rows_plain(*rows, exit_early=True)
+    assert torch.equal(A.view(torch.int32), A2.view(torch.int32))
+    assert torch.equal(B.view(torch.int32), B2.view(torch.int32))
+    assert bool((A != 0).any())
+    # the NaN decision's rows reject every step: A stays at its start
+    P = rows[3].shape[0]
+    assert float(A[0]) == 0.0 and bool(torch.isfinite(B[:P]).all())
+    assert bool((tr["steps"][tr["period"] == 0] == pk.N_NEWTON).all())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_platt_fit_plain_cycle_exit_equals_full_run(seed):
+    """Rows that never reach a fixed point but repeat a state (A, B) p <=
+    `N_CYCLE` steps back: `platt_fit_plain` stopped there, with the state
+    the period gives the 50th step, equals the 50-step result bit for
+    bit, and the periods found repeat in the full run."""
+    rows = _platt_rows("cycles", seed)
+    A, B, tr = pk.platt_fit_rows_plain(*rows, trace=True)
+    A2, B2, tr2 = pk.platt_fit_rows_plain(*rows, exit_early=True,
+                                          trace=True)
+    assert torch.equal(A.view(torch.int32), A2.view(torch.int32))
+    assert torch.equal(B.view(torch.int32), B2.view(torch.int32))
+    period, steps = tr["period"], tr["steps"]
+    assert int((period > 1).sum()) >= 2 and torch.equal(period,
+                                                         tr2["period"])
+    assert bool((steps[period > 1] < pk.N_NEWTON).all())
+    # a cycling row moves at every step from its first repeat on
+    moved = ~tr["unchanged"]
+    for r in torch.where(period > 1)[0].tolist():
+        assert bool(moved[int(steps[r]) - 1:, r].all())
+
+
 @pytest.mark.parametrize("k", [3, 5])
 def test_pair_coupling_plain_matches_reference(k):
     """P2's plain version against `_pair_probs_to_R` and

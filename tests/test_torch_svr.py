@@ -113,11 +113,15 @@ def test_svr_step_plain_is_one_reference_step(mode):
 
 
 def test_svr_step_plan_picks_staged_or_streamed():
+    """S2's SVR mode has one plan, a cluster of CTAs a row, each CTA's
+    lists in its shared memory, for rows up to `SVR_MAX_N` pairs; longer
+    rows and impossible clusters are refused."""
     plan = sk.svr_step_plan(10000)
-    assert plan["plan"] == "staged" and plan["smem"] <= 232448 - 1024
-    assert sk.svr_step_plan(sk.SVR_STAGED_MAX_N + 1)["plan"] == "streamed"
+    assert plan["cluster"] == 16 and plan["smem"] <= 232448 - 1024
     with pytest.raises(ValueError):
-        sk.svr_step_plan(100, plan="other")
+        sk.svr_step_plan(sk.SVR_MAX_N + 1)
+    with pytest.raises(ValueError):
+        sk.svr_step_plan(100, cluster=17)
 
 
 def _kernel_np(X, gamma):
