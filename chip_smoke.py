@@ -101,7 +101,17 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    NuSVR over nu {0.25, 0.5, 0.75} on phase 6's California-shaped data
    (S1 and S2's SVR mode); LinearSVC (C {0.01, 0.1, 1} x loss hinge,
    squared_hinge) on phase 8's data and LinearSVR (C {0.01, 0.1, 1} x
-   both losses) on phase 6's (library GEMMs and torch ops).
+   both losses) on phase 6's (library GEMMs and torch ops);
+14. the search front end's weighted fit: phase 4's headline search with
+   sample_weight (uniform in [0.25, 3) from --seed) on cuda, cold (K2's
+   and K4's launches), warm and profiled beside phase 4's unweighted
+   walls, and on the CPU: the same best index, scores within 5e-3 on
+   phase 5's 20 C (every 50th: the CPU takes ~12 minutes
+   over all 1000); phase 13's SVC(probability=True) search weighted on cuda
+   (S1, S2, P1, P2), against the CPU on its 2000-row subset; and the
+   weighted search over phase 5's 20 C values refit on cuda and on the
+   CPU: the refit's score, decision_function and predict_log_proba on
+   the card against the CPU's.
 
 Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
 whose norms are summed apart; each timed as a CUDA graph's replay,
@@ -148,7 +158,9 @@ version, timed in a CUDA graph and between events; and phase 13's P1
 (Platt fits of the SVC probability search's 2025 (task, pair) rows, each
 leaving at its fixed point, its steps counted and its bits held to the
 same kernel's 50-step run, timed beside it), P2 (the coupling of its 45
-tasks x 10000 rows, register and shared-memory plans) and S2's SVR mode
+tasks x 10000 rows under every plan that serves k = 10, and of
+decisions made from --seed at k = 26 and k = 50 over the same
+450000 problems) and S2's SVR mode
 (epsilon-SVR and nu-SVR steps at the SVR searches' 5 folds of 20640
 pairs: a thread-block cluster a row as the plan picks it for the card,
 beside clusters of 8 CTAs, with how many clusters the card holds at once
@@ -1007,6 +1019,99 @@ def phase_agreement(X, y, Cs):
                                  f"{diff}")
         if g.best_params_ != c.best_params_:
             raise AssertionError(f"{label}: best_params_ differ")
+
+
+def weights(seed: int, n: int):
+    """Sample weights uniform in [0.25, 3), made from `seed`."""
+    return np.random.default_rng(seed + 7).uniform(0.25, 3.0, n)
+
+
+def phase_weighted(X, y, Cs, seed: int, main_run: dict):
+    """The headline search weighted: cuda (cold with K2's and K4's
+    launches, warm, profiled) beside phase 4's unweighted walls; cuda
+    against the CPU on phase 5's grid, searched and refit on both, the
+    refit's surface compared."""
+    from spark_sklearn_tpu_torch import (
+        GridSearchCV, LogisticRegression, StratifiedKFold, TorchConfig)
+    from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+
+    sw = weights(seed, len(y))
+
+    def run(device, grid=Cs, refit=False):
+        return GridSearchCV(
+            LogisticRegression(max_iter=100), {"C": grid},
+            cv=StratifiedKFold(N_FOLDS), refit=refit,
+            config=TorchConfig(device=device)).fit(X, y, sample_weight=sw)
+
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    g = run("cuda")
+    cold = time.perf_counter() - t0
+    launches = dict(gk.LAUNCHES)
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} never launched on the weighted "
+                                 "headline")
+    t0 = time.perf_counter()
+    g = run("cuda")
+    warm = time.perf_counter() - t0
+    n_iter = [c["n_iter_exec"] for c in g.chunks_]
+    busy = profile_busy(lambda: run("cuda"), warm, sum(n_iter),
+                        "chip_smoke_weighted.txt")
+    if not np.all(np.isfinite(g.cv_results_["mean_test_score"])):
+        raise AssertionError("weighted headline: non-finite scores")
+    # against the CPU on phase 5's 20 C, refit on both: over all 1000 the
+    # CPU's search takes ~12 minutes on an 8-core host, and lanes short of
+    # convergence at max_iter=100 move their scores by up to ~0.01 between
+    # the devices
+    sub = Cs[::50]
+    gs_sub = run("cuda", sub, True)
+    t0 = time.perf_counter()
+    c = run("cpu", sub, True)
+    cpu_s = time.perf_counter() - t0
+    diff = float(np.abs(gs_sub.cv_results_["mean_test_score"]
+                        - c.cv_results_["mean_test_score"]).max())
+    print(f"  weighted headline: cold {cold:.3f} s, warm {warm:.3f} s "
+          f"(unweighted {main_run['warm_s']:.3f} s), busy {busy:.4f} s "
+          f"(unweighted {main_run['device_busy_s']:.4f} s), launches "
+          f"{launches}, best index {g.best_index_}, best_score_ "
+          f"{g.best_score_:.4f}; on {len(sub)} C: best index "
+          f"{gs_sub.best_index_} (cpu {c.best_index_}, {cpu_s:.1f} s), "
+          f"max |cuda - cpu| mean_test_score {diff:.3g}")
+    if not diff <= 5e-3:
+        raise AssertionError(f"weighted headline: cuda and cpu scores "
+                             f"differ by {diff}")
+    if gs_sub.best_index_ != c.best_index_:
+        raise AssertionError(f"weighted headline: best index "
+                             f"{gs_sub.best_index_} on cuda, "
+                             f"{c.best_index_} on the CPU")
+    # the refit's surface on the card against the CPU's
+    surface = {}
+    for name in ("decision_function", "predict_log_proba"):
+        surface[name] = float(np.abs(getattr(gs_sub, name)(X)
+                                     - getattr(c, name)(X)).max())
+        if not surface[name] <= 1e-3:
+            raise AssertionError(f"weighted refit {name}: cuda and cpu "
+                                 f"differ by {surface[name]}")
+    surface["score"] = (gs_sub.score(X, y), c.score(X, y))
+    if abs(surface["score"][0] - surface["score"][1]) > 5e-3:
+        raise AssertionError(f"weighted refit score: {surface['score']}")
+    if gs_sub.best_params_ != c.best_params_ or \
+            list(gs_sub.classes_) != list(range(K)):
+        raise AssertionError("weighted refit: best_params_ or classes_")
+    print(f"  weighted refit on {len(sub)} C: best_params_ "
+          f"{gs_sub.best_params_}, |cuda - cpu| decision_function "
+          f"{surface['decision_function']:.3g}, predict_log_proba "
+          f"{surface['predict_log_proba']:.3g}, score "
+          f"{surface['score'][0]:.4f} / {surface['score'][1]:.4f}")
+    return {"cold_s": cold, "warm_s": warm, "device_busy_s": busy,
+            "launches": launches, "cpu_s": cpu_s,
+            "best_index": int(g.best_index_),
+            "best_index_20c": int(gs_sub.best_index_),
+            "max_abs_diff_cpu_20c": diff,
+            "unweighted_warm_s": main_run["warm_s"],
+            "unweighted_busy_s": main_run["device_busy_s"],
+            "refit_surface": surface}
 
 
 def california_like(seed: int):
@@ -3070,6 +3175,7 @@ SVR_EPS = [0.1, 0.5]
 SVR_NU = [0.25, 0.5, 0.75]             # NuSVR's nu
 LIN_C = [0.01, 0.1, 1.0]               # LinearSVC's and LinearSVR's C
 N_REST_CHECK = 2000                    # rows of phase 13's cuda/cpu checks
+COUPLING_KS = (26, 50)                 # P2's classes past phase 13's 10
 
 
 def proba_inputs(seed: int):
@@ -3098,6 +3204,32 @@ def proba_inputs(seed: int):
             - (yt.long()[:, None] == pt[None, :, 1]).float())    # (n, P)
     dec += sign[None]
     return dec.contiguous(), yt, tw, pairs
+
+
+def coupling_inputs(seed: int, k: int):
+    """P2's inputs for k classes at phase 13's 450000 problems (45 tasks x
+    n = 10000), made on the card from `seed`: labels uniform over the k
+    classes, pair decisions N(0, 1.5) moved by +1 on the pair's first
+    class and -1 on its second (as `proba_inputs`), and a (task, pair)'s
+    Platt sigmoid A in [-2, -1), B N(0, 0.2)."""
+    import torch
+
+    from spark_sklearn_tpu_torch.models.svm import _pairs
+
+    g = torch.Generator(device="cuda").manual_seed(seed + k)
+    tasks = len(SVM_C) * len(SVM_GAMMA) * N_FOLDS
+    pairs = _pairs(k)
+    y = torch.randint(0, k, (N_SVM,), generator=g, device="cuda")
+    pt = torch.as_tensor(pairs, device="cuda").long()
+    sign = ((y[:, None] == pt[None, :, 0]).float()
+            - (y[:, None] == pt[None, :, 1]).float())
+    dec = 1.5 * torch.randn((tasks, N_SVM, len(pairs)), generator=g,
+                            device="cuda")
+    dec += sign[None]
+    del sign
+    A = -1.0 - torch.rand((tasks, len(pairs)), generator=g, device="cuda")
+    B = 0.2 * torch.randn((tasks, len(pairs)), generator=g, device="cuda")
+    return dec, torch.stack([A, B], dim=-1).contiguous(), pairs
 
 
 def svr_step_inputs(seed: int, mode: str):
@@ -3146,7 +3278,7 @@ def phase_proba_kernels(seed: int, n_sm: int, sm_mhz: float, ptxas: dict):
     sfu_per_ms = n_sm * SFU_PER_CLOCK_PER_SM * sm_mhz * 1e3
 
     def record(key, fn, plain, err, nbytes, ops, part, shape, graph=False,
-               sfu=0, tol="", extra=None):
+               sfu=0, tol="", extra=None, plain_ms=None):
         a, b = fn(), fn()
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"{key}: two launches on the same inputs "
@@ -3156,7 +3288,8 @@ def phase_proba_kernels(seed: int, n_sm: int, sm_mhz: float, ptxas: dict):
             bound_ms, bound_by = sfu / sfu_per_ms, "operations"
         events = cuda_ms(fn, reps=10)
         ms = graph_ms(fn, reps=20) if graph else events
-        plain_ms = cuda_ms(plain, reps=1, warmup=0)
+        if plain_ms is None:
+            plain_ms = cuda_ms(plain, reps=1, warmup=0)
         regs, spill = slice_symbol(ptxas, part)
         rows[key] = {"ms": ms, "events_ms": events, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3249,36 +3382,66 @@ def phase_proba_kernels(seed: int, n_sm: int, sm_mhz: float, ptxas: dict):
                   "trial_steps_share": trial50 / (kept * pk.N_NEWTON)})
     del steps, steps50
     platt = torch.stack([A, Bo], dim=1).reshape(B, P, 2).contiguous()
-    del pA, pB
-    want = pk.pair_coupling_plain(dec, platt, pairs, K_SVM)
-    k = K_SVM
-    # the reference's arithmetic: a sweep is Qp = Q p (2 k^2), pQp (2 k)
-    # and k steps of ~4 k + 11 (diff, pQp's update, Qp's and p's
-    # rescale); R and Q ~13 a pair.  SFUs: a pair's sigmoid (expf and a
-    # reciprocal), 1 / Q_tt once and 1 / (1 + diff) a step.
-    ops = B * n * (pk.N_SWEEPS * (6 * k * k + 13 * k) + 13 * P)
-    sfu = B * n * (2 * P + k + pk.N_SWEEPS * k)
-    nbytes = 4 * (B * n * P + 2 * B * P + B * n * k) + 8 * P
-    for variant in ("registers", "shared", "global"):
-        got = pk.pair_coupling(dec, platt, pairs, k, plan=variant)
+    del pA, pB, tw
+    lib = _build.library_path("svm_proba")
+
+    def coupling(dec, platt, pairs, k, label):
+        """P2's rows at k classes: every plan that serves k."""
+        T, n, P = dec.shape
+        want = pk.pair_coupling_plain(dec, platt, pairs, k)
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
-        record(("svm_pair_coupling", variant),
-               lambda v=variant: (pk.pair_coupling(dec, platt, pairs, k,
-                                                   plan=v),),
-               lambda: (pk.pair_coupling_plain(dec, platt, pairs, k),),
-               float((got - want).abs().max()), nbytes, ops,
-               {"registers": "pair_coupling_regILi10E",
-                "shared": "pair_coupling_kernelILb0E",
-                "global": "pair_coupling_kernelILb1E"}[variant],
-               {"tasks": B, "n": n, "k": k},
-               sfu=sfu,
-               tol="atol 1e-4 on probabilities (the rescale by a "
-                   "reciprocal, sums in another order)",
-               extra={"plan": pk.coupling_plan(k, variant, B * n)})
-        del got
-    del dec, want, tw
+        plain_ms = cuda_ms(lambda: pk.pair_coupling_plain(dec, platt, pairs,
+                                                          k),
+                           reps=1, warmup=0)
+        # the fewest operations of the deferred form, a sweep: Qp = Q p
+        # (2 k^2, an FMA counted as 2), pq (2 k), the steps' updates of
+        # (Qp)~ past t (k (k - 1)) and their scalars (11 a step), the
+        # renormalisation (k); SFU: a reciprocal a step and a sweep.  R and
+        # Q ~13 a pair and 2 SFU (the sigmoid's exp and reciprocal).
+        per_sweep, sfu_sweep = 3 * k * k + 13 * k, k + 1
+        ops = T * n * (pk.N_SWEEPS * per_sweep + 13 * P)
+        sfu = T * n * (pk.N_SWEEPS * sfu_sweep + 2 * P)
+        nbytes = 4 * (T * n * P + 2 * T * P + T * n * k) + 8 * P
+        count = {"ops_per_sweep": per_sweep, "sfu_per_sweep": sfu_sweep}
+        default = pk.coupling_plan(k)["plan"]
+        for plan in pk.COUPLING_PLANS:
+            try:
+                pl = pk.coupling_plan(k, plan, T * n)
+            except ValueError:
+                continue
+            got = pk.pair_coupling(dec, platt, pairs, k, plan=plan)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+            part = {"registers": f"pair_coupling_regILi{k}E",
+                    "group": "pair_coupling_groupILi{group}ELi{slots}E",
+                    "shared": "pair_coupling_memILb0E",
+                    "global": "pair_coupling_memILb1E"}[plan]
+            part = part.format(**pl)
+            extra = {"plan": pl, "k": k, "default": plan == default,
+                     **count}
+            if plan == default:
+                extra["sass_mufu"] = mufu_counts(lib, part)
+            record(("svm_pair_coupling",
+                    plan if label is None else f"{label}_{plan}"),
+                   lambda p=plan: (pk.pair_coupling(dec, platt, pairs, k,
+                                                    plan=p),),
+                   None, float((got - want).abs().max()), nbytes, ops, part,
+                   {"tasks": T, "n": n, "k": k}, sfu=sfu,
+                   tol="atol 1e-4 on probabilities (the deferred rescale, "
+                       "a reciprocal on the SFU, sums in another order)",
+                   extra=extra, plain_ms=plain_ms)
+            del got
+        del want
+        torch.cuda.empty_cache()
+
+    coupling(dec, platt, pairs, K_SVM, None)
+    del dec, platt
     torch.cuda.empty_cache()
+    for k in COUPLING_KS:
+        cdec, cplatt, cpairs = coupling_inputs(seed, k)
+        coupling(cdec, cplatt, cpairs, k, f"k{k}")
+        del cdec, cplatt
+        torch.cuda.empty_cache()
 
     for mode in ("svr", "nu"):
         args = svr_step_inputs(seed, mode)
@@ -3402,12 +3565,14 @@ def phase_svm_rest(seed: int):
     idx = np.concatenate([np.where(ym == c)[0][:per] for c in range(K_SVM)])
     out = {}
 
-    def search(est, g, X, y, cv, scoring, refit, device):
+    def search(est, g, X, y, cv, scoring, refit, device, sw=None):
+        kw = {} if sw is None else {"sample_weight": sw}
         with warnings.catch_warnings():
             # the reference's warning on in-sample Platt calibration
             warnings.simplefilter("ignore", UserWarning)
             return GridSearchCV(est, g, cv=cv, scoring=scoring, refit=refit,
-                                config=TorchConfig(device=device)).fit(X, y)
+                                config=TorchConfig(device=device)).fit(
+                X, y, **kw)
 
     proba_scoring = ["accuracy", "neg_log_loss"]
 
@@ -3431,6 +3596,18 @@ def phase_svm_rest(seed: int):
                             {"C": SVM_C[:2], "gamma": [gamma0]}, Xm[idx],
                             ym[idx], StratifiedKFold(3), proba_scoring,
                             False, dev), 5e-3), min_score=0.3,
+        path=SVC_KERNELS + tuple(pk.LAUNCHES))
+    # the same search weighted (phase 14's), against the CPU on the subset
+    sw = weights(seed, len(ym))
+    out["svc_proba_weighted"] = rest_search(
+        "svc_proba_weighted", lambda dev, cold: search(
+            SVC(kernel="rbf", probability=True), grid, Xm, ym,
+            StratifiedKFold(N_FOLDS), proba_scoring, False, dev, sw),
+        [svk, pk], proba_scoring,
+        (lambda dev: search(SVC(kernel="rbf", probability=True),
+                            {"C": SVM_C[:2], "gamma": [gamma0]}, Xm[idx],
+                            ym[idx], StratifiedKFold(3), proba_scoring,
+                            False, dev, sw[idx]), 5e-3), min_score=0.3,
         path=SVC_KERNELS + tuple(pk.LAUNCHES))
     for label, est, g in (
             ("svr", SVR(kernel="rbf"), {"C": SVR_C, "epsilon": SVR_EPS}),
@@ -3552,6 +3729,11 @@ def main() -> int:
            "data, SVR and NuSVR on California-shaped data, LinearSVC, "
            "LinearSVR", t_start)
     rest_run = phase_svm_rest(args.seed)
+
+    header("[14] the weighted search front end: the headline search and "
+           "phase 13's SVC probability search with sample_weight", t_start)
+    weighted_run = phase_weighted(X, y, Cs, args.seed, main_run)
+    weighted_run["svc_proba"] = rest_run["svc_proba_weighted"]
 
     meta = {
         "glm_loss_grad": "spark_sklearn_tpu/models/linear.py:221",
@@ -3780,10 +3962,14 @@ def main() -> int:
         })
     rest_meta = {
         "svm_platt_fit": ("svm_proba", "spark_sklearn_tpu/models/svm.py:331",
-                          "svc_proba", {"svc_proba": "svc_proba"}),
+                          "svc_proba", {"svc_proba": "svc_proba",
+                                        "svc_proba_weighted":
+                                            "svc_proba_weighted"}),
         "svm_pair_coupling": ("svm_proba",
                               "spark_sklearn_tpu/models/svm.py:409",
-                              "registers", {"svc_proba": "svc_proba"}),
+                              "registers", {"svc_proba": "svc_proba",
+                                            "svc_proba_weighted":
+                                                "svc_proba_weighted"}),
         "svm_svr_step": ("svm_dual", "spark_sklearn_tpu/models/svr.py:48",
                          "svr", {"svr": "svr", "nu_svr": "nu_svr"}),
     }
@@ -3816,6 +4002,7 @@ def main() -> int:
                    "regressors": regressors, "l1": l1_run,
                    "svm": svm_run, "gb": gb_run, "rf": rf_run,
                    "mlp": mlp_run, "slice": slice_run, "rest": rest_run,
+                   "weighted": weighted_run,
                    "card": nvidia_smi("name,power.limit")}, f, indent=1)
     print(f"  total {main_run['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Sweep the launch choices of S2's SVR mode and of P1 on one card.
+"""Sweep the launch choices of S2's SVR mode, P1 and P2 on one card.
 
 - S2's SVR mode (`svm_svr_step`): at phase 13's SVR and NuSVR steps (5
   KFold rows of the California-shaped n = 20640, from
@@ -15,11 +15,24 @@
   between CUDA events of the staged plan (with the exit), `staged_full`
   (all 50 steps) and `streamed` through the wrapper, the rows' steps,
   and whether the three give the same bits.
+- P2 (`svm_pair_coupling`) at phase 13's 450000 problems (its SVC
+  search's k = 10 decisions, and `chip_smoke.coupling_inputs` at k = 10
+  to 64): every plan of this tree's build, each held to the plain
+  version (atol 1e-4); then libraries rebuilt (`COUPLING_VARIANTS`, in
+  parallel): the group plan with one group size G for every k it holds
+  (`kGroupLanes`, `kGroupLastK`: G 8, 16 and 32 beside the build's 4 to
+  k = 28, 8 to 40, 16 to 64), other register caps (`kRegMinBlocks`,
+  `kGroupMinBlocks`: the blocks of 128 threads an SM each plan leaves
+  room for; the group plan's 0 takes `group_min_blocks`' cap by shape),
+  99 sweeps (a problem whose 99-sweep p has the 100-sweep bits reached
+  a sweep that gives back its own p: the share an exact exit could
+  serve) and the register plan leaving a problem at such a sweep (timed,
+  its bits held to the 100-sweep run's).
 - With `--parent DIR`, the same SVR and P1 calls of the parent tree's
   package (run in its directory) on the same inputs, timed alike, with
   whether P1's outputs keep the parent's bits.
 
-    python3 chip_sweep.py [--parent .scratch/parent]
+    python3 chip_sweep.py [--parent .scratch/parent] [--parts svr,platt,p2]
 
 Prints one table a part and writes everything to
 `chiprun_out/chip_sweep.json`; the card's name and power limit head the
@@ -50,6 +63,28 @@ SVR_LEVEL_BUILDS = (("k3k2", 3, 2), ("k2k3", 2, 3), ("k4k4", 4, 4))
 MB = "constexpr int kPlattMinBlocks = 2; "
 #: P1's builds: (tag, source replacements)
 PLATT_VARIANTS = (("mb2", []), ("mb4", [(MB, MB.replace("2", "4"))]))
+#: P2's builds: (tag, the register plan's and the group plan's blocks an
+#: SM, the group plan's spans (G, the largest k) or None for the build's
+#: own), then the 99-sweep and exit builds
+RB = "constexpr int kRegMinBlocks = 1; "
+GB = "constexpr int kGroupMinBlocks = 0;"
+COUPLING_VARIANTS = (("g8", 1, 0, ((8, 40),)), ("g16", 1, 0, ((16, 64),)),
+                     ("g32", 1, 0, ((32, 64),)),
+                     ("g32gb4", 1, 4, ((32, 64),)), ("rb1gb1", 1, 1, None),
+                     ("rb1gb3", 1, 3, None), ("rb6gb4", 6, 4, None),
+                     ("rb8gb5", 8, 5, None))
+SWEEPS = "constexpr int kSweeps = 100;"
+RENORM = "    for (int a = 0; a < K; ++a) p[a] = pt[a] * inv;\n"
+EXIT = """    bool same = true;
+#pragma unroll
+    for (int a = 0; a < K; ++a) {
+      const float v = pt[a] * inv;
+      same = same && same_bits(v, p[a]);
+      p[a] = v;
+    }
+    if (same) break;
+"""
+COUPLING_KS = (10, 13, 20, 26, 33, 41, 50, 64)
 OUT = os.path.join("chiprun_out", "chip_sweep.json")
 
 # The parent's calls, run in the parent's directory on this tree's inputs
@@ -170,9 +205,10 @@ def _cut(args, n):
             None if target is None else 0.25 * bh_n.sum(dim=1))
 
 
-def build_variant(name: str, subs, tag: str):
+def build_variant(name: str, subs, tag: str, wait: bool = True):
     """csrc/<name>.cu with the text replacements `subs`, built as
-    `_build` builds it into a temporary directory: (CDLL, nvcc's log)."""
+    `_build` builds it into a temporary directory: (CDLL, nvcc's log), or
+    with `wait` False (the running nvcc, the source, the library's path)."""
     from spark_sklearn_tpu_torch.ops import _build
 
     src = (_build.CSRC_DIR / f"{name}.cu").read_text()
@@ -185,8 +221,12 @@ def build_variant(name: str, subs, tag: str):
     with open(path, "w") as f:
         f.write(src)
     out = os.path.join(d, f"lib{name}_{tag}.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
-                           path], capture_output=True, text=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path]
+    if not wait:
+        return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True),
+                path, out)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed for {tag}:\n{proc.stdout}"
                          f"{proc.stderr}")
@@ -240,10 +280,136 @@ def platt_sweep() -> list:
     return rows
 
 
+def spans_source(spans) -> str:
+    """The .cu lines of the group plan's spans ((G, the largest k), ...)."""
+    return (f"constexpr int kGroupLanes[] = "
+            f"{{{', '.join(str(G) for G, _ in spans)}}};\n"
+            f"constexpr int kGroupLastK[] = "
+            f"{{{', '.join(str(k) for _, k in spans)}}};")
+
+
+def coupling_sweep(ks=COUPLING_KS, builds=True) -> list:
+    """P2: every plan of this build at phase 13's k = 10 decisions
+    ("k10p13") and at each of `ks`; then each library of
+    `COUPLING_VARIANTS` (all built in parallel with the first part): the
+    register plan to k = 12 and the group plan at every k it serves;
+    then the 99-sweep build's bits against this build's (the share of
+    problems at a fixed sweep by the 100th) and the exit build's
+    register plan, timed, its bits held to this build's."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import svm_proba_kernels as pk
+
+    own = spans_source(pk.COUPLING_GROUP_SPANS)
+    subs = {tag: ([(RB, RB.replace("1", str(rb))),
+                   (GB, GB.replace("0", str(gb)))]
+                  + ([(own, spans_source(spans))] if spans else []), spans)
+            for tag, rb, gb, spans in COUPLING_VARIANTS}
+    subs["s99"] = ([(SWEEPS, SWEEPS.replace("100", "99"))], None)
+    subs["exit"] = ([(RENORM, EXIT)], None)
+    if not builds:
+        subs = {}
+    procs = {tag: build_variant("svm_proba", sub, tag, wait=False)
+             for tag, (sub, _) in subs.items()}
+    rows = []
+    inputs, bits = {}, {}
+
+    def run(label, plan, tag="own"):
+        k, dec, platt, pairs, want = inputs[label]
+        pl = pk.coupling_plan(k, plan, dec.shape[0] * dec.shape[1])
+        got = pk.pair_coupling(dec, platt, pairs, k, plan=plan)
+        torch.cuda.synchronize()
+        # held to the plain version on the first tasks (the plain R and Q
+        # of all 450000 problems at k = 64 take ~15 GB)
+        torch.testing.assert_close(got[:len(want)], want, rtol=0, atol=1e-4,
+                                   equal_nan=True)
+        ms = cs.cuda_ms(lambda: pk.pair_coupling(dec, platt, pairs, k,
+                                                 plan=plan),
+                        reps=5, warmup=1)
+        row = {"inputs": label, "k": k, "plan": pl["plan"],
+               "group": pl["group"], "slots": pl["slots"], "build": tag,
+               "ms": ms, "bits": digest([got])}
+        rows.append(row)
+        print(f"  p2 {label:6s} {tag:6s} {row['plan']:9s} G={row['group']:2d}"
+              f" M={row['slots']:2d}: {ms:.4f} ms", flush=True)
+        return got
+
+    dec, y, tw, pairs = cs.proba_inputs(0)
+    A, B = pk.platt_fit(dec, y, tw, pairs, False)
+    platt = torch.stack([A, B], dim=1).reshape(dec.shape[0], -1, 2)
+    del y, tw, A, B
+    labels = ["k10p13"] + [f"k{k}" for k in ks]
+    for label in labels:
+        if label != "k10p13":
+            k = int(label[1:])
+            dec, platt, pairs = cs.coupling_inputs(0, k)
+        else:
+            k = cs.K_SVM
+        inputs[label] = (k, dec, platt.contiguous(), pairs,
+                         pk.pair_coupling_plain(dec[:4], platt[:4], pairs,
+                                                k))
+        for plan in pk.COUPLING_PLANS:
+            try:
+                pk.coupling_plan(k, plan)
+            except ValueError:
+                continue
+            got = run(label, plan)
+            if plan == pk.coupling_plan(k)["plan"]:
+                bits[label] = got
+    spans = pk.COUPLING_GROUP_SPANS
+    for tag, (proc, path, lib) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {tag}:\n{log}")
+        regs = {f.split("pair_coupling_")[1][:16]: v
+                for f, v in cs.ptxas_table(log).items()
+                if "pair_coupling_reg" in f or "pair_coupling_group" in f}
+        print(f"  p2 {tag} registers, spilled bytes: {regs}", flush=True)
+        _use(pk, ctypes.CDLL(lib))
+        pk.COUPLING_GROUP_SPANS = subs[tag][1] or spans
+        try:
+            if tag == "s99":
+                for label in labels:
+                    k, dec, platt, pairs, _ = inputs[label]
+                    got = pk.pair_coupling(dec, platt, pairs, k)
+                    same = (got.view(torch.int32)
+                            == bits[label].view(torch.int32)).all(dim=-1)
+                    rows.append({"inputs": label, "k": k, "build": tag,
+                                 "fixed_share": float(same.float().mean())})
+                    print(f"  p2 {label:6s} {tag}: "
+                          f"{rows[-1]['fixed_share']:.5f} of the problems "
+                          "reach a sweep that gives back its own p",
+                          flush=True)
+                continue
+            for label in labels:
+                k = inputs[label][0]
+                if k <= pk.COUPLING_REG_MAX_K:
+                    got = run(label, "registers", tag)
+                    if tag == "exit" and not torch.equal(
+                            got.view(torch.int32),
+                            bits[label].view(torch.int32)):
+                        raise SystemExit(f"chip_sweep: P2's exit changes "
+                                         f"the bits at {label}")
+                elif pk.coupling_group(k) and tag != "exit":
+                    run(label, "group", tag)
+        finally:
+            pk.COUPLING_GROUP_SPANS = spans
+        rows.append({"build": tag, "registers": regs})
+    _use(pk, None)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="directory of the parent's tree")
+    ap.add_argument("--parts", default="svr,platt,p2",
+                    help="comma-separated parts to sweep")
+    ap.add_argument("--p2-ks", default=",".join(map(str, COUPLING_KS)),
+                    help="P2's class counts, comma-separated")
+    ap.add_argument("--p2-no-builds", action="store_true",
+                    help="P2 with this tree's build only")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     import torch
     if not torch.cuda.is_available():
         print("chip_sweep: no CUDA device is available", file=sys.stderr)
@@ -257,12 +423,13 @@ def main() -> int:
     table = {}
     for r in report.values():
         table.update(cs.ptxas_table(str(r["log"])))
+    mine = ("svr", "platt", "pair_coupling")
     for fn, (regs, spill) in sorted(table.items()):
-        if "svr" in fn or "platt" in fn:
+        if any(m in fn for m in mine):
             print(f"  {regs:4d} registers {spill:5d} bytes spilled  {fn}")
     out = {"card": card, "ptxas": {f: v for f, v in table.items()
-                                   if "svr" in f or "platt" in f}}
-    if args.parent:
+                                   if any(m in f for m in mine)}}
+    if args.parent and "svr" in parts:
         proc = subprocess.run([sys.executable, "-c", PARENT,
                                os.path.abspath(".")], cwd=args.parent,
                               capture_output=True, text=True)
@@ -271,8 +438,12 @@ def main() -> int:
             raise SystemExit("chip_sweep: the parent's calls failed")
         out["parent"] = json.loads(proc.stdout.strip().splitlines()[-1])
         print("  parent:", json.dumps(out["parent"]), flush=True)
-    out["svr"] = svr_sweep()
-    out["platt"] = platt_sweep()
+    out["svr"] = svr_sweep() if "svr" in parts else []
+    out["platt"] = platt_sweep() if "platt" in parts else []
+    out["p2"] = (coupling_sweep(tuple(int(k) for k in
+                                      args.p2_ks.split(",")),
+                                not args.p2_no_builds)
+                 if "p2" in parts else [])
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1)

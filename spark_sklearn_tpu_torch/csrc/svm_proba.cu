@@ -64,28 +64,54 @@
 //     = Σ_j R[j, t]^2 and Q[t, j] = -R[j, t] R[t, j], then from p = 1/k,
 //     100 sweeps of libsvm's k Gauss-Seidel steps (diff = (pQp - Qp_t) /
 //     Q_tt; pQp, Qp and p rescaled by 1 + diff), in the reference's order.
-//     Bound: operations.  A sweep of the reference's arithmetic is Qp = Q p
-//     (2 k^2), pQp (2 k), and k steps of ~4 k + 11 (the diff, pQp's
-//     update, Qp's and p's rescale): 6 k^2 + 13 k; R and Q from the
-//     sigmoids ~13 a pair and an expf on the SFUs.
+//     Bound: operations, counted as the fewest of the same 100 sweeps in
+//     the deferred form below: Qp = Q p (2 k^2, an FMA counted as 2), pQp
+//     (2 k), the steps' updates of Qp past t (k (k - 1)) and their scalars
+//     (11 a step), the renormalisation (k): 3 k^2 + 13 k a sweep, and a
+//     reciprocal a step and a sweep on the SFUs; R and Q ~13 a pair and
+//     the sigmoid's exp and reciprocal.
 //
 // Design of P2.
-// - One thread a problem.  "registers" (3 <= k <= kRegMaxK, a template on
-//   k): Q (k x k), p and Qp live in registers, every loop over classes
-//   unrolled, so a sweep is FMAs and no memory access.  "shared" (larger
-//   k): the same steps with Q, p and Qp in shared memory, the thread's
-//   element e at e * blockDim + t (a warp's accesses hit 32 banks),
-//   blockDim picked by the wrapper so that a block stays within the
-//   block's 227 KB (`coupling_plan`: k <= 41).  "global" (above): the
-//   same again in a scratch tensor, element e of grid thread g at e *
-//   (grid threads) + g, the grid sized by the wrapper to the scratch it
-//   allows and walking the problems.  Q's diagonal is summed in j order
-//   (the pairs come in lexicographic order, which is j order for every
-//   column).
-// - The rescale by 1 + diff multiplies by its reciprocal, taken once a
-//   step, where the reference divides each of the 2k + 1 values: within
-//   an ulp of each.  The first (shared-memory) version of a k = 10 call
-//   took 9.4 ms at phase 13's 450000 problems.
+// - The deferred rescale.  A sweep starts from p alone (Qp and pQp are
+//   recomputed from it, svm.py:428-429), so it keeps p~ and (Qp)~
+//   unscaled beside sig = 1 / s, the product of the reference's rescales,
+//   and pq = p~' Q p~ = sig^2 pQp: a step is u = (pq - sig x) / (sig Q_tt)
+//   (x = (Qp)~_t; u = diff * sig), p~_t += u, (Qp)~ += u Q[t, :],
+//   sig += u, pq += u (u Q_tt + 2 x): one SFU reciprocal a step (within
+//   an ulp) and no rescale of p or Qp; the sweep's end multiplies p~ by
+//   1 / sig once.  Step t updates (Qp)~ only past t: the sweep reads
+//   (Qp)~_c at step c alone.  A sweep is ~3 k^2 FP32 operations against
+//   the reference's ~6 k^2 and three IEEE divisions a step.
+// - "registers" (2 <= k <= kRegMaxK, a template on k): a thread a
+//   problem, Q's packed upper triangle, p, p~ and (Qp)~ in registers,
+//   every loop over classes unrolled: a sweep is FMAs and no memory
+//   access.
+// - "group" (k past kRegMaxK to 64, a template on (G, M)): G lanes a
+//   problem, class c on lane c % G, each lane holding the rows of Q of
+//   its M classes (G M columns, zero past k) and their p, p~ and (Qp)~ in
+//   registers.  Step t takes (Qp)~_t and Q_tt from their owner by
+//   __shfl_sync, every lane runs the step's scalars and updates its own
+//   classes; Qp = Q p takes k broadcasts of p; pq is an xor-shuffle sum
+//   over the group, the same bits in every lane.  The scalar chain runs on
+//   all G lanes, so few lanes whose rows fit win: G by k from
+//   kGroupLanes / kGroupLastK (4 to k = 28, 8 to 40, 16 to 64), the only
+//   shapes built (chip_sweep.py rebuilds with other lists); where a
+//   lane's rows pass ~120 registers a cap of 128 or 170
+//   (`group_min_blocks`) runs faster, spills and all.
+// - "shared" (k past 64, to 239) and "global" (past it): 32 lanes a
+//   problem, the same group steps with the state in the group's slice of
+//   shared memory (rows at an odd stride: a group's column reads hit
+//   distinct banks) or of a global scratch the grid's groups walk.
+// - A sweep that gives back its own p bit for bit fixes every later
+//   sweep, so a problem could leave there with the 100-sweep bits; on
+//   phase 13's inputs few problems reach one (most settle into a cycle of
+//   a few sweeps) and a warp waits for its slowest problem, so the exit
+//   did not pay and is not taken (chip_sweep.py counts and times it in
+//   rebuilt libraries).
+// - Q's diagonal is summed in the other class's order (the pairs come in
+//   lexicographic order).  The first version (a thread a problem, the
+//   reference's arithmetic; registers to k = 12, shared memory to 41, a
+//   global scratch above) took 1.67 ms at phase 13's 450000 problems.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -111,6 +137,16 @@ constexpr int kSweeps = 100;                // svm.py:409 n_iter
 constexpr float kClipLo = 1e-7f;
 constexpr float kClipHi = static_cast<float>(1.0 - 1e-7);
 constexpr int kRegMaxK = 12;                // P2's register plan: k <= 12
+constexpr int kCouplingThreads = 128;       // P2's most threads a block
+constexpr int kRegMinBlocks = 1;            // P2's blocks an SM its register
+                                            // plan must leave room for
+constexpr int kGroupMinBlocks = 0;          // the group plan's, 0: by shape
+                                            // (group_min_blocks)
+// P2's group plan: G = kGroupLanes[i] lanes a problem for k past the last
+// span's to kGroupLastK[i] (the first span's from kRegMaxK + 1)
+constexpr int kGroupLanes[] = {4, 8, 16};
+constexpr int kGroupLastK[] = {28, 40, 64};
+constexpr int kGroupSpans = sizeof(kGroupLanes) / sizeof(kGroupLanes[0]);
 
 // ---------------------------------------------------------------------------
 // P1
@@ -380,79 +416,68 @@ __global__ void __launch_bounds__(kPlattThreads, kPlattMinBlocks)
 
 extern __shared__ float p2_smem[];
 
-// P2's general plan, any k: a thread a problem at a time, element e of its
-// Q, p and Qp at base[e * stride]: in shared memory (kGlobal false,
-// "shared": base p2_smem + t, stride blockDim, one problem a thread) or in
-// a global scratch (kGlobal true, "global": base scratch + the thread's
-// index in the grid, stride the grid's threads, the grid walking the
-// problems in strides of its threads).
-template <bool kGlobal>
-__global__ void pair_coupling_kernel(const float* __restrict__ dec,
-                                     const float* __restrict__ platt,
-                                     const int* __restrict__ pairs,
-                                     long long problems, int n, int P, int k,
-                                     float* __restrict__ scratch,
-                                     float* __restrict__ out) {
-  const long long g0 =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long grid_threads =
-      static_cast<long long>(gridDim.x) * blockDim.x;
-  const size_t T = kGlobal ? static_cast<size_t>(grid_threads) : blockDim.x;
-  float* Q = kGlobal ? scratch + g0 : p2_smem + threadIdx.x;
-  float* p = Q + static_cast<size_t>(k) * k * T;
-  float* Qp = p + static_cast<size_t>(k) * T;
-  for (long long g = g0; g < problems; g += grid_threads) {
-    const long long task = g / n;
-    for (int e = 0; e < k * k; ++e) Q[e * T] = 0.0f;
-    const float* d = dec + g * P;
-    const float* ab = platt + task * 2 * P;
-    // R from the pair sigmoids, straight into Q (pairs in lexicographic
-    // order: each diagonal sum runs in j order)
-    for (int q = 0; q < P; ++q) {
-      const int i = pairs[2 * q], j = pairs[2 * q + 1];
-      const float u = -__fadd_rn(__fmul_rn(d[q], ab[2 * q]), ab[2 * q + 1]);
-      float r = 1.0f / (1.0f + expf(-u));
-      r = r < kClipLo ? kClipLo : (r > kClipHi ? kClipHi : r);  // NaN passes
-      const float rc = 1.0f - r;                 // R[j, i]
-      const float off = -(rc * r);
-      Q[(i * k + j) * T] = off;
-      Q[(j * k + i) * T] = off;
-      Q[(i * k + i) * T] += rc * rc;             // R[j, i]^2 into column i
-      Q[(j * k + j) * T] += r * r;               // R[i, j]^2 into column j
-    }
-    const float p0 = 1.0f / static_cast<float>(k);
-    for (int e = 0; e < k; ++e) p[e * T] = p0;
-    for (int sweep = 0; sweep < kSweeps; ++sweep) {
-      float pQp = 0.0f;
-      for (int a = 0; a < k; ++a) {
-        float s = 0.0f;
-        for (int c = 0; c < k; ++c) s += Q[(a * k + c) * T] * p[c * T];
-        Qp[a * T] = s;
-      }
-      for (int a = 0; a < k; ++a) pQp += p[a * T] * Qp[a * T];
-      for (int t = 0; t < k; ++t) {
-        const float Qtt = Q[(t * k + t) * T];
-        const float qpt = Qp[t * T];
-        const float diff = (-qpt + pQp) / Qtt;
-        const float one = 1.0f + diff;
-        pQp = (pQp + diff * (diff * Qtt + 2.0f * qpt)) / (one * one);
-        const float inv = 1.0f / one;
-        p[t * T] += diff;
-        for (int c = 0; c < k; ++c) {
-          Qp[c * T] = (Qp[c * T] + diff * Q[(t * k + c) * T]) * inv;
-          p[c * T] *= inv;
-        }
-      }
-    }
-    float* o = out + g * k;
-    for (int e = 0; e < k; ++e) o[e] = p[e * T];
-  }
+// The reciprocal on the SFU (MUFU.RCP), within an ulp.
+__device__ __forceinline__ float rcp_sfu(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
-// P2's register plan: Q, p and Qp of one problem in registers; the pairs
-// in lexicographic order (i < j, i major), as the family makes them.
+// Pair (i, j), i < j, among k classes in lexicographic order.
+__device__ __forceinline__ int pair_index(int i, int j, int k) {
+  return i * k - i * (i + 1) / 2 + (j - i - 1);
+}
+
+// r = clip(sigmoid(-(A f + B))) of pair q of a problem (svm.py:774, :402):
+// R[i, j] = r and R[j, i] = 1 - r for the pair's (i, j).
+__device__ __forceinline__ float pair_r(const float* __restrict__ d,
+                                        const float* __restrict__ ab, int q) {
+  const float u = -__fadd_rn(__fmul_rn(d[q], ab[2 * q]), ab[2 * q + 1]);
+  const float r = 1.0f / (1.0f + expf(-u));
+  return r < kClipLo ? kClipLo : (r > kClipHi ? kClipHi : r);  // NaN passes
+}
+
+// Q[a, c], c != a, and R[c, a]^2, the term of c in Q[a, a] (svm.py:423-425).
+__device__ __forceinline__ void q_entry(const float* __restrict__ d,
+                                        const float* __restrict__ ab, int a,
+                                        int c, int k, float& off,
+                                        float& diag) {
+  const float r =
+      pair_r(d, ab, c > a ? pair_index(a, c, k) : pair_index(c, a, k));
+  const float rc = 1.0f - r;
+  off = -(rc * r);
+  diag = c > a ? rc * rc : r * r;
+}
+
+// One Gauss-Seidel step in the deferred form.  The sweep keeps p~ and
+// (Qp)~ unscaled and sig = 1 / s, the scale the reference's rescales
+// would have applied (p = p~ / sig, Qp = (Qp)~ / sig), and pq = p~' Q p~
+// = sig^2 pQp.  The reference's diff = (pQp - Qp_t) / Q_tt becomes
+// u = diff * sig = (pq - sig x) / (sig Q_tt), x = (Qp)~_t; then p~_t += u,
+// (Qp)~ += u Q[t, :] (the caller's), sig += u (sig (1 + diff)) and
+// pq += u (u Q_tt + 2 x).  One reciprocal a step and no rescale of p or
+// Qp: the sweep's end divides p~ by sig once.
+__device__ __forceinline__ float coupling_step(float& sig, float& pq, float x,
+                                               float qtt) {
+  const float u = fmaf(-sig, x, pq) * rcp_sfu(sig * qtt);
+  sig += u;
+  pq = fmaf(u, fmaf(u, qtt, x + x), pq);
+  return u;
+}
+
+// Index of Q[a, c], a <= c, in a packed upper triangle of K rows.
 template <int K>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ constexpr int tri(int a, int c) {
+  return a <= c ? a * K - a * (a - 1) / 2 + (c - a)
+                : c * K - c * (c - 1) / 2 + (a - c);
+}
+
+// "registers" (2 <= k <= kRegMaxK): a thread a problem, its Q (the packed
+// upper triangle), p, p~ and (Qp)~ in registers, every loop over classes
+// unrolled.  Step t updates (Qp)~ only for the classes after t: the sweep
+// reads (Qp)~_c at step c alone and recomputes Qp at its start.
+template <int K>
+__global__ void __launch_bounds__(kCouplingThreads, kRegMinBlocks)
     pair_coupling_reg(const float* __restrict__ dec,
                       const float* __restrict__ platt, long long problems,
                       int n, float* __restrict__ out) {
@@ -460,75 +485,229 @@ __global__ void __launch_bounds__(128)
   const long long g =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (g >= problems) return;
-  const long long task = g / n;
   const float* d = dec + g * P;
-  const float* ab = platt + task * 2 * P;
-  float Q[K][K];
+  const float* ab = platt + (g / n) * 2 * P;
+  float Q[K * (K + 1) / 2];
 #pragma unroll
-  for (int a = 0; a < K; ++a)
-#pragma unroll
-    for (int c = 0; c < K; ++c) Q[a][c] = 0.0f;
+  for (int a = 0; a < K; ++a) Q[tri<K>(a, a)] = 0.0f;
+  // each diagonal sum in the other class's order
 #pragma unroll
   for (int i = 0; i < K; ++i) {
 #pragma unroll
     for (int j = i + 1; j < K; ++j) {
-      const int q = i * K - i * (i + 1) / 2 + (j - i - 1);
-      const float u = -__fadd_rn(__fmul_rn(d[q], ab[2 * q]), ab[2 * q + 1]);
-      float r = 1.0f / (1.0f + expf(-u));
-      r = r < kClipLo ? kClipLo : (r > kClipHi ? kClipHi : r);
+      const float r = pair_r(d, ab, pair_index(i, j, K));
       const float rc = 1.0f - r;
-      const float off = -(rc * r);
-      Q[i][j] = off;
-      Q[j][i] = off;
-      Q[i][i] += rc * rc;
-      Q[j][j] += r * r;
+      Q[tri<K>(i, j)] = -(rc * r);
+      Q[tri<K>(i, i)] += rc * rc;
+      Q[tri<K>(j, j)] += r * r;
     }
   }
-  float p[K], Qp[K];
+  float p[K];
   const float p0 = 1.0f / static_cast<float>(K);
 #pragma unroll
   for (int e = 0; e < K; ++e) p[e] = p0;
   for (int sweep = 0; sweep < kSweeps; ++sweep) {
+    float qp[K], pt[K];
+    float pq = 0.0f;
 #pragma unroll
     for (int a = 0; a < K; ++a) {
       float s = 0.0f;
 #pragma unroll
-      for (int c = 0; c < K; ++c) s += Q[a][c] * p[c];
-      Qp[a] = s;
+      for (int c = 0; c < K; ++c) s = fmaf(Q[tri<K>(a, c)], p[c], s);
+      qp[a] = s;
+      pt[a] = p[a];
     }
-    float pQp = 0.0f;
 #pragma unroll
-    for (int a = 0; a < K; ++a) pQp += p[a] * Qp[a];
+    for (int a = 0; a < K; ++a) pq = fmaf(p[a], qp[a], pq);
+    float sig = 1.0f;
 #pragma unroll
     for (int t = 0; t < K; ++t) {
-      const float Qtt = Q[t][t];
-      const float qpt = Qp[t];
-      const float diff = (-qpt + pQp) / Qtt;
-      const float one = 1.0f + diff;
-      pQp = (pQp + diff * (diff * Qtt + 2.0f * qpt)) / (one * one);
-      const float inv = 1.0f / one;
-      p[t] += diff;
+      const float u = coupling_step(sig, pq, qp[t], Q[tri<K>(t, t)]);
+      pt[t] += u;
 #pragma unroll
-      for (int c = 0; c < K; ++c) {
-        Qp[c] = (Qp[c] + diff * Q[t][c]) * inv;
-        p[c] *= inv;
-      }
+      for (int c = t + 1; c < K; ++c) qp[c] = fmaf(u, Q[tri<K>(t, c)], qp[c]);
     }
+    const float inv = rcp_sfu(sig);
+#pragma unroll
+    for (int a = 0; a < K; ++a) p[a] = pt[a] * inv;
   }
   float* o = out + g * K;
 #pragma unroll
   for (int e = 0; e < K; ++e) o[e] = p[e];
 }
 
-template <int K>
-int launch_reg(const float* dec, const float* platt, long long problems,
-               int n, float* out, int threads, cudaStream_t s) {
-  const unsigned grid =
-      static_cast<unsigned>((problems + threads - 1) / threads);
-  pair_coupling_reg<K><<<grid, threads, 0, s>>>(dec, platt, problems, n,
-                                                out);
-  return static_cast<int>(cudaGetLastError());
+// The group plan's blocks of kCouplingThreads an SM by shape (G, M): where
+// a lane's rows of Q pass ~120 registers, the cap (128 registers a thread
+// at 4, 170 at 3) that chip_sweep.py found fastest, spills and all; the
+// others take what they need.
+template <int G, int M>
+constexpr int group_min_blocks() {
+  if (kGroupMinBlocks > 0) return kGroupMinBlocks;
+  if ((G == 4 && M >= 6) || (G == 8 && M == 5) || (G == 16 && M == 4))
+    return 3;
+  if ((G == 4 && M == 5) || (G == 8 && M == 4) || (G == 16 && M == 3))
+    return 4;
+  return 1;
 }
+
+// "group" (k <= G M): a group of G lanes a problem; class c on lane
+// c % G, slot c / G.  A lane holds the rows of Q of its M classes (KP =
+// G M columns, zero past k) and their p, p~ and (Qp)~ in registers.  Step
+// t takes (Qp)~_t and Q_tt from their owner by __shfl_sync, every lane of
+// the group runs the step's scalars, and each updates its own classes.
+// Qp = Q p takes k broadcasts of p; pq is an xor-shuffle sum over the
+// group (the same bits in every lane).  Problems past the last (a tail
+// warp's groups) repeat it and store nothing.
+template <int G, int M>
+__global__ void __launch_bounds__(kCouplingThreads, group_min_blocks<G, M>())
+    pair_coupling_group(const float* __restrict__ dec,
+                        const float* __restrict__ platt, long long problems,
+                        int n, int k, float* __restrict__ out) {
+  constexpr int KP = G * M;
+  const int gl = threadIdx.x & (G - 1);
+  const long long g0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const long long g = g0 < problems ? g0 : problems - 1;
+  const int P = k * (k - 1) / 2;
+  const float* d = dec + g * P;
+  const float* ab = platt + (g / n) * 2 * P;
+  float Q[M][KP], qd[M], p[M];
+  const float p0 = 1.0f / static_cast<float>(k);
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int a = i * G + gl;
+    float dg = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KP; ++c) {
+      float off = 0.0f, term = 0.0f;
+      if (a < k && c < k && c != a) q_entry(d, ab, a, c, k, off, term);
+      Q[i][c] = off;
+      dg += term;
+    }
+#pragma unroll
+    for (int c = 0; c < KP; ++c)
+      if (c == a) Q[i][c] = dg;
+    qd[i] = dg;
+    p[i] = a < k ? p0 : 0.0f;
+  }
+  for (int sweep = 0; sweep < kSweeps; ++sweep) {
+    float qp[M], pt[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) qp[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KP; ++c) {
+      if (c >= k) break;
+      const float pc = __shfl_sync(kFull, p[c / G], c % G, G);
+#pragma unroll
+      for (int i = 0; i < M; ++i) qp[i] = fmaf(Q[i][c], pc, qp[i]);
+    }
+    float pq = 0.0f;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      pq = fmaf(p[i], qp[i], pq);
+      pt[i] = p[i];
+    }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) pq += __shfl_xor_sync(kFull, pq, o, G);
+    float sig = 1.0f;
+#pragma unroll
+    for (int t = 0; t < KP; ++t) {
+      if (t >= k) break;
+      const float x = __shfl_sync(kFull, qp[t / G], t % G, G);
+      const float qtt = __shfl_sync(kFull, qd[t / G], t % G, G);
+      const float u = coupling_step(sig, pq, x, qtt);
+      if (gl == t % G) pt[t / G] += u;
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        if (i * G + G - 1 > t) qp[i] = fmaf(u, Q[i][t], qp[i]);
+    }
+    const float inv = rcp_sfu(sig);
+#pragma unroll
+    for (int i = 0; i < M; ++i) p[i] = pt[i] * inv;
+  }
+  if (g0 < problems) {
+    float* o = out + g * k;
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      if (i * G + gl < k) o[i * G + gl] = p[i];
+  }
+}
+
+// Floats of one problem's state in "shared" and "global": Q's k
+// rows at an odd stride (a group's column reads hit distinct banks), p, p~
+// and (Qp)~.
+__host__ __device__ __forceinline__ size_t coupling_mem_floats(int k) {
+  return static_cast<size_t>(k) * (k | 1) + 3 * static_cast<size_t>(k);
+}
+
+// "shared" and "global" (k past the register groups): a warp a problem
+// (G = 32 lanes) as above, its state in its slice of shared memory
+// ("shared") or of a global scratch ("global": the grid's warps walk the
+// problems); lane gl takes classes gl, gl + G, ...
+template <bool kGlobal>
+__global__ void __launch_bounds__(kCouplingThreads)
+    pair_coupling_mem(const float* __restrict__ dec,
+                      const float* __restrict__ platt, long long problems,
+                      int n, int k, float* __restrict__ scratch,
+                      float* __restrict__ out) {
+  constexpr int G = 32;
+  const int gl = threadIdx.x & (G - 1);
+  const int S = k | 1;
+  const size_t per = coupling_mem_floats(k);
+  const long long slot =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const long long slots = static_cast<long long>(gridDim.x) * blockDim.x / G;
+  float* Q = kGlobal ? scratch + slot * per : p2_smem + (threadIdx.x / G) * per;
+  float* p = Q + static_cast<size_t>(k) * S;
+  float* pt = p + k;
+  float* qp = pt + k;
+  const int P = k * (k - 1) / 2;
+  for (long long g = slot; g < problems; g += slots) {
+    const float* d = dec + g * P;
+    const float* ab = platt + (g / n) * 2 * P;
+    for (int a = gl; a < k; a += G) {
+      float dg = 0.0f;
+      for (int c = 0; c < k; ++c) {
+        if (c == a) continue;
+        float off, term;
+        q_entry(d, ab, a, c, k, off, term);
+        Q[a * S + c] = off;
+        dg += term;
+      }
+      Q[a * S + a] = dg;
+      p[a] = 1.0f / static_cast<float>(k);
+    }
+    __syncwarp();
+    for (int sweep = 0; sweep < kSweeps; ++sweep) {
+      float pq = 0.0f;
+      for (int a = gl; a < k; a += G) {
+        float s = 0.0f;
+        for (int c = 0; c < k; ++c) s = fmaf(Q[a * S + c], p[c], s);
+        qp[a] = s;
+        pt[a] = p[a];
+        pq = fmaf(p[a], s, pq);
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+        pq += __shfl_xor_sync(kFull, pq, o, G);
+      __syncwarp();
+      float sig = 1.0f;
+      for (int t = 0; t < k; ++t) {
+        const float u = coupling_step(sig, pq, qp[t], Q[t * S + t]);
+        if (gl == t % G) pt[t] += u;
+        for (int a = gl + (t + 1 - gl + G - 1) / G * G; a < k; a += G)
+          qp[a] = fmaf(u, Q[a * S + t], qp[a]);
+        __syncwarp();
+      }
+      const float inv = rcp_sfu(sig);
+      for (int a = gl; a < k; a += G) p[a] = pt[a] * inv;
+      __syncwarp();
+    }
+    for (int a = gl; a < k; a += G) out[g * k + a] = p[a];
+    __syncwarp();
+  }
+}
+
 
 // Raises a kernel's dynamic shared-memory limit where `smem` is above the
 // default 48 KB, once a device and size.
@@ -544,6 +723,72 @@ int allow_smem(Kernel kernel, size_t smem, int* raised) {
   if (e == cudaSuccess && dev < kMaxDevices)
     raised[dev] = static_cast<int>(smem);
   return static_cast<int>(e);
+}
+
+template <int K>
+int launch_reg_k(const float* dec, const float* platt, long long problems,
+                 int n, float* out, unsigned grid, cudaStream_t s) {
+  pair_coupling_reg<K><<<grid, kCouplingThreads, 0, s>>>(dec, platt,
+                                                         problems, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P2's register plan at k (2 <= k <= kRegMaxK).
+int launch_reg(const float* dec, const float* platt, long long problems,
+               int n, int k, float* out, unsigned grid, cudaStream_t s) {
+  switch (k) {
+#define P2_REG(K)                                                        \
+  case K:                                                                \
+    return launch_reg_k<K>(dec, platt, problems, n, out, grid, s);
+    P2_REG(2) P2_REG(3) P2_REG(4) P2_REG(5) P2_REG(6) P2_REG(7) P2_REG(8)
+    P2_REG(9) P2_REG(10) P2_REG(11) P2_REG(12)
+#undef P2_REG
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The first k of the group plan's span i.
+constexpr int span_first_k(int i) {
+  return i == 0 ? kRegMaxK + 1 : kGroupLastK[i - 1] + 1;
+}
+
+// The group plan's lanes a problem for k classes, 0 where none serves k.
+int group_lanes(int k) {
+  for (int i = 0; i < kGroupSpans; ++i)
+    if (k >= span_first_k(i) && k <= kGroupLastK[i]) return kGroupLanes[i];
+  return 0;
+}
+
+// Span I's group plan at M slots a lane or more: the shapes built are
+// those of the span's k alone.
+template <int I, int M>
+int launch_group_span(const float* dec, const float* platt,
+                      long long problems, int n, int k, float* out,
+                      unsigned grid, cudaStream_t s) {
+  constexpr int G = kGroupLanes[I];
+  if ((k + G - 1) / G == M) {
+    pair_coupling_group<G, M><<<grid, kCouplingThreads, 0, s>>>(
+        dec, platt, problems, n, k, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (M < (kGroupLastK[I] + G - 1) / G)
+    return launch_group_span<I, M + 1>(dec, platt, problems, n, k, out,
+                                       grid, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// P2's group plan at k, from span I on.
+template <int I = 0>
+int launch_group(const float* dec, const float* platt, long long problems,
+                 int n, int k, float* out, unsigned grid, cudaStream_t s) {
+  if constexpr (I < kGroupSpans) {
+    constexpr int G = kGroupLanes[I];
+    if (k >= span_first_k(I) && k <= kGroupLastK[I])
+      return launch_group_span<I, (span_first_k(I) + G - 1) / G>(
+          dec, platt, problems, n, k, out, grid, s);
+    return launch_group<I + 1>(dec, platt, problems, n, k, out, grid, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // P1's staged launches: 9 bytes a slot, a slot an element.
@@ -598,56 +843,51 @@ int svm_platt_fit(const float* dec, const int* y, const float* train_w,
 }
 
 // P2: the coupled probabilities out (T, n, k) of dec (T, n, P) float32
-// pair decisions and platt (T, P, 2) float32 (A, B) sigmoids; pairs (P, 2)
-// int32 in lexicographic order.  plan 1 ("registers", 3 <= k <=
-// kRegMaxK): a problem's state in registers; plan 0 ("shared"): each
-// thread's (k^2 + 2k) floats in shared memory, a problem a thread; plan 2
-// ("global"): in `scratch`, (k^2 + 2k) floats for each of the grid's
-// threads, which walk the problems.  `threads` a block and `grid` blocks,
-// as svm_proba_kernels.py `coupling_plan` picks them.  Returns the
-// launch's error.
-int svm_pair_coupling(const float* dec, const float* platt, const int* pairs,
-                      float* scratch, float* out, int T, int n, int P, int k,
-                      int threads, int grid, int plan, void* stream) {
+// pair decisions and platt (T, P, 2) float32 (A, B) sigmoids, the pairs in
+// lexicographic order.  plan 0 ("registers", 2 <= k <= kRegMaxK): a thread
+// a problem; plan 1 ("group", kRegMaxK < k <= kGroupLastK's last):
+// group_lanes(k) lanes a problem, the state in registers; plan 2
+// ("shared"): a warp a problem, its state in shared memory; plan 3
+// ("global"): the same in `scratch`, the grid's warps walking the
+// problems.  `threads` a block and `grid` blocks, as svm_proba_kernels.py
+// `coupling_plan` picks them.  Returns the launch's error.
+int svm_pair_coupling(const float* dec, const float* platt, float* scratch,
+                      float* out, int T, int n, int P, int k, int threads,
+                      int grid, int plan, void* stream) {
   const long long problems = static_cast<long long>(T) * n;
+  const int G = plan == 0 ? 1 : plan == 1 ? group_lanes(k) : 32;
   const size_t smem =
-      plan == 0 ? static_cast<size_t>(threads) * (k * k + 2 * k) * 4 : 0;
-  const long long blocks = (problems + threads - 1) / threads;
+      plan == 2 ? static_cast<size_t>(threads / 32) * coupling_mem_floats(k) * 4
+                : 0;
+  const long long lanes = problems * G;
+  const long long blocks = (lanes + threads - 1) / threads;
   if (T < 1 || n < 1 || k < 2 || P != k * (k - 1) / 2 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0 || smem > kMaxSmem || plan < 0 ||
-      plan > 2 || (plan == 1 && (k < 3 || k > kRegMaxK || threads > 128)) ||
-      (plan == 2 && (scratch == nullptr || grid < 1 || grid > blocks)) ||
-      (plan != 2 && grid != blocks) || blocks > 2147483647LL)
+      threads > kCouplingThreads || threads % 32 != 0 || smem > kMaxSmem ||
+      plan < 0 || plan > 3 || grid < 1 || blocks > 2147483647LL ||
+      (plan == 0 && k > kRegMaxK) || G == 0 ||
+      (plan <= 1 && grid != blocks) || (plan >= 2 && grid > blocks) ||
+      (plan == 3 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (plan == 1) {
-    switch (k) {
-      case 3: return launch_reg<3>(dec, platt, problems, n, out, threads, s);
-      case 4: return launch_reg<4>(dec, platt, problems, n, out, threads, s);
-      case 5: return launch_reg<5>(dec, platt, problems, n, out, threads, s);
-      case 6: return launch_reg<6>(dec, platt, problems, n, out, threads, s);
-      case 7: return launch_reg<7>(dec, platt, problems, n, out, threads, s);
-      case 8: return launch_reg<8>(dec, platt, problems, n, out, threads, s);
-      case 9: return launch_reg<9>(dec, platt, problems, n, out, threads, s);
-      case 10:
-        return launch_reg<10>(dec, platt, problems, n, out, threads, s);
-      case 11:
-        return launch_reg<11>(dec, platt, problems, n, out, threads, s);
-      default:
-        return launch_reg<12>(dec, platt, problems, n, out, threads, s);
+  const unsigned g = static_cast<unsigned>(grid);
+  switch (plan) {
+    case 0:
+      return launch_reg(dec, platt, problems, n, k, out, g, s);
+    case 1:
+      return launch_group(dec, platt, problems, n, k, out, g, s);
+    case 2: {
+      static int raised[kMaxDevices] = {};
+      const int rc = allow_smem(pair_coupling_mem<false>, smem, raised);
+      if (rc != 0) return rc;
+      pair_coupling_mem<false><<<g, threads, smem, s>>>(
+          dec, platt, problems, n, k, nullptr, out);
+      return static_cast<int>(cudaGetLastError());
     }
+    default:
+      pair_coupling_mem<true><<<g, threads, 0, s>>>(dec, platt, problems, n,
+                                                    k, scratch, out);
+      return static_cast<int>(cudaGetLastError());
   }
-  if (plan == 2) {
-    pair_coupling_kernel<true><<<grid, threads, 0, s>>>(
-        dec, platt, pairs, problems, n, P, k, scratch, out);
-    return static_cast<int>(cudaGetLastError());
-  }
-  static int raised[kMaxDevices] = {};
-  const int rc = allow_smem(pair_coupling_kernel<false>, smem, raised);
-  if (rc != 0) return rc;
-  pair_coupling_kernel<false><<<grid, threads, smem, s>>>(
-      dec, platt, pairs, problems, n, P, k, nullptr, out);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

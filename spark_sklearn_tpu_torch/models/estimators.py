@@ -149,7 +149,16 @@ class _Estimator:
             device=self._device)
 
 
-class LogisticRegression(_Estimator):
+class _LogProba:
+    """`predict_log_proba`, the log of `predict_proba`, as sklearn's
+    classifiers have it."""
+
+    def predict_log_proba(self, X):
+        with np.errstate(divide="ignore"):
+            return np.log(self.predict_proba(X))
+
+
+class LogisticRegression(_LogProba, _Estimator):
     """Logistic regression, binary or multinomial: lbfgs for the l2 or no
     penalty, proximal FISTA for l1 and elasticnet."""
 
@@ -166,6 +175,10 @@ class LogisticRegression(_Estimator):
         self.max_iter = max_iter
         self.class_weight = class_weight
         self.device = device
+
+    def decision_function(self, X):
+        return self._family.decision(
+            self._model, self._static, self._X(X), self._meta).cpu().numpy()
 
     def predict(self, X):
         idx = self._family.predict(
@@ -234,15 +247,18 @@ class _KernelEstimator(_Estimator):
     (training X and its coefficients), which predicts new X with one
     kernel matrix."""
 
-    def fit(self, X, y):
+    def fit(self, X, y, sample_weight=None):
         dev = resolve_device(TorchConfig(device=self.device))
         data_np, meta = self._family.prepare_data(
             np.asarray(X, np.float32), np.asarray(y))
         static = self._family.extract_params(self)
         X_t = torch.as_tensor(data_np["X"], device=dev)
         y_t = torch.as_tensor(data_np["y"], device=dev)
+        w = None if sample_weight is None else torch.as_tensor(
+            np.asarray(sample_weight, np.float32), device=dev)
         return self._set_fitted(
-            self._family.fit_representer(X_t, y_t, static, meta), meta, dev)
+            self._family.fit_representer(X_t, y_t, static, meta, w), meta,
+            dev)
 
     def _set_fitted(self, model, meta, dev):
         self._model = model
@@ -259,7 +275,7 @@ class _KernelEstimator(_Estimator):
                                device=self._device)
 
 
-class SVC(_KernelEstimator):
+class SVC(_LogProba, _KernelEstimator):
     """Kernel SVM, one-vs-one for k > 2 classes, fitted by projected
     Nesterov ascent on libsvm's dual (`models/svm.py`)."""
 
@@ -421,7 +437,7 @@ class _MLP(_Estimator):
         return self.classes_[out] if self._family.is_classifier else out
 
 
-class MLPClassifier(_MLP):
+class MLPClassifier(_LogProba, _MLP):
     """Multi-layer perceptron classifier: softmax output, adam or sgd
     with momentum, sklearn's stopping rules (`models/mlp.py`)."""
 
@@ -467,7 +483,7 @@ class MLPRegressor(_MLP):
     __init__ = MLPClassifier.__init__
 
 
-class _ClosedForm(_Estimator):
+class _ClosedForm(_LogProba, _Estimator):
     """A classifier fitted as one lane of its family's batched fit."""
 
     def _X(self, X):
@@ -673,9 +689,13 @@ class KMeans(_Estimator):
     def predict(self, X):
         return self._views(X, {"pred"})["pred"][0].cpu().numpy()
 
-    def score(self, X, y=None):
-        """-inertia of X's rows to the fitted centers (sklearn's)."""
-        return -float(self._views(X, {"min_d2"})["min_d2"][0].sum())
+    def score(self, X, y=None, sample_weight=None):
+        """-inertia of X's rows to the fitted centers, each at its sample
+        weight (sklearn's)."""
+        d2 = self._views(X, {"min_d2"})["min_d2"][0].double().cpu()
+        if sample_weight is not None:
+            d2 = d2 * torch.as_tensor(np.asarray(sample_weight, np.float64))
+        return -float(d2.sum())
 
 
 class _Transformer(_Estimator):
@@ -836,4 +856,18 @@ class Pipeline(_Estimator):
 
     def predict_proba(self, X):
         return self._final.predict_proba(self._transform(X))
+
+    def _chained(self, name):
+        method = getattr(self._final, name)   # AttributeError where none
+        return lambda X: method(self._transform(X))
+
+    # the final estimator's methods after the transforms, where it has them
+    decision_function = property(
+        lambda self: self._chained("decision_function"))
+    predict_log_proba = property(
+        lambda self: self._chained("predict_log_proba"))
+
+    @property
+    def classes_(self):
+        return self._final.classes_
 

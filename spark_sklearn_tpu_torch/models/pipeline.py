@@ -52,6 +52,11 @@ class PipelineFamily:
     """An instance-level family (duck-typed to the Family protocol) built
     for one concrete Pipeline."""
 
+    #: sklearn's Pipeline.fit refuses a bare sample_weight (its steps take
+    #: "step__sample_weight"): a weighted search raises, as the reference
+    #: leaves its compiled path there (models/pipeline.py:31)
+    accepts_sample_weight = False
+
     def __init__(self, steps: List[Tuple[str, Any]], final_name: str,
                  final_family):
         self.steps = steps          # [(name, step), ...] the transformers
@@ -198,6 +203,8 @@ class BinnedInvariantPipelineFamily:
     Quantile binning is invariant under strictly monotone per-feature
     maps, so the scalers cannot change the codes the trees consume: fit
     and scoring delegate to the final family."""
+
+    accepts_sample_weight = False    # Pipeline.fit's contract, as above
 
     def __init__(self, final_name: str, final_family):
         self.final_name = final_name

@@ -483,10 +483,12 @@ class SVCFamily(Family):
         return model
 
     @classmethod
-    def fit_representer(cls, X, y, static, meta):
+    def fit_representer(cls, X, y, static, meta, w=None):
         """The full-data fit of one estimator (the counterpart of
         `spark_sklearn_tpu/models/standalone.py` `SVC._solve_alphas`):
-        {"sv_X": X, "alphas": signed (P, n), "intercepts": (P,)}."""
+        {"sv_X": X, "alphas": signed (P, n), "intercepts": (P,)}.  `w`
+        (n,), the sample weights (all ones by default), scales each
+        sample's box bound as a fold mask does."""
         kind, degree, coef0 = _kernel_args(static)
         n = X.shape[0]
         k = meta["n_classes"]
@@ -494,9 +496,10 @@ class SVCFamily(Family):
         gamma = _f32(_resolve_gamma(static.get("gamma", "scale"), meta))
         K = _kernel(X, X, kind, gamma, degree, coef0)
         yb, box = _pair_labels(y, pairs, k, X.dtype)
-        cw = class_weight_multiplier(
-            torch.ones(n, dtype=X.dtype, device=X.device), y, meta,
-            static.get("class_weight"))
+        if w is None:
+            w = torch.ones(n, dtype=X.dtype, device=X.device)
+        cw = class_weight_multiplier(w, y, meta, static.get("class_weight"))
+        box = box * w[None, :]
         base = box if cw is None else box * cw[None, :]
         p_c = torch.tensor(_f32(static.get(cls.primary_param,
                                            cls.primary_default)),
@@ -507,11 +510,10 @@ class SVCFamily(Family):
         model = {"sv_X": X, "alphas": alphas, "intercepts": b}
         if _probability_on(static):
             # the calibration of a fit on all rows: its own training
-            # decisions, every row weighted 1
+            # decisions, each row at its sample weight
             dec = (K @ alphas.T + b[None, :])[None]           # (1, n, P)
-            ones = torch.ones((1, n), dtype=X.dtype, device=X.device)
             model.update({key: v[0] for key, v in _platt_entries(
-                dec.contiguous(), y, ones, meta).items()})
+                dec.contiguous(), y, w[None, :].contiguous(), meta).items()})
         return model
 
     # -- prediction from cached decisions (search-internal) or from the

@@ -262,17 +262,20 @@ class SVRFamily(Family):
         return {"f": f, "n_iter": n_iter.repeat_interleave(n_folds)}
 
     @classmethod
-    def fit_representer(cls, X, y, static, meta):
+    def fit_representer(cls, X, y, static, meta, w=None):
         """The full-data fit of one estimator: {"sv_X": X, "beta": (n,),
-        "intercept": ()}; predictions are K(X', X) β + b."""
+        "intercept": ()}; predictions are K(X', X) β + b.  `w` (n,), the
+        sample weights (all ones by default), scales each sample's box
+        bound as a fold mask does."""
         kind, degree, coef0 = _kernel_args(static)
         gamma = _f32(_resolve_gamma(static.get("gamma", "scale"), meta))
         K = _kernel(X, X, kind, gamma, degree, coef0)
-        ones = torch.ones((1, X.shape[0]), dtype=X.dtype, device=X.device)
+        if w is None:
+            w = torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
         ap = cls.aux_param
         beta, _, b, _ = cls._solve(
             K, y, _f32(static.get("C", 1.0)),
-            _f32(static.get(ap, cls.aux_default)), ones,
+            _f32(static.get(ap, cls.aux_default)), w[None, :],
             0.5 * _power_step(K), _max_iter(static), _tol_or_default(static))
         if not bool(torch.isfinite(b).all()):
             raise ValueError("specified nu is infeasible")

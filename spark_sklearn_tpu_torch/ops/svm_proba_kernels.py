@@ -21,7 +21,9 @@ coupling (P2), each as a hand-written CUDA kernel
   them (`_pair_probs_to_R`, :396-406, with its clip), then libsvm's
   `multiclass_probability` (`_pairwise_coupling`, :409-446): 100 sweeps
   of k normalised Gauss-Seidel steps from p = 1/k.  dec (T, n, P), platt
-  (T, P, 2).
+  (T, P, 2).  The kernel runs the sweeps in a deferred-rescale form (one
+  reciprocal a step; `csrc/svm_proba.cu`) under the plan `coupling_plan`
+  picks: a thread a problem to k = 12, a group of lanes a problem above.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — it never falls back.  `LAUNCHES` counts
@@ -51,9 +53,10 @@ PLATT_PLANS = {"streamed": 0, "staged": 1, "staged_full": 2}
 N_NEWTON = 50
 N_HALVINGS = 8
 N_CYCLE = 8
-#: P2's most threads a block, shared memory a block (bytes, the block's
-#: most, as `kMaxSmem`), the largest k of its register plan (as
-#: `kRegMaxK`) and the scratch its global plan allows (bytes)
+#: P2's most threads a block (as `kCouplingThreads`), shared memory a
+#: block (bytes, the block's most, as `kMaxSmem`), the largest k of its
+#: register plan (as `kRegMaxK`) and the scratch its global plans allow
+#: (bytes)
 COUPLING_THREADS = 128
 COUPLING_SMEM_MAX = 232448
 COUPLING_REG_MAX_K = 12
@@ -61,7 +64,11 @@ COUPLING_SCRATCH_BUDGET = 256 * 2**20
 #: the coupling's sweeps (svm.py:409)
 N_SWEEPS = 100
 #: P2's plans, as `svm_pair_coupling`'s `plan`
-COUPLING_PLANS = {"shared": 0, "registers": 1, "global": 2}
+COUPLING_PLANS = {"registers": 0, "group": 1, "shared": 2, "global": 3}
+#: the group plan's spans: (lanes a problem G, the largest k it serves),
+#: the first from k = `COUPLING_REG_MAX_K` + 1 (as `kGroupLanes`,
+#: `kGroupLastK`)
+COUPLING_GROUP_SPANS = ((4, 28), (8, 40), (16, 64))
 
 
 def reset_launches() -> None:
@@ -213,12 +220,13 @@ def platt_fit_rows_plain(dec, y, train_w, pairs, binary, **kw):
 def pair_probs_to_R(r, pairs, k):
     """`_pair_probs_to_R` (svm.py:396-406): (..., P) pair probabilities to
     the (..., k, k) matrix R[i_p, j_p] = r_p, R[j_p, i_p] = 1 − r_p, r
-    clipped away from 0 and 1."""
+    clipped away from 0 and 1 (the diagonal 0)."""
     r = torch.clamp(r, 1e-7, 1.0 - 1e-7)
-    pos = torch.nn.functional.one_hot(pairs[:, 0].long(), k).to(r.dtype)
-    neg = torch.nn.functional.one_hot(pairs[:, 1].long(), k).to(r.dtype)
-    return torch.einsum("...p,pi,pj->...ij", r, pos, neg) + \
-        torch.einsum("...p,pi,pj->...ij", 1.0 - r, neg, pos)
+    i, j = pairs[:, 0].long(), pairs[:, 1].long()
+    R = r.new_zeros(r.shape[:-1] + (k, k))
+    R[..., i, j] = r
+    R[..., j, i] = 1.0 - r
+    return R
 
 
 def pairwise_coupling(R, n_iter=N_SWEEPS):
@@ -266,8 +274,7 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.svm_platt_fit.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.svm_platt_fit.restype = i
-    lib.svm_pair_coupling.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                      p]
+    lib.svm_pair_coupling.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.svm_pair_coupling.restype = i
     return lib
 
@@ -340,43 +347,74 @@ def platt_fit(dec, y, train_w, pairs, binary, plan=None, steps=None):
     return A, Bo
 
 
+def coupling_mem_floats(k: int) -> int:
+    """Floats of one problem's state in the "shared" and
+    "global" plans (as `coupling_mem_floats`): Q's k rows at an odd
+    stride, p, p~ and (Qp)~."""
+    return k * (k | 1) + 3 * k
+
+
+def coupling_group(k: int) -> int:
+    """The group plan's lanes a problem for k classes, by
+    `COUPLING_GROUP_SPANS` (4 to k = 28, 8 to 40, 16 to 64: chip_sweep.py
+    timed every G at these k); 0 where no group plan serves k."""
+    first = COUPLING_REG_MAX_K + 1
+    for G, last in COUPLING_GROUP_SPANS:
+        if first <= k <= last:
+            return G
+        first = last + 1
+    return 0
+
+
 def coupling_plan(k: int, plan=None, problems: int = 1) -> dict:
-    """P2's launch for `problems` problems of k classes: "registers" (3 <=
-    k <= `COUPLING_REG_MAX_K`) keeps a problem's Q, p and Qp in
-    registers; "shared" keeps them ((k² + 2k) floats) in shared memory,
-    `threads` a block (a multiple of 32 up to `COUPLING_THREADS`) within
-    `COUPLING_SMEM_MAX` bytes (k <= 41); "global" (any k, the default
-    above) keeps them in a scratch of `scratch` floats, `grid` blocks of
-    `threads` walking the problems, as many as `COUPLING_SCRATCH_BUDGET`
-    allows.  A thread a problem in the first two: `grid` covers them.
-    `plan` forces one."""
-    per = 4 * (k * k + 2 * k)
-    shared_threads = min(COUPLING_THREADS,
-                         32 * (COUPLING_SMEM_MAX // (32 * per)))
+    """P2's launch for `problems` problems of k classes.  "registers" (2 <=
+    k <= `COUPLING_REG_MAX_K`): a thread a problem, its state in
+    registers; "group" (to k = 64): `coupling_group(k)` lanes a problem,
+    `slots` classes a lane, the state in registers; "shared": a warp a
+    problem, its state (`coupling_mem_floats`) in shared memory, `threads`
+    a block within `COUPLING_SMEM_MAX` bytes (one problem a block at most:
+    k <= 239); "global" (past it): a warp a problem, the state in a
+    scratch of `scratch` floats, `grid` blocks within
+    `COUPLING_SCRATCH_BUDGET` walking the problems.  `plan` forces one."""
+    threads = COUPLING_THREADS
+    mem = 4 * coupling_mem_floats(k)
     if plan is None:
-        plan = ("registers" if 3 <= k <= COUPLING_REG_MAX_K else
-                "shared" if shared_threads >= 32 else "global")
+        if 2 <= k <= COUPLING_REG_MAX_K:
+            plan = "registers"
+        elif coupling_group(k):
+            plan = "group"
+        else:
+            plan = ("shared" if mem <= COUPLING_SMEM_MAX
+                    else "global")
+    out = {"plan": plan, "threads": threads, "smem": 0, "scratch": 0,
+           "group": 1, "slots": k}
     if plan == "registers":
-        if not 3 <= k <= COUPLING_REG_MAX_K:
+        if not 2 <= k <= COUPLING_REG_MAX_K:
             raise ValueError(f"pair_coupling: no register plan for k={k}")
-        threads, smem = COUPLING_THREADS, 0
-    elif plan == "shared":
-        if shared_threads < 32:
+        return {**out, "grid": -(-problems // threads)}
+    if plan == "group":
+        G = coupling_group(k)
+        if not G:
+            raise ValueError(f"pair_coupling: no group plan for k={k}")
+        return {**out, "group": G, "slots": -(-k // G),
+                "grid": -(-problems * G // threads)}
+    if plan == "shared":
+        threads = min(threads, (COUPLING_SMEM_MAX // mem) * 32)
+        if threads < 32:
             raise ValueError(
                 f"pair_coupling: k={k} classes do not fit the kernel's "
                 f"shared memory ({COUPLING_SMEM_MAX} bytes a block)")
-        threads, smem = shared_threads, shared_threads * per
-    elif plan == "global":
-        threads = COUPLING_THREADS
-        grid = min(-(-problems // threads),
-                   max(1, COUPLING_SCRATCH_BUDGET // (threads * per)))
-        return {"plan": plan, "threads": threads, "smem": 0, "grid": grid,
-                "scratch": grid * threads * per // 4}
-    else:
-        raise ValueError(f"plan={plan!r} is not 'registers', 'shared' or "
-                         "'global'")
-    return {"plan": plan, "threads": threads, "smem": smem,
-            "grid": -(-problems // threads), "scratch": 0}
+        per_block = threads // 32
+        return {**out, "threads": threads, "group": 32, "slots": -(-k // 32),
+                "smem": per_block * mem,
+                "grid": -(-problems // per_block)}
+    if plan == "global":
+        per_block = threads // 32
+        grid = min(-(-problems // per_block),
+                   max(1, COUPLING_SCRATCH_BUDGET // (per_block * mem)))
+        return {**out, "group": 32, "slots": -(-k // 32), "grid": grid,
+                "scratch": grid * per_block * mem // 4}
+    raise ValueError(f"plan={plan!r} is not one of {sorted(COUPLING_PLANS)}")
 
 
 def _lexicographic(pairs, k) -> bool:
@@ -385,8 +423,8 @@ def _lexicographic(pairs, k) -> bool:
 
 
 def pair_coupling(dec, platt, pairs, k, plan=None):
-    """P2 (see the module docstring): p (T, n, k).  `plan` ("registers",
-    "shared" or "global") overrides `coupling_plan`'s choice."""
+    """P2 (see the module docstring): p (T, n, k).  `plan` (one of
+    `COUPLING_PLANS`) overrides `coupling_plan`'s choice."""
     if dec.device.type == "cpu":
         return pair_coupling_plain(dec, platt, pairs, k)
     if dec.device.type != "cuda":
@@ -397,8 +435,7 @@ def pair_coupling(dec, platt, pairs, k, plan=None):
         raise ValueError(f"pair_coupling: {P} pairs for k={k} classes")
     _build.check_tensor("dec", dec, (T, n, P), dev)
     _build.check_tensor("platt", platt, (T, P, 2), dev)
-    pi = _pairs_i32(pairs, dev)
-    _build.check_tensor("pairs", pi, (P, 2), dev, torch.int32)
+    # the kernels index the pairs by their lexicographic order
     if not _lexicographic(torch.as_tensor(pairs), k):
         raise ValueError("pair_coupling: pairs must be (i, j), i < j, in "
                          "lexicographic order")
@@ -408,7 +445,7 @@ def pair_coupling(dec, platt, pairs, k, plan=None):
                if plan["scratch"] else None)
     with torch.cuda.device(dev):
         rc = _lib().svm_pair_coupling(
-            dec.data_ptr(), platt.data_ptr(), pi.data_ptr(),
+            dec.data_ptr(), platt.data_ptr(),
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             T, n, P, k, plan["threads"], plan["grid"],
             COUPLING_PLANS[plan["plan"]],

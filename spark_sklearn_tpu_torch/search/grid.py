@@ -15,10 +15,25 @@ returns the best index (`best_score_` is then not set).  A search whose
 refit the estimator cannot run here (the port's tree parameter holders)
 raises before any fit.
 
+`fit(X, y=None, *, groups=None, **fit_params)` routes as the reference
+does without sklearn's metadata routing (`_get_routed_params_for_fit`,
+:494-510): `groups` goes to the splitter; `sample_weight` scales the fit
+masks and the scoring masks (but not those of `max_error`, whose
+sklearn twin takes no weights: :1298-1330) and reaches the refit.  Where
+the reference leaves its compiled path (:603-633: any other fit
+parameter, a family that takes no `sample_weight`, `class_weight=
+"balanced"` with a zero weight) the port raises NotImplementedError: the
+host fallback is not ported.  `verbose` prints sklearn's lines (:762,
+:4240-4287).  After refit the search has `classes_`, `n_features_in_`,
+`scorer_`, `score` and the delegated `predict`, `predict_proba`,
+`predict_log_proba`, `decision_function`, `score_samples`, `transform`
+and `inverse_transform` (:4491-4590), each an AttributeError where the
+refit estimator lacks it.
+
 Not ported in this slice: the host fallback for estimators without a
-family, `fit_params`/`sample_weight` routing, `groups`, `verbose`, and
-the speed knobs of the reference (sorted chunking, the pipelined
-executor, the chunk scan, fused fit+score).
+family, scorer objects and callables, and the speed knobs of the
+reference (sorted chunking, the pipelined executor, the chunk scan,
+fused fit+score).
 """
 
 from __future__ import annotations
@@ -46,9 +61,13 @@ from spark_sklearn_tpu_torch.search.cv import (
     check_cv,
 )
 from spark_sklearn_tpu_torch.search.scorers import (
+    SAMPLE_WEIGHT_BLIND,
+    SearchScorer,
     check_scoring_target,
     resolve_scoring,
 )
+
+_HOST = "the host fallback, which the PyTorch port does not have yet"
 
 
 def _sync(device: torch.device) -> None:
@@ -87,6 +106,59 @@ def _logloss_clip_eps(family, x_dtype) -> float:
     return float(np.finfo(np.float32 if keep else np.float64).eps)
 
 
+def _metric(scoring, key: str):
+    """The metric name behind a result key: "score" is `scoring` itself
+    (one named metric, or None for the family's default)."""
+    return scoring if key == "score" else key
+
+
+def short_format_time(t: float) -> str:
+    """joblib's `short_format_time`, as sklearn's verbose lines print a
+    task's time."""
+    return f"{t / 60.0:4.1f}min" if t > 60 else f" {t:5.1f}s"
+
+
+class NotFittedError(ValueError, AttributeError):
+    """sklearn's NotFittedError: the search has not been fitted."""
+
+
+def _check_refit(search, attr: str) -> None:
+    if not search.refit:
+        raise AttributeError(
+            f"This {type(search).__name__} instance was initialized with "
+            f"`refit=False`. {attr} is available only after refitting on "
+            "the best parameters. You can refit an estimator manually "
+            "using the `best_params_` parameter")
+
+
+class _Delegated:
+    """A method of the refit estimator, available as sklearn's
+    `available_if(_search_estimator_has(name))` makes it: an
+    AttributeError where refit is off or the estimator lacks it."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __get__(self, search, owner=None):
+        if search is None:
+            return self
+        _check_refit(search, self.name)
+        # an AttributeError where the estimator lacks the method
+        getattr(getattr(search, "best_estimator_", search.estimator),
+                self.name)
+        name = self.name
+
+        def call(X):
+            if not hasattr(search, "best_estimator_"):
+                raise NotFittedError(
+                    f"This {type(search).__name__} instance is not fitted "
+                    "yet. Call 'fit' with appropriate arguments before "
+                    "using this estimator.")
+            return getattr(search.best_estimator_, name)(X)
+
+        return call
+
+
 def _lane_finite(model, B: int) -> torch.Tensor:
     """(B,) True where every floating leaf of the lane's model is finite,
     whatever each leaf's shape."""
@@ -111,17 +183,19 @@ class _BaseSearch:
     (the family's default: accuracy for classifiers, r2 for regressors,
     -inertia for KMeans), one of the scorer
     names of `search/scorers.py` or a list of them; `cv` is None, an int,
-    a splitter with ``.split(X, y)`` or an iterable of (train, test) index
-    pairs.
+    a splitter with ``.split(X, y, groups)`` or an iterable of (train,
+    test) index pairs; `verbose` > 0 prints sklearn's "Fitting ..." line,
+    > 1 its "[CV] END" line a task, > 2 with the task's fold and scores.
     """
 
     def __init__(self, estimator, *, scoring=None, refit=True, cv=None,
-                 error_score=np.nan, return_train_score=False,
+                 verbose=0, error_score=np.nan, return_train_score=False,
                  config: Optional[TorchConfig] = None):
         self.estimator = estimator
         self.scoring = scoring
         self.refit = refit
         self.cv = cv
+        self.verbose = verbose
         self.error_score = error_score
         self.return_train_score = return_train_score
         self.config = config
@@ -131,7 +205,7 @@ class _BaseSearch:
 
     # -- fit --------------------------------------------------------------
 
-    def fit(self, X, y=None):
+    def fit(self, X, y=None, *, groups=None, **fit_params):
         family = resolve_family(self.estimator)
         if family is None:
             raise NotImplementedError(
@@ -157,15 +231,28 @@ class _BaseSearch:
                 "best_* attributes available for that metric. If this is "
                 "not needed, refit should be set to False explicitly. "
                 f"{self.refit!r} was passed.")
+        candidates = self._get_candidates()
+        fit_weight, score_weight = self._route(family, scorer_names,
+                                               candidates, fit_params)
         config = self.config or TorchConfig()
         device = resolve_device(config)
         X = np.asarray(X)
         y = None if y is None else np.asarray(y)
         cv = check_cv(self.cv, y, classifier=family.is_classifier)
         splits = [(np.asarray(tr), np.asarray(te))
-                  for tr, te in cv.split(X, y)]
+                  for tr, te in cv.split(X, y, groups=groups)]
         self.n_splits_ = len(splits)
-        candidates = self._get_candidates()
+        if hasattr(cv, "get_n_splits"):
+            expected = cv.get_n_splits(X, y, groups=groups)
+            if expected != self.n_splits_:
+                raise ValueError(
+                    "cv.split and cv.get_n_splits return inconsistent "
+                    f"results. Expected {expected} splits, got "
+                    f"{self.n_splits_}")
+        if self.verbose > 0:
+            print(f"Fitting {self.n_splits_} folds for each of "
+                  f"{len(candidates)} candidates, totalling "
+                  f"{self.n_splits_ * len(candidates)} fits")
         if not splits or not candidates:
             raise ValueError(
                 "No fits were performed. Was the CV iterator empty? "
@@ -173,11 +260,18 @@ class _BaseSearch:
 
         test_scores, train_scores, fit_times, score_times = \
             self._fit_compiled(family, X, y, candidates, splits, scorers,
-                               config, device)
+                               config, device, fit_weight, score_weight)
         results = self._format_results(
             candidates, test_scores, train_scores, fit_times, score_times,
             scorer_names)
         self.cv_results_ = results
+        default = getattr(family, "default_scorer", None) or (
+            "accuracy" if family.is_classifier else "r2")
+        eps = _logloss_clip_eps(family, X.dtype)
+        self.scorer_ = (
+            SearchScorer("score" if self.scoring is None else scorer_names[0],
+                         default, eps) if single is not None else
+            {s: SearchScorer(s, default, eps) for s in scorer_names})
 
         refit_metric = (self.refit if self.multimetric_
                         and isinstance(self.refit, str) else "score")
@@ -192,17 +286,71 @@ class _BaseSearch:
             best = _clone(self.estimator).set_params(**self.best_params_)
             if isinstance(best, _Estimator) and best.device is None:
                 best.set_params(device=str(device))
+            kw = {} if fit_weight is None else {"sample_weight": fit_weight}
             t0 = time.perf_counter()
-            best.fit(X, y)
+            if y is None:
+                best.fit(X, **kw)
+            else:
+                best.fit(X, y, **kw)
             self.refit_time_ = time.perf_counter() - t0
             self.best_estimator_ = best
+            if hasattr(best, "classes_"):
+                self.classes_ = best.classes_
+        if X.ndim == 2:
+            self.n_features_in_ = X.shape[1]
         return self
 
+    def _route(self, family, scorer_names, candidates, fit_params):
+        """(fit weights, scoring weights) from the fit parameters, as the
+        reference routes them without sklearn's metadata routing: the
+        scorers get `sample_weight` unless none of them takes it (each
+        that does not is warned of and scores unweighted).  Raises where
+        the reference leaves its compiled path, class_weight="balanced"
+        with a zero weight also where a candidate sets it (grid.py:1001-
+        1011)."""
+        fit_params = dict(fit_params)
+        sw = fit_params.pop("sample_weight", None)
+        other = sorted(k for k, v in fit_params.items() if v is not None)
+        name = type(self.estimator).__name__
+        if other:
+            raise NotImplementedError(
+                f"fit parameters {other} need {_HOST}; only sample_weight "
+                "and groups reach the compiled path")
+        if sw is None:
+            return None, None
+        if not getattr(family, "accepts_sample_weight", True):
+            raise NotImplementedError(
+                f"sample_weight with {name} needs {_HOST} ({family.name} "
+                "takes no sample_weight on the compiled path)")
+        balanced = getattr(self.estimator, "class_weight", None) == \
+            "balanced" or any(
+                isinstance(v, str) and v == "balanced"
+                for c in candidates for k, v in c.items()
+                if k == "class_weight" or k.endswith("__class_weight"))
+        if balanced and np.any(np.asarray(sw) == 0):
+            raise NotImplementedError(
+                f"class_weight='balanced' with a zero sample_weight needs "
+                f"{_HOST} (sklearn's balanced counts take in every "
+                "train-fold row, the compiled path only the weighted ones)")
+        blind = [s for s in scorer_names
+                 if _metric(self.scoring, s) in SAMPLE_WEIGHT_BLIND]
+        for s in blind:
+            label = s if isinstance(self.scoring, str) else f"{s}={s}"
+            warnings.warn(
+                f"The scoring {label} does not support sample_weight, "
+                "which may lead to statistically incorrect results when "
+                f"fitting {type(self).__name__} with sample_weight. ",
+                UserWarning)
+        return sw, (None if len(blind) == len(scorer_names) else sw)
+
     def _fit_compiled(self, family, X, y, candidates, splits, scorers,
-                      config, device):
+                      config, device, fit_weight=None, score_weight=None):
         """Fit and score every (candidate x fold) task, chunk by chunk.
         Returns per-scorer (n_candidates, n_folds) test (and train)
-        scores and the fit/score times per task.
+        scores and the fit/score times per task.  `fit_weight` scales the
+        fit masks and `score_weight` the scoring masks, as the reference
+        carries sample_weight (grid.py:1298-1330); a scorer whose sklearn
+        twin takes no weights keeps the unweighted masks.
 
         A family that sets `wants_float64` runs with float64 data, fold
         masks and dynamic parameters (the reference runs it under x64;
@@ -230,8 +378,35 @@ class _BaseSearch:
             np.sum(train_masks > 0, axis=1).min())
         data = {k: torch.as_tensor(v, device=device)
                 for k, v in data_np.items()}
-        train_dev = torch.as_tensor(train_masks, device=device)
-        test_dev = torch.as_tensor(test_masks, device=device)
+
+        def weighted(masks, weight, what):
+            if weight is None:
+                return masks
+            w = np.asarray(weight, dtype=dtype)
+            if w.shape != (n_samples,):
+                raise ValueError(f"{what} has shape {w.shape}, expected "
+                                 f"({n_samples},)")
+            return masks * w[None, :]
+
+        train_dev = torch.as_tensor(
+            weighted(train_masks, fit_weight, "sample_weight"),
+            device=device)
+        # each scorer's (test, train) scoring masks: weighted, but for a
+        # scorer whose sklearn twin takes no weights
+        pairs = {}
+
+        def scoring_masks(sw):
+            key = sw is None
+            if key not in pairs:
+                pairs[key] = tuple(
+                    torch.as_tensor(weighted(m, sw, "scorer sample_weight"),
+                                    device=device)
+                    for m in (test_masks, train_masks))
+            return pairs[key]
+
+        sc_masks = {s: scoring_masks(
+            None if _metric(self.scoring, s) in SAMPLE_WEIGHT_BLIND
+            else score_weight) for s in scorers}
         n_folds = len(splits)
         n_cand = len(candidates)
         return_train = self.return_train_score
@@ -270,7 +445,8 @@ class _BaseSearch:
             lanes = width * n_folds
             fold_idx = torch.arange(lanes, device=device) % n_folds
             w_fit = train_dev[fold_idx]                       # (lanes, n)
-            w_test = test_dev[fold_idx]
+            w_sc = {s: (te[fold_idx], tr[fold_idx])
+                    for s, (te, tr) in sc_masks.items()}
             for lo in range(0, nc, width):
                 hi = min(lo + width, nc)
                 n_real = hi - lo
@@ -292,9 +468,9 @@ class _BaseSearch:
                 views = family.views_task_batched(model, static, data,
                                                   meta, needed)
                 y_dev = data.get("y")
-                te = {s: sc.core(views, y_dev, w_test, meta)
+                te = {s: sc.core(views, y_dev, w_sc[s][0], meta)
                       for s, sc in scorers.items()}
-                tr = ({s: sc.core(views, y_dev, w_fit, meta)
+                tr = ({s: sc.core(views, y_dev, w_sc[s][1], meta)
                        for s, sc in scorers.items()} if return_train
                       else {})
                 bad = ~_lane_finite(model, lanes)
@@ -314,6 +490,11 @@ class _BaseSearch:
                 # charge each launch's wall to the real tasks in it
                 fit_times[idx] = (t1 - t0) / (n_real * n_folds)
                 score_times[idx] = (t2 - t1) / (n_real * n_folds)
+                if self.verbose > 1:
+                    self._print_task_end_lines(
+                        candidates, idx, n_folds, list(scorers),
+                        test_scores, train_scores, fit_failed,
+                        fit_times[idx[0], 0] + score_times[idx[0], 0])
                 chunk = {"candidates": (int(lo), int(hi)), "lanes": lanes,
                          "fit_s": t1 - t0, "score_s": t2 - t1}
                 # the iterations the chunk ran, where the family has a
@@ -331,6 +512,50 @@ class _BaseSearch:
 
         self._handle_failed_fits(fit_failed, test_scores, train_scores)
         return test_scores, train_scores, fit_times, score_times
+
+    def _print_task_end_lines(self, candidates, idx, n_folds, scorer_names,
+                              test_scores, train_scores, fit_failed,
+                              t_task):
+        """sklearn's `_fit_and_score` "[CV i/n] END ..." line for each
+        task of a chunk once it has run (the reference's, grid.py:
+        4237-4287): a failed fit prints error_score."""
+        err = self.error_score if not isinstance(self.error_score, str) \
+            else np.nan
+        return_train = self.return_train_score
+
+        def cell(scores, gidx, f):
+            return err if fit_failed[gidx, f] else scores[gidx, f]
+
+        for gidx in idx:
+            params = candidates[gidx]
+            params_msg = ", ".join(f"{k}={params[k]}"
+                                   for k in sorted(params))
+            for f in range(n_folds):
+                progress_msg = (f" {f + 1}/{n_folds}"
+                                if self.verbose > 2 else "")
+                result_msg = params_msg + (";" if params_msg else "")
+                if self.verbose > 2 and len(scorer_names) > 1:
+                    for s in sorted(scorer_names):
+                        result_msg += f" {s}: ("
+                        if return_train:
+                            result_msg += (
+                                f"train={cell(train_scores[s], gidx, f):.3f}"
+                                ", ")
+                        result_msg += \
+                            f"test={cell(test_scores[s], gidx, f):.3f})"
+                elif self.verbose > 2:
+                    s = scorer_names[0]
+                    result_msg += ", score="
+                    if return_train:
+                        result_msg += (
+                            f"(train={cell(train_scores[s], gidx, f):.3f}, "
+                            f"test={cell(test_scores[s], gidx, f):.3f})")
+                    else:
+                        result_msg += f"{cell(test_scores[s], gidx, f):.3f}"
+                result_msg += f" total time={short_format_time(t_task)}"
+                end_msg = f"[CV{progress_msg}] END "
+                end_msg += "." * max(0, 80 - len(end_msg) - len(result_msg))
+                print(end_msg + result_msg)
 
     def _handle_failed_fits(self, fit_failed, test_scores, train_scores):
         """sklearn's error_score semantics for fits whose model came out
@@ -421,13 +646,29 @@ class _BaseSearch:
                 _store(f"train_{s}", train_scores[s], splits=True)
         return results
 
-    # -- prediction (delegates to the refit estimator) ---------------------
+    # -- after refit (delegates to the refit estimator) --------------------
 
-    def predict(self, X):
-        return self.best_estimator_.predict(X)
+    predict = _Delegated("predict")
+    predict_proba = _Delegated("predict_proba")
+    predict_log_proba = _Delegated("predict_log_proba")
+    decision_function = _Delegated("decision_function")
+    score_samples = _Delegated("score_samples")
+    transform = _Delegated("transform")
+    inverse_transform = _Delegated("inverse_transform")
 
-    def predict_proba(self, X):
-        return self.best_estimator_.predict_proba(X)
+    def score(self, X, y=None):
+        """The refit metric's scorer (`scorer_`) on `best_estimator_`, as
+        sklearn's `BaseSearchCV.score`."""
+        _check_refit(self, "score")
+        if not hasattr(self, "best_estimator_"):
+            raise AttributeError(
+                f"This {type(self).__name__} instance is not fitted yet; "
+                "call fit() first.")
+        if isinstance(self.scorer_, dict):
+            if isinstance(self.refit, str):
+                return self.scorer_[self.refit](self.best_estimator_, X, y)
+            return self.best_estimator_.score(X, y)
+        return self.scorer_(self.best_estimator_, X, y)
 
 
 class GridSearchCV(_BaseSearch):
@@ -435,10 +676,11 @@ class GridSearchCV(_BaseSearch):
     value lists) with cross-validation; see `_BaseSearch`."""
 
     def __init__(self, estimator, param_grid, *, scoring=None, refit=True,
-                 cv=None, error_score=np.nan, return_train_score=False,
+                 cv=None, verbose=0, error_score=np.nan,
+                 return_train_score=False,
                  config: Optional[TorchConfig] = None):
         super().__init__(estimator, scoring=scoring, refit=refit, cv=cv,
-                         error_score=error_score,
+                         verbose=verbose, error_score=error_score,
                          return_train_score=return_train_score,
                          config=config)
         self.param_grid = param_grid
@@ -453,11 +695,12 @@ class RandomizedSearchCV(_BaseSearch):
     the same `random_state`); see `_BaseSearch`."""
 
     def __init__(self, estimator, param_distributions, *, n_iter=10,
-                 scoring=None, refit=True, cv=None, random_state=None,
-                 error_score=np.nan, return_train_score=False,
+                 scoring=None, refit=True, cv=None, verbose=0,
+                 random_state=None, error_score=np.nan,
+                 return_train_score=False,
                  config: Optional[TorchConfig] = None):
         super().__init__(estimator, scoring=scoring, refit=refit, cv=cv,
-                         error_score=error_score,
+                         verbose=verbose, error_score=error_score,
                          return_train_score=return_train_score,
                          config=config)
         self.param_distributions = param_distributions

@@ -23,7 +23,9 @@ them three the reference documents:
 - `roc_auc` ranks by cumulative weight, so ties are handled only
   approximately (exact on continuous margins).
 
-Scorer objects and callables need sklearn to resolve and are not ported.
+`SearchScorer` applies one of them to a fitted estimator (a search's
+`scorer_`).  Scorer objects and callables need sklearn to resolve and
+are not ported.
 """
 
 from __future__ import annotations
@@ -218,6 +220,10 @@ FAMILY_DEFAULTS: Dict[str, Scorer] = {
     "neg_inertia": Scorer(("min_d2",), _neg_inertia),
 }
 
+#: scorers whose sklearn twin takes no sample_weight: a weighted search
+#: scores them unweighted (the reference's `SAMPLE_WEIGHT_BLIND_FNS`)
+SAMPLE_WEIGHT_BLIND = frozenset({"max_error", "neg_max_error"})
+
 #: scorers that need class structure (meta["n_classes"])
 CLASSIFICATION_SCORERS = frozenset({
     "accuracy", "balanced_accuracy", "neg_log_loss", "f1", "f1_macro",
@@ -280,3 +286,66 @@ def check_scoring_target(scoring, family, meta) -> None:
             meta.get("n_classes", 2) > 2:
         raise ValueError(
             f"scoring={scoring!r} on multiclass targets is not compiled")
+
+
+class SearchScorer:
+    """The metric `name` (one of `SCORERS`, or "score": the estimator's
+    own `score` where it has one, else `default`) on a fitted
+    estimator, as sklearn's scorer objects are called:
+    ``scorer(estimator, X, y, sample_weight=None) -> float``.  The views
+    come from the estimator's `predict`, `predict_proba` and
+    `decision_function`; classes by the estimator's `classes_`; log loss
+    clipped at `clip_eps`.  A search keeps one as `scorer_` (a dict of
+    them for a list of metrics)."""
+
+    def __init__(self, name: str, default: str, clip_eps: float = None):
+        self.name = name
+        self.default = default
+        self.clip_eps = clip_eps
+
+    def __repr__(self):
+        return f"SearchScorer({self.name!r})"
+
+    def __call__(self, estimator, X, y=None, sample_weight=None) -> float:
+        kw = {} if sample_weight is None else {"sample_weight":
+                                               sample_weight}
+        if self.name == "score" and hasattr(estimator, "score"):
+            return estimator.score(X, y, **kw)
+        scorer = SCORERS[self.default if self.name == "score" else self.name]
+        X = np.asarray(X)
+        n = X.shape[0]
+        w = torch.as_tensor(np.ones(n) if sample_weight is None else
+                            np.asarray(sample_weight, np.float64),
+                            dtype=torch.float64)[None, :]
+        classes = getattr(estimator, "classes_", None)
+        meta = {"logloss_clip_eps": self.clip_eps}
+        views = {}
+        if classes is not None:
+            classes = np.asarray(classes)
+            meta["n_classes"] = len(classes)
+
+            def encode(v):
+                idx = np.searchsorted(classes, v).clip(0, len(classes) - 1)
+                return np.where(classes[idx] == v, idx, -1)
+
+            yt = torch.as_tensor(encode(np.asarray(y)))
+            if "pred" in scorer.views:
+                views["pred"] = torch.as_tensor(
+                    encode(estimator.predict(X)))[None]
+            if "proba" in scorer.views:
+                if bool((yt < 0).any()):
+                    raise ValueError("y contains labels not in classes_")
+                views["proba"] = torch.as_tensor(np.asarray(
+                    estimator.predict_proba(X), np.float64))[None]
+            if "decision" in scorer.views:
+                dec = (estimator.decision_function(X)
+                       if hasattr(estimator, "decision_function")
+                       else estimator.predict_proba(X)[:, 1])
+                views["decision"] = torch.as_tensor(
+                    np.asarray(dec, np.float64))[None]
+        else:
+            yt = None if y is None else torch.as_tensor(
+                np.asarray(y, np.float64))
+            views["pred"] = torch.as_tensor(np.asarray(
+                estimator.predict(X), np.float64))[None]
+        return float(scorer.core(views, yt, w, meta)[0])

@@ -1608,41 +1608,75 @@ def test_platt_fit_exit_equals_full_run(cuda_device, binary):
     assert torch.equal(runs["staged"][2], runs["streamed"][2])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,plan", [(3, "registers"), (10, "registers"),
-                                    (12, "registers"), (10, "shared"),
-                                    (14, "shared"), (41, "shared"),
-                                    (42, None), (5, "global"),
-                                    (13, "global")])
-def test_pair_coupling_matches_plain(cuda_device, k, plan):
-    """P2 against its plain version under each plan, the shared plan up
-    to its limit (k = 41) and the global plan past it: probabilities atol
-    1e-4 (the rescale by a reciprocal, sums in another order), a NaN
-    decision's problem NaN as the plain version's; rows sum to 1 within
-    1e-4."""
+#: P2's cases: the first design's, then k = 3, 10, 12, 13, 26, 41 and 50
+#: under every plan that serves it (the register plan to k = 12, the
+#: group plan from 13 to 64, the shared and the global plan at any k)
+COUPLING_CASES = [(3, "registers"), (10, "registers"), (12, "registers"),
+                  (10, "shared"), (14, "shared"), (41, "shared"),
+                  (42, None), (5, "global"), (13, "global")] + [
+    (k, plan) for k in (3, 10, 12, 13, 26, 41, 50)
+    for plan in ("registers", "group", "shared", "global")
+    if (k, plan) not in {(3, "registers"), (10, "registers"),
+                         (12, "registers"), (10, "shared"), (41, "shared"),
+                         (13, "global")}
+    and (plan != "registers" or k <= 12) and (plan != "group" or k > 12)]
+
+
+def _coupling_inputs(k, T=3, n=500):
     rng = np.random.default_rng(k)
     pairs = np.array([(i, j) for i in range(k) for j in range(i + 1, k)],
                      np.int32)
-    T, n, P = 3, 500, len(pairs)
+    P = len(pairs)
     dec = torch.as_tensor(2 * rng.standard_normal((T, n, P)).astype(
         np.float32), device="cuda")
     dec[1, 7, 0] = float("nan")
     platt = torch.as_tensor(rng.normal(-1.5, 0.3, (T, P, 2)).astype(
         np.float32), device="cuda")
-    n0 = pk.LAUNCHES["svm_pair_coupling"]
-    got = pk.pair_coupling(dec, platt, pairs, k, plan=plan)
-    torch.cuda.synchronize()
-    assert pk.LAUNCHES["svm_pair_coupling"] == n0 + 1
-    assert pk.coupling_plan(k, plan, T * n)["plan"] == (
-        plan or ("global" if k > 41 else "shared"))
-    want = pk.pair_coupling_plain(dec, platt, pairs, k)
+    return dec, platt, pairs
+
+
+def _check_coupling(got, want):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4,
                                equal_nan=True)
     assert bool(torch.isnan(got[1, 7]).all())
     ok = torch.isfinite(got).all(dim=-1)
     assert float((got[ok].sum(dim=-1) - 1).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,plan", COUPLING_CASES)
+def test_pair_coupling_matches_plain(cuda_device, k, plan):
+    """P2 against its plain version under each plan: probabilities atol
+    1e-4 (the deferred rescale, a reciprocal on the SFU, sums in another
+    order), a NaN decision's problem NaN as the plain version's; rows sum
+    to 1 within 1e-4."""
+    dec, platt, pairs = _coupling_inputs(k)
+    T, n, _ = dec.shape
+    n0 = pk.LAUNCHES["svm_pair_coupling"]
+    got = pk.pair_coupling(dec, platt, pairs, k, plan=plan)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["svm_pair_coupling"] == n0 + 1
+    assert pk.coupling_plan(k, plan, T * n)["plan"] == (
+        plan or ("registers" if k <= 12 else "group" if k <= 64
+                 else "shared"))
+    _check_coupling(got, pk.pair_coupling_plain(dec, platt, pairs, k))
     with pytest.raises(ValueError, match="lexicographic"):
         pk.pair_coupling(dec, platt, pairs[::-1].copy(), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,G", [(k, pk.coupling_group(k)) for k in (
+    13, 17, 21, 25, 28, 29, 33, 40, 41, 49, 64)])
+def test_pair_coupling_group_sizes_match_plain(cuda_device, k, G):
+    """P2's group plan at every built shape (G lanes a problem, ceil(k /
+    G) classes a lane: G 4 at 4-7 classes a lane, 8 at 4-5, 16 at 3-4),
+    at a span's first and last k, held to the plain version as above."""
+    dec, platt, pairs = _coupling_inputs(k)
+    plan = pk.coupling_plan(k, "group", dec.shape[0] * dec.shape[1])
+    assert plan["group"] == G
+    got = pk.pair_coupling(dec, platt, pairs, k, plan="group")
+    torch.cuda.synchronize()
+    _check_coupling(got, pk.pair_coupling_plain(dec, platt, pairs, k))
 
 
 @pytest.mark.cuda

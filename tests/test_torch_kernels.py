@@ -801,41 +801,67 @@ def test_platt_plan_list_covers_every_row(case):
         assert (kept & (w == 0).numpy()).any()
 
 
-@pytest.mark.parametrize("k", [2, 3, 10, 12, 13, 26, 27, 41, 42, 120])
+@pytest.mark.parametrize("k", [2, 3, 10, 12, 13, 26, 27, 41, 42, 50, 64,
+                               65, 120, 239, 240])
 def test_coupling_plan_fits_a_block(k):
-    """P2: the register plan for 3 <= k <= 12, else shared memory with a
-    whole number of warps a block within the block's most (k <= 41),
-    else the global plan, whose grid's threads each hold one problem's
-    state in a scratch within its budget; no k
-    is refused by the default choice, and the two first plans cover the
-    problems a thread each."""
+    """P2: the register plan for 2 <= k <= 12; the group plan above, G
+    lanes a problem by `COUPLING_GROUP_SPANS` (4 to k = 28, 8 to 40, 16
+    to 64, the spans covering 13 to 64 without a gap); then shared
+    memory, a whole number of warps a block within the block's most (k <=
+    239); then the global plan, whose grid's warps each hold one
+    problem's state in a scratch within its budget.  No k is refused by
+    the default choice, and the register and group plans cover every
+    problem with a thread or a group each."""
     problems = 450000
-    per = 4 * (k * k + 2 * k)
+    mem = 4 * pk.coupling_mem_floats(k)
+    assert pk.coupling_mem_floats(k) == k * (k | 1) + 3 * k
     plan = pk.coupling_plan(k, problems=problems)
-    if 3 <= k <= pk.COUPLING_REG_MAX_K:
+    if 2 <= k <= pk.COUPLING_REG_MAX_K:
         assert plan == {"plan": "registers",
                         "threads": pk.COUPLING_THREADS, "smem": 0,
                         "grid": -(-problems // pk.COUPLING_THREADS),
-                        "scratch": 0}
+                        "scratch": 0, "group": 1, "slots": k}
     else:
-        assert plan["plan"] == ("shared" if k <= 41 else "global")
         with pytest.raises(ValueError):
             pk.coupling_plan(k, "registers")
-    if 32 * per > pk.COUPLING_SMEM_MAX:
+        want = ("group" if k <= 64 else "shared" if k <= 239 else "global")
+        assert plan["plan"] == want
+    lasts = [last for _, last in pk.COUPLING_GROUP_SPANS]
+    assert lasts == sorted(lasts) and lasts[0] > pk.COUPLING_REG_MAX_K
+    G = pk.coupling_group(k)
+    if pk.COUPLING_REG_MAX_K < k <= 64:
+        assert G == (4 if k <= 28 else 8 if k <= 40 else 16)
+        gr = pk.coupling_plan(k, "group", problems)
+        assert (gr["group"], gr["slots"]) == (G, -(-k // G))
+        assert gr["smem"] == 0
+        assert gr["grid"] * gr["threads"] >= problems * G > \
+            (gr["grid"] - 1) * gr["threads"]
+    else:
+        assert G == 0
+        with pytest.raises(ValueError, match="group plan"):
+            pk.coupling_plan(k, "group")
+    if mem > pk.COUPLING_SMEM_MAX:
         with pytest.raises(ValueError, match="shared memory"):
             pk.coupling_plan(k, "shared")
     else:
         sh = pk.coupling_plan(k, "shared", problems)
+        assert sh["group"] == 32
         assert sh["threads"] % 32 == 0 and 32 <= sh["threads"] <= 128
-        assert sh["smem"] == sh["threads"] * per <= pk.COUPLING_SMEM_MAX
-        assert sh["grid"] * sh["threads"] >= problems > \
-            (sh["grid"] - 1) * sh["threads"]
+        assert sh["smem"] == sh["threads"] // 32 * mem <= \
+            pk.COUPLING_SMEM_MAX
+        assert sh["smem"] + mem > pk.COUPLING_SMEM_MAX or \
+            sh["threads"] == pk.COUPLING_THREADS
+        per_block = sh["threads"] // 32
+        assert sh["grid"] * per_block >= problems > \
+            (sh["grid"] - 1) * per_block
     gl = pk.coupling_plan(k, "global", problems)
     assert gl["smem"] == 0 and gl["threads"] == pk.COUPLING_THREADS
-    assert 1 <= gl["grid"] <= -(-problems // gl["threads"])
-    assert gl["scratch"] == gl["grid"] * gl["threads"] * per // 4
+    assert gl["group"] == 32
+    per_block = gl["threads"] // 32
+    assert 1 <= gl["grid"] <= -(-problems // per_block)
+    assert gl["scratch"] == gl["grid"] * per_block * mem // 4
     assert 4 * gl["scratch"] <= max(pk.COUPLING_SCRATCH_BUDGET,
-                                    gl["threads"] * per)
+                                    per_block * mem)
     with pytest.raises(ValueError):
         pk.coupling_plan(k, "texture")
 

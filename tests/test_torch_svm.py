@@ -730,6 +730,58 @@ def test_pair_coupling_plain_matches_reference(k):
                                rtol=0, atol=1e-6)
 
 
+def _deferred_coupling(R, n_iter=pk.N_SWEEPS):
+    """The recurrence P2's kernels run, in plain torch float32: each sweep
+    from p alone, p~ and (Qp)~ kept unscaled beside sig = 1 / s and pq =
+    p~' Q p~; a step u = (pq - sig x) / (sig Q_tt), p~_t += u, (Qp)~ +=
+    u Q[t, :] past t, sig += u, pq += u (u Q_tt + 2 x); p = p~ / sig at
+    the sweep's end."""
+    k = R.shape[-1]
+    eye = torch.eye(k, dtype=R.dtype)
+    R0 = R * (1.0 - eye)
+    RT = R0.transpose(-1, -2)
+    Q = -(RT * R0) + eye * (RT ** 2).sum(dim=-1)[..., :, None]
+    qd = torch.diagonal(Q, dim1=-2, dim2=-1)
+    p = torch.full(R.shape[:-1], 1.0 / k, dtype=R.dtype)
+    for _ in range(n_iter):
+        qp = torch.einsum("...tj,...j->...t", Q, p)
+        pq = (p * qp).sum(dim=-1)
+        sig = torch.ones_like(pq)
+        pt = p.clone()
+        for t in range(k):
+            x = qp[..., t]
+            u = (pq - sig * x) * (1.0 / (sig * qd[..., t]))
+            sig = sig + u
+            pq = pq + u * (u * qd[..., t] + 2.0 * x)
+            pt[..., t] += u
+            qp[..., t + 1:] += u[..., None] * Q[..., t, t + 1:]
+        p = pt * (1.0 / sig)[..., None]
+    return p
+
+
+@pytest.mark.parametrize("k", [3, 10, 13, 26])
+def test_deferred_coupling_matches_reference(k):
+    """The deferred-rescale recurrence of P2's kernels (a plain-torch
+    mirror, used by this test only) against the reference's
+    `_pairwise_coupling` on the same R, float32 both: atol 1e-5 (the
+    algebra is exact; the roundings differ)."""
+    rng = np.random.default_rng(k)
+    pairs = jsvm._pairs(k)
+    y = rng.integers(0, k, 200)
+    sign = ((y[:, None] == pairs[None, :, 0]).astype(np.float32)
+            - (y[:, None] == pairs[None, :, 1]).astype(np.float32))
+    dec = 1.5 * rng.standard_normal((200, len(pairs))) + sign
+    A = -1.0 - rng.random(len(pairs))
+    B = 0.2 * rng.standard_normal(len(pairs))
+    r = (1.0 / (1.0 + np.exp(A * dec + B))).astype(np.float32)
+    want = jsvm._pairwise_coupling(jsvm._pair_probs_to_R(
+        jnp.asarray(r), jnp.asarray(pairs), k))
+    got = _deferred_coupling(pk.pair_probs_to_R(_t(r), _t(pairs), k))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("family,classes", [("svc", 2), ("svc", 3),
                                             ("nu_svc", 3)])
 def test_probability_fit_matches_reference(digits, family, classes):
