@@ -111,7 +111,25 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    (S1, S2, P1, P2), against the CPU on its 2000-row subset; and the
    weighted search over phase 5's 20 C values refit on cuda and on the
    CPU: the refit's score, decision_function and predict_log_proba on
-   the card against the CPU's.
+   the card against the CPU's;
+15. successive halving through the search core's evaluate_candidates
+   seam, with the port's own estimators: (a) HalvingGridSearchCV(
+   LogisticRegression(), phase 4's 1000 C, StratifiedKFold(5), factor=3)
+   on phase 4's data (K2, K4), (b) HalvingGridSearchCV(SVC(rbf), phase
+   8's 3 C x 3 gamma, cv=5) on phase 8's data (S1, S2), (c)
+   HalvingGridSearchCV(GradientBoostingRegressor(), 3 learning rates x 3
+   depths, resource="n_estimators", max_resources=90, KFold(5),
+   refit=False) on phase 6's data (G, T1-T4), (d) HalvingRandomSearchCV(
+   LogisticRegression(), C ~ loguniform(1e-3, 1e2)) on phase 4's data
+   (K2, K4); each cold (its kernels' launches) and warm, with its rung
+   plan (n_resources_, n_candidates_) held to the expected one and each
+   rung's wall; then cuda against the CPU: the same rung plan, iter and
+   n_resources columns and survivors, and scores within the phases'
+   tolerances (for accuracy on a subsampled rung rounded up to a whole
+   number of test predictions' shares of the mean), and the same best
+   or one tied with it there, (a) on phase 5's 20 C, (b) on 600 of
+   phase 8's rows (60 a class) with 3 folds, (c) on 2000 rows (as phase
+   9 checks), (d) whole.
 
 Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
 whose norms are summed apart; each timed as a CUDA graph's replay,
@@ -3642,6 +3660,219 @@ def phase_svm_rest(seed: int):
     return out
 
 
+# --- successive halving: phase 15 ----------------------------------------
+
+#: the rung plans, (n_resources_, n_candidates_), that phase 15's searches
+#: must show: sklearn's schedule for their data, grids and factor 3
+HALVING_PLANS = {
+    "a": ([100, 300, 900], [1000, 334, 112]),
+    "a_check": ([199, 597, 1791], [20, 7, 3]),
+    "b": ([1111, 3333, 9999], [9, 3, 1]),
+    "b_check": ([66, 198, 594], [9, 3, 1]),
+    "c": ([10, 30, 90], [9, 3, 1]),
+    "c_check": ([10, 30, 90], [9, 3, 1]),
+    "d": ([100, 300, 900], [17, 6, 2]),
+}
+HALVING_GB_GRID = {"learning_rate": [0.05, 0.1, 0.2], "max_depth": [3, 4, 5]}
+
+
+def halving_plan(gs) -> str:
+    return (f"{' / '.join(map(str, gs.n_resources_))} resources, "
+            f"{' / '.join(map(str, gs.n_candidates_))} candidates")
+
+
+def halving_search(label, make, kernels, counters):
+    """One phase 15 search on cuda: cold with the launches of `kernels`
+    (each must launch), then warm; its rung plan must be
+    HALVING_PLANS[label].  Returns (the warm search, its record)."""
+    for c in counters:
+        c.reset_launches()
+    t0 = time.perf_counter()
+    gs = make("cuda")
+    cold = time.perf_counter() - t0
+    launches = {}
+    for c in counters:
+        launches.update({k: v for k, v in c.LAUNCHES.items()
+                         if k in kernels})
+    for name in kernels:
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"halving ({label}): {name} never "
+                                 "launched")
+    t0 = time.perf_counter()
+    gs = make("cuda")
+    warm = time.perf_counter() - t0
+    plan = (gs.n_resources_, gs.n_candidates_)
+    if plan != HALVING_PLANS[label]:
+        raise AssertionError(f"halving ({label}): rung plan {plan}, "
+                             f"expected {HALVING_PLANS[label]}")
+    scores = gs.cv_results_["mean_test_score"]
+    if not np.all(np.isfinite(scores)):
+        raise AssertionError(f"halving ({label}): non-finite scores")
+    rungs = [{**r, "lanes": [c["lanes"] for c in gs.chunks_
+                             if c["id"].startswith(f"r{r['iter']}:")]}
+             for r in gs.rungs_]
+    print(f"  ({label}) {halving_plan(gs)}: cold {cold:.3f} s, warm "
+          f"{warm:.3f} s; rung walls "
+          f"{[round(r['wall_s'], 4) for r in rungs]} s, lanes "
+          f"{[r['lanes'] for r in rungs]}; best {gs.best_params_} "
+          f"{gs.best_score_:.4f}; launches {launches}")
+    return gs, {"cold_s": cold, "warm_s": warm, "launches": launches,
+                "n_resources": gs.n_resources_,
+                "n_candidates": gs.n_candidates_, "rungs": rungs,
+                "best_params": gs.best_params_,
+                "best_score": float(gs.best_score_)}
+
+
+def halving_rungs(gs):
+    """{(iter, candidate): (n_resources, mean_test_score)}: each rung's
+    survivors, whatever order equal scores put them in."""
+    r = gs.cv_results_
+    return {(int(i), repr(sorted(p.items()))): (int(n), float(m))
+            for i, p, n, m in zip(r["iter"], r["params"], r["n_resources"],
+                                  r["mean_test_score"])}
+
+
+def rung_flip(n_resources, X, y, cv):
+    """{iter: one test prediction's share of a mean accuracy at that
+    rung}: 1 / (the rung's smallest subsampled test fold x the folds),
+    the subsample `_SubsampleMetaSplitter` takes of `cv`'s folds."""
+    tests = [len(te) for _, te in cv.split(X, y)]
+    return {i: 1.0 / (min(int(n / len(y) * t) for t in tests) * len(tests))
+            for i, n in enumerate(n_resources)}
+
+
+def halving_agree(label, make, tol, flip_of=None):
+    """The same halving search on cuda and on the CPU: the same rung plan
+    (HALVING_PLANS[label]), the same survivors with the same iter and
+    n_resources, mean_test_score within `tol` for each, and the same best
+    candidate, or where the best differs, a CPU best that scores on the
+    card within that bound of the card's best (a tie at the bound's
+    resolution).  `flip_of` (X, y, the search's folds) marks an accuracy
+    search on subsampled rungs: a mean accuracy moves in steps of one
+    test prediction's share, 1 / (test rows x folds), which on a rung's
+    few dozen rows a fold is as large as `tol` (phase 5's folds hold
+    360), so there `tol` is rounded up to a whole number of steps; how
+    many candidates differ by more than `tol` is printed."""
+    runs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = make(dev)
+        secs[dev] = time.perf_counter() - t0
+    g, c = runs["cuda"], runs["cpu"]
+    for gs in (g, c):
+        if (gs.n_resources_, gs.n_candidates_) != HALVING_PLANS[label]:
+            raise AssertionError(f"halving ({label}): rung plan "
+                                 f"{halving_plan(gs)}")
+    for key in ("iter", "n_resources"):
+        if not np.array_equal(g.cv_results_[key], c.cv_results_[key]):
+            raise AssertionError(f"halving ({label}): {key} differs")
+    rg, rc = halving_rungs(g), halving_rungs(c)
+    if set(rg) != set(rc):
+        raise AssertionError(f"halving ({label}): the survivors differ: "
+                             f"{sorted(set(rg) ^ set(rc))}")
+    flip = {} if flip_of is None else rung_flip(c.n_resources_, *flip_of)
+    d = {k: abs(rg[k][1] - rc[k][1]) for k in rg}
+    diff = max(d.values())
+    bound = {i: np.ceil(tol / step - 1e-9) * step * (1 + 1e-6)
+             for i, step in flip.items()}
+    over = sorted(k for k in d if d[k] > tol)
+    bad = [k for k in over if d[k] > bound.get(k[0], tol)]
+    print(f"  ({label}) cuda against cpu, {halving_plan(c)}: max |d "
+          f"mean_test_score| {diff:.3g} (tolerance {tol:g}, in whole test "
+          f"predictions a rung {[round(float(v), 5) for v in bound.values()]}; "
+          f"{len(over)} candidates past {tol:g}), the same survivors, best "
+          f"{g.best_params_} / {c.best_params_}; cuda {secs['cuda']:.1f} s,"
+          f" cpu {secs['cpu']:.1f} s")
+    if bad:
+        raise AssertionError(f"halving ({label}): cuda and cpu differ by "
+                             f"{[(k, d[k]) for k in bad]}")
+    best_gap = 0.0
+    if g.best_params_ != c.best_params_:
+        last = int(np.max(g.cv_results_["iter"]))
+        best_gap = (rg[(last, repr(sorted(g.best_params_.items())))][1]
+                    - rg[(last, repr(sorted(c.best_params_.items())))][1])
+        print(f"    the best differs: the CPU's best scores {best_gap:.3g} "
+              "under the card's best on the card")
+        if not best_gap <= bound.get(last, tol):
+            raise AssertionError(f"halving ({label}): best_params_ differ "
+                                 f"by {best_gap} on the card")
+    return {"max_abs": diff, "cpu_s": secs["cpu"], "cuda_s": secs["cuda"],
+            "one_prediction": flip, "n_over_tol": len(over),
+            "best_gap_on_card": best_gap}
+
+
+def phase_halving(seed: int, X, y, Cs):
+    """Phase 15: the four halving searches (a)-(d) on cuda, each against
+    the CPU (module docstring)."""
+    from scipy.stats import loguniform
+
+    from spark_sklearn_tpu_torch import (
+        SVC, GradientBoostingRegressor, HalvingGridSearchCV,
+        HalvingRandomSearchCV, KFold, LogisticRegression, StratifiedKFold,
+        TorchConfig)
+    from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+    from spark_sklearn_tpu_torch.ops import svm_kernels as svk
+    from spark_sklearn_tpu_torch.ops import tree_kernels as tk
+
+    glm = ("glm_loss_grad", "glm_trial_loss")
+    out = {}
+
+    def logistic(grid, Xs, ys):
+        return lambda dev: HalvingGridSearchCV(
+            LogisticRegression(), {"C": grid}, cv=StratifiedKFold(N_FOLDS),
+            factor=3, random_state=seed,
+            config=TorchConfig(device=dev)).fit(Xs, ys)
+
+    gs, out["a"] = halving_search("a", logistic(Cs, X, y), glm, [gk])
+    out["a"]["check"] = halving_agree(
+        "a_check", logistic(Cs[::50], X, y), 5e-3,
+        (X, y, StratifiedKFold(N_FOLDS)))
+
+    Xm, ym = mnist_like(seed)
+    gamma0 = 1.0 / (D_SVM * float(np.var(Xm)))
+    svm_grid = {"C": SVM_C, "gamma": [f * gamma0 for f in SVM_GAMMA]}
+
+    def svc(Xs, ys, folds):
+        return lambda dev: HalvingGridSearchCV(
+            SVC(kernel="rbf"), svm_grid, cv=folds, factor=3,
+            random_state=seed, config=TorchConfig(device=dev)).fit(Xs, ys)
+
+    gs, out["b"] = halving_search("b", svc(Xm, ym, N_FOLDS), SVC_KERNELS,
+                                  [svk])
+    if gs.best_estimator_.device != "cuda":
+        raise AssertionError("halving (b): the refit SVC is not on cuda")
+    # 600 rows: the card's host takes ~32 s for the CPU's search on 1000
+    per = 60
+    idx = np.concatenate([np.where(ym == c)[0][:per] for c in range(K_SVM)])
+    out["b"]["check"] = halving_agree(
+        "b_check", svc(Xm[idx], ym[idx], 3), 5e-3,
+        (Xm[idx], ym[idx], StratifiedKFold(3)))
+
+    Xr, yr = california_like(seed)
+
+    def boosting(Xs, ys, max_resources):
+        return lambda dev: HalvingGridSearchCV(
+            GradientBoostingRegressor(), HALVING_GB_GRID,
+            resource="n_estimators", max_resources=max_resources,
+            cv=KFold(N_FOLDS), factor=3, refit=False,
+            config=TorchConfig(device=dev)).fit(Xs, ys)
+
+    gs, out["c"] = halving_search("c", boosting(Xr, yr, 90),
+                                  tuple(tk.LAUNCHES), [tk])
+    out["c"]["check"] = halving_agree(
+        "c_check", boosting(Xr[:N_TREE_CHECK], yr[:N_TREE_CHECK], 90), 1e-3)
+
+    def random_logistic(dev):
+        return HalvingRandomSearchCV(
+            LogisticRegression(), {"C": loguniform(1e-3, 1e2)},
+            random_state=seed, config=TorchConfig(device=dev)).fit(X, y)
+
+    gs, out["d"] = halving_search("d", random_logistic, glm, [gk])
+    out["d"]["check"] = halving_agree("d", random_logistic, 5e-3,
+                                      (X, y, StratifiedKFold(N_FOLDS)))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3735,6 +3966,11 @@ def main() -> int:
     weighted_run = phase_weighted(X, y, Cs, args.seed, main_run)
     weighted_run["svc_proba"] = rest_run["svc_proba_weighted"]
 
+    header("[15] successive halving: (a) 1000 C and (d) a random search "
+           "on digits-shaped data, (b) SVC(rbf) on MNIST-shaped data, "
+           "(c) boosting with resource=n_estimators", t_start)
+    halving_run = phase_halving(args.seed, X, y, Cs)
+
     meta = {
         "glm_loss_grad": "spark_sklearn_tpu/models/linear.py:221",
         "glm_trial_loss": "spark_sklearn_tpu/ops/solvers.py:290",
@@ -3750,7 +3986,9 @@ def main() -> int:
             "launches_by_path": {
                 "headline": main_run["launches"][name],
                 "l1": l1_run["l1"]["launches"][name],
-                "elasticnet": l1_run["elasticnet"]["launches"][name]},
+                "elasticnet": l1_run["elasticnet"]["launches"][name],
+                "halving_a": halving_run["a"]["launches"][name],
+                "halving_d": halving_run["d"]["launches"][name]},
             "max_abs_err": max(head["max_abs_err"], binary["max_abs_err"]),
             "ms": head["ms"], "kernel_ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -3787,7 +4025,8 @@ def main() -> int:
             "launches_by_path": {
                 "svc": svm_run["svc"]["launches"][name],
                 "nusvc": svm_run["nusvc"]["launches"][name],
-                "svc_pipeline": mlp_run["svc_pipeline"]["launches"][name]},
+                "svc_pipeline": mlp_run["svc_pipeline"]["launches"][name],
+                "halving_b": halving_run["b"]["launches"][name]},
             "max_abs_err": max(svm_rows[key]["max_abs_err"]
                                for key in svm_rows if key[0] == name),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -3836,8 +4075,9 @@ def main() -> int:
             "source": "spark_sklearn_tpu_torch/csrc/tree_hist.cu",
             "replaces": replaces,
             "launches": rf_run["classifier"]["launches"][name],
-            "launches_by_path": {p: r["launches"][name]
-                                 for p, r in tree_paths.items()},
+            "launches_by_path": {
+                **{p: r["launches"][name] for p, r in tree_paths.items()},
+                "halving_c": halving_run["c"]["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for key, r in
                                tree_rows.items() if key[0] == name),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -4002,7 +4242,7 @@ def main() -> int:
                    "regressors": regressors, "l1": l1_run,
                    "svm": svm_run, "gb": gb_run, "rf": rf_run,
                    "mlp": mlp_run, "slice": slice_run, "rest": rest_run,
-                   "weighted": weighted_run,
+                   "weighted": weighted_run, "halving": halving_run,
                    "card": nvidia_smi("name,power.limit")}, f, indent=1)
     print(f"  total {main_run['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))

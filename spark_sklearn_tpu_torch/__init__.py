@@ -7,12 +7,18 @@ imports neither JAX nor the JAX package, and needs no scikit-learn:
 sklearn estimators and splitters are accepted where sklearn is installed.
 
 Entry points run on ``cuda`` unless the caller passes
-``TorchConfig(device="cpu")``.
+``TorchConfig(device="cpu")``.  A search the device tier cannot run (an
+estimator without a family, a callable or scorer-object scoring, a fit
+parameter other than sample_weight, ...) runs on the host tier,
+sklearn's `_fit_and_score` through joblib, which needs scikit-learn.
 
 Public API so far:
   - GridSearchCV, RandomizedSearchCV  (compiled linear-family,
-    SVC/NuSVC, SVR/NuSVR, LinearSVC/LinearSVR, tree-ensemble, MLP, naive Bayes, LDA, KNN, KMeans and
-    Pipeline searches)
+    SVC/NuSVC, SVR/NuSVR, LinearSVC/LinearSVR, tree-ensemble, MLP,
+    naive Bayes, LDA, KNN, KMeans and Pipeline searches; the host tier
+    for the rest)
+  - HalvingGridSearchCV, HalvingRandomSearchCV  (successive halving
+    over the same tiers)
   - TorchConfig
   - LogisticRegression, Ridge, LinearRegression, ElasticNet, Lasso, SVC,
     NuSVC (with probability=True), SVR, NuSVR, LinearSVC, LinearSVR
@@ -77,10 +83,16 @@ from spark_sklearn_tpu_torch.search.grid import (
     GridSearchCV,
     RandomizedSearchCV,
 )
+from spark_sklearn_tpu_torch.search.halving import (
+    HalvingGridSearchCV,
+    HalvingRandomSearchCV,
+)
 
 __all__ = [
     "GridSearchCV",
     "RandomizedSearchCV",
+    "HalvingGridSearchCV",
+    "HalvingRandomSearchCV",
     "TorchConfig",
     "LogisticRegression",
     "Ridge",

@@ -65,19 +65,25 @@ class LinearDiscriminantFamily(Family):
     proba_dtype_rule = "input"
 
     @classmethod
-    def check_static(cls, static):
+    def host_reason(cls, static):
+        """Why a candidate runs on the search's host tier, or None: the
+        device path is the lsqr solver with a numeric shrinkage."""
         solver = static.get("solver", "svd")
         if solver != "lsqr":
-            raise ValueError(
-                f"solver={solver!r} is not supported in the PyTorch port "
-                "(lsqr only)")
+            return (f"solver={solver!r} is not supported in the PyTorch "
+                    "port (lsqr only)")
         if isinstance(static.get("shrinkage"), str):
-            raise ValueError(
-                f"shrinkage={static.get('shrinkage')!r} (Ledoit-Wolf) is "
-                "not supported in the PyTorch port")
+            return (f"shrinkage={static.get('shrinkage')!r} (Ledoit-Wolf) "
+                    "is not supported in the PyTorch port")
         if static.get("covariance_estimator") is not None:
-            raise ValueError(
-                "covariance_estimator is not supported in the PyTorch port")
+            return "covariance_estimator is not supported in the PyTorch port"
+        return None
+
+    @classmethod
+    def check_static(cls, static):
+        reason = cls.host_reason(static)
+        if reason is not None:
+            raise ValueError(reason)
 
     @classmethod
     def observe_candidates(cls, candidates, base_params, meta):

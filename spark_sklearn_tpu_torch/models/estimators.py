@@ -114,6 +114,41 @@ class _Estimator:
         """Whether a search can refit this estimator here."""
         return True
 
+    def _sklearn_kind(self):
+        """sklearn's estimator type: "classifier", "regressor",
+        "clusterer", or "transformer" for a step without a family."""
+        from spark_sklearn_tpu_torch.models.base import resolve_family
+
+        family = resolve_family(self)
+        if family is None:
+            return "transformer"
+        if getattr(family, "default_scorer", None) == "neg_inertia":
+            return "clusterer"
+        return "classifier" if family.is_classifier else "regressor"
+
+    def __sklearn_tags__(self):
+        """sklearn's tags, which sklearn's helpers read where the
+        estimator runs on a search's host tier (needs sklearn)."""
+        from sklearn.utils import (
+            ClassifierTags,
+            RegressorTags,
+            Tags,
+            TargetTags,
+            TransformerTags,
+        )
+
+        kind = self._sklearn_kind()
+        return Tags(
+            estimator_type=None if kind == "transformer" else kind,
+            target_tags=TargetTags(
+                required=kind in ("classifier", "regressor")),
+            transformer_tags=(TransformerTags() if kind == "transformer"
+                              else None),
+            classifier_tags=(ClassifierTags() if kind == "classifier"
+                             else None),
+            regressor_tags=(RegressorTags() if kind == "regressor"
+                            else None))
+
     def __repr__(self):
         args = ", ".join(f"{k}={v!r}" for k, v in self.get_params().items())
         return f"{type(self).__name__}({args})"

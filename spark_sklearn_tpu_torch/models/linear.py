@@ -74,6 +74,24 @@ def resolve_penalty(static: Dict[str, Any]):
     return penalty, float(l1_ratio)
 
 
+def _bf16_operand(A):
+    """`A` as an operand of `_bf16_mm`: bfloat16 on the card; on the CPU
+    (the plain version) rounded to bfloat16 and cast back to float32."""
+    if A.device.type == "cuda":
+        return A.to(torch.bfloat16)
+    return A.to(torch.bfloat16).to(A.dtype)
+
+
+def _bf16_mm(A, B):
+    """A @ B of two `_bf16_operand`s with float32 output: on the card one
+    cuBLAS bf16 GEMM with float32 accumulation, on the CPU the rounded
+    operands multiplied in float32 (`TorchConfig.bf16_matmul`, the
+    reference's `preferred_element_type` GEMMs, linear.py:201-297)."""
+    if A.device.type == "cuda":
+        return torch.mm(A, B, out_dtype=torch.float32)
+    return A @ B
+
+
 def _lane_param(dynamic, static, name, default, B, like):
     """A hyperparameter as a (B,) tensor of `like`'s dtype and device:
     the lanes' own values if it is dynamic, else the shared one."""
@@ -123,10 +141,19 @@ class LogisticRegressionFamily(Family):
 
         kk = 1 if k == 2 else k              # logits per lane
         kd = kk * d
+        # bf16 GEMM operands with float32 output (the solver's state, the
+        # losses and the views stay float32), as the reference's
+        # `__bf16__` (linear.py:201-208)
+        bf16 = bool(static.get("__bf16__", False))
+        Xm = _bf16_operand(X) if bf16 else None
 
         def Ax(x):                           # K1 -> Z (n, B) or (n, B, k)
             W = x[:, :kd].reshape(B * kk, d)
-            if fit_intercept:
+            if bf16:
+                Z = _bf16_mm(Xm, _bf16_operand(W).T)
+                if fit_intercept:
+                    Z = Z + x[:, kd:].reshape(1, B * kk)
+            elif fit_intercept:
                 Z = torch.addmm(x[:, kd:].reshape(1, B * kk), X, W.T)
             else:
                 Z = X @ W.T
@@ -134,7 +161,8 @@ class LogisticRegressionFamily(Family):
 
         def AT(G):                           # K3 -> (B, kd + kk)
             G2 = G.reshape(n, B * kk)
-            gW = (G2.T @ X).reshape(B, kd)
+            gW = (_bf16_mm(_bf16_operand(G2.T), Xm) if bf16
+                  else G2.T @ X).reshape(B, kd)
             gb = G2.sum(dim=0).reshape(B, kk) if fit_intercept else \
                 torch.zeros((B, kk), dtype=dt, device=dev)
             return torch.cat([gW, gb], dim=1)

@@ -93,6 +93,11 @@ class PipelineFamily:
                 [self._final_static(c) for c in candidates],
                 self._final_static(base_params), meta)
 
+    def host_reason(self, static):
+        """The final's tier predicate on its own parameters."""
+        reason = getattr(self.final, "host_reason", None)
+        return None if reason is None else reason(self._final_static(static))
+
     def _split_static(self, static):
         per_step: Dict[str, Dict[str, Any]] = {n: {} for n, _ in self.steps}
         per_step[self.final_name] = {}
@@ -236,6 +241,10 @@ class BinnedInvariantPipelineFamily:
             self.final.observe_candidates(
                 [self._strip(c) for c in candidates],
                 self._strip(base_params), meta)
+
+    def host_reason(self, static):
+        reason = getattr(self.final, "host_reason", None)
+        return None if reason is None else reason(self._strip(static))
 
     def fit_task_batched(self, dynamic, static, data, train_w, meta):
         return self.final.fit_task_batched(

@@ -267,12 +267,20 @@ def _resolve_gamma(gamma, meta):
     return float(gamma)
 
 
+def kernel_host_reason(static):
+    """Why a candidate with these static parameters runs on the search's
+    host tier rather than the device, or None: the kernel SVMs' device
+    path forms the kernel from X, so "precomputed" is sklearn's."""
+    if static.get("kernel", "rbf") == "precomputed":
+        return "kernel='precomputed' is not compiled"
+    return None
+
+
 def _kernel_args(static):
+    reason = kernel_host_reason(static)
+    if reason is not None:
+        raise ValueError(f"{reason} (the search's host tier runs it)")
     kind = static.get("kernel", "rbf")
-    if kind == "precomputed":
-        raise ValueError(
-            "kernel='precomputed' is not compiled (the reference runs it on "
-            "its host tier, which is not ported)")
     return kind, float(static.get("degree", 3)), \
         float(static.get("coef0", 0.0))
 
@@ -338,6 +346,8 @@ class SVCFamily(Family):
     #: the per-candidate scalar the dual consumes (NuSVC swaps in "nu")
     primary_param = "C"
     primary_default = 1.0
+    #: the search's tier predicate over a candidate's static parameters
+    host_reason = staticmethod(kernel_host_reason)
 
     @classmethod
     def _pair_dec(cls, K, p_c, base_bound, yb, step, max_iter, tol=None):

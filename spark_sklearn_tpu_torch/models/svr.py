@@ -46,6 +46,7 @@ from spark_sklearn_tpu_torch.models.svm import (
     _fold_scale_gamma,
     _kernel,
     _kernel_args,
+    kernel_host_reason,
     _masked_mean_or_mid,
     _max_iter,
     _power_step,
@@ -171,6 +172,8 @@ class SVRFamily(Family):
     #: the third per-candidate scalar beside C and gamma (NuSVR: nu)
     aux_param = "epsilon"
     aux_default = 0.1
+    #: the search's tier predicate over a candidate's static parameters
+    host_reason = staticmethod(kernel_host_reason)
 
     @classmethod
     def _solve(cls, K, y, C_c, aux_c, w_rows, step, max_iter, tol=None):
@@ -321,13 +324,23 @@ class NuSVRFamily(SVRFamily):
 # liblinear primal and dual families
 # ----------------------------------------------------------------------------
 
-def _check_linear_svc_static(static):
+def linear_svc_host_reason(static):
+    """Why a LinearSVC candidate runs on the search's host tier, or None:
+    the device path solves the l2-penalised ovr problem with the hinge
+    or squared hinge loss."""
     if static.get("penalty", "l2") != "l2":
-        raise ValueError("penalty='l1' is not compiled")
+        return "penalty='l1' is not compiled"
     if static.get("loss", "squared_hinge") not in ("squared_hinge", "hinge"):
-        raise ValueError(f"loss={static.get('loss')!r} is not compiled")
+        return f"loss={static.get('loss')!r} is not compiled"
     if static.get("multi_class", "ovr") != "ovr":
-        raise ValueError("multi_class='crammer_singer' is not compiled")
+        return "multi_class='crammer_singer' is not compiled"
+    return None
+
+
+def _check_linear_svc_static(static):
+    reason = linear_svc_host_reason(static)
+    if reason is not None:
+        raise ValueError(reason)
 
 
 def _gram_step(Xa):
@@ -373,6 +386,8 @@ class LinearSVCFamily(Family):
     name = "linear_svc"
     is_classifier = True
     dynamic_params = {"C": np.float32, "tol": np.float32}
+    #: the search's tier predicate over a candidate's static parameters
+    host_reason = staticmethod(linear_svc_host_reason)
 
     @classmethod
     def prepare_data(cls, X, y, dtype=np.float32):

@@ -30,7 +30,9 @@ class TorchConfig:
       forces float32 everywhere; nothing else is implemented.
     - `max_tasks_per_batch`: most (candidate x fold) lanes fitted in one
       chunk; bounds device memory for big grids.
-    - `bf16_matmul`: bf16 GEMM operands; not implemented in this slice.
+    - `bf16_matmul`: LogisticRegression's fit GEMMs (K1, K3) take bf16
+      operands with float32 output, as the reference's do
+      (`models/linear.py:201-297`); other families ignore it.
     """
 
     device: Optional[str] = None
@@ -41,9 +43,6 @@ class TorchConfig:
     def check_supported(self) -> None:
         """Raise on any knob this slice does not implement (never ignore
         one silently)."""
-        if self.bf16_matmul:
-            raise NotImplementedError(
-                "bf16_matmul=True is not implemented in the PyTorch port")
         if self.dtype is not None and np.dtype(self.dtype) != np.float32:
             raise NotImplementedError(
                 f"dtype={self.dtype!r}: the PyTorch port takes None (each "

@@ -5,7 +5,12 @@ The card's machine has no sklearn, so the port carries its own
 `ParameterGrid`, `ParameterSampler`, `KFold`, `StratifiedKFold` and
 `check_cv`.  Each gives the same candidates and folds as sklearn 1.9's
 class of the same name (splitters without shuffling; the sampler draws
-the same numbers from the same `random_state`).  `cv` may also be any
+the same numbers from the same `random_state`).  Successive halving's
+helpers are copies of sklearn 1.9's too, equal in what they return:
+`_SubsampleMetaSplitter` and `_top_k` (`model_selection/
+_search_successive_halving.py:23-62`), `_yields_constant_splits`
+(`model_selection/_split.py:3071-3079`), `_num_samples` and
+`check_classification_targets`.  `cv` may also be any
 object with ``.split(X, y)`` — an sklearn splitter where sklearn is
 installed — or an iterable of (train, test) index pairs.
 """
@@ -319,3 +324,123 @@ def check_cv(cv=5, y=None, *, classifier: bool = False):
             "Expected `cv` as an integer, a cross-validation object, or "
             f"an iterable yielding (train, test) splits. Got {cv}.")
     return _SplitList(cv)
+
+
+# ---------------------------------------------------------------------------
+# successive halving's helpers (sklearn 1.9)
+# ---------------------------------------------------------------------------
+
+def _num_samples(x) -> int:
+    """The number of samples in array-like `x`, as sklearn's
+    `utils.validation._num_samples` counts them."""
+    message = f"Expected sequence or array-like, got {type(x)}"
+    if hasattr(x, "fit") and callable(x.fit):
+        # not an ensemble's length
+        raise TypeError(message)
+    if hasattr(x, "shape") and x.shape is not None:
+        if len(x.shape) == 0:
+            raise TypeError(
+                "Input should have at least 1 dimension i.e. satisfy "
+                f"`len(x.shape) > 0`, got scalar `{x!r}` instead.")
+        if isinstance(x.shape[0], numbers.Integral):
+            return x.shape[0]
+    if not hasattr(x, "__len__") and not hasattr(x, "shape"):
+        if hasattr(x, "__array__"):
+            x = np.asarray(x)
+        else:
+            raise TypeError(message)
+    try:
+        return len(x)
+    except TypeError as type_error:
+        raise TypeError(message) from type_error
+
+
+def check_classification_targets(y) -> None:
+    """sklearn's `check_classification_targets`: raise on a continuous
+    target, and warn where a multiclass target has more distinct values
+    than half its (over 20) samples."""
+    y = np.asarray(y)
+    if y.ndim == 2 and y.shape[1] > 1:
+        kind = ("continuous-multioutput" if y.dtype.kind == "f" and np.any(
+            y != y.astype(np.int64)) else "multiclass-multioutput")
+    else:
+        kind = _target_type(y.ravel())
+    if kind.startswith("continuous"):
+        raise ValueError(
+            f"Unknown label type: {kind}. Maybe you are trying to fit a "
+            "classifier, which expects discrete classes on a regression "
+            "target with continuous values.")
+    if "multiclass" in kind:
+        n_samples = _num_samples(y)
+        if n_samples > 20 and np.unique(y).shape[0] > round(0.5 * n_samples):
+            warnings.warn(
+                "The number of unique classes is greater than 50% of the "
+                "number of samples. `y` could represent a regression "
+                "problem, not a classification problem.", UserWarning,
+                stacklevel=2)
+
+
+def _yields_constant_splits(cv) -> bool:
+    """True where calling `cv.split` always gives the same splits: a cv
+    without a shuffle parameter is assumed to shuffle, and one without a
+    random_state to have random_state 0 (sklearn's rule)."""
+    shuffle = getattr(cv, "shuffle", True)
+    random_state = getattr(cv, "random_state", 0)
+    return isinstance(random_state, numbers.Integral) or not shuffle
+
+
+def _resample_without_replacement(indices, n_samples: int, random_state):
+    """sklearn's `utils.resample(indices, replace=False, n_samples=...,
+    random_state=...)`: arange, shuffle by `check_random_state`, the
+    first `n_samples` (`utils/_indexing.py:572-575`)."""
+    indices = np.asarray(indices)
+    if n_samples < 1:
+        # sklearn's parameter validation of `resample`
+        raise ValueError(
+            "The 'n_samples' parameter of resample must be an int in the "
+            f"range [1, inf) or None. Got {n_samples} instead.")
+    if n_samples > indices.shape[0]:
+        raise ValueError(
+            f"Cannot sample {n_samples} out of arrays with dim "
+            f"{indices.shape[0]} when replace is False")
+    rng = check_random_state(random_state)
+    order = np.arange(indices.shape[0])
+    rng.shuffle(order)
+    return indices[order[:n_samples]]
+
+
+class _SubsampleMetaSplitter:
+    """A splitter that subsamples a fraction of each of `base_cv`'s train
+    (and, with `subsample_test`, test) folds.  With an int random_state
+    every subsample starts a fresh RandomState of that seed."""
+
+    def __init__(self, *, base_cv, fraction, subsample_test, random_state):
+        self.base_cv = base_cv
+        self.fraction = fraction
+        self.subsample_test = subsample_test
+        self.random_state = random_state
+
+    def split(self, X, y, **kwargs):
+        for train_idx, test_idx in self.base_cv.split(X, y, **kwargs):
+            train_idx = _resample_without_replacement(
+                train_idx, int(self.fraction * len(train_idx)),
+                self.random_state)
+            if self.subsample_test:
+                test_idx = _resample_without_replacement(
+                    test_idx, int(self.fraction * len(test_idx)),
+                    self.random_state)
+            yield train_idx, test_idx
+
+
+def _top_k(results, k: int, itr: int):
+    """The best `k` candidates of iteration `itr`, in ascending order of
+    mean test score: numpy's argsort puts NaNs last, and the roll moves
+    them to the front so that the last k are the highest scores."""
+    iteration, mean_test_score, params = (
+        np.asarray(a) for a in (results["iter"], results["mean_test_score"],
+                                results["params"]))
+    iter_indices = np.flatnonzero(iteration == itr)
+    scores = mean_test_score[iter_indices]
+    sorted_indices = np.roll(np.argsort(scores),
+                             np.count_nonzero(np.isnan(scores)))
+    return np.array(params[iter_indices][sorted_indices[-k:]])

@@ -1821,3 +1821,75 @@ def test_svm_rest_search_on_cuda_matches_cpu(cuda_device, kind):
     if "proba" in kind:
         proba = best.predict_proba(data[0][:7])
         np.testing.assert_allclose(proba.sum(axis=1), 1.0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# successive halving: chip_smoke.py phase 15's search (a) at a small size
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_halving_search_on_cuda_matches_cpu(cuda_device):
+    """HalvingGridSearchCV(LogisticRegression) over 20 C with
+    StratifiedKFold(3) on 600 rows: the same rung plan, `iter` and
+    `n_resources` columns and survivors on both devices, the scores
+    within 5e-3 rounded up to a whole number of test predictions' shares
+    of the mean (a rung's folds hold 22 to 198 test rows, so one
+    prediction of a lane stopped at max_iter, flipped by the two devices'
+    rounding, moves a mean by up to 0.015), K2 and K4 launched on cuda
+    only, every rung's chunks in its namespace."""
+    X, y = _class_problem(10, n=600)
+    grid = {"C": np.logspace(-3, 2, 20).tolist()}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        gk.reset_launches()
+        runs[dev] = port.HalvingGridSearchCV(
+            port.LogisticRegression(), grid, cv=port.StratifiedKFold(3),
+            factor=3, random_state=0,
+            config=port.TorchConfig(device=dev)).fit(X, y)
+        assert (min(gk.LAUNCHES.values()) > 0) == (dev == "cuda")
+    g, c = runs["cuda"], runs["cpu"]
+    assert g.n_resources_ == c.n_resources_ == [66, 198, 594]
+    assert g.n_candidates_ == c.n_candidates_ == [20, 7, 3]
+    for key in ("iter", "n_resources"):
+        np.testing.assert_array_equal(g.cv_results_[key], c.cv_results_[key])
+
+    def rungs(gs):      # each rung's survivors, whatever order ties take
+        r = gs.cv_results_
+        return {(int(i), repr(sorted(p.items()))): float(m)
+                for i, p, m in zip(r["iter"], r["params"],
+                                   r["mean_test_score"])}
+
+    rg, rc = rungs(g), rungs(c)
+    assert set(rg) == set(rc)
+    test_rows = [len(te) for _, te in port.StratifiedKFold(3).split(X, y)]
+    for key in rg:
+        n_res = g.n_resources_[key[0]]
+        step = 1.0 / (min(int(n_res / len(y) * t) for t in test_rows) * 3)
+        bound = np.ceil(5e-3 / step - 1e-9) * step * (1 + 1e-6)
+        assert abs(rg[key] - rc[key]) <= bound, key
+    assert g.best_params_ == c.best_params_
+    assert g.best_estimator_.device == "cuda"
+    assert {ch["id"].split(":")[0] for ch in g.chunks_} == {"r0", "r1", "r2"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 10])
+def test_bf16_search_on_cuda_matches_cpu(cuda_device, k):
+    """TorchConfig(bf16_matmul=True): the card's bf16 GEMMs with float32
+    output against the CPU's rounded operands multiplied in float32,
+    scores within 5e-3 and the same best candidate; the float32 search
+    on the card within the reference's bf16 bound, 0.015."""
+    X, y = _class_problem(k, n=300)
+    grid = {"C": [0.01, 0.1, 1.0, 10.0]}
+    runs = {}
+    for dev, bf16 in (("cuda", True), ("cpu", True), ("cuda", False)):
+        runs[dev, bf16] = port.GridSearchCV(
+            port.LogisticRegression(max_iter=100), grid, cv=3,
+            scoring="neg_log_loss", refit=False,
+            config=port.TorchConfig(device=dev, bf16_matmul=bf16)).fit(X, y)
+    got = runs["cuda", True].cv_results_["mean_test_score"]
+    np.testing.assert_allclose(
+        got, runs["cpu", True].cv_results_["mean_test_score"], atol=5e-3)
+    assert runs["cuda", True].best_params_ == runs["cpu", True].best_params_
+    np.testing.assert_allclose(
+        got, runs["cuda", False].cv_results_["mean_test_score"], atol=0.015)

@@ -177,8 +177,9 @@ def test_family_resolution_by_qualified_name():
 
 
 def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError):
-        resolve_device(TorchConfig(device="cpu", bf16_matmul=True))
+    # bf16_matmul is implemented (LogisticRegression's GEMMs)
+    assert resolve_device(TorchConfig(device="cpu", bf16_matmul=True)) == \
+        torch.device("cpu")
     with pytest.raises(NotImplementedError):
         resolve_device(TorchConfig(device="cpu", dtype=np.float64))
     # scorer objects, callables and dicts need sklearn to resolve
@@ -264,7 +265,8 @@ def test_import_scan_walks_every_module():
     binning helpers, the threefry draws, the tree grower and families)."""
     names = {str(p.relative_to(REPO)) for p in _port_sources()}
     for rel in ("utils/__init__.py", "utils/binning.py", "ops/random.py",
-                "ops/trees.py", "ops/tree_kernels.py", "models/trees.py"):
+                "ops/trees.py", "ops/tree_kernels.py", "models/trees.py",
+                "search/halving.py", "parallel/ownership.py"):
         assert f"spark_sklearn_tpu_torch/{rel}" in names, rel
 
 

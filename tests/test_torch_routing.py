@@ -259,12 +259,14 @@ def test_groups_reach_the_splitter():
                                   "shape"])
 def test_refusals(case):
     """Where the reference leaves its compiled path (grid.py:603-633,
-    :1001-1011) the port raises NotImplementedError naming the host
-    fallback: a fit parameter other than sample_weight, sample_weight
-    with a family that takes none (KNN, LDA, Pipelines),
-    class_weight="balanced" with a zero weight, on the estimator or in
-    the grid; a weight vector of the wrong length is the reference's
-    ValueError."""
+    :1001-1011) the port's device tier refuses as the reference's does
+    with backend="tpu", and backend=None runs the search on the host
+    tier, warning once, with the reference's host results: a fit
+    parameter other than sample_weight, sample_weight with a family that
+    takes none (KNN, LDA, Pipelines: sklearn's fit then refuses it, and
+    every fit fails on both hosts), class_weight="balanced" with a zero
+    weight, on the estimator or in the grid.  A weight vector of the
+    wrong length is the reference's ValueError."""
     X, y = _classes(n=90)
     sw = _weights(len(y))
     est, grid, kw = sklm.LogisticRegression(), {"C": [1.0]}, {
@@ -294,18 +296,44 @@ def test_refusals(case):
                                              r"\(89,\), expected \(90,\)"):
             search.fit(X, y, **kw)
         return
-    with pytest.raises(NotImplementedError, match="host fallback"):
-        search.fit(X, y, **kw)
+    refused = "not supported on the compiled|is not compiled"
+    with pytest.raises(ValueError, match=refused):
+        port.GridSearchCV(est, grid, cv=3, backend="device",
+                          config=CPU).fit(X, y, **kw)
     # the reference refuses the same on its compiled path
-    with pytest.raises(ValueError, match="not supported on the compiled|"
-                                         "is not compiled"):
+    with pytest.raises(ValueError, match=refused):
         sst.GridSearchCV(est, grid, cv=3, backend="tpu").fit(X, y, **kw)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if case in ("other_param", "knn", "lda", "pipeline"):
+            with pytest.raises(ValueError, match="fits failed"):
+                search.fit(X, y, **kw)
+        else:
+            search.fit(X, y, **kw)
+    host = [w for w in caught if "host tier" in str(w.message)]
+    assert len(host) == 1, [str(w.message) for w in caught]
+    if case in ("other_param", "knn", "lda", "pipeline"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with pytest.raises(ValueError, match="fits failed"):
+                sst.GridSearchCV(est, grid, cv=3, backend="host").fit(
+                    X, y, **kw)
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = sst.GridSearchCV(est, grid, cv=3, backend="host").fit(
+            X, y, **kw)
+    for key in ("mean_test_score", "split0_test_score", "rank_test_score"):
+        np.testing.assert_array_equal(search.cv_results_[key],
+                                      ref.cv_results_[key])
 
 
 def test_pipeline_family_takes_no_sample_weight():
     """The reference's PipelineFamily sets accepts_sample_weight False
     (models/pipeline.py:31, :252): so does the port's, for both its
-    pipeline families, and a weighted pipeline search raises."""
+    pipeline families.  A weighted pipeline search is refused on the
+    device tier, and on the host tier the Pipeline's fit refuses the
+    bare sample_weight, as sklearn's does: every fit fails."""
     from spark_sklearn_tpu_torch.models.base import resolve_family
 
     for final in (sklm.LogisticRegression(),
@@ -316,9 +344,15 @@ def test_pipeline_family_takes_no_sample_weight():
     X, y = _classes(n=60)
     pipe = port.Pipeline([("s", port.StandardScaler()),
                           ("lr", port.LogisticRegression())])
-    with pytest.raises(NotImplementedError, match="sample_weight"):
-        port.GridSearchCV(pipe, {"lr__C": [1.0]}, cv=3, config=CPU).fit(
-            X, y, sample_weight=np.ones(len(y)))
+    with pytest.raises(ValueError, match="sample_weight"):
+        port.GridSearchCV(pipe, {"lr__C": [1.0]}, cv=3, backend="device",
+                          config=CPU).fit(X, y, sample_weight=np.ones(len(y)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with pytest.raises(ValueError, match="fits failed"):
+            port.GridSearchCV(pipe, {"lr__C": [1.0]}, cv=3,
+                              scoring="accuracy", config=CPU).fit(
+                X, y, sample_weight=np.ones(len(y)))
 
 
 def _lines(text):

@@ -165,9 +165,11 @@ def test_unported_penalties_raise(digits, est, err):
 def test_unported_estimator_and_bad_multimetric_refit_raise(digits):
     from sklearn.tree import DecisionTreeClassifier
     X, y = digits
+    # an estimator without a family runs on the host tier; a search
+    # forced onto the device refuses it
     with pytest.raises(NotImplementedError):
         port.GridSearchCV(DecisionTreeClassifier(), {"max_depth": [2]},
-                          config=CPU).fit(X[:90], y[:90])
+                          backend="device", config=CPU).fit(X[:90], y[:90])
     with pytest.raises(ValueError, match="refit"):
         port.GridSearchCV(port.LogisticRegression(), {"C": [1.0]},
                           scoring=["accuracy", "neg_log_loss"],

@@ -399,9 +399,11 @@ def test_infeasible_nu_gets_error_score(digits):
 
 def test_unported_options_raise(digits):
     X, y = _subset(digits, 3, 90)
+    # the host tier runs it; a search forced onto the device refuses it
     with pytest.raises(ValueError, match="precomputed"):
         port.GridSearchCV(SkSVC(kernel="precomputed"), {"C": [1.0]}, cv=3,
-                          refit=False, config=CPU).fit(X @ X.T, y)
+                          refit=False, backend="device",
+                          config=CPU).fit(X @ X.T, y)
     # probability scorers need probability=True, as the reference's
     # predict_proba does (svm.py:777-778)
     with pytest.raises(NotImplementedError, match="probability=True"):

@@ -343,16 +343,18 @@ def test_families_resolve_and_unported_options_raise(diabetes, digits):
                      (port.LinearSVR(), psvr.LinearSVRFamily)):
         assert resolve_family(est) is fam
     X, y = _regression(diabetes, 60)
+    # the host tier runs these; a search forced onto the device refuses
     with pytest.raises(ValueError, match="precomputed"):
         port.GridSearchCV(SkSVR(kernel="precomputed"), {"C": [1.0]}, cv=3,
-                          refit=False, config=CPU).fit(X @ X.T, y)
+                          refit=False, backend="device",
+                          config=CPU).fit(X @ X.T, y)
     Xc, yc = digits
     for params, match in (({"penalty": "l1", "dual": False}, "l1"),
                           ({"multi_class": "crammer_singer"},
                            "crammer_singer")):
         with pytest.raises(ValueError, match=match):
             port.GridSearchCV(SkLinearSVC(**params), {"C": [1.0]}, cv=3,
-                              refit=False, config=CPU).fit(Xc[:60],
-                                                           yc[:60] % 2)
+                              refit=False, backend="device",
+                              config=CPU).fit(Xc[:60], yc[:60] % 2)
     with pytest.raises(ValueError, match="infeasible"):
         port.NuSVR(nu=2.5, device="cpu").fit(X, y)
