@@ -129,7 +129,18 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    number of test predictions' shares of the mean), and the same best
    or one tied with it there, (a) on phase 5's 20 C, (b) on 600 of
    phase 8's rows (60 a class) with 3 folds, (c) on 2000 rows (as phase
-   9 checks), (d) whole.
+   9 checks), (d) whole;
+16. sparse X under TorchConfig(data_mode="sparse"), on counts made from
+   --seed shaped like fetch_20newsgroups_vectorized's training split
+   (11314 rows, 130107 columns, 20 classes, ~161 nonzeros a row on
+   Zipf-like columns; 5.9 GB were it dense): (a) GridSearchCV(
+   LogisticRegression(max_iter=100), 10 C in logspace(-1, 2),
+   StratifiedKFold(5), refit=False) on the l2-normalised rows, (b)
+   MultinomialNB, ComplementNB and BernoulliNB over 5 alphas x
+   StratifiedKFold(5) on the counts; each cold with SP1's launches, warm
+   and profiled (busy, idle share, SP1's and the copy kernels' device
+   time); then on a 2000 x 20000 cut, 3 C (the 5 alphas) x 3 folds, cuda
+   sparse against CPU sparse and against cuda densified (5e-3; NB 1e-6).
 
 Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
 whose norms are summed apart; each timed as a CUDA graph's replay,
@@ -178,7 +189,13 @@ leaving at its fixed point, its steps counted and its bits held to the
 same kernel's 50-step run, timed beside it), P2 (the coupling of its 45
 tasks x 10000 rows under every plan that serves k = 10, and of
 decisions made from --seed at k = 26 and k = 50 over the same
-450000 problems) and S2's SVR mode
+450000 problems), SP1 (`csr_spmm`, the sparse X's products, at phase
+16's shapes: (a)'s forward X Wᵀ and backward Gᵀ X at W = 1000, (b)'s
+class sums at W = 100 and joint log-likelihoods at W = 500; within the
+float32 bound of two summation orders of its plain version on the card,
+equal to it on integer inputs of the same structure and to the CPU's
+plain version on 2000 rows; beside `torch.sparse.mm`, with the
+operand's transpose copies at (a)'s shape) and S2's SVR mode
 (epsilon-SVR and nu-SVR steps at the SVR searches' 5 folds of 20640
 pairs: a thread-block cluster a row as the plan picks it for the card,
 beside clusters of 8 CTAs, with how many clusters the card holds at once
@@ -3873,6 +3890,336 @@ def phase_halving(seed: int, X, y, Cs):
     return out
 
 
+# --- sparse X: SP1's kernel check and phase 16 ---------------------------
+
+NG_N, NG_D, NG_K = 11314, 130107, 20   # 20 newsgroups' training split
+NG_TOKENS = 195                        # median tokens a row: ~161 nonzeros
+NG_TOPIC_SHARE = 0.06                  # of a row's tokens on its class's
+NG_CUT = (2000, 20000)                 # rows and columns of the checks
+SPARSE_C = np.logspace(-1, 2, 10)      # phase 16 (a)'s grid
+SPARSE_ALPHAS = [0.01, 0.03, 0.1, 0.3, 1.0]
+SPARSE_NB = ("MultinomialNB", "ComplementNB", "BernoulliNB")
+
+
+def newsgroups_like(seed: int, n: int = NG_N, d: int = NG_D, k: int = NG_K):
+    """Count data shaped like scikit-learn's fetch_20newsgroups_vectorized
+    training split (11314 rows, 130107 columns, 20 classes; its TF-IDF
+    rows hold ~159 nonzeros): a row's tokens (lognormal lengths about
+    NG_TOKENS) fall on Zipf-like column frequencies, 6% of them on its
+    class's 1500 topic columns, summed into integer counts (float32 CSR,
+    ~161 nonzeros a row; sklearn's MultinomialNB(alpha=0.1) scores ~0.86
+    in 3-fold CV at the full shape, ~0.69 on the 2000 x 20000 cut).
+    Returns (X, y)."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    y = rng.permutation(np.arange(n) % k)
+    w = 1.0 / np.arange(1, d + 1) ** 1.05
+    cdf = np.cumsum(w / w.sum())
+    lengths = np.maximum(8, rng.lognormal(np.log(NG_TOKENS), 0.6, n)
+                         .astype(np.int64))
+    rows = np.repeat(np.arange(n), lengths)
+    cols = np.minimum(np.searchsorted(cdf, rng.random(rows.size)), d - 1)
+    topic = 1500
+    topics = np.stack([rng.choice(np.arange(100, min(d, 20000)), topic,
+                                  replace=False) for _ in range(k)])
+    tw = 1.0 / np.arange(1, topic + 1) ** 0.8
+    tcdf = np.cumsum(tw / tw.sum())
+    pick = rng.random(rows.size) < NG_TOPIC_SHARE
+    cols[pick] = topics[y[rows[pick]], np.minimum(
+        np.searchsorted(tcdf, rng.random(int(pick.sum()))), topic - 1)]
+    X = sp.csr_matrix((np.ones(rows.size, np.float32), (rows, cols)),
+                      shape=(n, d))
+    X.sum_duplicates()
+    return X, y
+
+
+def l2_rows(X):
+    """X with each row scaled to unit l2 norm (LogisticRegression's
+    input)."""
+    import scipy.sparse as sp
+    norms = np.sqrt(np.asarray(X.multiply(X).sum(axis=1))).ravel()
+    return (sp.diags(1.0 / np.maximum(norms, 1e-12)).astype(np.float32)
+            @ X).tocsr()
+
+
+def csr_row_slice(indptr, indices, values, r0: int, r1: int):
+    """Rows r0..r1-1 of a CSR as its own CSR (int32 indptr from 0)."""
+    lo, hi = int(indptr[r0]), int(indptr[r1])
+    return ((indptr[r0:r1 + 1] - lo).contiguous(), indices[lo:hi],
+            values[lo:hi])
+
+
+def phase_sparse_kernels(seed: int, ptxas: dict):
+    """SP1 against its plain version at phase 16's shapes: (a)'s forward
+    X Wᵀ (X's CSR, D (130107, 1000)) and backward Gᵀ X (Xᵀ's CSR, D
+    (11314, 1000)), (b)'s class sums (Xᵀ's CSR of the counts, W = 5 folds
+    x 20 classes) and joint log-likelihoods (X's CSR, W = 25 lanes x 20
+    classes).  Each: within the float32 bound of two summation orders of
+    the plain version on the card (2 nnz_r 2^-24 (|A| |D|)), equal to it
+    on integer inputs of the same structure (exact sums), equal to the
+    plain version on CPU copies of its heaviest 2000 rows, and bitwise
+    repeatable; timed in a CUDA graph and between events, beside the
+    plain version, `torch.sparse.mm` (cuSPARSE) and its bound; and the
+    operand's transpose copies at (a)'s shape.  Returns ({variant: row},
+    the copies' times)."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
+    from spark_sklearn_tpu_torch.sparse.csr import SparseOperand
+
+    X, _ = newsgroups_like(seed)
+    n, d = X.shape
+    lanes = len(SPARSE_C) * N_FOLDS
+    nb_lanes = len(SPARSE_ALPHAS) * N_FOLDS
+    ops = {"lr": SparseOperand.from_csr(l2_rows(X)).to_device("cuda"),
+           "nb": SparseOperand.from_csr(X).to_device("cuda")}
+    print(f"  20-newsgroups-shaped X: {n} x {d}, nnz {X.nnz} "
+          f"({X.nnz / n:.1f} a row; dense float32 would be "
+          f"{4 * n * d / 1e9:.2f} GB, the two CSRs "
+          f"{ops['lr'].nbytes / 1e6:.1f} MB)")
+    shapes = {"lr_forward": ("lr", False, lanes * NG_K),
+              "lr_backward": ("lr", True, lanes * NG_K),
+              "nb_class_sums": ("nb", True, N_FOLDS * NG_K),
+              "nb_jll": ("nb", False, nb_lanes * NG_K)}
+    regs, spill = slice_symbol(ptxas, "csr_spmm_kernel")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {}
+    for variant, (which, transposed, W) in shapes.items():
+        op = ops[which]
+        if transposed:
+            A = (op.t_indptr, op.t_indices, op.t_values)
+            m, K = d, n
+        else:
+            A = (op.indptr, op.indices, op.values)
+            m, K = n, d
+        nnz = int(A[2].numel())
+        D = torch.randn((K, W), generator=g, device="cuda")
+
+        def fn(A=A, D=D, K=K):
+            return spk.csr_spmm(*A, D, K)
+
+        got, again = fn(), fn()
+        want = spk.csr_spmm_plain(*A, D)
+        scale = spk.csr_spmm_plain(A[0], A[1], A[2].abs(), D.abs())
+        row_nnz = (A[0][1:] - A[0][:-1]).float()[:, None]
+        tol = 2.0 * row_nnz * 2.0 ** -24 * scale
+        err = (got - want).abs()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"csr_spmm ({variant}): two launches "
+                                 "on the same inputs differ")
+        if not bool((err <= tol).all()):
+            raise AssertionError(
+                f"csr_spmm ({variant}): {int((err > tol).sum())} elements "
+                "past the two-order float32 bound of the plain version")
+        max_err = float(err.max())
+        rel = float((err / scale.clamp_min(1e-30)).max())
+        del want, scale, err, tol, again
+        # integer inputs of the same structure: every sum exact
+        Ai = (A[0], A[1], torch.ceil(4.0 * A[2]) if which == "lr"
+              else A[2])
+        Di = torch.randint(-3, 4, (K, W), generator=g, device="cuda",
+                           dtype=torch.int32).float()
+        if not torch.equal(spk.csr_spmm(*Ai, Di, K),
+                           spk.csr_spmm_plain(*Ai, Di)):
+            raise AssertionError(f"csr_spmm ({variant}): integer inputs "
+                                 "differ from the plain version")
+        del Ai, Di
+        # the plain version on CPU copies sums in the kernel's order
+        heavy = torch.argsort(row_nnz[:, 0], descending=True)[:2000]
+        r0 = int(heavy.min()) if transposed else 0
+        r1 = min(m, r0 + 2000)
+        sub = csr_row_slice(*A, r0, r1)
+        cpu = spk.csr_spmm_plain(*(t.cpu() for t in sub), D.cpu())
+        if not torch.equal(spk.csr_spmm(*sub, D, K).cpu(), cpu):
+            raise AssertionError(f"csr_spmm ({variant}): rows {r0}-{r1} "
+                                 "differ from the plain version on the CPU")
+        del cpu, sub
+        Asp = torch.sparse_csr_tensor(A[0], A[1], A[2], size=(m, K))
+        lib = torch.sparse.mm(Asp, D)
+        lib_err = float((lib - got).abs().max())
+        del lib, got
+        bnd, by = bound(spk.spmm_bytes(m, nnz, K, W), spk.spmm_ops(nnz, W))
+        gathered = spk.spmm_gathered_bytes(nnz, W)
+        ms = graph_ms(fn, reps=10)
+        events = cuda_ms(fn, reps=5)
+        plain_ms = cuda_ms(lambda: spk.csr_spmm_plain(*A, D), reps=1,
+                           warmup=0)
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(Asp, D), reps=5)
+        plan = spk.spmm_plan(m, W)
+        rows[variant] = {
+            "ms": ms, "events_ms": events, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
+            "gathered_bytes": gathered,
+            "gathered_ms": gathered / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": max_err, "max_err_over_scale": rel,
+            "library_max_abs_diff": lib_err, "registers": regs,
+            "spill_bytes": spill, "plan": plan,
+            "shape": {"m": m, "K": K, "W": W, "nnz": nnz}}
+        print(f"  csr_spmm {variant:13s} m={m} K={K} W={W} nnz={nnz}: "
+              f"{ms:.4f} ms in a graph, {events:.4f} ms between events "
+              f"(plain {plain_ms:.4f}, torch.sparse.mm {lib_ms:.4f} ms; "
+              f"bound {bnd:.5f} ms by {by}, bound/time {bnd / ms:.4f}; "
+              f"gathered {gathered / 1e9:.2f} GB = "
+              f"{gathered / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s), max "
+              f"abs err {max_err:.3g} ({rel:.3g} of |A||D|), plan {plan}, "
+              f"{regs} registers, {spill} bytes spilled; bitwise repeatable, "
+              "integer inputs and the CPU's rows equal")
+        del D, Asp
+    # the operand's copies at (a)'s shape: Wᵀ made contiguous before the
+    # forward, the backward's (d, W) result made (B, k d) after it
+    Wm = torch.randn((lanes * NG_K, d), generator=g, device="cuda")
+    R = torch.randn((d, lanes * NG_K), generator=g, device="cuda")
+    copies = {"forward_ms": cuda_ms(lambda: Wm.T.contiguous(), reps=5),
+              "backward_ms": cuda_ms(
+                  lambda: R.T.reshape(lanes, NG_K * d), reps=5),
+              "bytes": 2 * 4 * lanes * NG_K * d}
+    copies["bound_ms"] = copies["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"  the operand's transpose copies at (a)'s shape ({lanes * NG_K}"
+          f" x {d}): forward {copies['forward_ms']:.4f} ms, backward "
+          f"{copies['backward_ms']:.4f} ms (each {copies['bytes'] / 1e9:.2f}"
+          f" GB moved, {copies['bound_ms']:.4f} ms at 3.35 TB/s)")
+    del Wm, R, ops
+    torch.cuda.empty_cache()
+    return rows, copies
+
+
+def sparse_search(label, run, iters_of, min_score, top: int = 6):
+    """One phase 16 search on cuda: cold with SP1's launches (it must
+    launch), warm, then profiled: busy, idle share, SP1's and the copy
+    kernels' device time.  `run()` returns the search."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+    from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
+
+    spk.reset_launches()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    gs = run()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = {**spk.LAUNCHES, **{k: v for k, v in gk.LAUNCHES.items()
+                                   if v}}
+    if launches["csr_spmm"] == 0:
+        raise AssertionError(f"{label}: csr_spmm never launched")
+    cold_chunks = [(round(c["fit_s"], 4), round(c["score_s"], 4))
+                   for c in gs.chunks_]
+    scores = gs.cv_results_["mean_test_score"]
+    if not np.all(np.isfinite(scores)):
+        raise AssertionError(f"{label}: non-finite scores {scores}")
+    best = float(np.max(scores))
+    if not best > min_score:
+        raise AssertionError(f"{label}: best score {best}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gs = run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    iters = iters_of(gs)
+    busy, by_name = profile_busy(run, warm, max(1, iters),
+                                 f"chip_smoke_sparse_{label}.txt",
+                                 with_kernels=True, top=top,
+                                 primed=warm < 1.0)
+    spmm_ns = sum(ns for name, (ns, _) in by_name.items()
+                  if "csr_spmm" in name)
+    copy_ns = sum(ns for name, (ns, _) in by_name.items()
+                  if "copy" in name.lower())
+    n_launch = sum(count for _, count in by_name.values())
+    fits = len(scores) * gs.n_splits_
+    chunk_s = [(round(c["fit_s"], 4), round(c["score_s"], 4))
+               for c in gs.chunks_]
+    print(f"  {label}: chunks' (fit, score) s warm {chunk_s}, cold "
+          f"{cold_chunks}")
+    print(f"  {label}: {fits} fits, cold {cold:.3f} s, warm {warm:.3f} s, "
+          f"busy {busy:.4f} s (SP1 {spmm_ns / 1e9:.4f} s, copy kernels "
+          f"{copy_ns / 1e9:.4f} s), {n_launch} device launches, idle share "
+          f"{1 - busy / warm if busy else float('nan'):.4f}, peak "
+          f"{peak / 2**30:.2f} GiB, iterations {iters}, launches "
+          f"{launches}, best {best:.4f}")
+    return gs, {"cold_s": cold, "warm_s": warm, "fits": fits,
+                "device_busy_s": busy, "spmm_busy_s": spmm_ns / 1e9,
+                "copy_busy_s": copy_ns / 1e9, "device_launches": n_launch,
+                "idle_share": None if not busy else 1 - busy / warm,
+                "peak_bytes": peak, "launches": launches, "best": best,
+                "iterations": iters, "cold_chunks": cold_chunks,
+                "warm_chunks": chunk_s}
+
+
+def sparse_agree(label, runs, tol):
+    """{name: search} on the same data: every mean_test_score within
+    `tol` of the first's, and the same best where the first's best leads
+    its second by more than twice `tol`."""
+    names = list(runs)
+    a = runs[names[0]].cv_results_["mean_test_score"]
+    top = np.sort(a)[::-1]
+    gap = float(top[0] - top[1]) if len(top) > 1 else None
+    out = {"cpu_best_gap": gap}
+    for name in names[1:]:
+        b = runs[name].cv_results_["mean_test_score"]
+        diff = float(np.abs(a - b).max())
+        same = int(np.argmax(a)) == int(np.argmax(b))
+        print(f"  {label}: {names[0]} against {name}: max |d mean_test| "
+              f"{diff:.3g} (tolerance {tol:g}), same best {same}")
+        if not diff <= tol:
+            raise AssertionError(f"{label}: {names[0]} and {name} differ "
+                                 f"by {diff}")
+        if gap is not None and gap > 2 * tol and not same:
+            raise AssertionError(f"{label}: the best candidate differs")
+        out[name] = {"max_abs": diff, "same_best": same}
+    return out
+
+
+def phase_sparse(seed: int):
+    """Phase 16 (module docstring): (a) LogisticRegression and (b) the
+    three discrete naive Bayes over the 20-newsgroups-shaped X under
+    data_mode="sparse" on cuda, then cuda sparse against CPU sparse and
+    against cuda densified on a 2000 x 20000 cut."""
+    import spark_sklearn_tpu_torch as port
+    from spark_sklearn_tpu_torch import (
+        GridSearchCV, LogisticRegression, StratifiedKFold, TorchConfig)
+
+    X, y = newsgroups_like(seed)
+    Xn = l2_rows(X)
+
+    def lr(Xs, ys, Cs, folds, dev, mode="sparse"):
+        return GridSearchCV(
+            LogisticRegression(max_iter=100), {"C": Cs},
+            cv=StratifiedKFold(folds), refit=False,
+            config=TorchConfig(device=dev, data_mode=mode)).fit(Xs, ys)
+
+    def nb(name, Xs, ys, folds, dev, mode="sparse"):
+        return GridSearchCV(
+            getattr(port, name)(), {"alpha": SPARSE_ALPHAS},
+            cv=StratifiedKFold(folds), refit=False,
+            config=TorchConfig(device=dev, data_mode=mode)).fit(Xs, ys)
+
+    out = {"nnz": int(X.nnz), "shape": list(X.shape)}
+    _, out["lr"] = sparse_search(
+        "lr", lambda: lr(Xn, y, SPARSE_C, N_FOLDS, "cuda"),
+        lambda gs: sum(c["n_iter_exec"] for c in gs.chunks_), 0.3)
+    for name in SPARSE_NB:
+        _, out[name] = sparse_search(
+            name, lambda name=name: nb(name, X, y, N_FOLDS, "cuda"),
+            lambda gs: 1, 0.3)
+    Xc, yc = newsgroups_like(seed, *NG_CUT)
+    Xcn = l2_rows(Xc)
+    Cs = SPARSE_C[::4]
+    t0 = time.perf_counter()
+    runs = {"cpu": lr(Xcn, yc, Cs, 3, "cpu"),
+            "cuda": lr(Xcn, yc, Cs, 3, "cuda"),
+            "cuda_dense": lr(Xcn, yc, Cs, 3, "cuda", "device")}
+    out["lr"]["check"] = sparse_agree("lr cut", runs, 5e-3)
+    out["lr"]["check"]["seconds"] = time.perf_counter() - t0
+    for name in SPARSE_NB:
+        runs = {"cpu": nb(name, Xc, yc, 3, "cpu"),
+                "cuda": nb(name, Xc, yc, 3, "cuda"),
+                "cuda_dense": nb(name, Xc, yc, 3, "cuda", "device")}
+        out[name]["check"] = sparse_agree(f"{name} cut", runs, 1e-6)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3898,7 +4245,7 @@ def main() -> int:
     header("[2] build", t_start)
     report = _build.build(["glm_epilogue", "svm_dual", "tree_hist",
                            "mlp_step", "naive_bayes", "knn_topk", "kmeans",
-                           "svm_proba"])
+                           "svm_proba", "csr_spmm"])
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.2f} s")
@@ -3906,7 +4253,7 @@ def main() -> int:
     for fn, (regs, spill) in sorted(ptxas.items()):
         print(f"    {regs:4d} registers {spill:5d} bytes spilled  {fn}")
 
-    header("[3] kernels at the headline and phase-8/9/10/11/12/13 shapes",
+    header("[3] kernels at the headline and phase-8/9/10/11/12/13/16 shapes",
            t_start)
     rows = phase_kernels(args.seed, n_sm, sm_mhz, ptxas)
     svm_rows = phase_svm_kernels(args.seed, ptxas)
@@ -3916,6 +4263,7 @@ def main() -> int:
         args.seed, ptxas_table(str(report["mlp_step"]["log"])))
     slice_rows = phase_slice_kernels(args.seed, ptxas)
     proba_rows = phase_proba_kernels(args.seed, n_sm, sm_mhz, ptxas)
+    sparse_rows, sparse_copies = phase_sparse_kernels(args.seed, ptxas)
 
     header("[4] main path: 1000 C x 5 folds on cuda", t_start)
     X, y = digits_like(args.seed)
@@ -3970,6 +4318,12 @@ def main() -> int:
            "on digits-shaped data, (b) SVC(rbf) on MNIST-shaped data, "
            "(c) boosting with resource=n_estimators", t_start)
     halving_run = phase_halving(args.seed, X, y, Cs)
+
+    header("[16] sparse X: LogisticRegression and the discrete naive Bayes "
+           f"under data_mode='sparse' on 20-newsgroups-shaped counts "
+           f"({NG_N} x {NG_D}, {NG_K} classes)", t_start)
+    sparse_run = phase_sparse(args.seed)
+    sparse_run["copies"] = sparse_copies
 
     meta = {
         "glm_loss_grad": "spark_sklearn_tpu/models/linear.py:221",
@@ -4235,6 +4589,30 @@ def main() -> int:
             **{v: row for (nm, v), row in proba_rows.items()
                if nm == name and v != main_v},
         })
+    head = sparse_rows["lr_forward"]
+    kernels.append({
+        "name": "csr_spmm", "route": "cuda",
+        "source": "spark_sklearn_tpu_torch/csrc/csr_spmm.cu",
+        "replaces": "spark_sklearn_tpu/models/linear.py:213",
+        "launches": sparse_run["lr"]["launches"]["csr_spmm"],
+        "launches_by_path": {p: sparse_run[p]["launches"]["csr_spmm"]
+                             for p in ("lr",) + SPARSE_NB},
+        "max_abs_err": max(r["max_abs_err"] for r in sparse_rows.values()),
+        "ms": head["ms"], "events_ms": head["events_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library": "torch.sparse.mm of a torch.sparse_csr_tensor "
+                   "(cuSPARSE)",
+        "gathered_ms": head["gathered_ms"],
+        "registers": head["registers"], "spill_bytes": head["spill_bytes"],
+        "tolerance": "2 nnz_row 2^-24 (|A| |D|) against the plain version "
+                     "on the card (two summation orders); equal to it on "
+                     "integer inputs and to the CPU's plain version on "
+                     "2000 rows",
+        "shape": head["shape"],
+        **{v: r for v, r in sparse_rows.items() if v != "lr_forward"},
+        "copies": sparse_copies,
+    })
     main_run["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -4243,6 +4621,7 @@ def main() -> int:
                    "svm": svm_run, "gb": gb_run, "rf": rf_run,
                    "mlp": mlp_run, "slice": slice_run, "rest": rest_run,
                    "weighted": weighted_run, "halving": halving_run,
+                   "sparse": sparse_run,
                    "card": nvidia_smi("name,power.limit")}, f, indent=1)
     print(f"  total {main_run['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -34,6 +34,10 @@ Public API so far:
     RandomForestClassifier, RandomForestRegressor (parameter holders a
     search resolves without sklearn; refit needs sklearn's estimators)
   - ParameterGrid, ParameterSampler, StratifiedKFold, KFold
+  - CSRMatrix  (sparse rows; a search or an estimator takes it, or any
+    scipy-sparse X: densified once on the host, or kept sparse on the
+    device under TorchConfig(data_mode="sparse") for LogisticRegression
+    and MultinomialNB/ComplementNB/BernoulliNB)
 """
 
 from spark_sklearn_tpu_torch.models.estimators import (
@@ -87,6 +91,7 @@ from spark_sklearn_tpu_torch.search.halving import (
     HalvingGridSearchCV,
     HalvingRandomSearchCV,
 )
+from spark_sklearn_tpu_torch.sparse.csr import CSRMatrix
 
 __all__ = [
     "GridSearchCV",
@@ -130,4 +135,5 @@ __all__ = [
     "ParameterSampler",
     "StratifiedKFold",
     "KFold",
+    "CSRMatrix",
 ]

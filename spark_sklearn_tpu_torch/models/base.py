@@ -7,6 +7,9 @@ with a lane axis for the (candidate x fold) tasks:
     fit_task_batched(dynamic, static, data, train_w, meta) -> model dict
     views_task_batched(models, static, data, meta, needed) -> scorer views
 
+- `data`:    dict of device tensors (X, y, ...); X is a sparse
+             `CSROperand` for a family with `supports_sparse` under
+             `data_mode="sparse"`
 - `dynamic`: dict of (B,) tensors of numeric hyperparameters (C, tol)
 - `static`:  dict of hyperparameters shared by the lanes (penalty, ...)
 - `train_w`: (B, n) per-sample weight masks (one CV fold per lane)
@@ -78,6 +81,11 @@ class Family:
     dynamic_params: Dict[str, Any] = {}
     #: True for classifiers (label-encode y, default scorer = accuracy)
     is_classifier: bool = False
+    #: True where fit and the views take data["X"] as a sparse device
+    #: operand (`sparse/csr.py` CSROperand: products in operator form
+    #: through SP1, no dense-only op on X) and the family implements
+    #: `prepare_data_sparse`: the `data_mode="sparse"` tier reads it
+    supports_sparse: bool = False
 
     @classmethod
     def extract_params(cls, estimator) -> Dict[str, Any]:
@@ -89,6 +97,24 @@ class Family:
         """-> (data: dict of numpy arrays for the device, meta: dict of
         host facts).  Called once per search."""
         raise NotImplementedError
+
+    @classmethod
+    def prepare_data_sparse(cls, X, y, dtype=np.float32):
+        """Sparse twin of `prepare_data`: `X` is a scipy CSR matrix, and
+        the data dict carries it as a `sparse.csr.SparseOperand` under
+        "X" (the search uploads it as a CSROperand).  Host-side input
+        checks (finiteness, sign) run on `X.data`, never on a densified
+        form.  Only meaningful with `supports_sparse`."""
+        raise NotImplementedError(
+            f"{cls.name} takes no sparse X (supports_sparse is False)")
+
+    @classmethod
+    def takes_sparse(cls, static) -> bool:
+        """Whether a fit with these static parameters keeps a sparse X
+        sparse: `supports_sparse`, unless a parameter needs the implicit
+        zeros (BernoulliNB's binarize < 0).  The estimators densify X
+        where it is False."""
+        return cls.supports_sparse
 
     @classmethod
     def fit_task_batched(cls, dynamic, static, data, train_w, meta):

@@ -40,6 +40,11 @@ with all-ones weights.  `Pipeline` chains them as sklearn's does:
 `named_steps`, ``step__param`` keys in `get_params`/`set_params`, and
 `fit`, `predict`, `predict_proba`.  A search over
 any of these refits on the card, where there is no sklearn.
+
+Every class takes a `CSRMatrix` or a scipy-sparse X in `fit` and in its
+predictions: `LogisticRegression`, `MultinomialNB`, `ComplementNB` and
+`BernoulliNB` keep it sparse (a `CSROperand`, products through SP1);
+every other class densifies it once, on the host.
 """
 
 from __future__ import annotations
@@ -78,6 +83,31 @@ from spark_sklearn_tpu_torch.models.svr import (
     SVRFamily,
 )
 from spark_sklearn_tpu_torch.parallel.device import TorchConfig, resolve_device
+from spark_sklearn_tpu_torch.sparse.csr import (
+    CSROperand,
+    as_scipy_csr,
+    densify,
+    issparse,
+    to_device,
+)
+
+
+def _dense(X, dtype=None):
+    """X as a dense numpy array for a family that takes no sparse X: a
+    `CSRMatrix` or scipy-sparse X densified once, on the host."""
+    X = densify(as_scipy_csr(X))
+    return X if dtype is None else np.asarray(X, dtype)
+
+
+def _sparse_for(family, X, static):
+    """X as scipy CSR where it is sparse and `family` keeps it sparse
+    under the parameters `static` (LogisticRegression, the discrete
+    naive Bayes; BernoulliNB not for binarize < 0), else None."""
+    X = as_scipy_csr(X)
+    takes = getattr(family, "takes_sparse", None)
+    if issparse(X) and takes is not None and takes(static):
+        return X
+    return None
 
 
 class _Estimator:
@@ -158,12 +188,19 @@ class _Estimator:
         family = self._family
         dtype = (np.float64 if getattr(family, "wants_float64", False)
                  else np.float32)
-        X = np.asarray(X)
-        data_np, meta = family.prepare_data(X, np.asarray(y), dtype=dtype)
-        data = {k: torch.as_tensor(v, device=dev) for k, v in data_np.items()}
+        static = family.extract_params(self)
+        Xs = _sparse_for(family, X, static)
+        if Xs is not None:                  # kept sparse: a CSROperand
+            X = Xs
+            data_np, meta = family.prepare_data_sparse(
+                X, np.asarray(y), dtype=dtype)
+        else:
+            X = _dense(X)
+            data_np, meta = family.prepare_data(X, np.asarray(y),
+                                                dtype=dtype)
+        data = {k: to_device(v, dev) for k, v in data_np.items()}
         w = (np.ones(X.shape[0], dtype) if sample_weight is None
              else np.asarray(sample_weight, dtype))
-        static = family.extract_params(self)
         if hasattr(family, "observe_candidates"):
             # the family's host-side checks of its parameters (priors,
             # min_categories, the LDA solver), as a search runs them
@@ -178,9 +215,15 @@ class _Estimator:
             setattr(self, k, v)
         return self
 
-    def _X(self, X):
+    def _X(self, X, dtype=None):
+        """X for a prediction: a CSROperand of X's CSR alone (the
+        products of a prediction are all X @ D) where fit keeps X
+        sparse, else dense, of `dtype` (None: the coefficients')."""
+        Xs = _sparse_for(self._family, X, self._static)
+        if Xs is not None:
+            return CSROperand.from_matrix(Xs, self._device, transpose=False)
         return torch.as_tensor(
-            np.asarray(X), dtype=self._model["coef"].dtype,
+            _dense(X), dtype=dtype or self._model["coef"].dtype,
             device=self._device)
 
 
@@ -285,7 +328,7 @@ class _KernelEstimator(_Estimator):
     def fit(self, X, y, sample_weight=None):
         dev = resolve_device(TorchConfig(device=self.device))
         data_np, meta = self._family.prepare_data(
-            np.asarray(X, np.float32), np.asarray(y))
+            _dense(X, np.float32), np.asarray(y))
         static = self._family.extract_params(self)
         X_t = torch.as_tensor(data_np["X"], device=dev)
         y_t = torch.as_tensor(data_np["y"], device=dev)
@@ -306,7 +349,7 @@ class _KernelEstimator(_Estimator):
         return self
 
     def _X(self, X):
-        return torch.as_tensor(np.asarray(X, np.float32),
+        return torch.as_tensor(_dense(X, np.float32),
                                device=self._device)
 
 
@@ -463,7 +506,7 @@ class LinearSVR(_Regressor):
 
 class _MLP(_Estimator):
     def _X(self, X):
-        return torch.as_tensor(np.asarray(X, np.float32),
+        return torch.as_tensor(_dense(X, np.float32),
                                device=self._device)
 
     def predict(self, X):
@@ -522,8 +565,7 @@ class _ClosedForm(_LogProba, _Estimator):
     """A classifier fitted as one lane of its family's batched fit."""
 
     def _X(self, X):
-        return torch.as_tensor(np.asarray(X, np.float32),
-                               device=self._device)
+        return super()._X(X, torch.float32)
 
     def predict(self, X):
         idx = self._family.predict(self._model, self._static, self._X(X),
@@ -600,6 +642,7 @@ class CategoricalNB(_ClosedForm):
         self.device = device
 
     def _X(self, X):
+        X = _dense(X)
         self._family.check_predict_X(X, self._meta)
         return torch.as_tensor(np.asarray(X, np.int32), device=self._device)
 
@@ -649,7 +692,7 @@ class KNeighborsClassifier(_Estimator):
     def fit(self, X, y):
         dev = resolve_device(TorchConfig(device=self.device))
         family = self._family
-        data_np, meta = family.prepare_data(np.asarray(X), np.asarray(y))
+        data_np, meta = family.prepare_data(_dense(X), np.asarray(y))
         self._static = family.extract_params(self)
         check_metric(self._static)
         self._train = {k: torch.as_tensor(v, device=dev)
@@ -663,7 +706,7 @@ class KNeighborsClassifier(_Estimator):
     def _votes(self, X):
         return self._family.predict_new(
             self._train["X"], self._train["y"],
-            torch.as_tensor(np.asarray(X, np.float32), device=self._device),
+            torch.as_tensor(_dense(X, np.float32), device=self._device),
             self._static, self._meta)
 
     def predict(self, X):
@@ -708,12 +751,13 @@ class KMeans(_Estimator):
         self.device = device
 
     def fit(self, X, y=None, sample_weight=None):
+        X = _dense(X)
         super().fit(X, None, sample_weight)
         self.labels_ = self.predict(X)
         return self
 
     def _X(self, X):
-        return torch.as_tensor(np.asarray(X, np.float32),
+        return torch.as_tensor(_dense(X, np.float32),
                                device=self._device)
 
     def _views(self, X, needed):
@@ -740,7 +784,7 @@ class _Transformer(_Estimator):
 
     def fit(self, X, y=None):
         dev = resolve_device(TorchConfig(device=self.device))
-        X_t = torch.as_tensor(np.asarray(X, np.float32), device=dev)
+        X_t = torch.as_tensor(_dense(X, np.float32), device=dev)
         static = self.get_params()
         self._state = self._step.fit(
             static, X_t, torch.ones((1, X_t.shape[0]), dtype=X_t.dtype,
@@ -750,7 +794,7 @@ class _Transformer(_Estimator):
         return self
 
     def transform(self, X):
-        X_t = torch.as_tensor(np.asarray(X, np.float32),
+        X_t = torch.as_tensor(_dense(X, np.float32),
                               device=self._device)
         return self._step.apply(self.get_params(), self._state,
                                 X_t)[0].cpu().numpy()

@@ -21,6 +21,12 @@ between them are the hand-written kernels K2 (`glm_loss_grad`) and K4
 (`glm_trial_loss`).  The lane axis sits at position 1 — Z is (n, B) or
 (n, B, k) — so the kernels' loads coalesce over lanes.
 
+LogisticRegression also takes a sparse X (`supports_sparse`, the
+reference's BCOO path, `linear.py:31-39, 79-91, 203-297, 345-346`): under
+`data_mode="sparse"` data["X"] is a `CSROperand` and K1 and K3 are its
+products, ``X @ Wᵀ`` and ``Gᵀ @ X``, both through SP1; the intercept's
+add and Σₙ G stay as on the dense path, and `bf16_matmul` is ignored.
+
 The reference writes the regressors as a per-task `fit` under
 `jax.vmap`.  Here every lane of a fold has the same fold weights, so the
 weighted means, centred Gram matrices and decompositions are computed
@@ -52,6 +58,7 @@ from spark_sklearn_tpu_torch.ops.solvers import (
     glm_lbfgs_batched,
     soft_threshold,
 )
+from spark_sklearn_tpu_torch.sparse.csr import CSROperand, SparseOperand
 
 
 def resolve_penalty(static: Dict[str, Any]):
@@ -92,6 +99,14 @@ def _bf16_mm(A, B):
     return A @ B
 
 
+def _affine(X, W, b):
+    """X @ Wᵀ + b: one fused addmm for a dense X, SP1 over X's CSR then
+    the add for a CSROperand."""
+    if isinstance(X, CSROperand):
+        return X @ W.T + b
+    return torch.addmm(b, X, W.T)
+
+
 def _lane_param(dynamic, static, name, default, B, like):
     """A hyperparameter as a (B,) tensor of `like`'s dtype and device:
     the lanes' own values if it is dynamic, else the shared one."""
@@ -103,6 +118,9 @@ class LogisticRegressionFamily(Family):
     name = "logistic_regression"
     is_classifier = True
     dynamic_params = {"C": np.float32, "tol": np.float32}
+    #: the solvers touch X only through Ax and AT, both products a
+    #: CSROperand computes
+    supports_sparse = True
 
     @classmethod
     def prepare_data(cls, X, y, dtype=np.float32):
@@ -113,12 +131,24 @@ class LogisticRegressionFamily(Family):
         return data, meta
 
     @classmethod
+    def prepare_data_sparse(cls, X, y, dtype=np.float32):
+        """X a scipy CSR, staged as a `SparseOperand` (the reference's
+        `prepare_data_sparse`, linear.py:79-91)."""
+        classes, y_enc = encode_labels(y)
+        op = SparseOperand.from_csr(X, dtype=dtype)
+        data = {"X": op, "y": y_enc}
+        meta = {"n_classes": int(len(classes)), "classes": classes,
+                "n_features": int(X.shape[1]), "sparse": op.signature()}
+        return data, meta
+
+    @classmethod
     def fit_task_batched(cls, dynamic, static, data, train_w, meta):
         """All B lanes of a chunk as one batched problem: L-BFGS for the
         l2 or no penalty, FISTA for l1 and elasticnet.
 
         `dynamic` holds (B,) tensors, `train_w` (B, n) fold weights and
-        `data` the device tensors X (n, d) float32 and y (n,) int32.
+        `data` the device tensors X (n, d) float32 (or a CSROperand) and
+        y (n,) int32.
         Returns a model dict with leading axis B: coef (B, k', d),
         intercept (B, k'), converged, n_iter (FISTA's rescaled onto
         max_iter) and n_iter_exec (the iterations run); k' = 1 when
@@ -143,24 +173,27 @@ class LogisticRegressionFamily(Family):
         kd = kk * d
         # bf16 GEMM operands with float32 output (the solver's state, the
         # losses and the views stay float32), as the reference's
-        # `__bf16__` (linear.py:201-208)
-        bf16 = bool(static.get("__bf16__", False))
+        # `__bf16__` (linear.py:201-208); a sparse X stays float32 there
+        sparse_X = isinstance(X, CSROperand)
+        bf16 = bool(static.get("__bf16__", False)) and not sparse_X
         Xm = _bf16_operand(X) if bf16 else None
 
         def Ax(x):                           # K1 -> Z (n, B) or (n, B, k)
             W = x[:, :kd].reshape(B * kk, d)
+            b = x[:, kd:].reshape(1, B * kk)
             if bf16:
                 Z = _bf16_mm(Xm, _bf16_operand(W).T)
                 if fit_intercept:
-                    Z = Z + x[:, kd:].reshape(1, B * kk)
+                    Z = Z + b
             elif fit_intercept:
-                Z = torch.addmm(x[:, kd:].reshape(1, B * kk), X, W.T)
+                Z = _affine(X, W, b)
             else:
-                Z = X @ W.T
+                Z = X @ W.T                  # SP1 over a CSROperand's CSR
             return Z if k == 2 else Z.view(n, B, k)
 
         def AT(G):                           # K3 -> (B, kd + kk)
             G2 = G.reshape(n, B * kk)
+            # a CSROperand's G2ᵀ @ X is SP1 over Xᵀ's CSR
             gW = (_bf16_mm(_bf16_operand(G2.T), Xm) if bf16
                   else G2.T @ X).reshape(B, kd)
             gb = G2.sum(dim=0).reshape(B, kk) if fit_intercept else \
@@ -215,7 +248,7 @@ class LogisticRegressionFamily(Family):
         W = models["coef"]                                 # (T, k, d)
         b = models["intercept"]                            # (T, k)
         T, k, d = W.shape
-        Z = torch.addmm(b.reshape(1, T * k), X, W.reshape(T * k, d).T)
+        Z = _affine(X, W.reshape(T * k, d), b.reshape(1, T * k))
         Z = Z.view(n, T, k).transpose(0, 1)                # (T, n, k)
         views = {}
         if meta["n_classes"] == 2:

@@ -1,5 +1,5 @@
 """The naive Bayes families, lane-batched: GaussianNB, MultinomialNB,
-ComplementNB, BernoulliNB and CategoricalNB, on dense X.
+ComplementNB, BernoulliNB and CategoricalNB.
 
 Counterpart of `spark_sklearn_tpu/models/naive_bayes.py` (:42-604).  Each
 fit is closed form: a few weighted reductions over X with the fold masks
@@ -28,8 +28,16 @@ a float32 X's probabilities float32, so `neg_log_loss` clips at
 float32's eps.  The reference clips at float64's there and misses
 sklearn; the port does not copy that.
 
-Not ported in this slice: `prepare_data_sparse` and the `stream_fit_*`
-protocol (sparse and streamed X).
+MultinomialNB, ComplementNB and BernoulliNB also take a sparse X
+(`supports_sparse`; the reference's `prepare_data_sparse`,
+`naive_bayes.py:57-73, 266-275, 395-428`): under `data_mode="sparse"`
+data["X"] is a `CSROperand`, the class sums ``wy @ X`` and the joint
+log-likelihoods' ``X @ flpᵀ`` run through SP1, and BernoulliNB binarizes
+the stored values (a negative `binarize`, which would make every
+implicit zero a one, is refused).  GaussianNB and CategoricalNB take
+dense X only.
+
+Not ported in this slice: the `stream_fit_*` protocol (streamed X).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from spark_sklearn_tpu_torch.models.base import (
 )
 from spark_sklearn_tpu_torch.models.linear import _lane_param
 from spark_sklearn_tpu_torch.ops.nb_kernels import gnb_jll
+from spark_sklearn_tpu_torch.sparse.csr import CSROperand, SparseOperand
 
 _EPS = 1e-10
 
@@ -60,6 +69,16 @@ def _prep_classifier_data(X, y, dtype, x_override=None):
             "y1h": np.eye(k, dtype=dtype)[y_enc]}
     meta = {"n_classes": int(k), "classes": classes,
             "n_features": int(X.shape[1])}
+    return data, meta
+
+
+def _prep_classifier_sparse(X, y, dtype):
+    """Sparse twin of `_prep_classifier_data` (`naive_bayes.py:57-73`):
+    X a scipy CSR staged as a `SparseOperand`, never densified; the
+    labels as on the dense path."""
+    op = SparseOperand.from_csr(X, dtype=dtype)
+    data, meta = _prep_classifier_data(X, y, dtype, x_override=op)
+    meta["sparse"] = op.signature()
     return data, meta
 
 
@@ -90,7 +109,8 @@ def fold_rows(train_w, static):
 def class_sums(y1h, w, X=None):
     """Weighted per-class sums for each row of `w` (F, n): counts (F, k)
     and, with X (n, d), the per-class feature sums (F, k, d) as one GEMM
-    (`_class_sums`, naive_bayes.py:76)."""
+    (`_class_sums`, naive_bayes.py:76), or one SP1 product over Xᵀ's CSR
+    for a CSROperand."""
     counts = w @ y1h                                         # (F, k)
     if X is None:
         return counts, None
@@ -247,6 +267,8 @@ class GaussianNBFamily(_NBFamily):
 class MultinomialNBFamily(_NBFamily):
     name = "multinomial_nb"
     dynamic_params = {"alpha": np.float32}
+    #: the fit and the views touch X only through products
+    supports_sparse = True
     #: sklearn's check_non_negative names the concrete class
     _sklearn_display = "MultinomialNB"
 
@@ -272,6 +294,18 @@ class MultinomialNBFamily(_NBFamily):
                 f"Negative values in data passed to "
                 f"{cls._sklearn_display} (input X)")
         return _prep_classifier_data(X, y, dtype)
+
+    @classmethod
+    def prepare_data_sparse(cls, X, y, dtype=np.float32):
+        # the sign and finiteness checks on the stored values: implicit
+        # zeros are non-negative and finite
+        Xd = np.asarray(X.data)
+        _check_finite(Xd)
+        if Xd.size and np.min(Xd) < 0:
+            raise ValueError(
+                f"Negative values in data passed to "
+                f"{cls._sklearn_display} (input X)")
+        return _prep_classifier_sparse(X, y, dtype)
 
     @classmethod
     def _alpha(cls, dynamic, static, B, like):
@@ -308,7 +342,7 @@ class MultinomialNBFamily(_NBFamily):
     @staticmethod
     def _lane_gemm(X, W):
         """X (n, d) against each lane's (k, d) rows W (T, k, d): (T, n, k)
-        from one GEMM of width T*k."""
+        from one GEMM of width T*k (one SP1 product for a CSROperand)."""
         T, k, d = W.shape
         Z = X @ W.reshape(T * k, d).T                        # (n, T*k)
         return Z.view(-1, T, k).transpose(0, 1)
@@ -356,6 +390,18 @@ class ComplementNBFamily(MultinomialNBFamily):
         return jll
 
 
+def _binarizes_zeros(b) -> bool:
+    """Whether threshold `b` maps 0 to 1."""
+    return b is not None and float(b) < 0
+
+
+def _refuse_sparse_binarize(b) -> None:
+    if _binarizes_zeros(b):
+        raise ValueError(
+            "binarize < 0 densifies a sparse X (implicit zeros "
+            "binarize to 1); use data_mode='device'")
+
+
 class BernoulliNBFamily(MultinomialNBFamily):
     name = "bernoulli_nb"
     _sklearn_display = "BernoulliNB"
@@ -367,9 +413,37 @@ class BernoulliNBFamily(MultinomialNBFamily):
         return _prep_classifier_data(X, y, dtype)
 
     @classmethod
+    def prepare_data_sparse(cls, X, y, dtype=np.float32):
+        _check_finite(np.asarray(X.data))
+        return _prep_classifier_sparse(X, y, dtype)
+
+    @classmethod
+    def takes_sparse(cls, static) -> bool:
+        """binarize < 0 would turn every implicit zero into a one: such a
+        fit takes X dense."""
+        return not _binarizes_zeros(static.get("binarize", 0.0))
+
+    @classmethod
+    def observe_candidates(cls, candidates, base_params, meta):
+        """Also refuses binarize < 0 on a sparse X before any fit (the
+        reference's refusal, naive_bayes.py:398-415)."""
+        super().observe_candidates(candidates, base_params, meta)
+        if not meta.get("sparse"):
+            return
+        b0 = base_params.get("binarize", 0.0)
+        for params in [base_params] + list(candidates):
+            _refuse_sparse_binarize(params.get("binarize", b0))
+
+    @classmethod
     def _fit_X(cls, static, X):
         b = static.get("binarize", 0.0)
-        return X if b is None else (X > b).to(X.dtype)
+        if b is None:
+            return X
+        if isinstance(X, CSROperand):
+            # the stored values only: implicit zeros stay zero (b >= 0)
+            _refuse_sparse_binarize(b)
+            return X.map_values(lambda v: (v > b).to(v.dtype))
+        return (X > b).to(X.dtype)
 
     @classmethod
     def _model_from_sums(cls, a, static, counts, fc, meta):
@@ -403,6 +477,7 @@ class CategoricalNBFamily(MultinomialNBFamily):
 
     name = "categorical_nb"
     _sklearn_display = "CategoricalNB"
+    supports_sparse = False
 
     @classmethod
     def prepare_data(cls, X, y, dtype=np.float32):

@@ -3,7 +3,7 @@
 Counterpart of `spark_sklearn_tpu/parallel/mesh.py` `TpuConfig`.  The JAX
 config describes a device mesh; this slice of the port runs on one card,
 so only the fields that still mean something carry over (`dtype`,
-`max_tasks_per_batch`, `bf16_matmul`) and `device` is new.
+`max_tasks_per_batch`, `bf16_matmul`, `data_mode`) and `device` is new.
 
 Entry points run on `cuda` unless the caller asks for the CPU with
 `TorchConfig(device="cpu")`.  With no card and no explicit CPU request
@@ -32,13 +32,21 @@ class TorchConfig:
       chunk; bounds device memory for big grids.
     - `bf16_matmul`: LogisticRegression's fit GEMMs (K1, K3) take bf16
       operands with float32 output, as the reference's do
-      (`models/linear.py:201-297`); other families ignore it.
+      (`models/linear.py:201-297`); other families ignore it, and so
+      does a sparse X.
+    - `data_mode`: the data tier (`search/stream.py`): ``None`` (the
+      ``SST_DATA_MODE`` environment variable, else ``"device"``),
+      ``"device"`` (a sparse X is densified once on the host) or
+      ``"sparse"`` (a scipy-sparse X stays sparse on the device, for
+      LogisticRegression and the discrete naive Bayes families);
+      ``"stream"`` is not ported: a search raises on it.
     """
 
     device: Optional[str] = None
     dtype: Any = None
     max_tasks_per_batch: int = 8192
     bf16_matmul: bool = False
+    data_mode: Optional[str] = None
 
     def check_supported(self) -> None:
         """Raise on any knob this slice does not implement (never ignore

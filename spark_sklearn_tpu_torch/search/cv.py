@@ -235,14 +235,15 @@ class KFold:
         return self.n_splits
 
     def _test_folds(self, X, y) -> np.ndarray:
-        n = len(X)
+        n = _num_samples(X)
         sizes = np.full(self.n_splits, n // self.n_splits, dtype=int)
         sizes[: n % self.n_splits] += 1
         return np.repeat(np.arange(self.n_splits), sizes)
 
     def split(self, X, y=None, groups=None
               ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        n = len(X)
+        # X.shape[0] where X has a shape: a scipy-sparse X has no len
+        n = _num_samples(X)
         if self.n_splits > n:
             raise ValueError(
                 f"Cannot have number of splits n_splits={self.n_splits} "

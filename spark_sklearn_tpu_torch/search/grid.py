@@ -54,6 +54,15 @@ delegated `predict`, `predict_proba`, `predict_log_proba`,
 `inverse_transform` (:4491-4590), each an AttributeError where the refit
 estimator lacks it.
 
+**Sparse X** (the reference's `grid.py:570-576`, `:967-982`,
+`:1220-1245`).  A `CSRMatrix` or any scipy-sparse X becomes scipy CSR;
+the splitters count its rows by its shape and the host tier gets it as
+it is.  The device tier densifies it once on the host, or, under
+`TorchConfig(data_mode="sparse")`, keeps it sparse for a family that
+sets `supports_sparse` (LogisticRegression and the discrete naive
+Bayes): `prepare_data_sparse` stages it and the device holds the CSRs of
+X and Xᵀ (`sparse/csr.py`), which the families multiply through SP1.
+
 Not ported: the reference's speed knobs (sorted chunking, the pipelined
 executor, the chunk scan, fused fit+score), its search report and its
 callbacks.
@@ -89,6 +98,13 @@ from spark_sklearn_tpu_torch.search.scorers import (
     SearchScorer,
     check_scoring_target,
     resolve_scoring,
+)
+from spark_sklearn_tpu_torch.search.stream import resolve_data_mode
+from spark_sklearn_tpu_torch.sparse.csr import (
+    as_scipy_csr,
+    densify,
+    issparse,
+    to_device,
 )
 
 _NO_FITS = ("No fits were performed. Was the CV iterator empty? Were "
@@ -152,9 +168,9 @@ def _compact_for_rung(X, y, splits, fit_weight, score_weight,
     fold of `splits` uses, the splits remapped onto them (the reference's
     `_compact_for_rung`, grid.py:654-690).  A halving rung fits only its
     subsample; every kept row keeps its value, so each fold computes on
-    the same rows.  None where nothing drops out, or where a
-    classifier's subsample lost a class (the fitted class structure must
-    be the full data's)."""
+    the same rows (a scipy CSR X is cut by its rows, and stays CSR).  None
+    where nothing drops out, or where a classifier's subsample lost a
+    class (the fitted class structure must be the full data's)."""
     used = np.unique(np.concatenate(
         [np.concatenate([np.asarray(tr), np.asarray(te)])
          for tr, te in splits]))
@@ -319,7 +335,20 @@ class _Evaluation:
     def _prepare_device(self) -> None:
         s, family = self.search, self.family
         self.device = resolve_device(self.config)
-        self.Xd = np.asarray(self.X_arr)
+        # the data tier (search/stream.py; the reference's grid.py:
+        # 1220-1245): under "sparse" a scipy-sparse X stays sparse, for a
+        # family that takes it; otherwise it is densified here, once
+        if issparse(self.X_arr) and \
+                resolve_data_mode(self.config) == "sparse":
+            if not getattr(family, "supports_sparse", False):
+                raise ValueError(
+                    "data_mode='sparse' requires a family with sparse "
+                    f"fit/predict programs; {family.name} has none.  Use "
+                    "data_mode='device' (densified upload) or "
+                    "backend='host'.")
+            self.Xd = self.X_arr
+        else:
+            self.Xd = densify(self.X_arr)
         scorers, single = resolve_scoring(s.scoring, family)
         self.scorers = scorers
         names = list(scorers)
@@ -341,6 +370,8 @@ class _Evaluation:
                 self.score_weight = sw
         default = getattr(family, "default_scorer", None) or (
             "accuracy" if family.is_classifier else "r2")
+        # sklearn's clip follows X's own dtype, which the densified (or
+        # sparse) Xd keeps
         eps = _logloss_clip_eps(family, self.Xd.dtype)
         self.scorer_attr = (
             SearchScorer(s.scoring if isinstance(s.scoring, str)
@@ -514,8 +545,13 @@ class _BaseSearch:
                 "or pass sklearn's estimator (refit runs it on the host)")
         config = self.config or TorchConfig()
         config.check_supported()
+        resolve_data_mode(config)           # refuses "stream" up front
         family = None if self.backend == "host" else \
             resolve_family(self.estimator)
+        # a CSRMatrix becomes scipy CSR, and so do COO, DOK and the other
+        # scipy formats (rows a fold's indices can cut), as the reference
+        # converts them (grid.py:570-576); the host tier gets this X
+        X = as_scipy_csr(X)
         X_arr = X if hasattr(X, "shape") else np.asarray(X)
         y_arr = None if y is None else np.asarray(y)
         cv = check_cv(self.cv, y_arr,
@@ -720,7 +756,10 @@ class _BaseSearch:
         use_f64 = bool(getattr(family, "wants_float64", False)) and \
             config.dtype is None
         dtype = np.float64 if use_f64 else np.float32
-        data_np, meta = family.prepare_data(X, y, dtype=dtype)
+        # a scipy-sparse X reaches here only under data_mode="sparse"
+        prepare = (family.prepare_data_sparse if issparse(X)
+                   else family.prepare_data)
+        data_np, meta = prepare(X, y, dtype=dtype)
         if self.scoring is not None and "y" not in data_np:
             # the reference's refusal (grid.py:1252-1258)
             raise ValueError(
@@ -737,8 +776,7 @@ class _BaseSearch:
         # records it (grid.py:1289-1293)
         meta["min_fold_train_count"] = int(
             np.sum(train_masks > 0, axis=1).min())
-        data = {k: torch.as_tensor(v, device=device)
-                for k, v in data_np.items()}
+        data = {k: to_device(v, device) for k, v in data_np.items()}
 
         def weighted(masks, weight, what):
             if weight is None:

@@ -50,6 +50,7 @@ from spark_sklearn_tpu_torch.search.cv import (
     check_cv,
 )
 from spark_sklearn_tpu_torch.search.grid import _BaseSearch, _is_classifier
+from spark_sklearn_tpu_torch.sparse.csr import as_scipy_csr
 
 __all__ = ["HalvingGridSearchCV", "HalvingRandomSearchCV"]
 
@@ -173,6 +174,7 @@ class BaseSuccessiveHalving(_BaseSearch):
             raise ValueError(
                 "Multimetric scoring is not supported for successive "
                 "halving; pass a single scorer name or callable.")
+        X = as_scipy_csr(X)      # a CSRMatrix, COO, DOK, ...: scipy CSR
         family = None if self.backend == "host" else \
             resolve_family(self.estimator)
         self._classifier = _is_classifier(self.estimator, family)

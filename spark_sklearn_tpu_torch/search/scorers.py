@@ -35,6 +35,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_sklearn_tpu_torch.search.cv import _num_samples
+
 EPS = 1e-12
 
 
@@ -312,8 +314,7 @@ class SearchScorer:
         if self.name == "score" and hasattr(estimator, "score"):
             return estimator.score(X, y, **kw)
         scorer = SCORERS[self.default if self.name == "score" else self.name]
-        X = np.asarray(X)
-        n = X.shape[0]
+        n = _num_samples(X)           # X may be scipy-sparse
         w = torch.as_tensor(np.ones(n) if sample_weight is None else
                             np.asarray(sample_weight, np.float64),
                             dtype=torch.float64)[None, :]

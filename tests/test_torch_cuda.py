@@ -6,7 +6,8 @@ scorers, SVC and NuSVC, the tree ensembles, the MLP and Pipeline
 searches, the naive Bayes, LDA, KNN and KMeans searches with N1, C1 and
 B1, and the rest of the SVMs: P1 and P2 of probability=True, S2's SVR
 mode, and the SVC/NuSVC probability, SVR, NuSVR, LinearSVC and LinearSVR
-searches).  They skip where no card is visible.
+searches; SP1, the sparse X's products, and the searches under
+data_mode="sparse").  They skip where no card is visible.
 
 This file imports neither JAX nor sklearn, so it also runs on a machine
 that has only PyTorch:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -23,6 +24,7 @@ from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
 from spark_sklearn_tpu_torch.ops import knn_kernels as knk
 from spark_sklearn_tpu_torch.ops import mlp_kernels as mk
 from spark_sklearn_tpu_torch.ops import nb_kernels as nbk
+from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
 from spark_sklearn_tpu_torch.ops import svm_kernels as svk
 from spark_sklearn_tpu_torch.ops import svm_proba_kernels as pk
 from spark_sklearn_tpu_torch.ops import tree_kernels as tk
@@ -1893,3 +1895,112 @@ def test_bf16_search_on_cuda_matches_cpu(cuda_device, k):
     assert runs["cuda", True].best_params_ == runs["cpu", True].best_params_
     np.testing.assert_allclose(
         got, runs["cuda", False].cv_results_["mean_test_score"], atol=0.015)
+
+
+def _csr_inputs(m, K, W, density, seed=0, full_row=False, device="cuda"):
+    """A random CSR (m, K) with an empty row and an empty column (and a
+    row holding every other column), and D (K, W), on `device`."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    A = sp.random(m, K, density=density, format="lil", random_state=rng,
+                  dtype=np.float32)
+    A[min(1, m - 1), :] = 0
+    A[:, min(2, K - 1)] = 0
+    if full_row:
+        A[m - 1, :] = rng.normal(size=K)
+        A[m - 1, min(2, K - 1)] = 0
+    A = A.tocsr().astype(np.float32)
+    A.eliminate_zeros()
+    A.sort_indices()
+    D = rng.normal(size=(K, W)).astype(np.float32)
+    return [torch.as_tensor(a, device=device) for a in (
+        A.indptr.astype(np.int32), A.indices.astype(np.int32), A.data,
+        D)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,K,W,density,full_row", [
+    (60, 45, 1, 0.1, False), (60, 45, 3, 0.1, True), (60, 45, 37, 0.1, True),
+    (300, 2000, 1000, 0.01, True), (500, 300, 1025, 0.05, False),
+    (1, 7, 5, 0.5, False), (2000, 9000, 100, 0.002, True)])
+def test_csr_spmm_matches_plain_on_the_cpu(cuda_device, m, K, W, density,
+                                           full_row):
+    """SP1 sums each row in ascending nonzero order, each product rounded
+    then added: equal to its plain version on CPU copies, bit for bit,
+    and bitwise repeatable; one launch counted a call."""
+    indptr, indices, values, D = _csr_inputs(m, K, W, density, m + W,
+                                             full_row)
+    n0 = spk.LAUNCHES["csr_spmm"]
+    got = spk.csr_spmm(indptr, indices, values, D, K)
+    again = spk.csr_spmm(indptr, indices, values, D, K)
+    torch.cuda.synchronize()
+    assert spk.LAUNCHES["csr_spmm"] == n0 + 2
+    want = spk.csr_spmm_plain(indptr.cpu(), indices.cpu(), values.cpu(),
+                              D.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+    if m > 1:
+        assert not bool(got[1].any())          # the empty row
+
+
+@pytest.mark.cuda
+def test_csr_spmm_replays_in_a_graph_and_raises(cuda_device):
+    indptr, indices, values, D = _csr_inputs(200, 300, 64, 0.05, 1)
+    want = spk.csr_spmm(indptr, indices, values, D, 300)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        spk.csr_spmm(indptr, indices, values, D, 300)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = spk.csr_spmm(indptr, indices, values, D, 300)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    with pytest.raises(TypeError):
+        spk.csr_spmm(indptr.long(), indices, values, D, 300)
+    with pytest.raises(ValueError):
+        spk.csr_spmm(indptr, indices, values, D[:, ::2], 300)
+    with pytest.raises(ValueError):
+        spk.csr_spmm(indptr, indices, values, D, 299)
+    with pytest.raises(ValueError):
+        spk.csr_spmm(indptr.cpu(), indices, values, D, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["LogisticRegression", "MultinomialNB",
+                                  "ComplementNB", "BernoulliNB"])
+def test_sparse_search_on_cuda_matches_cpu(cuda_device, name):
+    """data_mode="sparse": the search on the card through SP1 against the
+    CPU's plain version (LogisticRegression atol 5e-3, the discrete NBs
+    1e-6) and against the card's densified run; SP1 launched."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(3)
+    n, d, k = 300, 400, 4
+    y = rng.integers(0, k, n)
+    X = sp.random(n, d, density=0.03, format="csr", random_state=rng)
+    X.data = np.ceil(X.data * 4.0)
+    X = (X + sp.csr_matrix((np.full(n, 3.0), (np.arange(n), y * 5)),
+                           shape=(n, d))).tocsr()
+    grid = ({"C": [0.1, 1.0, 10.0]} if name == "LogisticRegression"
+            else {"alpha": [0.1, 1.0]})
+    tol = 5e-3 if name == "LogisticRegression" else 1e-6
+    runs = {}
+    for dev, mode in (("cuda", "sparse"), ("cpu", "sparse"),
+                      ("cuda", "device")):
+        n0 = spk.LAUNCHES["csr_spmm"]
+        runs[dev, mode] = port.GridSearchCV(
+            getattr(port, name)(), grid, cv=3, refit=True,
+            config=port.TorchConfig(device=dev, data_mode=mode)).fit(X, y)
+        if (dev, mode) == ("cuda", "sparse"):
+            assert spk.LAUNCHES["csr_spmm"] > n0
+    got = runs["cuda", "sparse"].cv_results_["mean_test_score"]
+    for key in (("cpu", "sparse"), ("cuda", "device")):
+        np.testing.assert_allclose(
+            got, runs[key].cv_results_["mean_test_score"], atol=tol)
+    # the refits: the same predictions but where a row sits on a
+    # decision boundary within float noise
+    agree = np.mean(runs["cuda", "sparse"].predict(X)
+                    == runs["cpu", "sparse"].predict(X))
+    assert agree >= 0.99
