@@ -14,7 +14,8 @@ mean_test_score|; then the SVM searches' busy time (phase 8's SVC,
 phase 13's profiled searches); then phase 3's kernel rows (ms between
 events, each kernel by shape and variant) with the change's mean over
 the parent's;
-then G, T2, S2 (and its SVR mode), T3, M1, M2, M3, S1, N1, C1, B1 and P1
+then SP1 (at phase 16's four shapes, warm and with L2 flushed), G, T2,
+S2 (and its SVR mode), T3, M1, M2, M3, S1, N1, C1, B1 and P1
 alone and `grow_tree` at
 the tree searches' chunks (`ALONE_ROWS`, again parent, change, change,
 parent): each
@@ -24,6 +25,10 @@ have the same bits in the four runs, and how many of C1's assignments
 and of B1's argmax classes differ between the trees.
 
     python3 chip_pairs.py --parent .scratch/parent --change .
+    python3 chip_pairs.py --parent .scratch/parent --change . --sp1-alone
+
+With `--sp1-alone` it runs SP1's rows alone (parent, change, change,
+parent), no `chip_smoke.py`.
 
 It exits non-zero if a run fails.  A phase that only the change has is
 printed with the change's runs alone.
@@ -104,7 +109,8 @@ def kernel_rows(d: dict) -> dict:
         subs += [(v, k[v]) for v in ("nu", "nu_pairs", "poly",
                                      "svc_pipeline", "rbf_predict",
                                      "shared", "global", "svr_c8", "nu_c8",
-                                     "staged_full")
+                                     "staged_full", "lr_backward",
+                                     "nb_class_sums", "nb_jll")
                  if isinstance(k.get(v), dict)]
         for sub, r in subs:
             if isinstance(r, dict) and "ms" in r:
@@ -232,6 +238,29 @@ def tree_of(res):
 
 
 rows = {}
+# SP1 at phase 16's four shapes, by each tree's own launch (the change's
+# work plan, built once an operand; the parent builds none)
+from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
+_, ops = cs.sparse_operands(0)
+for variant in cs.SPARSE_MAIN:
+    which, over, W = cs.SPARSE_SHAPES[variant]
+    op = ops[which]
+    n, d = op.shape
+    A, K = (((op.t_indptr, op.t_indices, op.t_values), n) if over
+            else ((op.indptr, op.indices, op.values), d))
+    D = cs.sp1_operand(K, W, variant)
+    kw = {}
+    if "plan" in inspect.signature(spk.csr_spmm).parameters:
+        kw["plan"] = spk.SpmmPlan(A[0])
+    fn = lambda: spk.csr_spmm(*A, D, K, **kw)
+    rows[f"csr_spmm {variant}"] = {
+        "ms": cs.graph_ms(fn, reps=10), "flushed_ms": cs.flushed_ms(fn),
+        "host_us": host_us(fn), "bits": digest([fn()])}
+del ops, A, D
+torch.cuda.empty_cache()
+if sys.argv[3:] == ["sp1"]:
+    print(json.dumps(rows))
+    sys.exit(0)
 for label, codes_np, L, depth, kind in (
         ("rf", quantile_bin(cs.covtype_like(0)[0])[1], 6, 10, "forest"),
         ("gb", quantile_bin(cs.california_like(0)[0])[1], 60, 5,
@@ -455,18 +484,60 @@ print(json.dumps(rows))
 """
 
 
-def alone_rows(tree: str, change: str, out: str) -> dict:
+def alone_rows(tree: str, change: str, out: str, sp1: bool = False
+               ) -> dict:
     """{row: {ms, host_us, bits}} of ALONE_ROWS run in `tree`'s
-    directory on the inputs of `change`'s chip_smoke.py; C1's
-    assignments saved under `out`."""
+    directory on the inputs of `change`'s chip_smoke.py (with `sp1`, its
+    SP1 rows alone); C1's assignments saved under `out`."""
     os.makedirs(out, exist_ok=True)
     proc = subprocess.run([sys.executable, "-c", ALONE_ROWS,
-                           os.path.abspath(change), os.path.abspath(out)],
+                           os.path.abspath(change), os.path.abspath(out)]
+                          + (["sp1"] if sp1 else []),
                           cwd=tree, capture_output=True, text=True)
     if proc.returncode != 0:
         print(proc.stderr[-4000:], file=sys.stderr)
         raise SystemExit(f"the kernels-alone timing failed in {tree}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def print_alone(alone: dict, rows, keys) -> None:
+    """The kernels-alone table: each row's `keys` for the four runs and
+    the change's mean over the parent's."""
+    for key, title, fmt in keys:
+        print(f"\n{title:40s} {'parent 1':>9s} {'change 1':>9s} "
+              f"{'change 2':>9s} {'parent 2':>9s} {'change/parent':>14s}")
+        for r in rows:
+            par = [a[r][key] for a in alone["parent"]]
+            chg = [a[r][key] for a in alone["change"]]
+            print(f"{r:40s} " + " ".join(f"{c:{fmt}}" for c in
+                                         (par[0], chg[0], chg[1], par[1]))
+                  + f" {sum(chg) / sum(par):14.3f}")
+
+
+def print_bits(alone: dict) -> None:
+    print(f"\n{'outputs, change against parent':40s} bits")
+    for r in alone["change"][0]:
+        runs = {a[r]["bits"] for a in alone["change"] + alone["parent"]}
+        same_change = len({a[r]["bits"] for a in alone["change"]}) == 1
+        print(f"{r:40s} " + ("equal" if len(runs) == 1 else
+                             "differ" if same_change else
+                             "the change's two runs differ"))
+
+
+def sp1_alone(order, change: str) -> int:
+    """SP1's kernels-alone rows only, parent, change, change, parent."""
+    alone = {"parent": [], "change": []}
+    for i, (label, tree) in enumerate(order, 1):
+        alone[label].append(alone_rows(
+            tree, change, os.path.join(OUT, f"alone{i}_{label}"), sp1=True))
+    print_alone(alone, list(alone["change"][0]),
+                (("ms", "SP1 alone (ms, CUDA graph, L2 warm)", "9.4f"),
+                 ("flushed_ms", "SP1 alone (ms, L2 flushed)", "9.4f"),
+                 ("host_us", "host time a call (us)", "9.1f")))
+    print_bits(alone)
+    with open(os.path.join(OUT, "sp1_alone.json"), "w") as f:
+        json.dump(alone, f, indent=1)
+    return 0
 
 
 def run(tree: str, label: str, i: int) -> dict:
@@ -495,10 +566,14 @@ def main() -> int:
                     help="directory of the parent's tree")
     ap.add_argument("--change", default=".",
                     help="directory of the change's tree")
+    ap.add_argument("--sp1-alone", action="store_true",
+                    help="SP1's rows alone, without the chip_smoke.py runs")
     args = ap.parse_args()
     os.makedirs(OUT, exist_ok=True)
     order = [("parent", args.parent), ("change", args.change),
              ("change", args.change), ("parent", args.parent)]
+    if args.sp1_alone:
+        return sp1_alone(order, args.change)
     walls = {"parent": [], "change": []}
     trees = {"parent": [], "change": []}
     kernels = {"parent": [], "change": []}
@@ -562,30 +637,21 @@ def main() -> int:
             keep[label].append(np.load(os.path.join(out, name)))
             os.remove(os.path.join(out, name))
     grow = [r for r in alone["change"][0] if r.startswith("grow_tree")]
-    for key, title, fmt in (("ms", "kernels alone (ms, CUDA graph; "
-                             "grow_tree events)", "9.4f"),
-                            ("host_us", "host time a call (us)", "9.1f"),
-                            ("launches_per_level", "grow_tree: device "
-                             "launches a level", "9.2f"),
-                            ("host_us_per_level", "grow_tree: host us a "
-                             "level", "9.1f"),
-                            ("device_us_per_level", "grow_tree: device us "
-                             "a level", "9.1f")):
-        print(f"\n{title:40s} {'parent 1':>9s} {'change 1':>9s} "
-              f"{'change 2':>9s} {'parent 2':>9s} {'change/parent':>14s}")
-        for r in (grow if key.endswith("_level") else alone["change"][0]):
-            par = [a[r][key] for a in alone["parent"]]
-            chg = [a[r][key] for a in alone["change"]]
-            print(f"{r:40s} " + " ".join(f"{c:{fmt}}" for c in
-                                         (par[0], chg[0], chg[1], par[1]))
-                  + f" {sum(chg) / sum(par):14.3f}")
-    print(f"\n{'outputs, change against parent':40s} bits")
-    for r in alone["change"][0]:
-        runs = {a[r]["bits"] for a in alone["change"] + alone["parent"]}
-        same_change = len({a[r]["bits"] for a in alone["change"]}) == 1
-        print(f"{r:40s} " + ("equal" if len(runs) == 1 else
-                             "differ" if same_change else
-                             "the change's two runs differ"))
+    print_alone(alone, list(alone["change"][0]),
+                (("ms", "kernels alone (ms, CUDA graph; grow_tree events)",
+                  "9.4f"),
+                 ("host_us", "host time a call (us)", "9.1f")))
+    sp1 = [r for r in alone["change"][0] if r.startswith("csr_spmm")]
+    print_alone(alone, sp1, (("flushed_ms", "SP1 alone (ms, L2 flushed)",
+                              "9.4f"),))
+    print_alone(alone, grow,
+                (("launches_per_level", "grow_tree: device launches a "
+                  "level", "9.2f"),
+                 ("host_us_per_level", "grow_tree: host us a level",
+                  "9.1f"),
+                 ("device_us_per_level", "grow_tree: device us a level",
+                  "9.1f")))
+    print_bits(alone)
     a_par, a_chg = assigns["parent"][0], assigns["change"][0]
     print(f"\nC1's assignments at the Lloyd step, change against parent: "
           f"{int((a_par != a_chg).sum())} of {a_par.size} differ (the "

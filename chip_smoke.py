@@ -190,12 +190,14 @@ same kernel's 50-step run, timed beside it), P2 (the coupling of its 45
 tasks x 10000 rows under every plan that serves k = 10, and of
 decisions made from --seed at k = 26 and k = 50 over the same
 450000 problems), SP1 (`csr_spmm`, the sparse X's products, at phase
-16's shapes: (a)'s forward X Wᵀ and backward Gᵀ X at W = 1000, (b)'s
-class sums at W = 100 and joint log-likelihoods at W = 500; within the
-float32 bound of two summation orders of its plain version on the card,
-equal to it on integer inputs of the same structure and to the CPU's
-plain version on 2000 rows; beside `torch.sparse.mm`, with the
-operand's transpose copies at (a)'s shape) and S2's SVR mode
+16's shapes: (a)'s forward X Wᵀ and backward Xᵀ G at W = 1000, (b)'s
+class sums at W = 100 and joint log-likelihoods at W = 500, the
+backward at W = 97 and Xᵀ's heaviest row alone; within the float32
+bound of two summation orders of its plain version on the card, equal
+to it on integer inputs of the same structure and to the CPU's plain
+version on 2000 rows; its work plan; timed warm and with L2 flushed,
+beside `torch.sparse.mm`, with the copies the sparse path no longer
+makes and those that remain) and S2's SVR mode
 (epsilon-SVR and nu-SVR steps at the SVR searches' 5 folds of 20640
 pairs: a thread-block cluster a row as the plan picks it for the card,
 beside clusters of 8 CTAs, with how many clusters the card holds at once
@@ -3949,54 +3951,119 @@ def csr_row_slice(indptr, indices, values, r0: int, r1: int):
             values[lo:hi])
 
 
+def flushed_ms(fn, reps: int = 10) -> float:
+    """Mean device time of `fn()` with L2 cold: before each launch a 256
+    MB buffer is written (5x the H100's 50 MB L2) behind a sleep that
+    keeps the card busy while the host enqueues the launch, which is then
+    timed alone between CUDA events."""
+    import torch
+    buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        buf.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    del buf
+    return total / reps
+
+
+def sparse_operands(seed: int):
+    """Phase 16's X (the 20-newsgroups-shaped counts) and its device
+    operands: "lr" (rows at unit l2 norm) and "nb" (the counts), each the
+    CSRs of X and Xᵀ with SP1's plans."""
+    from spark_sklearn_tpu_torch.sparse.csr import SparseOperand
+    X, _ = newsgroups_like(seed)
+    return X, {"lr": SparseOperand.from_csr(l2_rows(X)).to_device("cuda"),
+               "nb": SparseOperand.from_csr(X).to_device("cuda")}
+
+
+#: SP1's rows in phase 3: variant -> (operand, over Xᵀ's CSR, W).  (a)'s
+#: forward X Wᵀ and backward Xᵀ G at 50 lanes x 20 classes, (b)'s class
+#: sums at 5 folds x 20 classes and joint log-likelihoods at 25 lanes x
+#: 20 classes; the backward at W = 97 (the scalar lanes); and Xᵀ's
+#: heaviest row alone at W = 1000 and 100 (`heavy_row`).
+SPARSE_SHAPES = {"lr_forward": ("lr", False, len(SPARSE_C) * N_FOLDS * NG_K),
+                 "lr_backward": ("lr", True, len(SPARSE_C) * N_FOLDS * NG_K),
+                 "nb_class_sums": ("nb", True, N_FOLDS * NG_K),
+                 "nb_jll": ("nb", False,
+                            len(SPARSE_ALPHAS) * N_FOLDS * NG_K),
+                 "lr_backward_w97": ("lr", True, 97),
+                 "heavy_row_w1000": ("lr", "heavy", 1000),
+                 "heavy_row_w100": ("nb", "heavy", N_FOLDS * NG_K)}
+SPARSE_MAIN = ("lr_forward", "lr_backward", "nb_class_sums", "nb_jll")
+
+
+def sparse_case(ops, variant):
+    """(A's three tensors, its SpmmPlan, K, W) of an SPARSE_SHAPES row."""
+    from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
+    which, over, W = SPARSE_SHAPES[variant]
+    op = ops[which]
+    n, d = op.shape
+    if over is False:
+        return (op.indptr, op.indices, op.values), op.plan, d, W
+    A = (op.t_indptr, op.t_indices, op.t_values)
+    if over == "heavy":
+        r = int((A[0][1:] - A[0][:-1]).argmax())
+        A = csr_row_slice(*A, r, r + 1)
+        return A, spk.SpmmPlan(A[0]), n, W
+    return A, op.t_plan, n, W
+
+
+def sp1_operand(K: int, W: int, variant: str):
+    """D (K, W) for an SPARSE_SHAPES row outside phase 3 (chip_sweep.py,
+    chip_pairs.py): normal draws from a generator seeded by the variant's
+    name, the same in every tree and run."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(
+        sum(map(ord, variant)))
+    return torch.randn((K, W), generator=g, device="cuda")
+
+
 def phase_sparse_kernels(seed: int, ptxas: dict):
-    """SP1 against its plain version at phase 16's shapes: (a)'s forward
-    X Wᵀ (X's CSR, D (130107, 1000)) and backward Gᵀ X (Xᵀ's CSR, D
-    (11314, 1000)), (b)'s class sums (Xᵀ's CSR of the counts, W = 5 folds
-    x 20 classes) and joint log-likelihoods (X's CSR, W = 25 lanes x 20
-    classes).  Each: within the float32 bound of two summation orders of
-    the plain version on the card (2 nnz_r 2^-24 (|A| |D|)), equal to it
-    on integer inputs of the same structure (exact sums), equal to the
-    plain version on CPU copies of its heaviest 2000 rows, and bitwise
-    repeatable; timed in a CUDA graph and between events, beside the
-    plain version, `torch.sparse.mm` (cuSPARSE) and its bound; and the
-    operand's transpose copies at (a)'s shape.  Returns ({variant: row},
+    """SP1 against its plain version at phase 16's shapes and beside them
+    (SPARSE_SHAPES).  Each: within the float32 bound of two summation
+    orders of the plain version on the card (2 nnz_r 2^-24 (|A| |D|)),
+    equal to it on integer inputs of the same structure (exact sums),
+    equal to the plain version on CPU copies of 2000 rows (the heaviest
+    of Xᵀ) and bitwise repeatable; its launch (items, the longest
+    segment, slice width, heavy segments); timed in a CUDA graph (L2 warm
+    from the last launch), with L2 flushed before each launch, and
+    between events, beside the plain version, `torch.sparse.mm`
+    (cuSPARSE, warm and flushed) and its bound.  Then the copies: those
+    the sparse LogisticRegression's iterations made around SP1 before its
+    state was feature-major (timed for the record, at (a)'s shape) and
+    those that remain, once a chunk's scoring.  Returns ({variant: row},
     the copies' times)."""
     import torch
 
     from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
-    from spark_sklearn_tpu_torch.sparse.csr import SparseOperand
 
-    X, _ = newsgroups_like(seed)
+    X, ops = sparse_operands(seed)
     n, d = X.shape
     lanes = len(SPARSE_C) * N_FOLDS
     nb_lanes = len(SPARSE_ALPHAS) * N_FOLDS
-    ops = {"lr": SparseOperand.from_csr(l2_rows(X)).to_device("cuda"),
-           "nb": SparseOperand.from_csr(X).to_device("cuda")}
     print(f"  20-newsgroups-shaped X: {n} x {d}, nnz {X.nnz} "
           f"({X.nnz / n:.1f} a row; dense float32 would be "
           f"{4 * n * d / 1e9:.2f} GB, the two CSRs "
           f"{ops['lr'].nbytes / 1e6:.1f} MB)")
-    shapes = {"lr_forward": ("lr", False, lanes * NG_K),
-              "lr_backward": ("lr", True, lanes * NG_K),
-              "nb_class_sums": ("nb", True, N_FOLDS * NG_K),
-              "nb_jll": ("nb", False, nb_lanes * NG_K)}
     regs, spill = slice_symbol(ptxas, "csr_spmm_kernel")
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = {}
-    for variant, (which, transposed, W) in shapes.items():
-        op = ops[which]
-        if transposed:
-            A = (op.t_indptr, op.t_indices, op.t_values)
-            m, K = d, n
-        else:
-            A = (op.indptr, op.indices, op.values)
-            m, K = n, d
+    for variant, (which, over, W) in SPARSE_SHAPES.items():
+        A, plan, K, W = sparse_case(ops, variant)
+        m = int(A[0].numel()) - 1
         nnz = int(A[2].numel())
         D = torch.randn((K, W), generator=g, device="cuda")
 
-        def fn(A=A, D=D, K=K):
-            return spk.csr_spmm(*A, D, K)
+        def fn(A=A, D=D, K=K, plan=plan):
+            return spk.csr_spmm(*A, D, K, plan=plan)
 
         got, again = fn(), fn()
         want = spk.csr_spmm_plain(*A, D)
@@ -4020,14 +4087,14 @@ def phase_sparse_kernels(seed: int, ptxas: dict):
               else A[2])
         Di = torch.randint(-3, 4, (K, W), generator=g, device="cuda",
                            dtype=torch.int32).float()
-        if not torch.equal(spk.csr_spmm(*Ai, Di, K),
+        if not torch.equal(spk.csr_spmm(*Ai, Di, K, plan=plan),
                            spk.csr_spmm_plain(*Ai, Di)):
             raise AssertionError(f"csr_spmm ({variant}): integer inputs "
                                  "differ from the plain version")
         del Ai, Di
         # the plain version on CPU copies sums in the kernel's order
         heavy = torch.argsort(row_nnz[:, 0], descending=True)[:2000]
-        r0 = int(heavy.min()) if transposed else 0
+        r0 = int(heavy.min()) if over else 0
         r1 = min(m, r0 + 2000)
         sub = csr_row_slice(*A, r0, r1)
         cpu = spk.csr_spmm_plain(*(t.cpu() for t in sub), D.cpu())
@@ -4042,44 +4109,75 @@ def phase_sparse_kernels(seed: int, ptxas: dict):
         bnd, by = bound(spk.spmm_bytes(m, nnz, K, W), spk.spmm_ops(nnz, W))
         gathered = spk.spmm_gathered_bytes(nnz, W)
         ms = graph_ms(fn, reps=10)
+        cold = flushed_ms(fn)
         events = cuda_ms(fn, reps=5)
-        plain_ms = cuda_ms(lambda: spk.csr_spmm_plain(*A, D), reps=1,
-                           warmup=0)
+        plain_ms = (cuda_ms(lambda: spk.csr_spmm_plain(*A, D), reps=1,
+                            warmup=0) if variant in SPARSE_MAIN else None)
         lib_ms = cuda_ms(lambda: torch.sparse.mm(Asp, D), reps=5)
-        plan = spk.spmm_plan(m, W)
+        lib_cold = flushed_ms(lambda: torch.sparse.mm(Asp, D))
+        launch = spk.launch_for(plan, D, None)
         rows[variant] = {
-            "ms": ms, "events_ms": events, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
-            "gathered_bytes": gathered,
+            "ms": ms, "flushed_ms": cold, "events_ms": events,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_flushed_ms": lib_cold, "bound_ms": bnd,
+            "bound_by": by, "gathered_bytes": gathered,
             "gathered_ms": gathered / HBM_BYTES_PER_S * 1e3,
             "max_abs_err": max_err, "max_err_over_scale": rel,
             "library_max_abs_diff": lib_err, "registers": regs,
-            "spill_bytes": spill, "plan": plan,
+            "spill_bytes": spill, "plan": launch,
             "shape": {"m": m, "K": K, "W": W, "nnz": nnz}}
-        print(f"  csr_spmm {variant:13s} m={m} K={K} W={W} nnz={nnz}: "
-              f"{ms:.4f} ms in a graph, {events:.4f} ms between events "
-              f"(plain {plain_ms:.4f}, torch.sparse.mm {lib_ms:.4f} ms; "
+        plain_txt = "-" if plain_ms is None else f"{plain_ms:.4f}"
+        print(f"  csr_spmm {variant:15s} m={m} K={K} W={W} nnz={nnz}: "
+              f"{ms:.4f} ms in a graph, {cold:.4f} ms L2 flushed, "
+              f"{events:.4f} ms between events (plain {plain_txt}, "
+              f"torch.sparse.mm {lib_ms:.4f} ms, flushed {lib_cold:.4f}; "
               f"bound {bnd:.5f} ms by {by}, bound/time {bnd / ms:.4f}; "
               f"gathered {gathered / 1e9:.2f} GB = "
               f"{gathered / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s), max "
-              f"abs err {max_err:.3g} ({rel:.3g} of |A||D|), plan {plan}, "
-              f"{regs} registers, {spill} bytes spilled; bitwise repeatable, "
-              "integer inputs and the CPU's rows equal")
+              f"abs err {max_err:.3g} ({rel:.3g} of |A||D|); plan: "
+              f"{launch['units']} items, longest segment "
+              f"{launch['longest']} nonzeros, slice {launch['slice']} "
+              f"columns ({launch['order']}), {launch['n_heavy']} heavy "
+              f"segments past {launch['heavy_nnz']}, {launch['blocks']} "
+              f"blocks; {regs} registers, {spill} bytes spilled; bitwise "
+              "repeatable, integer inputs and the CPU's rows equal")
         del D, Asp
-    # the operand's copies at (a)'s shape: Wᵀ made contiguous before the
-    # forward, the backward's (d, W) result made (B, k d) after it
-    Wm = torch.randn((lanes * NG_K, d), generator=g, device="cuda")
-    R = torch.randn((d, lanes * NG_K), generator=g, device="cuda")
-    copies = {"forward_ms": cuda_ms(lambda: Wm.T.contiguous(), reps=5),
-              "backward_ms": cuda_ms(
-                  lambda: R.T.reshape(lanes, NG_K * d), reps=5),
-              "bytes": 2 * 4 * lanes * NG_K * d}
-    copies["bound_ms"] = copies["bytes"] / HBM_BYTES_PER_S * 1e3
-    print(f"  the operand's transpose copies at (a)'s shape ({lanes * NG_K}"
-          f" x {d}): forward {copies['forward_ms']:.4f} ms, backward "
-          f"{copies['backward_ms']:.4f} ms (each {copies['bytes'] / 1e9:.2f}"
-          f" GB moved, {copies['bound_ms']:.4f} ms at 3.35 TB/s)")
-    del Wm, R, ops
+    # the copies: those the sparse LogisticRegression made around SP1 in
+    # every iteration while its state was (B, k d + k) (Wᵀ made
+    # contiguous before the forward, the backward's (d, W) result made
+    # (B, k d) after it, then the intercept's cat), timed for the record;
+    # and those that remain, once a chunk: the scoring views' Wᵀ at (a)
+    # and the joint log-likelihoods' flpᵀ at (b)
+    W_a, W_b = lanes * NG_K, nb_lanes * NG_K
+    Wm = torch.randn((W_a, d), generator=g, device="cuda")
+    R = torch.randn((d, W_a), generator=g, device="cuda")
+    x = torch.randn((lanes, NG_K * d + NG_K), generator=g, device="cuda")
+    gb = torch.randn((lanes, NG_K), generator=g, device="cuda")
+    Wb = torch.randn((W_b, d), generator=g, device="cuda")
+    removed = {
+        "forward_reshape_ms": cuda_ms(
+            lambda: x[:, :NG_K * d].reshape(W_a, d), reps=5),
+        "forward_transpose_ms": cuda_ms(lambda: Wm.T.contiguous(), reps=5),
+        "backward_reshape_ms": cuda_ms(
+            lambda: R.T.reshape(lanes, NG_K * d), reps=5),
+        "backward_cat_ms": cuda_ms(
+            lambda: torch.cat([R.T.reshape(lanes, NG_K * d), gb], dim=1),
+            reps=5) - cuda_ms(lambda: R.T.reshape(lanes, NG_K * d), reps=5)}
+    remaining = {"lr_views_transpose_ms": cuda_ms(lambda: Wm.T.contiguous(),
+                                                  reps=5),
+                 "nb_jll_transpose_ms": cuda_ms(lambda: Wb.T.contiguous(),
+                                                reps=5)}
+    copies = {"removed": removed, "remaining": remaining,
+              "bytes_a": 2 * 4 * W_a * d, "bytes_b": 2 * 4 * W_b * d}
+    copies["bound_a_ms"] = copies["bytes_a"] / HBM_BYTES_PER_S * 1e3
+    print(f"  copies at (a)'s shape ({W_a} x {d}, "
+          f"{copies['bytes_a'] / 1e9:.2f} GB moved each, "
+          f"{copies['bound_a_ms']:.4f} ms at 3.35 TB/s): removed from every "
+          f"L-BFGS iteration "
+          + ", ".join(f"{k} {v:.4f}" for k, v in removed.items())
+          + "; remaining once a chunk's scoring "
+          + ", ".join(f"{k} {v:.4f}" for k, v in remaining.items()))
+    del Wm, R, x, gb, Wb, ops
     torch.cuda.empty_cache()
     return rows, copies
 

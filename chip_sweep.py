@@ -28,11 +28,29 @@
   a sweep that gives back its own p: the share an exact exit could
   serve) and the register plan leaving a problem at such a sweep (timed,
   its bits held to the 100-sweep run's).
+- SP1 (`csr_spmm`) at phase 16's four shapes (`chip_smoke.SPARSE_MAIN`:
+  the sparse LogisticRegression's forward and backward at W = 1000, the
+  naive Bayes class sums at W = 100 and joint log-likelihoods at W =
+  500, on the 20-newsgroups-shaped X from `--seed` 0): each shape's
+  items traced on the card's global timer (span, heavy and light items'
+  times, the last to finish); then other launch choices of this tree's
+  build, set in this process by replacing what `spmm_kernels` picks them
+  with (`sp1_choices`): the light items' order ("rows" or "l2", slice by
+  slice) times the heavy segments (the threshold `heavy_threshold`
+  picks, none, or a fixed count of nonzeros), 64-column light slices
+  (`_vec_ok` 2), the heavy items' slice (16 or 32 columns; where
+  `heavy_columns` picks 32 or 16), other segment costs
+  (`SPMM_SEGMENT_COST`: the item cap); then libraries built with other
+  ring bytes a lane (`kRingBytes`), in parallel.  Each warm (a CUDA
+  graph) and with L2 flushed before each launch, its bits held to the
+  first output at that shape (the parent's, with `--parent`), beside
+  `torch.sparse.mm` warm and flushed.
 - With `--parent DIR`, the same SVR and P1 calls of the parent tree's
   package (run in its directory) on the same inputs, timed alike, with
-  whether P1's outputs keep the parent's bits.
+  whether P1's outputs keep the parent's bits; and SP1 at the same four
+  shapes by the parent's own launch, warm and flushed, with its bits.
 
-    python3 chip_sweep.py [--parent .scratch/parent] [--parts svr,platt,p2]
+    python3 chip_sweep.py [--parent .scratch/parent] [--parts svr,platt,p2,sp1]
 
 Prints one table a part and writes everything to
 `chiprun_out/chip_sweep.json`; the card's name and power limit head the
@@ -43,6 +61,7 @@ its plain version.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -85,6 +104,14 @@ EXIT = """    bool same = true;
     if (same) break;
 """
 COUPLING_KS = (10, 13, 20, 26, 33, 41, 50, 64)
+#: SP1: heavy thresholds (nonzeros; None: `spmm_launch`'s pick, 10**9:
+#: none heavy), segment costs, and ring bytes a lane of the other builds
+SP1_HEAVY = (None, 10 ** 9, 256, 1024, 4096)
+SP1_COSTS = (64, 512, 1024)
+SP1_HEAVY_COLS = (16, 32)
+RING = "constexpr int kRingBytes = 256;"
+SP1_BUILDS = (("ring128", RING.replace("256", "128")),
+              ("ring512", RING.replace("256", "512")))
 OUT = os.path.join("chiprun_out", "chip_sweep.json")
 
 # The parent's calls, run in the parent's directory on this tree's inputs
@@ -110,6 +137,33 @@ for t in (A, B):
     h.update(t.cpu().numpy().tobytes())
 out["platt"] = {"ms": cs.cuda_ms(lambda: pk.platt_fit(dec, y, tw, pairs, False),
                                  reps=5, warmup=1), "bits": h.hexdigest()[:16]}
+print(json.dumps(out))
+"""
+
+
+# SP1 by the parent's package (run in its directory; argv: this tree's
+# directory, the variants): its own launch at each shape, warm, flushed
+# and its bits, on the inputs this tree's chip_smoke.py makes.
+PARENT_SP1 = """
+import hashlib, importlib.util, json, sys
+import torch
+spec = importlib.util.spec_from_file_location("cs", sys.argv[1] + "/chip_smoke.py")
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
+_, ops = cs.sparse_operands(0)
+out = {}
+for variant in sys.argv[2].split(","):
+    which, over, W = cs.SPARSE_SHAPES[variant]
+    op = ops[which]
+    n, d = op.shape
+    A, K = (((op.t_indptr, op.t_indices, op.t_values), n) if over
+            else ((op.indptr, op.indices, op.values), d))
+    D = cs.sp1_operand(K, W, variant)
+    fn = lambda: spk.csr_spmm(*A, D, K)
+    h = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+    out[variant] = {"ms": cs.graph_ms(fn, reps=10),
+                    "flushed_ms": cs.flushed_ms(fn), "bits": h}
 print(json.dumps(out))
 """
 
@@ -399,15 +453,203 @@ def coupling_sweep(ks=COUPLING_KS, builds=True) -> list:
     return rows
 
 
+def sp1_trace(variant, A, plan, K, D) -> dict:
+    """SP1's items timed on the card's global timer at its own launch:
+    the launch's span, the heavy and light items' durations, and the
+    items that finish last."""
+    import numpy as np
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
+
+    launch = spk.launch_for(plan, D, None)
+    trace = torch.zeros((launch["units"], 4), dtype=torch.int64,
+                        device="cuda")
+    spk.csr_spmm(*A, D, K, plan=plan, trace=trace)
+    spk.csr_spmm(*A, D, K, plan=plan, trace=trace)
+    t = trace.cpu().numpy()
+    units = spk.spmm_units(plan, launch)
+    ptr = A[0].cpu().numpy().astype(np.int64)
+    nnz = ptr[units[:, 1]] - ptr[units[:, 0]]
+    t0 = t[:, 2] - t[:, 2].min()
+    dur = (t[:, 3] - t[:, 2]) / 1e3
+    end = (t[:, 3] - t[:, 2].min()) / 1e3
+    heavy = np.arange(len(units)) < launch["n_heavy"] * -(
+        -launch["W"] // launch["heavy_slice"])
+    last = np.argsort(end)[-5:][::-1]
+    row = {"shape": variant, "build": "trace", "span_us": float(end.max()),
+           "sms": int(len(np.unique(t[:, 1]))),
+           "heavy_items": int(heavy.sum()),
+           "heavy_us_mean": float(dur[heavy].mean()) if heavy.any() else 0,
+           "heavy_us_max": float(dur[heavy].max()) if heavy.any() else 0,
+           "light_us_mean": float(dur[~heavy].mean()),
+           "light_us_max": float(dur[~heavy].max()),
+           "light_us_p99": float(np.percentile(dur[~heavy], 99)),
+           "ns_a_nonzero_light": float((dur[~heavy] * 1e3).sum()
+                                       / max(1, nnz[~heavy].sum())),
+           "last": [{"item": int(i), "heavy": bool(heavy[i]),
+                     "nnz": int(nnz[i]), "start_us": float(t0[i] / 1e3),
+                     "us": float(dur[i])} for i in last]}
+    print(f"  sp1 {variant:13s} trace: span {row['span_us']:.1f} us on "
+          f"{row['sms']} SMs; heavy {row['heavy_items']} items "
+          f"{row['heavy_us_mean']:.1f} us mean, {row['heavy_us_max']:.1f} "
+          f"max; light {row['light_us_mean']:.2f} us mean, p99 "
+          f"{row['light_us_p99']:.1f}, max {row['light_us_max']:.1f}, "
+          f"{row['ns_a_nonzero_light']:.1f} warp-ns a nonzero; last "
+          + ", ".join(f"{'H' if r['heavy'] else 'L'}{r['nnz']}@"
+                      f"{r['start_us']:.0f}+{r['us']:.0f}"
+                      for r in row["last"]), flush=True)
+    return row
+
+
+@contextlib.contextmanager
+def sp1_choices(order=None, heavy=None, vec=None, hcols=None, cost=None):
+    """`spmm_kernels` with the given choices in place of its own picks
+    (None: its own): the light items' order, the heavy threshold, the
+    widest VEC, the heavy items' slice and the segment cost (plans built
+    inside the block)."""
+    from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
+
+    saved = {k: getattr(spk, k) for k in (
+        "spmm_launch", "heavy_threshold", "_vec_ok", "heavy_columns",
+        "SPMM_SEGMENT_COST")}
+    launch = saved["spmm_launch"]
+
+    def ordered(*args, **kw):
+        out = launch(*args, **kw)
+        out["order"] = order or out["order"]
+        return out
+
+    spk.spmm_launch = ordered
+    if heavy is not None:
+        spk.heavy_threshold = lambda nnz, W: heavy
+    if vec is not None:
+        spk._vec_ok = lambda W, *tensors: min(vec, saved["_vec_ok"](
+            W, *tensors))
+    if hcols is not None:
+        spk.heavy_columns = lambda plan, W: hcols
+    if cost is not None:
+        spk.SPMM_SEGMENT_COST = cost
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(spk, k, v)
+
+
+def sp1_sweep(builds=True, parent=None) -> list:
+    """SP1's launch choices, segment costs and ring builds at phase 16's
+    four shapes (module docstring); with `parent`, the parent's own
+    launch first.  Raises where a choice changes the bits."""
+    import torch
+
+    from spark_sklearn_tpu_torch.ops import spmm_kernels as spk
+
+    rows = []
+    procs = {}
+    if builds:
+        procs = {tag: build_variant("csr_spmm", [(RING, text)], tag,
+                                    wait=False)
+                 for tag, text in SP1_BUILDS}
+    if parent:
+        proc = subprocess.run([sys.executable, "-c", PARENT_SP1,
+                               os.path.abspath("."),
+                               ",".join(cs.SPARSE_MAIN)], cwd=parent,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit("chip_sweep: the parent's SP1 failed")
+        for variant, r in json.loads(
+                proc.stdout.strip().splitlines()[-1]).items():
+            rows.append({"shape": variant, "build": "parent", **r})
+    _, ops = cs.sparse_operands(0)
+    cases = {}
+    for variant in cs.SPARSE_MAIN:
+        A, plan, K, W = cs.sparse_case(ops, variant)
+        cases[variant] = (A, plan, K, cs.sp1_operand(K, W, variant))
+    bits = {r["shape"]: r["bits"] for r in rows}
+
+    def run(variant, build, **choices):
+        A, plan, K, D = cases[variant]
+        with sp1_choices(**choices):
+            if choices.get("cost"):
+                plan = spk.SpmmPlan(A[0])
+            fn = lambda: spk.csr_spmm(*A, D, K, plan=plan)
+            h = digest([fn()])
+            if bits.setdefault(variant, h) != h:
+                raise SystemExit(f"chip_sweep: SP1 {variant} {build} "
+                                 f"{choices} changed the bits")
+            launch = spk.launch_for(plan, D, None)
+            row = {"shape": variant, "build": build,
+                   "order": launch["order"], "vec": launch["vec_light"],
+                   "heavy_cols": launch["heavy_cols"],
+                   "heavy_nnz": launch["heavy_nnz"],
+                   "n_heavy": launch["n_heavy"], "units": launch["units"],
+                   "cost": spk.SPMM_SEGMENT_COST,
+                   "ms": cs.graph_ms(fn, reps=10),
+                   "flushed_ms": cs.flushed_ms(fn), "bits": h}
+        rows.append(row)
+        print(f"  sp1 {variant:13s} {build:8s} {row['order']:4s} vec "
+              f"{row['vec']} hc {row['heavy_cols']:2d} heavy>"
+              f"{row['heavy_nnz']:<10d} ({row['n_heavy']:4d}) cost "
+              f"{row['cost']:5d} items {row['units']:7d}: {row['ms']:.4f} ms"
+              f" warm, {row['flushed_ms']:.4f} ms flushed", flush=True)
+
+    for variant in cs.SPARSE_MAIN:
+        A, plan, K, D = cases[variant]
+        rows.append(sp1_trace(variant, A, plan, K, D))
+    for variant in cs.SPARSE_MAIN:
+        A, _, K, D = cases[variant]
+        m = A[0].numel() - 1
+        Asp = torch.sparse_csr_tensor(A[0], A[1], A[2], size=(m, K))
+        lib = lambda: torch.sparse.mm(Asp, D)
+        rows.append({"shape": variant, "build": "torch.sparse.mm",
+                     "ms": cs.graph_ms(lib, reps=10),
+                     "flushed_ms": cs.flushed_ms(lib)})
+        print(f"  sp1 {variant:13s} torch.sparse.mm: {rows[-1]['ms']:.4f} "
+              f"ms warm, {rows[-1]['flushed_ms']:.4f} ms flushed",
+              flush=True)
+        del Asp
+        for order in ("rows", "l2"):
+            for heavy in SP1_HEAVY:
+                run(variant, "ring256", order=order, heavy=heavy)
+        run(variant, "ring256", order="l2", vec=2)
+        for hcols in SP1_HEAVY_COLS:
+            run(variant, "ring256", hcols=hcols)
+        for cost in SP1_COSTS:
+            run(variant, "ring256", cost=cost)
+    for tag, (proc, _, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {tag}:\n{log}")
+        _use(spk, ctypes.CDLL(path))
+        for variant in cs.SPARSE_MAIN:
+            for order in ("rows", "l2"):
+                run(variant, tag, order=order)
+    _use(spk, None)
+    best = {}
+    for r in rows:
+        if r["build"] not in ("parent", "torch.sparse.mm", "trace"):
+            if r["shape"] not in best or r["ms"] < best[r["shape"]]["ms"]:
+                best[r["shape"]] = r
+    for variant, r in best.items():
+        print(f"  fastest sp1 {variant}: {r['build']} {r['order']} heavy>"
+              f"{r['heavy_nnz']} cost {r['cost']}: {r['ms']:.4f} ms warm, "
+              f"{r['flushed_ms']:.4f} flushed")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="directory of the parent's tree")
-    ap.add_argument("--parts", default="svr,platt,p2",
+    ap.add_argument("--parts", default="svr,platt,p2,sp1",
                     help="comma-separated parts to sweep")
     ap.add_argument("--p2-ks", default=",".join(map(str, COUPLING_KS)),
                     help="P2's class counts, comma-separated")
     ap.add_argument("--p2-no-builds", action="store_true",
                     help="P2 with this tree's build only")
+    ap.add_argument("--sp1-no-builds", action="store_true",
+                    help="SP1 with this tree's build only")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     import torch
@@ -419,11 +661,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.nvidia_smi("name,power.limit")
     print(card, flush=True)
-    report = _build.build(["svm_dual", "svm_proba"])
+    report = _build.build(sorted({name for part, name in (
+        ("svr", "svm_dual"), ("platt", "svm_proba"), ("p2", "svm_proba"),
+        ("sp1", "csr_spmm")) if part in parts}))
     table = {}
     for r in report.values():
         table.update(cs.ptxas_table(str(r["log"])))
-    mine = ("svr", "platt", "pair_coupling")
+    mine = ("svr", "platt", "pair_coupling", "csr_spmm")
     for fn, (regs, spill) in sorted(table.items()):
         if any(m in fn for m in mine):
             print(f"  {regs:4d} registers {spill:5d} bytes spilled  {fn}")
@@ -444,6 +688,8 @@ def main() -> int:
                                       args.p2_ks.split(",")),
                                 not args.p2_no_builds)
                  if "p2" in parts else [])
+    out["sp1"] = (sp1_sweep(not args.sp1_no_builds, args.parent)
+                  if "sp1" in parts else [])
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1)

@@ -24,8 +24,12 @@ between them are the hand-written kernels K2 (`glm_loss_grad`) and K4
 LogisticRegression also takes a sparse X (`supports_sparse`, the
 reference's BCOO path, `linear.py:31-39, 79-91, 203-297, 345-346`): under
 `data_mode="sparse"` data["X"] is a `CSROperand` and K1 and K3 are its
-products, ``X @ Wᵀ`` and ``Gᵀ @ X``, both through SP1; the intercept's
-add and Σₙ G stay as on the dense path, and `bf16_matmul` is ignored.
+products, X Wᵀ and Xᵀ G, both through SP1.  There the solver's state is
+feature-major, (d + 1, B, k') with the intercepts as the last row
+(`_sparse_problem`): the forward's D is a view of its first d rows and
+SP1 writes the backward straight into the gradient's, so neither copies
+the coefficients; the intercept's add and Σₙ G stay torch ops, and
+`bf16_matmul` is ignored.
 
 The reference writes the regressors as a per-task `fit` under
 `jax.vmap`.  Here every lane of a fold has the same fold weights, so the
@@ -53,6 +57,7 @@ from spark_sklearn_tpu_torch.ops.glm_kernels import (
     glm_trial_loss,
 )
 from spark_sklearn_tpu_torch.ops.solvers import (
+    Lanes,
     fista_momentum,
     glm_fista_batched,
     glm_lbfgs_batched,
@@ -178,6 +183,17 @@ class LogisticRegressionFamily(Family):
         bf16 = bool(static.get("__bf16__", False)) and not sparse_X
         Xm = _bf16_operand(X) if bf16 else None
 
+        def loss_grad(Z):                    # K2
+            return glm_loss_grad(Z, wT, y)
+
+        def trial_loss(Z, Zp, alphas):       # K4
+            return glm_trial_loss(Z, Zp, wT, y, alphas)
+
+        if sparse_X:
+            return _fit_sparse(X, k, B, C, inv_C, tol, max_iter,
+                               fit_intercept, penalty, l1_ratio, loss_grad,
+                               trial_loss)
+
         def Ax(x):                           # K1 -> Z (n, B) or (n, B, k)
             W = x[:, :kd].reshape(B * kk, d)
             b = x[:, kd:].reshape(1, B * kk)
@@ -188,23 +204,16 @@ class LogisticRegressionFamily(Family):
             elif fit_intercept:
                 Z = _affine(X, W, b)
             else:
-                Z = X @ W.T                  # SP1 over a CSROperand's CSR
+                Z = X @ W.T
             return Z if k == 2 else Z.view(n, B, k)
 
         def AT(G):                           # K3 -> (B, kd + kk)
             G2 = G.reshape(n, B * kk)
-            # a CSROperand's G2ᵀ @ X is SP1 over Xᵀ's CSR
             gW = (_bf16_mm(_bf16_operand(G2.T), Xm) if bf16
                   else G2.T @ X).reshape(B, kd)
             gb = G2.sum(dim=0).reshape(B, kk) if fit_intercept else \
                 torch.zeros((B, kk), dtype=dt, device=dev)
             return torch.cat([gW, gb], dim=1)
-
-        def loss_grad(Z):                    # K2
-            return glm_loss_grad(Z, wT, y)
-
-        def trial_loss(Z, Zp, alphas):       # K4
-            return glm_trial_loss(Z, Zp, wT, y, alphas)
 
         def reg_loss(x):                     # x (..., B, D) -> (..., B)
             return 0.5 * inv_C * (x[..., :kd] ** 2).sum(dim=-1)
@@ -214,16 +223,11 @@ class LogisticRegressionFamily(Family):
                               torch.zeros((B, kk), dtype=dt, device=dev)],
                              dim=1)
 
-        if penalty == "elasticnet":
-            res, n_exec = _fista_elasticnet(
-                Ax, loss_grad, AT, 1.0 / C, l1_ratio, kd + kk, kd,
-                max_iter, tol)
-        else:
-            res = glm_lbfgs_batched(
-                Ax, loss_grad, trial_loss, AT, reg_loss, reg_grad,
-                torch.zeros((B, kd + kk), dtype=dt, device=dev),
-                max_iter=max_iter, tol=tol)
-            n_exec = res.n_iter
+        pen = torch.zeros((B, kd + kk), dtype=dt, device=dev)
+        pen[:, :kd] = 1.0
+        res, n_exec = _solve(penalty, Ax, AT, loss_grad, trial_loss,
+                             reg_loss, reg_grad, pen, C, l1_ratio, max_iter,
+                             tol)
         W = res.x[:, :kd].reshape(B, kk, d)
         b = res.x[:, kd:]
         if not fit_intercept:
@@ -297,27 +301,93 @@ class LogisticRegressionFamily(Family):
         return attrs
 
 
-def _fista_elasticnet(Ax, loss_grad, AT, inv_C, l1_ratio, D, n_pen,
-                      max_iter, tol):
+def _fit_sparse(X, k, B, C, inv_C, tol, max_iter, fit_intercept, penalty,
+                l1_ratio, loss_grad, trial_loss):
+    """LogisticRegression's lanes over a CSROperand X (n, d): L-BFGS or
+    FISTA on a feature-major state x (d + 1, B, k'), lane_dim 1 — rows
+    0..d-1 the coefficients, row d the intercepts — so that the forward
+    reads x[:d] as SP1's D (d, B k') and SP1 writes the backward into
+    the gradient's first d rows, with no copy of either.  A lane's sums
+    run over (d + 1, k'), in another order than the dense (B, k' d + k')
+    state's.  Returns the family's model dict."""
+    n, d = X.shape
+    kk = 1 if k == 2 else k
+    W = B * kk
+    dt, dev = X.dtype, X.device
+    shape = (d + 1, B, kk)
+
+    def Ax(x):                               # K1 -> Z (n, B) or (n, B, k)
+        Z = X.mm(x[:d].contiguous().view(d, W))
+        if fit_intercept:
+            Z += x[d].reshape(1, W)
+        return Z if k == 2 else Z.view(n, B, k)
+
+    def AT(G):                               # K3 -> (d + 1, B, k')
+        G2 = G.reshape(n, W).contiguous()
+        g = torch.empty(shape, dtype=dt, device=dev)
+        X.tmm(G2, out=g[:d].view(d, W))
+        if fit_intercept:
+            g[d] = G2.sum(dim=0).view(B, kk)
+        else:
+            g[d] = 0.0
+        return g
+
+    def reg_loss(x):                         # x (..., d+1, B, k') -> (..., B)
+        return 0.5 * inv_C * (x[..., :d, :, :] ** 2).sum(dim=(-3, -1))
+
+    def reg_grad(x):
+        g = x * inv_C.view(1, B, 1)
+        g[d] = 0.0
+        return g
+
+    pen = torch.ones(shape, dtype=dt, device=dev)
+    pen[d] = 0.0
+    res, n_exec = _solve(penalty, Ax, AT, loss_grad, trial_loss, reg_loss,
+                         reg_grad, pen, C, l1_ratio, max_iter, tol,
+                         lane_dim=1)
+    b = res.x[d] if fit_intercept else torch.zeros((B, kk), dtype=dt,
+                                                   device=dev)
+    return {"coef": res.x[:d].permute(1, 2, 0).contiguous(),
+            "intercept": b, "converged": res.converged,
+            "n_iter": res.n_iter, "n_iter_exec": n_exec}
+
+
+def _solve(penalty, Ax, AT, loss_grad, trial_loss, reg_loss, reg_grad, pen,
+           C, l1_ratio, max_iter, tol, lane_dim=0):
+    """LogisticRegression's lanes from a zero state shaped like `pen` (1
+    at the coefficients, 0 at the intercepts; lanes along `lane_dim`):
+    FISTA for elasticnet, L-BFGS otherwise.  Returns (result, the
+    iterations actually run)."""
+    if penalty == "elasticnet":
+        return _fista_elasticnet(Ax, loss_grad, AT, 1.0 / C, l1_ratio, pen,
+                                 max_iter, tol, lane_dim)
+    res = glm_lbfgs_batched(
+        Ax, loss_grad, trial_loss, AT, reg_loss, reg_grad,
+        torch.zeros_like(pen), max_iter=max_iter, tol=tol,
+        lane_dim=lane_dim)
+    return res, res.n_iter
+
+
+def _fista_elasticnet(Ax, loss_grad, AT, inv_C, l1_ratio, pen, max_iter,
+                      tol, lane_dim=0):
     """Elastic-net logistic regression by proximal FISTA (the reference's
     `_fista_elasticnet`, `linear.py:399-430`): per-coefficient l1/l2
-    weights on the first `n_pen` entries (the coefficients), unpenalised
-    intercepts.  The internal budget is max(10*max_iter, 1000) steps
-    (cheaper than saga's epochs, which sklearn caps at max_iter), and
-    the reported n_iter is rescaled onto max_iter so that sklearn's
-    "n_iter_ >= max_iter means not converged" holds.  Returns (result
-    with the rescaled n_iter, the iterations actually run)."""
-    B = inv_C.shape[0]
+    weights where `pen` (shaped like the state, lanes along `lane_dim`)
+    is 1 (the coefficients), unpenalised intercepts.  The internal
+    budget is max(10*max_iter, 1000) steps (cheaper than saga's epochs,
+    which sklearn caps at max_iter), and the reported n_iter is rescaled
+    onto max_iter so that sklearn's "n_iter_ >= max_iter means not
+    converged" holds.  Returns (result with the rescaled n_iter, the
+    iterations actually run)."""
     dt, dev = inv_C.dtype, inv_C.device
+    lanes = Lanes(pen, lane_dim)
     l1r = torch.as_tensor(l1_ratio, dtype=dt, device=dev)
-    pen = torch.zeros((B, D), dtype=dt, device=dev)
-    pen[:, :n_pen] = 1.0
     res = glm_fista_batched(
         Ax, loss_grad, AT,
-        l1=(inv_C * l1r)[:, None] * pen,
-        l2=(inv_C * (1.0 - l1r))[:, None] * pen,
-        x0=torch.zeros((B, D), dtype=dt, device=dev),
-        max_iter=max(10 * max_iter, 1000), tol=tol)
+        l1=lanes.b(inv_C * l1r) * pen,
+        l2=lanes.b(inv_C * (1.0 - l1r)) * pen,
+        x0=torch.zeros(pen.shape, dtype=dt, device=dev),
+        max_iter=max(10 * max_iter, 1000), tol=tol, lane_dim=lane_dim)
     n_rep = torch.where(res.converged,
                         torch.clamp_max(res.n_iter, max_iter - 1),
                         max_iter).to(res.n_iter.dtype)

@@ -31,7 +31,7 @@ sklearn; the port does not copy that.
 MultinomialNB, ComplementNB and BernoulliNB also take a sparse X
 (`supports_sparse`; the reference's `prepare_data_sparse`,
 `naive_bayes.py:57-73, 266-275, 395-428`): under `data_mode="sparse"`
-data["X"] is a `CSROperand`, the class sums ``wy @ X`` and the joint
+data["X"] is a `CSROperand`, the class sums Xᵀ (w y) and the joint
 log-likelihoods' ``X @ flpᵀ`` run through SP1, and BernoulliNB binarizes
 the stored values (a negative `binarize`, which would make every
 implicit zero a one, is refused).  GaussianNB and CategoricalNB take
@@ -110,11 +110,15 @@ def class_sums(y1h, w, X=None):
     """Weighted per-class sums for each row of `w` (F, n): counts (F, k)
     and, with X (n, d), the per-class feature sums (F, k, d) as one GEMM
     (`_class_sums`, naive_bayes.py:76), or one SP1 product over Xᵀ's CSR
-    for a CSROperand."""
+    for a CSROperand: Xᵀ (w y) with the products laid out (n, F k), as
+    SP1 reads them, and the (d, F k) result read back as its view."""
     counts = w @ y1h                                         # (F, k)
     if X is None:
         return counts, None
     F, k = counts.shape
+    if isinstance(X, CSROperand):
+        wy = (w.T[:, :, None] * y1h[:, None, :]).reshape(-1, F * k)
+        return counts, X.tmm(wy).T.reshape(F, k, X.shape[1])
     wy = (w[:, None, :] * y1h.T[None, :, :]).reshape(F * k, -1)
     return counts, (wy @ X).reshape(F, k, X.shape[1])
 

@@ -12,6 +12,13 @@ Counterpart of `spark_sklearn_tpu/ops/solvers.py` `LBFGSResult`,
 - the two-loop recursion, the history update with its `sy` gate, gamma,
   the float32 stall detector and the done mask stay torch ops.
 
+The state x holds one problem a lane along `lane_dim` (0: x (B, D), the
+dense families'; the sparse LogisticRegression keeps (d + 1, B, k)
+feature-major, lane_dim 1, so that SP1 reads and writes it with no
+copy); a lane's reductions run over every other axis (`Lanes`).  With
+lane_dim 0 and a 2-D state every operation is the one the solvers ran
+before the axis was a parameter, so the dense families keep their bits.
+
 `lax.while_loop` becomes a Python loop: it ends at the first iteration at
 which every lane is done, or at `max_iter`, so `n_iter` is the
 reference's count.  Testing the done mask costs one host sync per
@@ -35,6 +42,30 @@ class LBFGSResult(NamedTuple):
     converged: torch.Tensor
 
 
+class Lanes:
+    """The lane axis `dim` of a state shaped like `x`: a lane's sums and
+    maxima over every other axis, and a (..., B) tensor shaped to
+    broadcast against x (`b`)."""
+
+    def __init__(self, x: torch.Tensor, dim: int = 0):
+        self.B = x.shape[dim]
+        red = tuple(i for i in range(x.dim()) if i != dim)
+        self.red = red[0] if len(red) == 1 else red
+        self.shape = tuple(self.B if i == dim else 1 for i in range(x.dim()))
+
+    def sum(self, t):
+        return t.sum(dim=self.red)
+
+    def amax(self, t):
+        return t.amax(dim=self.red)
+
+    def all(self, t):
+        return t.all(dim=self.red)
+
+    def b(self, v):
+        return v.reshape(*v.shape[:-1], *self.shape)
+
+
 def _bcast(v, like):
     """(B,) -> broadcastable against Z, whose lane axis is position 1:
     Z is (n, B) or (n, B, k)."""
@@ -56,21 +87,24 @@ def glm_lbfgs_batched(
     history: int = 10,
     c1: float = 1e-4,
     ls_trials: int = 16,
+    lane_dim: int = 0,
 ) -> LBFGSResult:
     """L-BFGS for batched GLMs: objective f(x) = data_loss(A(x)) + reg(x)
     with A linear in x, one independent problem per lane of x0 (B, D).
 
     Each lane stops when its max|grad| <= tol or when its relative
     objective improvement stays below float32 eps for 3 iterations; a
-    done lane takes zero steps while the others continue."""
+    done lane takes zero steps while the others continue.  x0's lanes lie
+    along `lane_dim` (module docstring)."""
     m = history
-    B, D = x0.shape
+    L = Lanes(x0, lane_dim)
+    B = L.B
     dtype, dev = x0.dtype, x0.device
     eps = torch.finfo(dtype).eps
     tol = torch.as_tensor(tol, dtype=dtype, device=dev).expand(B)
 
     def gnorm(g):
-        return g.abs().amax(dim=1)
+        return L.amax(g.abs())
 
     x = x0
     Z = Ax(x0)
@@ -78,8 +112,8 @@ def glm_lbfgs_batched(
     f = loss0 + reg_loss(x0)
     g = AT(G) + reg_grad(x0)
 
-    s_mem = torch.zeros((m, B, D), dtype=dtype, device=dev)
-    y_mem = torch.zeros((m, B, D), dtype=dtype, device=dev)
+    s_mem = torch.zeros((m, *x0.shape), dtype=dtype, device=dev)
+    y_mem = torch.zeros((m, *x0.shape), dtype=dtype, device=dev)
     rho = torch.zeros((m, B), dtype=dtype, device=dev)
     gamma = torch.ones(B, dtype=dtype, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -95,24 +129,24 @@ def glm_lbfgs_batched(
         alpha_rec = []
         for i in range(n_hist):
             idx = (it - 1 - i) % m
-            a = rho[idx] * (s_mem[idx] * q).sum(dim=1)
-            q = q - a[:, None] * y_mem[idx]
+            a = rho[idx] * L.sum(s_mem[idx] * q)
+            q = q - L.b(a) * y_mem[idx]
             alpha_rec.append(a)
-        r = gamma[:, None] * q
+        r = L.b(gamma) * q
         for j in reversed(range(n_hist)):
             idx = (it - 1 - j) % m
-            b = rho[idx] * (y_mem[idx] * r).sum(dim=1)
-            r = r + (alpha_rec[j] - b)[:, None] * s_mem[idx]
+            b = rho[idx] * L.sum(y_mem[idx] * r)
+            r = r + L.b(alpha_rec[j] - b) * s_mem[idx]
         p = -r
 
-        dginit = (g * p).sum(dim=1)
+        dginit = L.sum(g * p)
         bad = dginit >= 0
-        p = torch.where(bad[:, None], -g, p)
-        dginit = torch.where(bad, -(g * g).sum(dim=1), dginit)
+        p = torch.where(L.b(bad), -g, p)
+        dginit = torch.where(bad, -L.sum(g * g), dginit)
         # a lane whose direction went non-finite is frozen this
         # iteration: p = 0 keeps x and Z exact under x + alpha*p
-        lane_bad = ~(torch.isfinite(p).all(dim=1) & torch.isfinite(dginit))
-        p = torch.where(lane_bad[:, None], 0.0, p)
+        lane_bad = ~(L.all(torch.isfinite(p)) & torch.isfinite(dginit))
+        p = torch.where(L.b(lane_bad), 0.0, p)
         dginit = torch.where(lane_bad, 0.0, dginit)
 
         if it == 0:
@@ -124,7 +158,7 @@ def glm_lbfgs_batched(
         Zp = Ax(p)
         alphas = (halvings[:, None] * a0[None, :]).contiguous()  # (T, B)
         losses = trial_loss(Z, Zp, alphas) + reg_loss(
-            x[None] + alphas[:, :, None] * p[None])
+            x[None] + L.b(alphas) * p[None])
         armijo = losses <= f[None, :] + c1 * alphas * dginit[None, :]
         # first (largest-step) passing trial per lane; none passed ->
         # take the last (smallest) step rather than stall
@@ -137,7 +171,7 @@ def glm_lbfgs_batched(
         # trial loss) take alpha = 0, so x and Z stay exact
         live = torch.isfinite(f_pick) & ~done
         alpha = torch.where(live, alpha, 0.0)
-        x_new = x + alpha[:, None] * p
+        x_new = x + L.b(alpha) * p
         # Z is not read again this iteration: update it in place, which
         # saves one (n, B, k) allocation per iteration
         Z.addcmul_(_bcast(alpha, Z), Zp)
@@ -149,14 +183,14 @@ def glm_lbfgs_batched(
 
         s = x_new - x
         yv = g_new - g
-        sy = (s * yv).sum(dim=1)
+        sy = L.sum(s * yv)
         update = (sy > 1e-10) & live
         slot = it % m
-        s_mem[slot] = torch.where(update[:, None], s, 0.0)
-        y_mem[slot] = torch.where(update[:, None], yv, 0.0)
+        s_mem[slot] = torch.where(L.b(update), s, 0.0)
+        y_mem[slot] = torch.where(L.b(update), yv, 0.0)
         rho[slot] = torch.where(
             update, 1.0 / torch.where(sy > 1e-10, sy, 1.0), 0.0)
-        gamma = torch.where(update, sy / ((yv * yv).sum(dim=1) + eps),
+        gamma = torch.where(update, sy / (L.sum(yv * yv) + eps),
                             gamma)
         # float32 stall detector (see the reference): a lane whose
         # relative improvement stays below eps for 3 iterations is pinned
@@ -197,6 +231,7 @@ def glm_fista_batched(
     x0: torch.Tensor,
     max_iter: int = 1000,
     tol=1e-4,
+    lane_dim: int = 0,
 ) -> LBFGSResult:
     """Proximal FISTA for batched GLMs with elastic-net penalties: the
     l1/elasticnet logistic regressions L-BFGS cannot fit (soft
@@ -213,19 +248,22 @@ def glm_fista_batched(
 
     A lane is done once max|x_new - x| <= tol; done lanes are frozen.
     The loop ends when every lane is done or at `max_iter`, so `n_iter`
-    is the reference's count; `converged` is the done mask."""
-    B, D = x0.shape
+    is the reference's count; `converged` is the done mask.  x0's lanes
+    lie along `lane_dim`, as L-BFGS's; l1 and l2 are shaped like x0."""
+    lanes = Lanes(x0, lane_dim)
+    B = lanes.B
+    D = x0.numel() // B
     dtype, dev = x0.dtype, x0.device
     tol = torch.as_tensor(tol, dtype=dtype, device=dev).expand(B)
 
-    v = torch.full((B, D), float(np.float32(1.0) / np.sqrt(np.float32(D))),
+    v = torch.full(x0.shape, float(np.float32(1.0) / np.sqrt(np.float32(D))),
                    dtype=dtype, device=dev)
     for _ in range(20):
         u = AT(0.25 * Ax(v))
-        v = u / (torch.sqrt((u * u).sum(dim=1, keepdim=True)) + 1e-30)
+        v = u / (lanes.b(torch.sqrt(lanes.sum(u * u))) + 1e-30)
     u = AT(0.25 * Ax(v))
-    L = torch.sqrt((u * u).sum(dim=1)) + l2.amax(dim=1) + 1e-6
-    step = (1.0 / L)[:, None]                                 # (B, 1)
+    L = torch.sqrt(lanes.sum(u * u)) + lanes.amax(l2) + 1e-6
+    step = lanes.b(1.0 / L)                                   # (B, 1)
     step_l1 = step * l1
 
     x = x_prev = x0
@@ -243,8 +281,8 @@ def glm_fista_batched(
         del G
         x_new = soft_threshold(v_pt - step * g, step_l1)
         Zx_new = Ax(x_new)
-        shift = (x_new - x).abs().amax(dim=1)
-        x_new = torch.where(done[:, None], x, x_new)
+        shift = lanes.amax((x_new - x).abs())
+        x_new = torch.where(lanes.b(done), x, x_new)
         Zx_new = torch.where(_bcast(done, Zx), Zx, Zx_new)
         done = done | (shift <= tol)
         x_prev, x = x, x_new
@@ -252,7 +290,7 @@ def glm_fista_batched(
         it += 1
 
     loss, _ = loss_grad(Zx)
-    f = loss + (l1 * x.abs() + 0.5 * l2 * x * x).sum(dim=1)
+    f = loss + lanes.sum(l1 * x.abs() + 0.5 * l2 * x * x)
     return LBFGSResult(
         x=x, fun=f, grad_norm=torch.zeros(B, dtype=dtype, device=dev),
         n_iter=torch.full((B,), it, dtype=torch.int32, device=dev),

@@ -13,11 +13,15 @@ Counterpart of `spark_sklearn_tpu/sparse/csr.py`, without JAX:
   counterpart: the port has no program store yet.
 - `CSROperand`: X on one device as the CSR of X and the CSR of Xᵀ
   (int32 `indptr` and `indices`, float32 `values`, Xᵀ's built once on
-  the host with scipy).  ``X @ D`` (D (d, W) -> (n, W)) and ``D @ X``
-  (D (W, n) -> (W, d), computed as (Xᵀ Dᵀ)ᵀ over Xᵀ's CSR) both run SP1
-  (`ops/spmm_kernels.py` `csr_spmm`), so family code keeps the operator
-  form the reference writes for a BCOO X; `map_values` applies an
-  elementwise map to the stored values (BernoulliNB's binarize).
+  the host with scipy), each with SP1's work plan (`SpmmPlan`, built on
+  the host when the operand is staged).  `mm(D, out=)` (D (d, W) ->
+  (n, W)) and `tmm(E, out=)` (E (n, W) -> Xᵀ E (d, W) over Xᵀ's CSR) run
+  SP1 (`ops/spmm_kernels.py` `csr_spmm`) on contiguous operands, written
+  into `out` where given: the sparse LogisticRegression keeps its
+  coefficients feature-major so that neither needs a copy.  ``X @ D``
+  keeps the operator form the reference writes for a BCOO X's forward
+  products; `map_values` applies an elementwise map to the stored values
+  (BernoulliNB's binarize).
 - `csr_to_dense`: the reference's numpy path of `utils/native.py:107`
   (scipy's `toarray`), with the output dtype a parameter.
 
@@ -32,7 +36,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from spark_sklearn_tpu_torch.ops.spmm_kernels import csr_spmm
+from spark_sklearn_tpu_torch.ops.spmm_kernels import SpmmPlan, csr_spmm
 
 #: first index value that no longer fits an int32
 _INT32_MAX = np.iinfo(np.int32).max
@@ -237,11 +241,15 @@ class SparseOperand:
                 str(self.values.dtype), str(self.indices.dtype))
 
     def to_device(self, device) -> "CSROperand":
-        """The device operand: the CSRs held, uploaded to `device`."""
+        """The device operand: the CSRs held, uploaded to `device`, with
+        SP1's plans built from the host's indptr."""
         return CSROperand(*(None if getattr(self, k) is None else
                             torch.as_tensor(getattr(self, k), device=device)
                             for k in self.__slots__ if k != "shape"),
-                          shape=self.shape)
+                          shape=self.shape,
+                          plan=SpmmPlan(self.indptr, device),
+                          t_plan=(None if self.t_indptr is None else
+                                  SpmmPlan(self.t_indptr, device)))
 
 
 def to_device(v, device):
@@ -254,16 +262,18 @@ def to_device(v, device):
 
 class CSROperand:
     """A sparse X (n, d) on one device: the CSR of X and of Xᵀ (Xᵀ's
-    absent in an operand made for predictions, which only take X @ D).
-    ``X @ D`` and ``D @ X`` run SP1; `shape`, `dtype` and `device` read
-    as a tensor's."""
+    absent in an operand made for predictions, which only take X @ D),
+    each with its SP1 plan (built from the device's indptr at first use
+    where none was given).  `mm`, `tmm` and ``X @ D`` run SP1; `shape`,
+    `dtype` and `device` read as a tensor's."""
 
     def __init__(self, values, indices, indptr, t_values, t_indices,
-                 t_indptr, shape):
+                 t_indptr, shape, plan=None, t_plan=None):
         self.values, self.indices, self.indptr = values, indices, indptr
         self.t_values, self.t_indices = t_values, t_indices
         self.t_indptr = t_indptr
         self.shape = (int(shape[0]), int(shape[1]))
+        self._plan, self._t_plan = plan, t_plan
 
     @classmethod
     def from_matrix(cls, m, device, dtype=np.float32, transpose=True
@@ -291,32 +301,54 @@ class CSROperand:
             self.values, self.indices, self.indptr, self.t_values,
             self.t_indices, self.t_indptr) if t is not None))
 
+    @property
+    def plan(self) -> SpmmPlan:
+        """SP1's plan over X's CSR."""
+        if self._plan is None:
+            self._plan = SpmmPlan(self.indptr)
+        return self._plan
+
+    @property
+    def t_plan(self) -> SpmmPlan:
+        """SP1's plan over Xᵀ's CSR."""
+        self._need_transpose()
+        if self._t_plan is None:
+            self._t_plan = SpmmPlan(self.t_indptr)
+        return self._t_plan
+
+    def _need_transpose(self) -> None:
+        if self.t_indptr is None:
+            raise ValueError("Xᵀ @ E needs Xᵀ's CSR: this operand was "
+                             "made with transpose=False")
+
+    def mm(self, D: torch.Tensor, out=None) -> torch.Tensor:
+        """X @ D for a contiguous D (d, W): (n, W) by SP1 over X's CSR,
+        into `out` where given."""
+        return csr_spmm(self.indptr, self.indices, self.values, D,
+                        self.shape[1], plan=self.plan, out=out)
+
+    def tmm(self, E: torch.Tensor, out=None) -> torch.Tensor:
+        """Xᵀ @ E for a contiguous E (n, W): (d, W) by SP1 over Xᵀ's CSR,
+        into `out` where given."""
+        self._need_transpose()
+        return csr_spmm(self.t_indptr, self.t_indices, self.t_values, E,
+                        self.shape[0], plan=self.t_plan, out=out)
+
     def __matmul__(self, D: torch.Tensor) -> torch.Tensor:
         """X @ D: D (d, W) -> (n, W) by SP1 over X's CSR (D made
         contiguous first: a copy where it is a transposed view)."""
         if not isinstance(D, torch.Tensor) or D.dim() != 2:
             return NotImplemented
-        return csr_spmm(self.indptr, self.indices, self.values,
-                        D.contiguous(), self.shape[1])
-
-    def __rmatmul__(self, D: torch.Tensor) -> torch.Tensor:
-        """D @ X: D (W, n) -> (W, d), as (Xᵀ Dᵀ)ᵀ by SP1 over Xᵀ's CSR; the
-        (d, W) result is returned as its transposed view."""
-        if not isinstance(D, torch.Tensor) or D.dim() != 2:
-            return NotImplemented
-        if self.t_indptr is None:
-            raise ValueError("D @ X needs Xᵀ's CSR: this operand was made "
-                             "with transpose=False")
-        return csr_spmm(self.t_indptr, self.t_indices, self.t_values,
-                        D.T.contiguous(), self.shape[0]).T
+        return self.mm(D.contiguous())
 
     def map_values(self, fn) -> "CSROperand":
         """The operand with `fn` applied to every stored value (implicit
-        zeros stay zero: `fn` must map 0 to 0 where that matters)."""
+        zeros stay zero: `fn` must map 0 to 0 where that matters); the
+        structure, and so the plans, are shared."""
         t_values = None if self.t_values is None else fn(self.t_values)
         return CSROperand(fn(self.values), self.indices, self.indptr,
                           t_values, self.t_indices, self.t_indptr,
-                          self.shape)
+                          self.shape, self._plan, self._t_plan)
 
     def __repr__(self):
         return (f"CSROperand(shape={self.shape}, nnz={self.nnz}, "

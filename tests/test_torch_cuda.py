@@ -1922,7 +1922,8 @@ def _csr_inputs(m, K, W, density, seed=0, full_row=False, device="cuda"):
 @pytest.mark.parametrize("m,K,W,density,full_row", [
     (60, 45, 1, 0.1, False), (60, 45, 3, 0.1, True), (60, 45, 37, 0.1, True),
     (300, 2000, 1000, 0.01, True), (500, 300, 1025, 0.05, False),
-    (1, 7, 5, 0.5, False), (2000, 9000, 100, 0.002, True)])
+    (1, 7, 5, 0.5, False), (2000, 9000, 100, 0.002, True),
+    (300, 2000, 97, 0.01, True), (400, 3000, 500, 0.01, True)])
 def test_csr_spmm_matches_plain_on_the_cpu(cuda_device, m, K, W, density,
                                            full_row):
     """SP1 sums each row in ascending nonzero order, each product rounded
@@ -1943,18 +1944,120 @@ def test_csr_spmm_matches_plain_on_the_cpu(cuda_device, m, K, W, density,
         assert not bool(got[1].any())          # the empty row
 
 
+def _zipf_inputs(m, K, W, seed=0, longest=5000):
+    """A CSR (m, K) whose row lengths follow a Zipf head (Xᵀ of term
+    counts), its first row `longest` nonzeros (past every ring), a tenth
+    of the rows empty; and D (K, W); on the card."""
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(K, (longest / np.arange(1, m + 1) ** 1.1)
+                         .astype(np.int64))
+    lengths[1 + rng.permutation(m - 1)[:m // 10]] = 0
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    indices = np.concatenate([np.sort(rng.choice(K, n, replace=False))
+                              for n in lengths]).astype(np.int32)
+    values = rng.normal(size=indices.size).astype(np.float32)
+    D = rng.normal(size=(K, W)).astype(np.float32)
+    return [torch.as_tensor(a, device="cuda")
+            for a in (indptr, indices, values, D)]
+
+
+def _wide_inputs(W, seed=0, m=3000, K=6000):
+    """A CSR (m, K) of rows of 30-90 nonzeros and one of 1100 (heavy, and
+    cut into 32-column slices at W = 1000), and D (K, W), on the card."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(30, 90, m)
+    lengths[m // 3] = 1100
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    indices = np.concatenate([np.sort(rng.choice(K, n, replace=False))
+                              for n in lengths]).astype(np.int32)
+    values = rng.normal(size=indices.size).astype(np.float32)
+    D = rng.normal(size=(K, W)).astype(np.float32)
+    return [torch.as_tensor(a, device="cuda")
+            for a in (indptr, indices, values, D)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [97, 98, 100, 500, 1000])
+@pytest.mark.parametrize("csr", ["zipf", "wide"])
+def test_csr_spmm_plans_match_plain(cuda_device, W, csr):
+    """The launch choices the wrapper makes (VEC 4, 2 and 1 items, heavy
+    segments cut into 16- or 32-column slices or none, row or slice
+    order) on a Zipf-headed CSR with a 5000-nonzero row and on one heavy
+    row among many, bit for bit the plain version on CPU copies and
+    bitwise repeatable."""
+    indptr, indices, values, D = (_zipf_inputs(3000, 6000, W, W)
+                                  if csr == "zipf" else _wide_inputs(W, W))
+    plan = spk.SpmmPlan(indptr)
+    launch = spk.launch_for(plan, D, None)
+    if W % 2:
+        assert launch["n_heavy"] == 0          # VEC 1: no heavy segment
+    else:
+        assert launch["n_heavy"] >= 1
+    if csr == "zipf":
+        assert plan.longest == 5000 > 4 * spk.ring_depth(1)
+    if csr == "wide" and W == 1000:
+        assert launch["heavy_slice"] == 32
+    got = spk.csr_spmm(indptr, indices, values, D, 6000, plan=plan)
+    again = spk.csr_spmm(indptr, indices, values, D, 6000, plan=plan)
+    want = spk.csr_spmm_plain(indptr.cpu(), indices.cpu(), values.cpu(),
+                              D.cpu())
+    assert torch.equal(got.cpu(), want), launch
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_csr_spmm_on_two_streams_at_once(cuda_device):
+    """Launches on two streams at once take their items from counters of
+    their own: both outputs whole, bit for bit the plain version."""
+    args = [_zipf_inputs(3000, 6000, W, W) for W in (500, 1000)]
+    plans = [spk.SpmmPlan(a[0]) for a in args]
+    want = [spk.csr_spmm_plain(*(t.cpu() for t in a)) for a in args]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(4):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(spk.csr_spmm(*args[i], 6000, plan=plans[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            assert torch.equal(got.cpu(), want[i])
+
+
+@pytest.mark.cuda
+def test_csr_spmm_writes_out_in_place(cuda_device):
+    """`out=` a view of a larger buffer (the sparse LogisticRegression's
+    gradient rows): written in place, the rows around it untouched; an
+    out 4 bytes off the 16-byte line takes the scalar lanes and the same
+    bits."""
+    indptr, indices, values, D = _zipf_inputs(800, 2000, 100, 3)
+    want = spk.csr_spmm(indptr, indices, values, D, 2000)
+    buf = torch.full((802 * 100 + 1,), 7.0, device="cuda")
+    for off in (100, 1):
+        out = buf[off:off + 800 * 100].view(800, 100)
+        got = spk.csr_spmm(indptr, indices, values, D, 2000, out=out)
+        assert got.data_ptr() == out.data_ptr()
+        assert torch.equal(out, want)
+    assert (buf[-100:] == 7.0).all()
+    with pytest.raises(ValueError):
+        spk.csr_spmm(indptr, indices, values, D, 2000, out=out[:, :50])
+
+
 @pytest.mark.cuda
 def test_csr_spmm_replays_in_a_graph_and_raises(cuda_device):
     indptr, indices, values, D = _csr_inputs(200, 300, 64, 0.05, 1)
+    plan = spk.SpmmPlan(indptr)
     want = spk.csr_spmm(indptr, indices, values, D, 300)
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        spk.csr_spmm(indptr, indices, values, D, 300)
+        spk.csr_spmm(indptr, indices, values, D, 300, plan=plan)
     torch.cuda.current_stream().wait_stream(side)
     with torch.cuda.graph(graph):
-        out = spk.csr_spmm(indptr, indices, values, D, 300)
+        out = spk.csr_spmm(indptr, indices, values, D, 300, plan=plan)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, want)

@@ -161,8 +161,8 @@ def test_sparse_operand_refuses_a_malformed_csr(fault):
 
 @pytest.mark.parametrize("W", [1, 3, 37])
 def test_csr_operand_products_both_ways(W):
-    """X @ D and D @ X of the operand against float64 numpy, on a matrix
-    with an empty row and an empty column, and `map_values`."""
+    """X @ D and Xᵀ @ E (`tmm`) of the operand against float64 numpy, on
+    a matrix with an empty row and an empty column, and `map_values`."""
     m = _messy().tocsr()
     m.sum_duplicates()
     op = pcsr.CSROperand.from_matrix(m, "cpu")
@@ -172,10 +172,10 @@ def test_csr_operand_products_both_ways(W):
     a32 = m.astype(np.float32).astype(np.float64)
     got = (op @ torch.as_tensor(D)).numpy()
     np.testing.assert_allclose(got, a32 @ D, rtol=1e-5, atol=1e-5)
-    got = (torch.as_tensor(E) @ op).numpy()
-    assert got.shape == (W, m.shape[1])
-    np.testing.assert_allclose(got, E @ a32, rtol=1e-5, atol=1e-5)
-    assert not got[:, 7].any()                # the empty column
+    got = op.tmm(torch.as_tensor(E.T).contiguous()).numpy()
+    assert got.shape == (m.shape[1], W)
+    np.testing.assert_allclose(got, (E @ a32).T, rtol=1e-5, atol=1e-5)
+    assert not got[7].any()                   # the empty column
     pos = op.map_values(lambda v: (v > 0).to(v.dtype))
     np.testing.assert_allclose((pos @ torch.as_tensor(D)).numpy(),
                                (a32 > 0) @ D, rtol=1e-5, atol=1e-5)
@@ -250,19 +250,176 @@ def test_csr_spmm_plain_sums_rows_in_nonzero_order(monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
-def test_csr_spmm_checks_shapes_and_plans():
+def _zipf_csr(m=3000, K=400, seed=0, head=2000.0):
+    """A CSR whose rows follow a Zipf head (as Xᵀ of term counts), with
+    empty rows."""
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(K, (head / np.arange(1, m + 1) ** 1.1)
+                         .astype(np.int64))
+    lengths[rng.permutation(m)[:m // 10]] = 0
+    rng.shuffle(lengths)
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    indices = np.concatenate([np.sort(rng.choice(K, n, replace=False))
+                              for n in lengths]).astype(np.int32)
+    return indptr, indices
+
+
+def _wide_indptr(m=3000, seed=0):
+    """Row ends of a CSR of many rows of about 60 nonzeros and one of
+    1100: its longest row is heavy (past `SPMM_HEAVY_MIN`), yet at W =
+    1000 its chain at 32 columns fits the launch (32-column heavy
+    slices)."""
+    lengths = np.random.default_rng(seed).integers(30, 90, m)
+    lengths[m // 3] = 1100
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+
+
+#: the plans' CSRs: no heavy row (K 400), Zipf-long heavy rows (16-column
+#: slices), a heavy row among many nonzeros (32-column slices at W 1000)
+PLAN_CSRS = {"zipf": lambda: _zipf_csr()[0],
+             "zipf-long": lambda: _zipf_csr(K=3000)[0],
+             "wide": _wide_indptr}
+
+
+@pytest.mark.parametrize("W", [1, 100, 129, 1000, 1025])
+def test_csr_spmm_checks_shapes_and_plans(W):
+    """The wrapper's shape check; the launch's choices at the width W:
+    16-byte lanes where W % 4 == 0 (8-byte where only 8 bytes of
+    alignment allow), slice by slice past one slice, the item count of
+    its slices, the heavy threshold and slice; the byte and operation
+    counts."""
     A, D = _spmm_case(10, 8, 3, 0.3, 0)
     args = [torch.as_tensor(a) for a in (A.indptr.astype(np.int32),
                                          A.indices.astype(np.int32), A.data)]
     with pytest.raises(ValueError, match="rows"):
         spk.csr_spmm(*args, torch.as_tensor(D[:5]), 8)
-    for W, threads, tiles in ((1, 32, 1), (100, 32, 1), (129, 64, 1),
-                              (1000, 256, 1), (1025, 256, 2)):
-        plan = spk.spmm_plan(11314, W)
-        assert (plan["threads"], plan["grid"][1]) == (threads, tiles)
-        assert plan["threads"] * spk.SPMM_COLS * tiles >= W
+    plan = spk.SpmmPlan(_zipf_csr(K=3000)[0])
+    launch = spk.spmm_launch(plan, W, 3000, blocks=132 * 3)
+    vec = 4 if W % 4 == 0 else 1
+    assert launch["vec_light"] == vec and launch["slice"] == 32 * vec
+    assert launch["heavy_nnz"] >= spk.SPMM_HEAVY_MIN
+    heavy = int((plan.seg_nnz > launch["heavy_nnz"]).sum())
+    assert launch["n_heavy"] == (heavy if vec > 1 else 0)
+    assert heavy > 0
+    hc = spk.heavy_columns(plan, W) if vec == 4 else 32
+    assert spk.heavy_columns(plan, W) in (16, 32)
+    assert launch["heavy_slice"] == hc
+    assert launch["units"] == (launch["n_heavy"] * -(-W // hc)
+                               + launch["n_light"] * -(-W // (32 * vec)))
+    assert 1 <= launch["blocks"] <= 132 * 3
+    assert launch["order"] == ("l2" if W > 32 * vec else "rows")
+    assert launch["heavy_nnz"] == spk.heavy_threshold(plan.nnz, W)
+    two = spk.spmm_launch(plan, W, 3000, vec_ok=2)
+    assert two["vec_light"] == (2 if W % 2 == 0 else 1)
+    assert two["order"] == ("l2" if W > 32 * two["vec_light"] else "rows")
     assert spk.spmm_bytes(2, 3, 4, 5) == 4 * 3 + 8 * 3 + 4 * 20 + 4 * 10
     assert spk.spmm_ops(3, 5) == 30 and spk.spmm_gathered_bytes(3, 5) == 60
+
+
+@pytest.mark.parametrize("W", [1, 3, 37, 97, 98, 100, 500, 1000, 1025])
+@pytest.mark.parametrize("csr", sorted(PLAN_CSRS))
+@pytest.mark.parametrize("vec_ok", [4, 2])
+def test_spmm_plan_covers_every_element_once(W, csr, vec_ok):
+    """Every column of every row (and so every nonzero of a row times
+    every column) falls in exactly one item; the column slices of a
+    segment cover [0, W); the heavy items come first, each group longest
+    first, the light items slice by slice where W spans more than one."""
+    indptr = PLAN_CSRS[csr]()
+    plan = spk.SpmmPlan(indptr)
+    launch = spk.spmm_launch(plan, W, 400, vec_ok=vec_ok)
+    units = spk.spmm_units(plan, launch)
+    assert len(units) == launch["units"]
+    cover = np.zeros((plan.m, W), np.int64)
+    for r0, r1, c0, c1, vec in units:
+        assert 0 <= c0 < c1 <= W and (c1 - c0) <= 32 * vec
+        cover[r0:r1, c0:c1] += 1
+    assert (cover == 1).all()
+    nnz = indptr[units[:, 1]] - indptr[units[:, 0]]
+    heavy = units[:, 4] == 1 if launch["vec_light"] > 1 else \
+        np.zeros(len(units), bool)
+    assert heavy.sum() == launch["n_heavy"] * -(-W // launch["heavy_slice"])
+    assert (np.diff(heavy.astype(int)) <= 0).all()  # heavy items first
+    if heavy.any():
+        assert nnz[heavy].min() > launch["heavy_nnz"]
+    if heavy.any() and not heavy.all():
+        assert launch["heavy_nnz"] >= nnz[~heavy].max()
+    assert (np.diff(nnz[heavy]) <= 0).all()
+    if launch["order"] == "rows":
+        assert W <= launch["slice"]
+        assert (np.diff(nnz[~heavy]) <= 0).all()
+    else:                                           # slice by slice
+        c0 = units[~heavy, 2]
+        assert (np.diff(c0) >= 0).all()
+        for c in np.unique(c0):
+            assert (np.diff(nnz[~heavy][c0 == c]) <= 0).all()
+    if csr != "zipf" and launch["vec_light"] > 1:   # a heavy row, cut
+        assert launch["n_heavy"] > 0
+    if csr == "wide" and W == 1000 and vec_ok == 4:
+        assert launch["heavy_slice"] == 32
+
+
+@pytest.mark.parametrize("hc", [16, 32])
+def test_spmm_plan_cuts_a_row_longer_than_the_ring(monkeypatch, hc):
+    """A row past the segment cost stands alone; past the heavy threshold
+    it is cut into 16- or 32-column slices (a ring 4-8x deeper in
+    nonzeros than the light items' 16-byte lanes); short rows share
+    segments within the cost; empty rows are covered too."""
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(0, 6, 2000)
+    lengths[777] = 5000
+    lengths[1500:1600] = 0
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    starts, ends, nnz = spk.spmm_segments(indptr)
+    assert (starts[0], ends[0], nnz[0]) == (777, 778, 5000)
+    cost = (indptr[ends] - indptr[starts]) + (ends - starts)
+    assert (cost[1:] <= 2 * spk.SPMM_SEGMENT_COST).all()
+    assert sorted(zip(starts, ends))[0][0] == 0
+    assert np.array_equal(np.sort(starts)[1:], np.sort(ends)[:-1])
+    plan = spk.SpmmPlan(indptr)
+    assert plan.longest == 5000 > spk.ring_depth(1) > spk.ring_depth(4)
+    # so few nonzeros a launch that the 5000-nonzero chain takes 16
+    # columns; 32 where `heavy_columns` picks it at larger launches
+    assert spk.heavy_columns(plan, 100) == 16
+    monkeypatch.setattr(spk, "heavy_columns", lambda plan, W: hc)
+    launch = spk.spmm_launch(plan, 100, 5000)
+    assert launch["n_heavy"] == 1 and launch["vec_light"] == 4
+    assert launch["depth_heavy"] == 8 * spk.SPMM_RING_BYTES // hc
+    units = spk.spmm_units(plan, launch)
+    n = -(-100 // hc)
+    assert units[:n].tolist() == [[777, 778, c, min(100, c + hc), 1]
+                                  for c in range(0, 100, hc)]
+    assert (units[n:, 4] == 4).all()
+    assert len(units) == n + plan.n_segments - 1
+    # at VEC 1 (W odd) no segment is heavy
+    assert spk.spmm_launch(plan, 97, 5000)["n_heavy"] == 0
+
+
+def test_csr_spmm_out_and_plan_on_the_cpu():
+    """`out=` takes the result in place (a view of a larger buffer, as
+    the sparse LogisticRegression's gradient rows); a plan is accepted
+    and the plain version runs; the operand's plans are built on
+    staging and shared by `map_values`."""
+    A, D = _spmm_case(40, 30, 6, 0.2, 2)
+    args = [torch.as_tensor(a) for a in (A.indptr.astype(np.int32),
+                                         A.indices.astype(np.int32), A.data)]
+    buf = torch.full((41, 6), 7.0)
+    plan = spk.SpmmPlan(args[0])
+    got = spk.csr_spmm(*args, torch.as_tensor(D), 30, plan=plan,
+                       out=buf[:40])
+    assert got.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf[:40], spk.csr_spmm_plain(*args, torch.as_tensor(D)))
+    assert (buf[40] == 7.0).all()
+    with pytest.raises(ValueError):
+        spk.csr_spmm(*args, torch.as_tensor(D), 30, out=buf[:39])
+    op = pcsr.CSROperand.from_matrix(A, "cpu")
+    assert op.plan.m == 40 and op.t_plan.m == 30
+    assert op.map_values(torch.abs).plan is op.plan
+    E = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(40, 5)).astype(np.float32))
+    assert torch.equal(op.tmm(E), spk.csr_spmm_plain(
+        op.t_indptr, op.t_indices, op.t_values, E))
+    with pytest.raises(ValueError, match="transpose=False"):
+        pcsr.CSROperand.from_matrix(A, "cpu", transpose=False).tmm(E)
 
 
 # ---------------------------------------------------------------------------
@@ -643,3 +800,109 @@ def test_sparse_families_match_the_reference():
     for ours, ref in pairs:
         assert bool(ours.supports_sparse) == bool(
             getattr(ref, "supports_sparse", False)), ours.name
+
+
+# ---------------------------------------------------------------------------
+# the sparse LogisticRegression's feature-major state; the dense path's bits
+# ---------------------------------------------------------------------------
+
+#: the dense LogisticRegression searches below (l2 and elasticnet, 3 and 2
+#: classes), hashed on the tree before the solvers took a lane axis, with
+#: the torch build they were hashed on: the digest holds torch's CPU
+#: kernels of that build (one thread, as this module pins)
+DENSE_LR_DIGEST = "6f455b2ac6bd537fdedd19ddced18fcd"
+DENSE_LR_TORCH = "2.13.0+cpu"
+
+
+def test_dense_logistic_keeps_its_bits(monkeypatch):
+    """The dense searches hand the solvers their (B, D) state with the
+    lanes first, the unchanged 2-D call; on the torch build the digest
+    was taken on, they keep the bits they had before the lane axis."""
+    import hashlib
+    from spark_sklearn_tpu_torch.models import linear as plin
+    calls = []
+
+    def spy(fn):
+        def wrapped(*args, lane_dim=0, **kw):
+            x0 = kw["x0"] if "x0" in kw else args[6]
+            calls.append((fn.__name__, x0.dim(), lane_dim))
+            return fn(*args, lane_dim=lane_dim, **kw)
+        return wrapped
+
+    for name in ("glm_lbfgs_batched", "glm_fista_batched"):
+        monkeypatch.setattr(plin, name, spy(getattr(plin, name)))
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(240, 12)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(int) + (X[:, 2] > 0.8)
+    h = hashlib.sha256()
+    for est in (port.LogisticRegression(max_iter=40),
+                port.LogisticRegression(max_iter=20, penalty="elasticnet",
+                                        l1_ratio=0.5)):
+        for yy in (y, (y > 0).astype(int)):
+            gs = _port_search(est, {"C": [0.2, 3.0]}, X, yy, config=CPU,
+                              refit=True)
+            for a in (gs.cv_results_["mean_test_score"],
+                      gs.best_estimator_.coef_,
+                      gs.best_estimator_.intercept_):
+                h.update(np.ascontiguousarray(a).tobytes())
+    assert {c[0] for c in calls} == {"glm_lbfgs_batched",
+                                     "glm_fista_batched"}
+    assert all(c[1:] == (2, 0) for c in calls), calls
+    if torch.__version__ != DENSE_LR_TORCH:
+        pytest.skip(f"the digest was taken on torch {DENSE_LR_TORCH}")
+    assert h.hexdigest()[:32] == DENSE_LR_DIGEST
+
+
+@pytest.mark.parametrize("k,penalty", [(2, "l2"), (3, "l2"),
+                                       (2, "elasticnet"), (3, "elasticnet")])
+def test_sparse_logistic_state_is_feature_major(monkeypatch, k, penalty):
+    """The sparse fit hands SP1 a view of its (d + 1, B, k') state as the
+    forward's D and a view of the gradient's first d rows as the
+    backward's out: no copy of the coefficients or of the gradient; the
+    fit equals the dense one within 5e-3 (both stop at max|grad| 1e-4
+    or 60 iterations, their sums in other orders; well-posed C)."""
+    seen = {"mm": 0, "tmm": 0}
+    mm, tmm = pcsr.CSROperand.mm, pcsr.CSROperand.tmm
+
+    def spy_mm(self, D, out=None):
+        assert D._base is not None and D._base.dim() == 3
+        assert D._base.shape[0] == self.shape[1] + 1
+        seen["mm"] += 1
+        return mm(self, D, out)
+
+    def spy_tmm(self, E, out=None):
+        assert out is not None and out._base.dim() == 3
+        assert out._base.shape[0] == self.shape[1] + 1
+        seen["tmm"] += 1
+        return tmm(self, E, out)
+
+    monkeypatch.setattr(pcsr.CSROperand, "mm", spy_mm)
+    monkeypatch.setattr(pcsr.CSROperand, "tmm", spy_tmm)
+    X, y = _counts(n=120, d=30, density=0.15, k=k, seed=3)
+    X = _normalized(X).tocsr()
+    kw = {"l1_ratio": 0.5} if penalty == "elasticnet" else {}
+    data, meta = pcsr_family().prepare_data_sparse(X, y)
+    dev_data = {"X": data["X"].to_device("cpu"),
+                "y": torch.as_tensor(data["y"])}
+    B = 4
+    w = torch.ones((B, 120))
+    w[:, ::3] = 0.0
+    dyn = {"C": torch.tensor([0.1, 0.3, 1.0, 3.0])}
+    static = {"max_iter": 60, "penalty": penalty, **kw}
+    got = pcsr_family().fit_task_batched(dyn, static, dev_data, w, meta)
+    assert seen["mm"] > 0 and seen["tmm"] > 0
+    dense = {"X": torch.as_tensor(X.toarray().astype(np.float32)),
+             "y": dev_data["y"]}
+    want = pcsr_family().fit_task_batched(dyn, static, dense, w, meta)
+    kk = 1 if k == 2 else k
+    assert got["coef"].shape == (B, kk, 30) and got["coef"].is_contiguous()
+    assert got["intercept"].shape == (B, kk)
+    np.testing.assert_allclose(got["coef"].numpy(), want["coef"].numpy(),
+                               atol=5e-3)
+    np.testing.assert_allclose(got["intercept"].numpy(),
+                               want["intercept"].numpy(), atol=5e-3)
+
+
+def pcsr_family():
+    from spark_sklearn_tpu_torch.models.linear import LogisticRegressionFamily
+    return LogisticRegressionFamily
