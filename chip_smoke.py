@@ -140,7 +140,25 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    StratifiedKFold(5) on the counts; each cold with SP1's launches, warm
    and profiled (busy, idle share, SP1's and the copy kernels' device
    time); then on a 2000 x 20000 cut, 3 C (the 5 alphas) x 3 folds, cuda
-   sparse against CPU sparse and against cuda densified (5e-3; NB 1e-6).
+   sparse against CPU sparse and against cuda densified (5e-3; NB 1e-6);
+17. keyed fleets, gapply and converted tree ensembles with the port's
+   own classes: (a) KeyedEstimator on a dict of columns (no pandas on the
+   card) of 2000 keys with Zipf-skewed group sizes of 16-4096 rows (~1 M
+   rows), d=32, plus 20 keys whose labels lack a class: LogisticRegression
+   multinomial (k=4; the 20 keys host-fitted by the port's own
+   LogisticRegression on cuda, backend "hybrid") and binary (K2ℓ, K4ℓ),
+   LinearRegression, Ridge, KMeans(n_clusters=8) (C1ℓ), StandardScaler
+   and PCA(8), each fitted cold, warm and profiled (busy, idle share),
+   with its launches, buckets and the keys' n_iter range, then
+   `transform` over the same rows plus 10 unseen keys, and cuda against
+   the CPU on 200 keys of at most 512 rows; (b) `run_bucketed` with a
+   torch compiled group function over the same segments; (c) RF-shaped
+   (100 trees of depth <= 20, 7 classes) and GB-shaped (100 stages x 7
+   classes, depth 3) ensembles grown from --seed in sklearn's node
+   layout on phase 10's covtype-shaped X (n=100000, d=54), timed through
+   `TorchModel.predict_proba` (TI1, `csrc/tree_infer.cu`); K2ℓ, K4ℓ and
+   C1ℓ at the fleets' largest bucket and TI1 at (c)'s ensembles against
+   their plain versions, timed in a CUDA graph beside their bounds.
 
 Phase 3 also holds S1 (rbf, poly; and rbf on a (2000, 10000) prediction,
 whose norms are summed apart; each timed as a CUDA graph's replay,
@@ -930,7 +948,7 @@ def search(X, y, Cs, device):
 
 def profile_busy(run, warm: float, iters: int, out_name: str,
                  with_kernels: bool = False, top: int = 12,
-                 primed: bool = False):
+                 primed: bool = False, host: bool = True):
     """Profile one `run()` and print the device's busy time against the
     warm wall `warm` (idle share), per solver iteration where `iters` > 1,
     and the largest `top` kernels; the time and count of every kernel go to
@@ -943,14 +961,16 @@ def profile_busy(run, warm: float, iters: int, out_name: str,
     runs `run()` twice, a marker kernel between, and counts the device
     events after the marker: a single profiled run of a short search has
     come back without its first tens of ms of device events (phase 12's
-    KNN searches), which a run of seconds hardly notices."""
+    KNN searches), which a run of seconds hardly notices.  `host=False`
+    records the device's activity alone: a run of 10^5 eager launches
+    then profiles in about its own time instead of several times it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if host else [])
+                 + [ProfilerActivity.CUDA]) as prof:
         if primed:
             run()
             torch.cuda.synchronize()
@@ -4318,6 +4338,507 @@ def phase_sparse(seed: int):
     return out
 
 
+# --- keyed fleets, gapply and converted ensembles: phase 17 ---------------
+
+KEYED_KEYS, KEYED_D, KEYED_K = 2000, 32, 4     # keys, features, classes
+KEYED_MIN, KEYED_MAX, KEYED_ALPHA = 16, 4096, 0.2   # Zipf group sizes
+KEYED_HOST_KEYS = 20                   # keys lacking a class: host fits
+KEYED_UNSEEN = 10                      # keys transform meets but fit never
+KEYED_CHECK_KEYS, KEYED_CHECK_MAX = 200, 512   # the cuda-vs-cpu keys
+RF_TREES, RF_DEPTH, GB_STAGES, GB_DEPTH = 100, 20, 100, 3
+
+
+def keyed_table(seed: int):
+    """A dict of columns: KEYED_KEYS keys whose group sizes follow a
+    truncated Zipf (Pareto) law of exponent KEYED_ALPHA on [16, 4096] rows
+    (~1 M rows in all), then KEYED_HOST_KEYS keys of 200 rows whose labels
+    never take class 3; x (n, 32) float32 rows (column spreads 3 to
+    0.3), each key its own linear model W_k: ym the argmax of 4 noisy scores, yb the sign of the first,
+    yr the first score.  Also the same columns for KEYED_UNSEEN unseen
+    keys (200 rows each) that transform meets."""
+    rng = np.random.default_rng(seed)
+    a = KEYED_ALPHA
+    u = rng.random(KEYED_KEYS)
+    ratio = (KEYED_MIN / KEYED_MAX) ** a
+    sizes = np.floor(KEYED_MIN * (1 - u * (1 - ratio)) ** (-1 / a))
+    sizes = np.clip(sizes, KEYED_MIN, KEYED_MAX).astype(np.int64)
+    sizes = np.concatenate([sizes, np.full(KEYED_HOST_KEYS + KEYED_UNSEEN,
+                                           200)])
+    kid = np.repeat(np.arange(len(sizes)), sizes)
+    # features of distinct spreads (3 down to 0.3), as a table's columns
+    # are: PCA's leading directions are then well separated
+    X = rng.standard_normal((len(kid), KEYED_D), dtype=np.float32) \
+        * np.geomspace(3.0, 0.3, KEYED_D, dtype=np.float32)
+    W = rng.standard_normal((len(sizes), KEYED_D, KEYED_K),
+                            dtype=np.float32) / np.sqrt(KEYED_D)
+    z = np.einsum("nd,ndk->nk", X, W[kid]) \
+        + 0.5 * rng.standard_normal((len(kid), KEYED_K), dtype=np.float32)
+    ym = np.argmax(z, axis=1)
+    host = (kid >= KEYED_KEYS) & (kid < KEYED_KEYS + KEYED_HOST_KEYS)
+    ym[host] = np.argmax(z[host, :3], axis=1)         # never class 3
+    cols = {"k": kid, "x": X, "ym": ym, "yb": (z[:, 0] > 0).astype(np.int64),
+            "yr": z[:, 0].astype(np.float64)}
+    fit = kid < KEYED_KEYS + KEYED_HOST_KEYS
+    return ({c: v[fit] for c, v in cols.items()}, cols, sizes)
+
+
+def keyed_specs():
+    """(label, estimator, KeyedEstimator keywords, kernels of its path)."""
+    import spark_sklearn_tpu_torch as port
+    return [
+        ("logreg_multinomial", port.LogisticRegression(), {"yCol": "ym"},
+         ("glm_loss_grad_lanes", "glm_trial_loss_lanes")),
+        ("logreg_binary", port.LogisticRegression(), {"yCol": "yb"},
+         ("glm_loss_grad_lanes", "glm_trial_loss_lanes")),
+        ("linreg", port.LinearRegression(), {"yCol": "yr"}, ()),
+        ("ridge", port.Ridge(alpha=1.0), {"yCol": "yr"}, ()),
+        ("kmeans", port.KMeans(n_clusters=8, random_state=0),
+         {"estimatorType": "clusterer"}, ("kmeans_assign_lanes",)),
+        ("scaler", port.StandardScaler(), {"estimatorType": "transformer"},
+         ()),
+        ("pca", port.PCA(n_components=8), {"estimatorType": "transformer"},
+         ()),
+    ]
+
+
+def lane_launches():
+    from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+    from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
+    return {**gk.LANE_LAUNCHES, **kmk.LANE_LAUNCHES}
+
+
+def reset_lane_launches():
+    from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+    from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
+    gk.reset_launches()
+    kmk.reset_launches()
+
+
+def keyed_outputs_ok(label, out, table, all_table, kind):
+    """Fleet rows have finite outputs (a label, an id, a value or a
+    vector of the step's width); the unseen keys' rows NaN or None."""
+    seen = all_table["k"] < KEYED_KEYS + KEYED_HOST_KEYS
+    if kind == "transformer":
+        bad = sum(v is None for v in out[seen])
+        if bad or any(v is not None for v in out[~seen]):
+            raise AssertionError(f"{label}: {bad} fitted rows without an "
+                                 "output, or an unseen key with one")
+        width = {len(v) for v in out[seen]}
+        if width != {8 if label == "pca" else KEYED_D}:
+            raise AssertionError(f"{label}: output widths {width}")
+        if not np.isfinite(np.stack(out[seen][:100000])).all():
+            raise AssertionError(f"{label}: non-finite outputs")
+        return
+    if not np.isfinite(out[seen].astype(np.float64)).all():
+        raise AssertionError(f"{label}: non-finite outputs on fitted keys")
+    if not np.isnan(out[~seen].astype(np.float64)).all():
+        raise AssertionError(f"{label}: unseen keys did not give NaN")
+
+
+def keyed_agreement(label, est, kw, table, sizes):
+    """The fleet on cuda against the CPU on KEYED_CHECK_KEYS keys of at
+    most KEYED_CHECK_MAX rows: labels and cluster ids agree on all but
+    0.1 % of the rows (float32 sums in other orders can move a row on a
+    decision boundary), outputs within 1e-4; PCA's columns up to their
+    sign a key, within 1e-4 of the outputs' largest magnitude."""
+    import spark_sklearn_tpu_torch as port
+    keys = np.flatnonzero(sizes[:KEYED_KEYS] <= KEYED_CHECK_MAX)[
+        :KEYED_CHECK_KEYS]
+    m = np.isin(table["k"], keys)
+    sub = {c: v[m] for c, v in table.items()}
+    outs, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        km = port.KeyedEstimator(sklearnEstimator=est, keyCols=["k"],
+                                 xCol="x", config=port.TorchConfig(
+                                     device=dev), **kw).fit(sub)
+        outs[dev] = km.transform(sub)["output"]
+        walls[dev] = time.perf_counter() - t0
+    a, b = outs["cuda"], outs["cpu"]
+    if a.dtype == object:
+        a, b = np.stack(a), np.stack(b)
+        err = float(np.abs(a - b).max())
+        ok = err <= 1e-4
+        stat = {"max_abs_err": err}
+        if label == "pca":
+            # each key's components up to their sign, and held relative
+            # to the outputs' scale: float32 eigenvectors of a key's
+            # sample covariance move by ~eps |C| / gap, and a key of 16
+            # rows has close eigenvalues
+            for key in keys:
+                r = sub["k"] == key
+                a[r] *= np.sign((a[r] * b[r]).sum(axis=0, keepdims=True))
+            err = float(np.abs(a - b).max())
+            scale = float(np.abs(b).max())
+            ok = err <= 1e-4 * scale
+            stat = {"max_abs_err": err, "output_scale": scale}
+    elif a.dtype.kind == "f":
+        err = float(np.abs(a - b).max())
+        ok = err <= 1e-4
+        stat = {"max_abs_err": err}
+    else:
+        differ = int((a != b).sum())
+        ok = differ <= 1e-3 * len(a)
+        stat = {"rows_differ": differ}
+    stat.update({"keys": len(keys), "rows": int(m.sum()),
+                 "cuda_s": walls["cuda"], "cpu_s": walls["cpu"]})
+    print(f"  {label}: cuda against cpu on {len(keys)} keys "
+          f"({int(m.sum())} rows): {stat}")
+    if not ok:
+        raise AssertionError(f"{label}: cuda and cpu disagree: {stat}")
+    return stat
+
+
+def phase_keyed(seed: int):
+    """Phase 17 (a) and (b): the fleets at full size on cuda, their
+    launches, walls, busy and idle share (a profiled second fit against
+    the first's wall), buckets and iterations; cuda against the CPU on
+    200 keys; the compiled group function over the same segments."""
+    import torch
+
+    import spark_sklearn_tpu_torch as port
+    from spark_sklearn_tpu_torch.keyed.gapply import (
+        compiled_group_func,
+        segment_launch,
+    )
+    from spark_sklearn_tpu_torch.keyed.keyed import run_bucketed
+
+    table, all_table, sizes = keyed_table(seed)
+    n_fit = len(table["k"])
+    print(f"  {KEYED_KEYS} keys + {KEYED_HOST_KEYS} lacking class 3: "
+          f"{n_fit} rows (group sizes {sizes[:KEYED_KEYS].min()}-"
+          f"{sizes[:KEYED_KEYS].max()}, median "
+          f"{int(np.median(sizes[:KEYED_KEYS]))}), d={KEYED_D}; transform "
+          f"adds {KEYED_UNSEEN} unseen keys ({len(all_table['k'])} rows)")
+    out = {}
+    for label, est, kw, path in keyed_specs():
+        kind = kw.get("estimatorType", "predictor")
+
+        def fit(est=est, kw=kw):
+            km = port.KeyedEstimator(sklearnEstimator=est, keyCols=["k"],
+                                     xCol="x", config=port.TorchConfig(
+                                         device="cuda"), **kw).fit(table)
+            torch.cuda.synchronize()
+            return km
+
+        reset_lane_launches()
+        t0 = time.perf_counter()
+        km = fit()
+        wall = time.perf_counter() - t0
+        launches = lane_launches()
+        for name in path:
+            if launches[name] == 0:
+                raise AssertionError(f"{label}: {name} never launched")
+        want = "hybrid" if label == "logreg_multinomial" else "device"
+        if km.backend != want:
+            raise AssertionError(f"{label}: backend {km.backend}")
+        t0 = time.perf_counter()
+        res = km.transform(all_table)
+        transform_s = time.perf_counter() - t0
+        keyed_outputs_ok(label, res["output"], table, all_table, kind)
+        models = km.fleet["models"]
+        n_iter = (models["n_iter"].cpu().numpy() if "n_iter" in models
+                  else None)
+        iters = int(n_iter.max()) * len(km.fleet["buckets"]) \
+            if n_iter is not None else 1
+        busy = profile_busy(fit, wall, iters, f"chip_smoke_keyed_{label}.txt",
+                            top=6, host=False)
+        rec = {"fit_s": wall, "transform_s": transform_s,
+               "launches": {k: launches[k] for k in path},
+               "device_busy_s": busy,
+               "idle_share": None if not busy else 1 - busy / wall,
+               "buckets": km.fleet["buckets"], "backend": km.backend,
+               "fleet_keys": len(km.fleet["key_index"]),
+               "host_keys": len(km.models or {}),
+               "n_iter_range": (None if n_iter is None else
+                                [int(n_iter.min()), int(n_iter.max())])}
+        print(f"  {label}: fit {wall:.3f} s (the kernels built and "
+              f"warmed by earlier phases), transform {transform_s:.3f} s, "
+              f"busy {busy:.4f} s, idle "
+              f"share {rec['idle_share']}, launches {rec['launches']}, "
+              f"buckets {rec['buckets']}, {rec['fleet_keys']} fleet keys, "
+              f"{rec['host_keys']} host keys ({km.backend}), n_iter "
+              f"{rec['n_iter_range']}")
+        rec["agreement"] = keyed_agreement(label, est, kw, table, sizes)
+        out[label] = rec
+
+    # (b) a compiled group function over the same segments
+    @compiled_group_func
+    def stats(X, w):
+        n = w.sum()
+        mean = (X * w[:, None]).sum(dim=0) / n
+        var = (w[:, None] * (X - mean) ** 2).sum(dim=0) / n
+        return torch.cat([mean, var, n[None]])
+
+    rows = [np.flatnonzero(table["k"] == i) for i in
+            range(KEYED_KEYS + KEYED_HOST_KEYS)]
+    X = torch.as_tensor(table["x"], device="cuda")
+    launch = segment_launch(stats)
+    run_bucketed(rows, X, launch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    order, Y, buckets = run_bucketed(rows, X, launch)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    Y = Y.cpu().numpy()
+    order_c, Yc, _ = run_bucketed(rows[:KEYED_CHECK_KEYS], X.cpu(), launch)
+    err = float(np.abs(Y[[order.index(i) for i in order_c]]
+                       - Yc.numpy()).max())
+    want_n = np.array([len(rows[i]) for i in order])
+    if not (np.array_equal(Y[:, -1], want_n) and err <= 1e-4):
+        raise AssertionError(f"compiled group function: counts or cuda "
+                             f"against cpu (max abs err {err})")
+    print(f"  gapply segments: run_bucketed of a torch group function "
+          f"(mean, var, count) over {len(rows)} segments in "
+          f"{len(buckets)} buckets: {seg_s:.3f} s; cuda against cpu on "
+          f"{KEYED_CHECK_KEYS} segments max abs err {err:.3g}")
+    out["gapply_segments"] = {"wall_s": seg_s, "buckets": buckets,
+                              "max_abs_err": err}
+    return out
+
+
+def grown_trees(rng, X, y, n_trees, depth, n_out, sample=5000,
+                min_split=8):
+    """`n_trees` trees in sklearn's node layout (depth first, left
+    subtree first) grown on random samples of X's rows: at a node a
+    random feature, the threshold one of its rows' values of it (as
+    sklearn's thresholds lie between X's values; up to 8 draws for one
+    that splits the node's rows), children while the node holds
+    `min_split` rows and is above `depth`; a node's value its
+    rows' class shares (n_out > 1) or a draw of N(0, 0.1)."""
+    trees = []
+    for _ in range(n_trees):
+        feat, thr, left, right, val, lvl = [], [], [], [], [], []
+        stack = [(rng.integers(0, len(X), sample), 0, -1, 0)]
+        while stack:
+            rows, level, parent, side = stack.pop()
+            i = len(feat)
+            if parent >= 0:
+                (left if side == 0 else right)[parent] = i
+            feat.append(-2), thr.append(-2.0), left.append(-1)
+            right.append(-1), lvl.append(level)
+            val.append(np.bincount(y[rows], minlength=n_out) / len(rows)
+                       if n_out > 1 else [0.1 * rng.standard_normal()])
+            for _ in range(8 if level < depth and len(rows) >= min_split
+                           else 0):
+                f = int(rng.integers(X.shape[1]))
+                t = float(X[rows[rng.integers(len(rows))], f])
+                go = X[rows, f] <= t
+                if 0 < go.sum() < len(rows):   # else another draw
+                    feat[i], thr[i] = f, t
+                    stack.append((rows[~go], level + 1, i, 1))
+                    stack.append((rows[go], level + 1, i, 0))
+                    break
+        tree = type("Tree", (), {})()
+        tree.feature, tree.threshold = np.array(feat), np.array(thr)
+        tree.children_left = np.array(left)
+        tree.children_right = np.array(right)
+        tree.value = np.asarray(val, np.float64)[:, None, :]
+        tree.node_count, tree.max_depth = len(feat), max(lvl)
+        trees.append(tree)
+    return trees
+
+
+def phase_tree_infer(seed: int):
+    """Phase 17 (c): RF-shaped (RF_TREES trees of depth <= RF_DEPTH, 7
+    classes) and GB-shaped (GB_STAGES stages x 7 classes of depth
+    GB_DEPTH) ensembles grown from --seed on phase 10's covtype-shaped X,
+    predicted through TorchModel.predict_proba (TI1), each TI1 held to
+    its plain version (rtol 1e-6) and timed in a CUDA graph beside its
+    bound (X, the nodes this X reaches and the output once; a compare
+    and a select a node visit) and the plain version.
+    Returns (rows, runs)."""
+    import torch
+
+    from spark_sklearn_tpu_torch.convert import tree_infer as ti
+    from spark_sklearn_tpu_torch.convert.converter import TorchModel
+    from spark_sklearn_tpu_torch.ops import tree_infer_kernels as tik
+
+    X, y = covtype_like(seed)
+    rng = np.random.default_rng(seed + 17)
+    Xd = torch.as_tensor(X, device="cuda")
+    meta = {"n_features": D_RF, "n_classes": K_RF,
+            "classes": np.arange(K_RF)}
+    t0 = time.perf_counter()
+    forest = ti.pack_trees(grown_trees(rng, X, y, RF_TREES, RF_DEPTH, K_RF))
+    boost = ti.pack_trees(grown_trees(rng, X, y, GB_STAGES * K_RF, GB_DEPTH,
+                                      1, sample=20000))
+    boost.update(init=np.log(np.bincount(y, minlength=K_RF) / len(y)
+                             ).astype(np.float32),
+                 learning_rate=0.1, k_eff=K_RF)
+    grow_s = time.perf_counter() - t0
+    rows, runs = {}, {}
+    for label, packed, shim, mode in (
+            ("forest", forest, ti.PackedForestClassifier, "forest_proba"),
+            ("boost", boost, ti.PackedGBClassifier, "boost")):
+        model = ti.to_device(packed, "cuda")
+        tm = TorchModel(shim, model, {}, meta)
+        tik.reset_launches()
+        t0 = time.perf_counter()
+        proba = tm.predict_proba(X)
+        cold = time.perf_counter() - t0
+        if tik.LAUNCHES["tree_ensemble"] == 0:
+            raise AssertionError(f"{label}: tree_ensemble never launched")
+        launches = dict(tik.LAUNCHES)
+        t0 = time.perf_counter()
+        proba = tm.predict_proba(X)
+        warm = time.perf_counter() - t0
+        if not (np.isfinite(proba).all()
+                and np.allclose(proba.sum(axis=1), 1.0, atol=1e-5)):
+            raise AssertionError(f"{label}: probabilities do not sum to 1")
+        acc = float(np.mean(np.argmax(proba, axis=1) == y))
+        args = [model[a] for a in ti.ARRAYS] + [model["max_depth"], mode]
+        kw = ({"K": K_RF, "init": model["init"], "lr": 0.1}
+              if mode == "boost" else {})
+        got = tik.tree_ensemble(Xd, *args, **kw)
+        want = tik.tree_ensemble_plain(Xd, *args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+        if not torch.equal(got, tik.tree_ensemble(Xd, *args, **kw)):
+            raise AssertionError(f"{label}: two launches differ")
+        internal, leaf, inner_nodes, leaf_nodes = tik.node_visits(
+            Xd, *args[:4], model["max_depth"])
+        width = got.shape[1]
+        n_out = packed["value"].shape[2]
+        # bytes: X once, each node this X reaches once (an internal
+        # node's feature, threshold, left and right; a leaf's left and
+        # values), the output once; operations: a compare and a select a
+        # visit of an internal node, the leaf's reduction (forest: its
+        # sum, the divisions and the adds over n_out; else one add)
+        nbytes = (4 * X.size + 16 * inner_nodes
+                  + (4 + 4 * n_out) * leaf_nodes + 4 * len(X) * width)
+        ops = 2 * internal + leaf * (3 * n_out if mode == "forest_proba"
+                                     else 1)
+        b_ms, b_by = bound(nbytes, ops)
+        ms = graph_ms(lambda: tik.tree_ensemble(Xd, *args, **kw), reps=10)
+        events = cuda_ms(lambda: tik.tree_ensemble(Xd, *args, **kw),
+                         reps=10)
+        plain_ms = cuda_ms(lambda: tik.tree_ensemble_plain(Xd, *args, **kw),
+                           reps=1, warmup=0)
+        T, N = packed["feature"].shape
+        rows[label] = {"ms": ms, "events_ms": events, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None, "max_abs_err": err,
+                       "bytes": nbytes, "ops": ops,
+                       "internal_visits": internal, "leaf_visits": leaf,
+                       "internal_nodes": inner_nodes,
+                       "leaf_nodes": leaf_nodes,
+                       "shape": {"n": len(X), "d": D_RF, "trees": T,
+                                 "nodes": N, "max_depth":
+                                     packed["max_depth"], "width": width}}
+        runs[label] = {"cold_s": cold, "warm_s": warm, "launches": launches,
+                       "accuracy": acc}
+        print(f"  {label}: {T} trees of up to {N} nodes, depth "
+              f"{packed['max_depth']}: predict_proba on {len(X)} rows cold "
+              f"{cold:.3f} s, warm {warm:.3f} s (launches {launches}, "
+              f"accuracy {acc:.4f}); TI1 {ms:.4f} ms in a graph, {events:.4f}"
+              f" ms between events (plain {plain_ms:.2f} ms; bound "
+              f"{b_ms:.5f} ms by {b_by}, {internal} internal and {leaf} "
+              f"leaf visits), max abs err {err:.3g}")
+    runs["grow_s"] = grow_s
+    return rows, runs
+
+
+def phase_keyed_kernels(seed: int):
+    """K2ℓ, K4ℓ and C1ℓ against their plain versions at phase 17's
+    largest bucket (the multinomial fleet's k = 4, d = 32; KMeans' 8
+    centers), each timed in a CUDA graph and between events beside its
+    bound and the plain version (and for C1ℓ the library route: torch.bmm
+    of X Cᵀ, the distances formed from it, torch.min).  Returns {name:
+    row}."""
+    import torch
+
+    from spark_sklearn_tpu_torch.keyed.keyed import buckets_of
+    from spark_sklearn_tpu_torch.ops import glm_kernels as gk
+    from spark_sklearn_tpu_torch.ops import kmeans_kernels as kmk
+
+    _, _, sizes = keyed_table(seed)
+    buckets = buckets_of(sizes[:KEYED_KEYS])
+    L, idx = max(buckets.items(), key=lambda kv: kv[0] * len(kv[1]))
+    G = len(idx)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k, d, kc = KEYED_K, KEYED_D, 8
+    w = torch.zeros((G, L), device="cuda")
+    for j, i in enumerate(idx):
+        w[j, :sizes[i]] = 1.0
+    Z = 3.0 * torch.randn((G, L, k), generator=g, device="cuda")
+    Zp = torch.randn((G, L, k), generator=g, device="cuda")
+    y = torch.randint(0, k, (G, L), generator=g, device="cuda",
+                      dtype=torch.int32)
+    a0 = 0.05 + 0.95 * torch.rand(G, generator=g, device="cuda")
+    alphas = ((0.5 ** torch.arange(16, device="cuda", dtype=torch.float32)
+               )[:, None] * a0[None, :]).contiguous()
+    X = torch.randn((G, L, d), generator=g, device="cuda") * w[:, :, None]
+    C = X[:, :kc].contiguous()
+    xx, cc = (X * X).sum(dim=2), (C * C).sum(dim=2)
+    rows = {}
+    rowsGL = G * L
+    # K2ℓ: reads Z, w, y once, writes G once; per logit max, sub, exp,
+    # add, then mul, sub, mul; per row log, add, sub, mul, add, recip
+    # K4ℓ: reads Z, Zp, w, y; per trial and logit fma, max, fma, sub,
+    # exp, add, per row 5
+    cases = {
+        "glm_loss_grad_lanes": (
+            lambda: gk.glm_loss_grad_lanes(Z, w, y),
+            lambda: gk.glm_loss_grad_lanes_plain(Z, w, y),
+            4 * (2 * rowsGL * k + 2 * rowsGL + G), rowsGL * (7 * k + 6),
+            None),
+        "glm_trial_loss_lanes": (
+            lambda: gk.glm_trial_loss_lanes(Z, Zp, w, y, alphas),
+            lambda: gk.glm_trial_loss_lanes_plain(Z, Zp, w, y, alphas),
+            4 * (2 * rowsGL * k + 2 * rowsGL + 32 * G),
+            16 * rowsGL * (8 * k + 5), None),
+        "kmeans_assign_lanes": (
+            lambda: kmk.kmeans_assign_lanes(X, C, xx, cc, w),
+            lambda: kmk.kmeans_assign_lanes_plain(X, C, xx, cc, w),
+            4 * (rowsGL * d + G * kc * d + rowsGL + G * kc + rowsGL)
+            + 8 * rowsGL + 4 * G,
+            2 * rowsGL * kc * d + 4 * rowsGL * kc,
+            lambda: torch.min(torch.clamp_min(
+                (xx[:, :, None] - 2.0 * torch.bmm(X, C.transpose(1, 2)))
+                + cc[:, None, :], 0.0), dim=2)),
+    }
+    for name, (fn, plain, nbytes, ops, library) in cases.items():
+        a, b = fn(), fn()
+        if not all(torch.equal(p, q) for p, q in zip(a, b)):
+            raise AssertionError(f"{name}: two launches differ")
+        want = plain()
+        if name == "kmeans_assign_lanes":
+            if not (torch.equal(a[0], want[0]) and torch.equal(a[1],
+                                                               want[1])):
+                raise AssertionError("kmeans_assign_lanes: assignments or "
+                                     "distances differ from the plain "
+                                     "version")
+            torch.testing.assert_close(a[2], want[2], rtol=1e-5, atol=0.0)
+            err = float((a[1] - want[1]).abs().max())
+        elif name == "glm_loss_grad_lanes":
+            torch.testing.assert_close(a[0], want[0], rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(a[1], want[1], rtol=0, atol=1e-6)
+            err = max(float((a[0] - want[0]).abs().max()),
+                      float((a[1] - want[1]).abs().max()))
+        else:
+            torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
+            err = float((a - want).abs().max())
+        b_ms, b_by = bound(nbytes, ops)
+        ms = graph_ms(fn, reps=20)
+        events = cuda_ms(fn, reps=10)
+        plain_ms = cuda_ms(plain, reps=1, warmup=0)
+        lib_ms = cuda_ms(library, reps=5) if library else None
+        rows[name] = {"ms": ms, "events_ms": events, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms, "max_abs_err": err,
+                      "bytes": nbytes, "ops": ops,
+                      "shape": {"G": G, "L": L, "k": kc if "kmeans" in name
+                                else k, "d": d}}
+        lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"  {name:22s} G={G} L={L}: {ms:.4f} ms in a graph, "
+              f"{events:.4f} ms between events (plain {plain_ms:.4f} ms"
+              f"{lib}; bound {b_ms:.5f} ms by {b_by}), max abs err "
+              f"{err:.3g}, bitwise repeatable")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4343,7 +4864,7 @@ def main() -> int:
     header("[2] build", t_start)
     report = _build.build(["glm_epilogue", "svm_dual", "tree_hist",
                            "mlp_step", "naive_bayes", "knn_topk", "kmeans",
-                           "svm_proba", "csr_spmm"])
+                           "svm_proba", "csr_spmm", "tree_infer"])
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.2f} s")
@@ -4422,6 +4943,14 @@ def main() -> int:
            f"({NG_N} x {NG_D}, {NG_K} classes)", t_start)
     sparse_run = phase_sparse(args.seed)
     sparse_run["copies"] = sparse_copies
+
+    header(f"[17] keyed fleets ({KEYED_KEYS} keys, Zipf group sizes "
+           f"{KEYED_MIN}-{KEYED_MAX}, d={KEYED_D}), gapply segments, "
+           f"converted RF/GB ensembles on covtype-shaped data", t_start)
+    keyed_rows = phase_keyed_kernels(args.seed)
+    keyed_run = phase_keyed(args.seed)
+    ti_rows, ti_run = phase_tree_infer(args.seed)
+    keyed_run["tree_infer"] = ti_run
 
     meta = {
         "glm_loss_grad": "spark_sklearn_tpu/models/linear.py:221",
@@ -4711,6 +5240,55 @@ def main() -> int:
         **{v: r for v, r in sparse_rows.items() if v != "lr_forward"},
         "copies": sparse_copies,
     })
+    keyed_meta = {
+        "glm_loss_grad_lanes": (
+            "glm_epilogue", "spark_sklearn_tpu/models/linear.py:128",
+            "loss rtol 1e-5, G atol 1e-6", None),
+        "glm_trial_loss_lanes": (
+            "glm_epilogue", "spark_sklearn_tpu/ops/solvers.py:122",
+            "rtol 1e-5", None),
+        "kmeans_assign_lanes": (
+            "kmeans", "spark_sklearn_tpu/models/cluster.py:129",
+            "assign and min_d2 equal to the plain version, inertia rtol "
+            "1e-5", "torch.bmm(X, Cᵀ), the distances formed from it, "
+                    "torch.min(dim=2)"),
+    }
+    keyed_paths = {"glm_loss_grad_lanes": ("logreg_multinomial",
+                                           "logreg_binary"),
+                   "glm_trial_loss_lanes": ("logreg_multinomial",
+                                            "logreg_binary"),
+                   "kmeans_assign_lanes": ("kmeans",)}
+    for name, (src, replaces, tol, library) in keyed_meta.items():
+        head = keyed_rows[name]
+        paths = keyed_paths[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"spark_sklearn_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces,
+            "launches": keyed_run[paths[0]]["launches"][name],
+            "launches_by_path": {p: keyed_run[p]["launches"][name]
+                                 for p in paths},
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "events_ms": head["events_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": library or "none: no single torch call computes it",
+            "tolerance": tol, "shape": head["shape"]})
+    head = ti_rows["forest"]
+    kernels.append({
+        "name": "tree_ensemble", "route": "cuda",
+        "source": "spark_sklearn_tpu_torch/csrc/tree_infer.cu",
+        "replaces": "spark_sklearn_tpu/convert/tree_infer.py:50",
+        "launches": ti_run["forest"]["launches"]["tree_ensemble"],
+        "launches_by_path": {p: ti_run[p]["launches"]["tree_ensemble"]
+                             for p in ("forest", "boost")},
+        "max_abs_err": max(r["max_abs_err"] for r in ti_rows.values()),
+        "ms": head["ms"], "events_ms": head["events_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None,
+        "library": "none: no single torch call computes it",
+        "tolerance": "rtol 1e-6 against the plain version on the card",
+        "shape": head["shape"], "boost": ti_rows["boost"]})
     main_run["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -4719,8 +5297,9 @@ def main() -> int:
                    "svm": svm_run, "gb": gb_run, "rf": rf_run,
                    "mlp": mlp_run, "slice": slice_run, "rest": rest_run,
                    "weighted": weighted_run, "halving": halving_run,
-                   "sparse": sparse_run,
-                   "card": nvidia_smi("name,power.limit")}, f, indent=1)
+                   "sparse": sparse_run, "keyed": keyed_run,
+                   "card": nvidia_smi("name,power.limit")}, f, indent=1,
+                  default=str)
     print(f"  total {main_run['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,8 +38,17 @@ Public API so far:
     scipy-sparse X: densified once on the host, or kept sparse on the
     device under TorchConfig(data_mode="sparse") for LogisticRegression
     and MultinomialNB/ComplementNB/BernoulliNB)
+  - KeyedEstimator, KeyedModel  (a model a key of a pandas DataFrame or
+    a dict of columns, fitted as bucketed fleets on the device)
+  - gapply, compiled_group_func  (grouped apply; torch group functions
+    over the fleets' buckets)
+  - Converter  (fitted sklearn models to the port's tensors and back:
+    toTorch/toTPU/toSpark, toSKLearn, toPandas)
 """
 
+from spark_sklearn_tpu_torch.convert.converter import Converter
+from spark_sklearn_tpu_torch.keyed.gapply import compiled_group_func, gapply
+from spark_sklearn_tpu_torch.keyed.keyed import KeyedEstimator, KeyedModel
 from spark_sklearn_tpu_torch.models.estimators import (
     BernoulliNB,
     CategoricalNB,
@@ -136,4 +145,9 @@ __all__ = [
     "StratifiedKFold",
     "KFold",
     "CSRMatrix",
+    "KeyedEstimator",
+    "KeyedModel",
+    "gapply",
+    "compiled_group_func",
+    "Converter",
 ]

@@ -32,6 +32,13 @@ flat (P,) or (B, P), "n_iter"}`` with `mlp_from_jax`, and one fit of a
 fused pipeline (``{"steps": [state, ...], "final": model}``) becomes
 step states with the port's leading fold axis and the final's model
 with `pipeline_from_jax`.
+
+A fitted JAX `KeyedModel` (its stacked fleet: key index, family or step
+name, meta, static and the models as arrays; its host-fitted estimators
+as they are) becomes the port's with `keyed_model_from_jax`, and a JAX
+`TpuModel` from `Converter.toTPU` (packed trees included) the port's
+`TorchModel` with `torch_model_from_jax`: each `transform` or `predict`
+reproduces the JAX package's on the same rows.
 """
 
 from __future__ import annotations
@@ -215,3 +222,106 @@ def linear_svm_from_jax(model, device=None):
             np.array(model["converged"], bool),
             device=out["coef"].device)
     return out
+
+
+def _port_family(name: str):
+    """The port's family (or preprocessing step) named `name`."""
+    from spark_sklearn_tpu_torch.models import base, preprocessing
+    import spark_sklearn_tpu_torch.models.estimators  # noqa: F401 registers
+
+    for fam in list(base._FAMILIES_BY_CLASSNAME.values()) + list(
+            preprocessing.STEP_REGISTRY.values()):
+        if fam.name == name:
+            return fam
+    raise ValueError(f"the port has no family or step named {name!r}")
+
+
+def _tensor(a, dev):
+    a = np.asarray(a)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    elif a.dtype.kind in "iu":
+        a = a.astype(np.int32)
+    return torch.as_tensor(np.array(a, order="C"), device=dev)
+
+
+def keyed_model_from_jax(jax_model, device=None):
+    """The port's `KeyedModel` carrying a fitted JAX `KeyedModel`: the
+    fleet's stacked models (leading key axis) as tensors of the port's
+    family or step, the same key index, static parameters and meta; the
+    host-fitted estimators as they are.  A JAX logistic regression's
+    (G, k', d) coef, a regressor's (G, d), KMeans' centers and the steps'
+    states keep their shapes; the stateless Normalizer gets the port's
+    per-key placeholder.  `device` None means ``cuda``."""
+    from spark_sklearn_tpu_torch.keyed.keyed import KeyedModel
+    from spark_sklearn_tpu_torch.parallel.device import (
+        TorchConfig,
+        resolve_device,
+    )
+
+    dev = resolve_device(TorchConfig(device=device))
+    fleet = None
+    jf = jax_model.fleet
+    if jf is not None:
+        G = len(jf["key_index"])
+        models = {k: _tensor(v, dev) for k, v in jf["models"].items()}
+        if jf["kind"] == "step":
+            step = _port_family(jf["step"].name)
+            if not models:
+                models = {"folds": torch.zeros(G, device=dev)}
+            fleet = dict(kind="step", step=step, models=models, meta={},
+                         static=dict(jf["static"]), buckets=[])
+        else:
+            fleet = dict(kind="family", family=_port_family(
+                jf["family"].name), models=models, meta=dict(jf["meta"]),
+                static=dict(jf["static"]), buckets=[])
+        fleet["key_index"] = dict(jf["key_index"])
+    return KeyedModel(
+        keyCols=jax_model.keyCols, xCol=jax_model.xCol,
+        yCol=jax_model.yCol, outputCol=jax_model.outputCol,
+        estimatorType=jax_model.estimatorType,
+        models=dict(jax_model.models) if jax_model.models else None,
+        fleet=fleet, pandas=True, device=dev)
+
+
+def torch_model_from_jax(tpu_model, device=None):
+    """The port's `TorchModel` carrying a JAX `TpuModel` (from the JAX
+    package's `Converter.toTPU`): the same family (the linear families,
+    SVC/NuSVC with probA/probB, the MLPs as one flat parameter row,
+    KMeans, KNN, naive Bayes, PCA, the packed tree ensembles), static
+    parameters and meta.  `device` None means ``cuda``."""
+    from spark_sklearn_tpu_torch.convert import converter as cv
+    from spark_sklearn_tpu_torch.convert import tree_infer as ti
+    from spark_sklearn_tpu_torch.parallel.device import (
+        TorchConfig,
+        resolve_device,
+    )
+
+    dev = resolve_device(TorchConfig(device=device))
+    name = tpu_model.family.name
+    model = tpu_model.model
+    static, meta = dict(tpu_model.static), dict(tpu_model.meta)
+    if name == "sk_tree_ensemble":
+        shim = getattr(ti, tpu_model.family.__name__)
+        packed = {k: (np.asarray(v) if k in ti.ARRAYS + ("init",) else v)
+                  for k, v in model.items()}
+        return cv.TorchModel(shim, ti.to_device(packed, dev), static, meta)
+    if name in ("mlp_classifier", "mlp_regressor"):
+        return cv.TorchModel(_port_family(name),
+                             mlp_from_jax(model, device), static, meta)
+    if name == "pca_transform":
+        return cv.TorchModel(cv._PCATransform,
+                             {k: _tensor(v, dev) for k, v in model.items()},
+                             static, meta)
+    tensors = {k: _tensor(v, dev) for k, v in model.items()}
+    if name in ("knn_brute_classifier", "knn_brute_regressor"):
+        family = cv._BruteKNN(_port_family(
+            name.replace("knn_brute", "kneighbors")))
+        return cv.TorchModel(family, tensors, static, meta)
+    if name in ("svc", "nu_svc"):
+        tm = cv.TorchModel(cv._ConvertedSVC(_port_family(name)), tensors,
+                           static, meta)
+        if hasattr(tpu_model, "_sv_class_starts"):
+            tm._sv_class_starts = tpu_model._sv_class_starts
+        return tm
+    return cv.TorchModel(_port_family(name), tensors, static, meta)

@@ -34,6 +34,16 @@
 //     version at the unchanged tolerance by chip_smoke.py and
 //     tests/test_torch_cuda.py.
 //
+// K2l glm_loss_grad_lanes and K4l glm_trial_loss_lanes: the same two
+//     epilogues for the keyed fleet's per-key L-BFGS (replacing the loss
+//     of spark_sklearn_tpu/models/linear.py:128-158 inside the scalar
+//     `lbfgs`, spark_sklearn_tpu/ops/solvers.py:67-163, vmapped over keys
+//     by keyed/keyed.py:271-279), over lane-major logits Z (B, n[, k]),
+//     the layout `torch.bmm` writes, and with each lane's own labels
+//     (label stride n) or one shared label row (stride 0).  Bound: bytes
+//     for K2l (Z, W, y read once, G written once); K4l as K4.  A warp a
+//     lane, its threads striding the lane's rows (see the section below).
+//
 // Design.
 // - Grid: (ceil(B/32) lane tiles) x (S row splits).  A block is 4 warps;
 //   its 32 lanes are one warp's threads, and warp w walks rows
@@ -450,6 +460,128 @@ trial_loss_direct(const float* __restrict__ Z, const float* __restrict__ Zp,
   block_finish(red, part, T, B, b0, nl);
 }
 
+// -------------------------------------------------- lane-major modes ----
+//
+// K2l / K4l: the same losses over logits laid out lane-major, as the keyed
+// fleet's per-key GEMM (`torch.bmm`) writes them: Z (B, n, k) or (B, n),
+// W (B, n), and labels y[b * label_stride + i]: label_stride 0 shares
+// one label row (n,) between the lanes, label_stride n gives each lane
+// its own (B, n).  A warp takes one lane; its threads walk rows r0 +
+// lane, r0 + lane + 32, ... of the block's split, so a warp's loads of a
+// row step are one contiguous piece of the lane's logits.  Each thread
+// sums its rows, a shuffle tree adds the warp's 32 sums in a fixed
+// order, and `sum_splits` adds the splits in order: no atomics.
+
+constexpr int kLaneWarps = 4;  // lanes a block, a warp each
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <bool BINARY>
+__global__ void __launch_bounds__(kThreads, 8)
+loss_grad_lanes(const float* __restrict__ Z, const float* __restrict__ W,
+                const int* __restrict__ y, float* __restrict__ G,
+                float* __restrict__ part, int n, int B, int k,
+                int label_stride) {
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int b = blockIdx.x * kLaneWarps + warp;
+  if (b >= B) return;  // a whole warp: no shuffle or barrier left behind
+  const int r1 = split_begin(blockIdx.y + 1, n, gridDim.y);
+  const size_t lb = static_cast<size_t>(b) * n;
+  const int* yl = y + static_cast<size_t>(b) * label_stride;
+  float acc = 0.f;
+  for (int i = split_begin(blockIdx.y, n, gridDim.y) + lane; i < r1;
+       i += kLanes) {
+    const size_t row = lb + i;
+    const float w = W[row];
+    const int yi = __ldg(yl + i);
+    if (BINARY) {
+      const float z = Z[row];
+      const float yb = static_cast<float>(yi);
+      const float e = expf(-fabsf(z));  // shared by loss and sigmoid
+      acc += w * (fmaxf(z, 0.f) + log1pf(e) - yb * z);
+      const float r = 1.f / (1.f + e);
+      G[row] = w * ((z >= 0.f ? r : e * r) - yb);
+    } else {
+      const float* zr = Z + row * k;
+      float* gr = G + row * k;
+      float m = -INFINITY, zy = 0.f;
+      for (int j = 0; j < k; ++j) {
+        const float v = zr[j];
+        m = fmaxf(m, v);
+        zy = (j == yi) ? v : zy;
+      }
+      const float sh = lse_shift(m);
+      float s = 0.f;
+      for (int j = 0; j < k; ++j) s += expf(zr[j] - sh);
+      acc += w * (sh + logf(s) - zy);
+      const float inv = 1.f / s;
+      for (int j = 0; j < k; ++j)
+        gr[j] = w * (expf(zr[j] - sh) * inv - (j == yi ? 1.f : 0.f));
+    }
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) part[static_cast<size_t>(blockIdx.y) * B + b] = acc;
+}
+
+template <bool BINARY>
+__global__ void __launch_bounds__(kThreads, 8)
+trial_loss_lanes(const float* __restrict__ Z, const float* __restrict__ Zp,
+                 const float* __restrict__ W, const int* __restrict__ y,
+                 const float* __restrict__ alphas, float* __restrict__ part,
+                 int n, int B, int k, int T, int label_stride) {
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int b = blockIdx.x * kLaneWarps + warp;
+  if (b >= B) return;
+  const int r1 = split_begin(blockIdx.y + 1, n, gridDim.y);
+  const size_t lb = static_cast<size_t>(b) * n;
+  const int* yl = y + static_cast<size_t>(b) * label_stride;
+  float a[kTMax], acc[kTMax];
+#pragma unroll
+  for (int t = 0; t < kTMax; ++t) {
+    a[t] = t < T ? alphas[static_cast<size_t>(t) * B + b] : 0.f;
+    acc[t] = 0.f;
+  }
+  for (int i = split_begin(blockIdx.y, n, gridDim.y) + lane; i < r1;
+       i += kLanes) {
+    const size_t row = lb + i;
+    const float w = W[row];
+    const int yi = __ldg(yl + i);
+    if (BINARY) {
+      const float z = Z[row], zp = Zp[row];
+      const float yb = static_cast<float>(yi);
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t)
+        if (t < T) acc[t] += w * softplus_minus(fmaf(a[t], zp, z), yb);
+    } else {
+      const float* zr = Z + row * k;
+      const float* pr = Zp + row * k;
+      const bool in = 0 <= yi && yi < k;
+      const float zy = in ? zr[yi] : 0.f, py = in ? pr[yi] : 0.f;
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t) {
+        if (t >= T) break;
+        float m = -INFINITY;
+        for (int j = 0; j < k; ++j) m = fmaxf(m, fmaf(a[t], pr[j], zr[j]));
+        const float sh = lse_shift(m);
+        float s = 0.f;
+        for (int j = 0; j < k; ++j) s += expf(fmaf(a[t], pr[j], zr[j]) - sh);
+        acc[t] += w * (sh + logf(s) - fmaf(a[t], py, zy));
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kTMax; ++t) {
+    if (t >= T) break;
+    const float v = warp_sum(acc[t]);
+    if (lane == 0)
+      part[(static_cast<size_t>(blockIdx.y) * T + t) * B + b] = v;
+  }
+}
+
 // ------------------------------------------------------------ finish ----
 
 // out[m] = sum over s (in order) of part[s][m]
@@ -552,6 +684,46 @@ int glm_trial_loss(const float* Z, const float* Zp, const float* W,
     trial_loss_direct<false><<<grid, kThreads, 0, s>>>(Z, Zp, W, y, alphas,
                                                        part, n, B, k, T);
   }
+  return finish(part, out, S, T * B, s);
+}
+
+// The lane-major modes (K2l, K4l): Z (B, n[, k]), W (B, n), labels
+// y[b * label_stride + i] (label_stride 0 or n); a block of 4 warps takes
+// 4 lanes, grid (ceil(B/4), S).  Partials and the second launch as above.
+int glm_loss_grad_lanes(const float* Z, const float* W, const int* y,
+                        float* G, float* loss, float* part, int n, int B,
+                        int k, int binary, int label_stride, int S,
+                        void* stream) {
+  if (S < 1 || n < 1 || B < 1 || k < 1 ||
+      !(label_stride == 0 || label_stride == n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((B + kLaneWarps - 1) / kLaneWarps, S);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (binary)
+    loss_grad_lanes<true><<<grid, kThreads, 0, s>>>(Z, W, y, G, part, n, B,
+                                                    k, label_stride);
+  else
+    loss_grad_lanes<false><<<grid, kThreads, 0, s>>>(Z, W, y, G, part, n,
+                                                     B, k, label_stride);
+  return finish(part, loss, S, B, s);
+}
+
+int glm_trial_loss_lanes(const float* Z, const float* Zp, const float* W,
+                         const int* y, const float* alphas, float* out,
+                         float* part, int n, int B, int k, int T,
+                         int binary, int label_stride, int S,
+                         void* stream) {
+  if (T < 1 || T > kTMax || S < 1 || n < 1 || B < 1 || k < 1 ||
+      !(label_stride == 0 || label_stride == n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((B + kLaneWarps - 1) / kLaneWarps, S);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (binary)
+    trial_loss_lanes<true><<<grid, kThreads, 0, s>>>(
+        Z, Zp, W, y, alphas, part, n, B, k, T, label_stride);
+  else
+    trial_loss_lanes<false><<<grid, kThreads, 0, s>>>(
+        Z, Zp, W, y, alphas, part, n, B, k, T, label_stride);
   return finish(part, out, S, T * B, s);
 }
 

@@ -21,6 +21,13 @@
 //     unfused: ~0.05 ms of issue); it reads X and C and writes assign and
 //     min_d2, ~46 MB, 0.014 ms at 3.35 TB/s.  d2 is never written.
 //
+// C1l (the keyed fleet's per-key Lloyd step, spark_sklearn_tpu/models/
+//     cluster.py:68- vmapped over keys by keyed/keyed.py:271-279): each
+//     lane b has its own rows, X (B, n, d) and xx (B, n), passed as lane
+//     strides x_stride = n d and xx_stride = n; a block then takes one
+//     lane (lanes == 1).  Strides 0 are the shared X above, the same
+//     arithmetic and bits.
+//
 // Design.
 // - Grid: (row tiles) x (groups of `lanes` lanes).  A block of 256
 //   threads stages a tile of X's rows and its lanes' centers in shared
@@ -93,8 +100,11 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ w, int* __restrict__ assign,
                   float* __restrict__ min_d2, float* __restrict__ part,
                   int n, int d, int B, int k, int lanes, int dtile,
-                  int dpad) {
+                  int dpad, long long x_stride, long long xx_stride) {
   extern __shared__ __align__(16) float smem[];
+  // C1l: lane blockIdx.y's own rows (lanes == 1); strides 0 share X
+  X += static_cast<size_t>(blockIdx.y) * x_stride;
+  xx += static_cast<size_t>(blockIdx.y) * xx_stride;
   __shared__ float warp_sum[kWarps];
   const int lane_warps = kWarps / lanes;           // warps a lane
   const int rows = 32 * kRowsPerThread * lane_warps;
@@ -267,13 +277,15 @@ extern "C" {
 // partials in `part` (B, blocks), allocated by the caller).  `lanes` (1,
 // 2, 4 or 8) lanes a block, d-tiles of `dtile` columns staged in `dpad` /
 // 4 quads by copies of `vec` floats (X and C 4 * vec-byte aligned),
-// `blocks` row tiles of 64 * 8 / lanes rows (`assign_plan`).  Returns
+// `blocks` row tiles of 64 * 8 / lanes rows (`assign_plan`); X and xx
+// advance by x_stride and xx_stride floats a lane (C1l, lanes 1).  Returns
 // the first nonzero cudaError (0 = launched).
 int kmeans_assign(const float* X, const float* C, const float* xx,
                   const float* cc, const float* w, int* assign,
                   float* min_d2, float* part, float* inertia, int n, int d,
                   int B, int k, int lanes, int dtile, int dpad, int vec,
-                  int blocks, void* stream) {
+                  int blocks, long long x_stride, long long xx_stride,
+                  void* stream) {
   const int rows = 32 * kRowsPerThread * (kWarps / (lanes > 0 ? lanes : 1));
   const int groups = lanes > 0 ? (B + lanes - 1) / lanes : 0;
   const size_t smem =
@@ -284,22 +296,23 @@ int kmeans_assign(const float* X, const float* C, const float* xx,
       dpad < dtile || dpad % 4 != 0 ||
       !(vec == 1 || vec == 2 || vec == 4) || d % vec != 0 ||
       groups > 65535 || blocks != (n + rows - 1) / rows ||
-      smem > kMaxDynamicSmem)
+      smem > kMaxDynamicSmem || x_stride < 0 || xx_stride < 0 ||
+      ((x_stride != 0 || xx_stride != 0) && lanes != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks, groups);
   if (vec == 4)
     assign_kernel<4><<<grid, kThreads, smem, s>>>(
         X, C, xx, cc, w, assign, min_d2, part, n, d, B, k, lanes, dtile,
-        dpad);
+        dpad, x_stride, xx_stride);
   else if (vec == 2)
     assign_kernel<2><<<grid, kThreads, smem, s>>>(
         X, C, xx, cc, w, assign, min_d2, part, n, d, B, k, lanes, dtile,
-        dpad);
+        dpad, x_stride, xx_stride);
   else
     assign_kernel<1><<<grid, kThreads, smem, s>>>(
         X, C, xx, cc, w, assign, min_d2, part, n, d, B, k, lanes, dtile,
-        dpad);
+        dpad, x_stride, xx_stride);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   lane_sum_kernel<<<B, kThreads, 0, s>>>(part, inertia, blocks);

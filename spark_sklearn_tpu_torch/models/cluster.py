@@ -23,6 +23,14 @@ updates:
   count; the loop ends when every lane has finished;
 - of the `n_init` runs a lane keeps the one of least inertia.
 
+The keyed fleet (`fit_fleet`, `predict_fleet`) runs the same seeding
+and iterations with each key's own rows, X (G, L, d), through C1ℓ
+(`kmeans_assign_lanes`): the reference's per-task `fit` under `jax.vmap`
+over keys, its draws shared by the keys of a bucket (one key,
+`PRNGKey(random_state)`, for every lane) and its tol scaled by each
+key's own weighted variance; a key needs n_clusters rows
+(`min_group_size`).
+
 The default scorer is -Σ w min d² over the test fold (sklearn's
 `KMeans.score`): the search's `neg_inertia` core over the "min_d2"
 view, which C1 gives.  Labels are never needed; numeric y reaches the
@@ -40,6 +48,7 @@ from spark_sklearn_tpu_torch.ops import random as prng
 from spark_sklearn_tpu_torch.ops.kmeans_kernels import (
     assign_distances,
     kmeans_assign,
+    kmeans_assign_lanes,
 )
 
 #: most elements of a (lanes, n, d) difference formed at once in seeding
@@ -53,6 +62,35 @@ def _sq_to(X, P):
     step = max(1, _SEED_ELEMS // max(1, n * d))
     return torch.cat([((X[None] - P[lo:lo + step, None, :]) ** 2).sum(dim=2)
                       for lo in range(0, B, step)])
+
+
+class _SharedRows:
+    """X (n, d), the same rows for every lane (the search's folds)."""
+
+    def __init__(self, X):
+        self.X, self.n = X, X.shape[0]
+
+    def take(self, idx):
+        """The rows idx (B,) or (B, k) of each lane."""
+        return self.X[idx]
+
+    def sq_to(self, P):
+        return _sq_to(self.X, P)
+
+
+class _LaneRows:
+    """X (B, n, d), each lane's own rows (the keyed fleet's keys)."""
+
+    def __init__(self, X):
+        self.X, self.n = X, X.shape[1]
+        self.lanes = torch.arange(X.shape[0], device=X.device)
+
+    def take(self, idx):
+        lanes = self.lanes if idx.dim() == 1 else self.lanes[:, None]
+        return self.X[lanes, idx]
+
+    def sq_to(self, P):
+        return ((self.X - P[:, None, :]) ** 2).sum(dim=2)
 
 
 def _resolve_init(static):
@@ -91,39 +129,44 @@ class KMeansFamily(Family):
                              (C * C).sum(dim=2), w)
 
     @classmethod
-    def _seed(cls, key, init, X, w, k):
-        """(B, k, d) initial centers of every lane under one key."""
-        n = X.shape[0]
+    def _seed(cls, key, init, rows, w, k):
+        """(B, k, d) initial centers of every lane under one key; `rows`
+        X (n, d), a `_SharedRows` or a `_LaneRows`."""
+        if isinstance(rows, torch.Tensor):
+            rows = _SharedRows(rows)
+        n = rows.n
         if init == "random":
             p = w / (w.sum(dim=1, keepdim=True) + 1e-12)
-            return X[prng.choice(key, n, k, p)]
+            return rows.take(prng.choice(key, n, k, p))
         k0, key = prng.split(key)
-        dev = X.device
-        ninf = torch.tensor(-float("inf"), dtype=X.dtype, device=dev)
+        dev = w.device
+        ninf = torch.tensor(-float("inf"), dtype=w.dtype, device=dev)
         logw = torch.where(w > 0, torch.log(w + 1e-12), ninf)
         first = torch.argmax(logw + prng.gumbel(k0, (n,), dev), dim=1)
-        centers = [X[first]]
-        min_d2 = _sq_to(X, X[first])
+        centers = [rows.take(first)]
+        min_d2 = rows.sq_to(centers[0])
         for _ in range(1, k):
             key, kk = prng.split(key)
             logits = torch.where((w > 0) & (min_d2 > 0),
                                  torch.log(w * min_d2 + 1e-30), ninf)
             nxt = torch.argmax(logits + prng.gumbel(kk, (n,), dev), dim=1)
-            centers.append(X[nxt])
-            min_d2 = torch.minimum(min_d2, _sq_to(X, X[nxt]))
+            centers.append(rows.take(nxt))
+            min_d2 = torch.minimum(min_d2, rows.sq_to(centers[-1]))
         return torch.stack(centers, dim=1)
 
     @classmethod
-    def _lloyd(cls, X, xx, w, C, tol, max_iter):
-        """Lloyd's iterations of every lane until each has finished;
-        returns (centers, inertia, n_iter)."""
+    def _lloyd(cls, assign_fn, X, w, C, tol, max_iter):
+        """Lloyd's iterations of every lane until each has finished, the
+        assignment by `assign_fn(C)` (C1 or C1ℓ) and the centre sums
+        `onehotᵀ @ X` over X (n, d) or (B, n, d); returns (centers,
+        inertia, n_iter)."""
         B, k, _ = C.shape
         shift = torch.full((B,), float("inf"), dtype=X.dtype,
                            device=X.device)
         n_iter = torch.zeros(B, dtype=torch.int32, device=X.device)
         active = (n_iter < max_iter) & (shift > tol)
         while bool(active.any()):
-            assign, _, _ = cls._assign(X, xx, C, w)
+            assign, _, _ = assign_fn(C)
             oh = torch.nn.functional.one_hot(assign.long(), k).to(X.dtype) \
                 * w[:, :, None]                              # (B, n, k)
             counts = oh.sum(dim=1)                           # (B, k)
@@ -136,7 +179,7 @@ class KMeansFamily(Family):
             shift = torch.where(active, new_shift, shift)
             n_iter = n_iter + active.to(torch.int32)
             active = (n_iter < max_iter) & (shift > tol)
-        _, _, inertia = cls._assign(X, xx, C, w)
+        _, _, inertia = assign_fn(C)
         return C, inertia, n_iter
 
     @classmethod
@@ -166,15 +209,73 @@ class KMeansFamily(Family):
         best_inertia = torch.full((B,), float("inf"), dtype=X.dtype,
                                   device=X.device)
         best_iter = torch.zeros(B, dtype=torch.int32, device=X.device)
+        rows = _SharedRows(X)
         for t in range(n_init):
-            C0 = cls._seed(prng.fold_in(base_key, t), init, X, w, k)
-            C, inertia, n_iter = cls._lloyd(X, xx, w, C0, tol, max_iter)
+            C0 = cls._seed(prng.fold_in(base_key, t), init, rows, w, k)
+            C, inertia, n_iter = cls._lloyd(
+                lambda C: cls._assign(X, xx, C, w), X, w, C0, tol, max_iter)
             better = inertia < best_inertia
             best_C = torch.where(better[:, None, None], C, best_C)
             best_inertia = torch.where(better, inertia, best_inertia)
             best_iter = torch.where(better, n_iter, best_iter)
         return {"centers": best_C, "inertia": best_inertia,
                 "n_iter": best_iter}
+
+    @classmethod
+    def min_group_size(cls, static) -> int:
+        """A key needs n_clusters rows; fewer go to a host fit, which
+        raises as sklearn does (`cluster.py:51`)."""
+        return int(static.get("n_clusters", 8))
+
+    @classmethod
+    def fit_fleet(cls, static, X, y, w, meta):
+        """One fit a key (the reference's `fit` under `jax.vmap` over
+        keys): X (G, L, d), w (G, L) 0/1 row weights.  Returns centers
+        (G, k, d), inertia (G,) and n_iter (G,)."""
+        G, L, d = X.shape
+        k = int(static.get("n_clusters", 8))
+        max_iter = int(static.get("max_iter", 300))
+        init, n_init = _resolve_init(static)
+        # tol scales by each key's weighted mean feature variance
+        wsum = w.sum(dim=1, keepdim=True) + 1e-12
+        xbar = torch.bmm(w[:, None, :], X)[:, 0] / wsum
+        wvar = torch.bmm(w[:, None, :],
+                         (X - xbar[:, None, :]) ** 2)[:, 0] / wsum
+        tol = torch.as_tensor(static.get("tol", 1e-4),
+                              device=X.device).to(X.dtype) \
+            * wvar.mean(dim=1)
+        seed = static.get("random_state")
+        base_key = prng.PRNGKey(0 if seed is None else int(seed))
+        xx = (X * X).sum(dim=2)
+        rows = _LaneRows(X)
+
+        def assign_fn(C):                    # C1ℓ
+            return kmeans_assign_lanes(X, C.contiguous(), xx,
+                                       (C * C).sum(dim=2), w)
+
+        best_C = torch.zeros((G, k, d), dtype=X.dtype, device=X.device)
+        best_inertia = torch.full((G,), float("inf"), dtype=X.dtype,
+                                  device=X.device)
+        best_iter = torch.zeros(G, dtype=torch.int32, device=X.device)
+        for t in range(n_init):
+            C0 = cls._seed(prng.fold_in(base_key, t), init, rows, w, k)
+            C, inertia, n_iter = cls._lloyd(assign_fn, X, w, C0, tol,
+                                            max_iter)
+            better = inertia < best_inertia
+            best_C = torch.where(better[:, None, None], C, best_C)
+            best_inertia = torch.where(better, inertia, best_inertia)
+            best_iter = torch.where(better, n_iter, best_iter)
+        return {"centers": best_C, "inertia": best_inertia,
+                "n_iter": best_iter}
+
+    @classmethod
+    def predict_fleet(cls, models, static, X, meta):
+        """(G, L) nearest centers of each key's rows X (G, L, d), C1ℓ."""
+        C = models["centers"].contiguous()
+        ones = torch.ones(X.shape[:2], dtype=X.dtype, device=X.device)
+        assign, _, _ = kmeans_assign_lanes(
+            X.contiguous(), C, (X * X).sum(dim=2), (C * C).sum(dim=2), ones)
+        return assign.long()
 
     @classmethod
     def views_task_batched(cls, models, static, data, meta, needed):

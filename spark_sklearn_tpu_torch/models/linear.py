@@ -31,6 +31,15 @@ SP1 writes the backward straight into the gradient's, so neither copies
 the coefficients; the intercept's add and Σₙ G stay torch ops, and
 `bf16_matmul` is ignored.
 
+The keyed fleets (`keyed/keyed.py`) fit one problem a key, each on its
+own rows: `fit_fleet(static, X (G, L, d), y (G, L), w (G, L), meta)`
+and `predict_fleet(models, static, X (G, L, d), meta)`, the
+reference's per-task `fit` and `predict` under `jax.vmap` over keys
+(`keyed.py:271-279, 490-503`).  LogisticRegression runs the scalar
+L-BFGS per key (`lbfgs_lanes`) with logits from `torch.bmm`, lane-major
+(G, L[, k]), through K2ℓ and K4ℓ; Ridge and LinearRegression solve their
+normal equations per key in float32, the dtype of the reference's fleet.
+
 The reference writes the regressors as a per-task `fit` under
 `jax.vmap`.  Here every lane of a fold has the same fold weights, so the
 weighted means, centred Gram matrices and decompositions are computed
@@ -54,13 +63,16 @@ from spark_sklearn_tpu_torch.models.base import (
 )
 from spark_sklearn_tpu_torch.ops.glm_kernels import (
     glm_loss_grad,
+    glm_loss_grad_lanes,
     glm_trial_loss,
+    glm_trial_loss_lanes,
 )
 from spark_sklearn_tpu_torch.ops.solvers import (
     Lanes,
     fista_momentum,
     glm_fista_batched,
     glm_lbfgs_batched,
+    lbfgs_lanes,
     soft_threshold,
 )
 from spark_sklearn_tpu_torch.sparse.csr import CSROperand, SparseOperand
@@ -236,6 +248,75 @@ class LogisticRegressionFamily(Family):
                 "n_iter": res.n_iter, "n_iter_exec": n_exec}
 
     @classmethod
+    def fit_fleet(cls, static, X, y, w, meta):
+        """One fit a key (the reference's `fit`, `linear.py:93-158`, under
+        `jax.vmap` over keys): X (G, L, d) float32, y (G, L) int32 encoded
+        labels, w (G, L) row weights (0 on the padding).  The sum-loss
+        plus l2 = 0.5/C times ||coef||^2 (l2 or none) by `lbfgs_lanes`.
+        Returns coef (G, k', d), intercept (G, k'), n_iter, converged."""
+        G, L, d = X.shape
+        k = meta["n_classes"]
+        penalty, _ = resolve_penalty(static)
+        if penalty == "elasticnet":
+            raise NotImplementedError(
+                "keyed fleets of LogisticRegression with an l1 or "
+                "elasticnet penalty are not ported; see ROADMAP.md Queue "
+                "1, item 5 (keyed fleets still to port)")
+        dt, dev = X.dtype, X.device
+        C = torch.tensor(float(static.get("C", 1.0)), dtype=dt, device=dev)
+        l2 = (0.5 / C if penalty == "l2" else torch.zeros((), dtype=dt,
+                                                          device=dev))
+        tol = float(static.get("tol", 1e-4))
+        max_iter = int(static.get("max_iter", 100))
+        fit_intercept = bool(static.get("fit_intercept", True))
+        w = fleet_class_weight(w, y, meta, static.get("class_weight"))
+        kk = 1 if k == 2 else k
+        kd = kk * d
+
+        def Ax(x):                           # -> Z (G, L) or (G, L, k)
+            W = x[:, :kd].view(G, kk, d).transpose(1, 2)
+            if fit_intercept:
+                Z = torch.baddbmm(x[:, None, kd:], X, W)
+            else:
+                Z = torch.bmm(X, W)
+            return Z.view(G, L) if k == 2 else Z
+
+        def AT(dZ):                          # -> (G, kd + kk)
+            G3 = dZ.view(G, L, kk)
+            gW = torch.bmm(G3.transpose(1, 2), X).reshape(G, kd)
+            gb = G3.sum(dim=1) if fit_intercept else \
+                torch.zeros((G, kk), dtype=dt, device=dev)
+            return torch.cat([gW, gb], dim=1)
+
+        def loss_grad(Z):                    # K2ℓ
+            return glm_loss_grad_lanes(Z, w, y)
+
+        def trial_loss(Z, Zp, alphas, idx=None):   # K4ℓ
+            if idx is None:
+                return glm_trial_loss_lanes(Z, Zp, w, y, alphas)
+            return glm_trial_loss_lanes(Z, Zp, w[idx].contiguous(),
+                                        y[idx].contiguous(), alphas)
+
+        pen = torch.zeros(kd + kk, dtype=dt, device=dev)
+        pen[:kd] = 1.0
+        res = lbfgs_lanes(Ax, loss_grad, trial_loss, AT,
+                          torch.zeros((G, kd + kk), dtype=dt, device=dev),
+                          l2.expand(G), pen, max_iter=max_iter, tol=tol)
+        b = res.x[:, kd:] if fit_intercept else \
+            torch.zeros((G, kk), dtype=dt, device=dev)
+        return {"coef": res.x[:, :kd].reshape(G, kk, d), "intercept": b,
+                "n_iter": res.n_iter, "converged": res.converged}
+
+    @classmethod
+    def predict_fleet(cls, models, static, X, meta):
+        """(G, L) class indices of each key's rows X (G, L, d)."""
+        Z = torch.baddbmm(models["intercept"][:, None, :], X,
+                          models["coef"].transpose(1, 2))
+        if meta["n_classes"] == 2:
+            return (Z[:, :, 0] > 0).long()
+        return torch.argmax(Z, dim=2)
+
+    @classmethod
     def decision(cls, model, static, X, meta):
         Z = X @ model["coef"].T + model["intercept"]
         if meta["n_classes"] == 2:
@@ -299,6 +380,52 @@ class LogisticRegressionFamily(Family):
         if "n_iter" in model:
             attrs["n_iter_"] = np.asarray([int(model["n_iter"])])
         return attrs
+
+
+def fleet_class_weight(w, y, meta, class_weight):
+    """Row weights w (G, L) with `class_weight` multiplied in, each key's
+    own: "balanced" counts its rows with w > 0 (the reference's
+    `class_weight_multiplier` under `jax.vmap` over keys)."""
+    if class_weight is None:
+        return w
+    k = meta["n_classes"]
+    y1h = torch.nn.functional.one_hot(y.long(), k).to(w.dtype)  # (G, L, k)
+    if isinstance(class_weight, str):
+        if class_weight != "balanced":
+            raise ValueError(
+                f"class_weight={class_weight!r} is not supported")
+        ind = (w > 0).to(w.dtype)
+        cnt = torch.bmm(ind[:, None, :], y1h)[:, 0]           # (G, k)
+        n_eff = ind.sum(dim=1, keepdim=True)
+        per_class = n_eff / (k * torch.clamp_min(cnt, 1.0))
+        return w * torch.bmm(y1h, per_class[:, :, None])[:, :, 0]
+    if isinstance(class_weight, dict):
+        classes = list(meta["classes"])
+        cw = np.ones(k, np.float64)
+        for label, weight in class_weight.items():
+            hits = [i for i, c in enumerate(classes) if c == label]
+            if not hits:
+                raise ValueError(
+                    f"class_weight key {label!r} is not a class label")
+            cw[hits[0]] = weight
+        arr = torch.as_tensor(cw, dtype=w.dtype, device=w.device)
+        return w * arr[y.long()]
+    raise ValueError(f"class_weight={class_weight!r} is not supported")
+
+
+def _fleet_center(static, X, y, w):
+    """Each key's weighted centring (the reference's `_centered_problem`
+    per key, `linear.py:433-449`): (Xc, yc, xm (G, d), ym (G,))."""
+    if static.get("positive", False):
+        raise ValueError("positive=True is not compiled")
+    G, L, d = X.shape
+    if not bool(static.get("fit_intercept", True)):
+        return (X, y, torch.zeros((G, d), dtype=X.dtype, device=X.device),
+                torch.zeros(G, dtype=X.dtype, device=X.device))
+    wsum = w.sum(dim=1) + torch.finfo(X.dtype).eps
+    xm = torch.bmm(w[:, None, :], X)[:, 0] / wsum[:, None]
+    ym = (w * y).sum(dim=1) / wsum
+    return X - xm[:, None, :], y - ym[:, None], xm, ym
 
 
 def _fit_sparse(X, k, B, C, inv_C, tol, max_iter, fit_intercept, penalty,
@@ -463,6 +590,31 @@ class RidgeFamily(Family):
         return {"coef": w, "intercept": ym[f] - (xm[f] * w).sum(dim=1)}
 
     @classmethod
+    def fit_fleet(cls, static, X, y, w, meta):
+        """One fit a key (the reference's `fit`, `linear.py:473-484`,
+        under `jax.vmap`): (A + alpha I) coef = b, A = Xwᵀ Xc, b = Xwᵀ yc
+        of the key's centred rows, by a batched Cholesky factor and solve
+        in X's dtype; a key whose matrix is not positive definite gets
+        NaN coefficients (the reference's `solve(assume_a="pos")`)."""
+        d = X.shape[2]
+        alpha = float(static.get("alpha", 1.0))
+        Xc, yc, xm, ym = _fleet_center(static, X, y, w)
+        Xw = Xc * w[:, :, None]
+        A = torch.bmm(Xw.transpose(1, 2), Xc)
+        b = torch.bmm(Xw.transpose(1, 2), yc[:, :, None])
+        eye = torch.eye(d, dtype=X.dtype, device=X.device)
+        factor, info = torch.linalg.cholesky_ex(A + alpha * eye)
+        coef = torch.cholesky_solve(b, factor)[:, :, 0]
+        coef = torch.where((info == 0)[:, None], coef, torch.nan)
+        return {"coef": coef, "intercept": ym - (xm * coef).sum(dim=1)}
+
+    @classmethod
+    def predict_fleet(cls, models, static, X, meta):
+        """(G, L) predictions of each key's rows X (G, L, d)."""
+        return torch.bmm(X, models["coef"][:, :, None])[:, :, 0] \
+            + models["intercept"][:, None]
+
+    @classmethod
     def predict(cls, model, static, X, meta):
         return X @ model["coef"] + model["intercept"]
 
@@ -484,6 +636,23 @@ class RidgeFamily(Family):
 
 class LinearRegressionFamily(RidgeFamily):
     name = "linear_regression"
+
+    @classmethod
+    def fit_fleet(cls, static, X, y, w, meta):
+        """One fit a key (the reference's `fit`, `linear.py:560-575`):
+        the minimum-norm least squares of the key's centred rows scaled
+        by sqrt(w), by SVD, singular values below eps max(L, d) s_max
+        counted as zero (`jnp.linalg.lstsq`'s cut-off)."""
+        G, L, d = X.shape
+        Xc, yc, xm, ym = _fleet_center(static, X, y, w)
+        sw = torch.sqrt(w)
+        U, S, Vh = torch.linalg.svd(Xc * sw[:, :, None], full_matrices=False)
+        rcond = torch.finfo(X.dtype).eps * max(L, d)
+        keep = (S > 0) & (S >= rcond * S[:, :1])
+        s_inv = torch.where(keep, 1.0 / torch.where(keep, S, 1.0), 0.0)
+        uTb = torch.bmm(U.transpose(1, 2), (yc * sw)[:, :, None])
+        coef = torch.bmm(Vh.transpose(1, 2), s_inv[:, :, None] * uTb)[:, :, 0]
+        return {"coef": coef, "intercept": ym - (xm * coef).sum(dim=1)}
 
     @classmethod
     def fit_task_batched(cls, dynamic, static, data, train_w, meta):

@@ -12,7 +12,9 @@ The reference maps one fold (w (n,), X (n, d)) and `vmap`s; here the
 fold axis is written out: w is (F, n), X is (n, d) for the first step of
 a chain or (F, n, d) after it, and every state and output carries the
 leading F.  PCA's eigendecomposition is `torch.linalg.eigh`, a library
-call, as the reference's is `jnp.linalg.eigh`.
+call, as the reference's is `jnp.linalg.eigh`.  The keyed transformer
+fleets call the same functions with a key a lane: X (G, L, d) and w
+(G, L) 0/1 row weights.
 """
 
 from __future__ import annotations
@@ -141,6 +143,15 @@ class PCAStep:
 
     name = "pca"
     monotone_per_feature = False   # rotation, mixes features
+
+    @staticmethod
+    def min_group_size(static) -> int:
+        """A key of a keyed fleet needs n_components rows (the
+        reference's, `preprocessing.py:146`)."""
+        nc = static.get("n_components")
+        if isinstance(nc, (int, np.integer)) and not isinstance(nc, bool):
+            return max(1, int(nc))
+        return 1
 
     @staticmethod
     def check_static(static, n_features=None):

@@ -28,6 +28,12 @@
   give the same bits.  It takes any n, d, k and B up to `MAX_LANE_GROUPS`
   lane groups.
 
+- C1ℓ `kmeans_assign_lanes(X (B, n, d), C, xx (B, n), cc, w)`: the same
+  with each lane's own rows (the keyed fleet's Lloyd step and predict,
+  one lane a key), through the same kernel with X and xx advancing by a
+  lane stride and one lane a block (`assign_plan(..., per_lane=True)`);
+  its launches count in `LANE_LAUNCHES`.  Stride 0 is C1's shared X.
+
 All float32 and contiguous, except `assign`.  A wrapper given CPU tensors
 runs the plain version; given CUDA tensors it launches the kernel or
 raises — it never falls back.  `LAUNCHES` counts calls that launch the
@@ -45,6 +51,8 @@ from spark_sklearn_tpu_torch.ops import _build
 
 #: kernel name -> number of launches in this process
 LAUNCHES = {"kmeans_assign": 0}
+#: the lane-stride mode's launches (the keyed fleet's path)
+LANE_LAUNCHES = {"kmeans_assign_lanes": 0}
 
 #: C1's threads a block (8 warps), rows a thread and centers a pass of
 #: the d loop, as `kThreads`, `kRowsPerThread` and `kCenters` in
@@ -60,8 +68,9 @@ MAX_LANE_GROUPS = 65535
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LANE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def assign_distances(X, C, xx, cc):
@@ -74,6 +83,25 @@ def assign_distances(X, C, xx, cc):
         acc = acc + X[None, :, None, t] * C[:, None, :, t]
     return torch.clamp_min((xx[None, :, None] - 2.0 * acc)
                            + cc[:, None, :], 0.0)
+
+
+def assign_distances_lanes(X, C, xx, cc):
+    """(B, n, k) squared distances of each lane's own rows X (B, n, d) to
+    its centers, in C1's order."""
+    B, k, d = C.shape
+    acc = torch.zeros((B, X.shape[1], k), dtype=X.dtype, device=X.device)
+    for t in range(d):
+        acc = acc + X[:, :, None, t] * C[:, None, :, t]
+    return torch.clamp_min((xx[:, :, None] - 2.0 * acc) + cc[:, None, :],
+                           0.0)
+
+
+def kmeans_assign_lanes_plain(X, C, xx, cc, w):
+    """C1ℓ's plain version."""
+    d2 = assign_distances_lanes(X, C, xx, cc)
+    assign = torch.argmin(d2, dim=2).to(torch.int32)
+    min_d2 = d2.amin(dim=2)
+    return assign, min_d2, (w * min_d2).sum(dim=1)
 
 
 def kmeans_assign_plain(X, C, xx, cc, w):
@@ -90,12 +118,14 @@ def kmeans_assign_plain(X, C, xx, cc, w):
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("kmeans")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kmeans_assign.argtypes = [p] * 9 + [i] * 9 + [p]
+    ll = ctypes.c_longlong
+    lib.kmeans_assign.argtypes = [p] * 9 + [i] * 9 + [ll, ll, p]
     lib.kmeans_assign.restype = i
     return lib
 
 
-def assign_plan(n: int, d: int, B: int, align: int = 16) -> dict:
+def assign_plan(n: int, d: int, B: int, align: int = 16,
+                per_lane: bool = False) -> dict:
     """C1's launch: `lanes` lanes a block (1, 2, 4 or 8: the fewest idle
     lane slots, then the most lanes, so X is staged the fewest times),
     `rows` rows a block (2 a thread, the block's 8 warps shared by its
@@ -103,8 +133,10 @@ def assign_plan(n: int, d: int, B: int, align: int = 16) -> dict:
     `ASSIGN_MAX_SMEM` allows, by copies of `vec` floats (4 where d % 4 ==
     0, 2 where d is even, and X and C start `align`-byte aligned; else
     1); grid (`blocks` row tiles, `groups`), then a block a lane adds its
-    `blocks` partial sums."""
-    lanes = min((1, 2, 4, 8), key=lambda L: (-(-B // L) * L, -L))
+    `blocks` partial sums.  `per_lane` (C1ℓ, each lane its own rows):
+    one lane a block."""
+    lanes = 1 if per_lane else min((1, 2, 4, 8),
+                                   key=lambda L: (-(-B // L) * L, -L))
     rows = 32 * ROWS_PER_THREAD * (ASSIGN_THREADS // 32 // lanes)
     quads = ASSIGN_MAX_SMEM // (16 * (rows + lanes * CENTERS_PER_PASS))
     dtile = min(d, 4 * quads)
@@ -132,8 +164,33 @@ def kmeans_assign(X, C, xx, cc, w):
     n = X.shape[0]
     dev = X.device
     _build.check_tensor("X", X, (n, d), dev)
-    _build.check_tensor("C", C, (B, k, d), dev)
     _build.check_tensor("xx", xx, (n,), dev)
+    return _launch(X, C, xx, cc, w, n, per_lane=False)
+
+
+def kmeans_assign_lanes(X, C, xx, cc, w):
+    """C1ℓ: `kmeans_assign` where lane b has its own rows X[b] (B, n, d)
+    and norms xx[b] (B, n) (see the module docstring)."""
+    if X.device.type == "cpu":
+        return kmeans_assign_lanes_plain(X, C, xx, cc, w)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    if C.dim() != 3 or X.dim() != 3:
+        raise ValueError(f"kmeans_assign_lanes: X must be (B, n, d) and C "
+                         f"(B, k, d), got {tuple(X.shape)} and "
+                         f"{tuple(C.shape)}")
+    B, k, d = C.shape
+    n = X.shape[1]
+    dev = X.device
+    _build.check_tensor("X", X, (B, n, d), dev)
+    _build.check_tensor("xx", xx, (B, n), dev)
+    return _launch(X, C, xx, cc, w, n, per_lane=True)
+
+
+def _launch(X, C, xx, cc, w, n, per_lane):
+    B, k, d = C.shape
+    dev = X.device
+    _build.check_tensor("C", C, (B, k, d), dev)
     _build.check_tensor("cc", cc, (B, k), dev)
     _build.check_tensor("w", w, (B, n), dev)
     if min(n, d, B, k) < 1:
@@ -142,7 +199,7 @@ def kmeans_assign(X, C, xx, cc, w):
     # the copies' width needs X and C aligned to it
     align = min(16, (X.data_ptr() | C.data_ptr()) & -(X.data_ptr()
                                                        | C.data_ptr()))
-    plan = assign_plan(n, d, B, align)
+    plan = assign_plan(n, d, B, align, per_lane)
     if plan["groups"] > MAX_LANE_GROUPS:
         raise ValueError(f"kmeans_assign: B={B} lanes make {plan['groups']}"
                          f" lane groups, above the grid's "
@@ -158,8 +215,12 @@ def kmeans_assign(X, C, xx, cc, w):
             w.data_ptr(), assign.data_ptr(), min_d2.data_ptr(),
             part.data_ptr(), inertia.data_ptr(), n, d, B, k, plan["lanes"],
             plan["dtile"], plan["dpad"], plan["vec"], plan["blocks"],
+            n * d if per_lane else 0, n if per_lane else 0,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kmeans_assign launch failed: cudaError {rc}")
-    LAUNCHES["kmeans_assign"] += 1
+    if per_lane:
+        LANE_LAUNCHES["kmeans_assign_lanes"] += 1
+    else:
+        LAUNCHES["kmeans_assign"] += 1
     return assign, min_d2, inertia

@@ -295,3 +295,183 @@ def glm_fista_batched(
         x=x, fun=f, grad_norm=torch.zeros(B, dtype=dtype, device=dev),
         n_iter=torch.full((B,), it, dtype=torch.int32, device=dev),
         converged=done)
+
+
+def _dot(a, b):
+    """(G, 1) lane-wise dot products of a and b (G, D), one bmm."""
+    return torch.bmm(a[:, None, :], b[:, :, None])[:, :, 0]
+
+
+def lbfgs_lanes(
+    Ax: Callable,          # x (G, D) -> Z (G, L) or (G, L, k)   ONE bmm
+    loss_grad: Callable,   # Z -> (data loss (G,), dL/dZ)        kernel K2ℓ
+    trial_loss: Callable,  # Z, Zp, alphas (T, G) -> (T, G)      kernel K4ℓ
+    AT: Callable,          # dL/dZ -> (G, D)                     ONE bmm
+    x0: torch.Tensor,      # (G, D)
+    l2: torch.Tensor,      # (G,) penalty weight: l2 * ||pen * x||^2
+    pen: torch.Tensor,     # (D,) 1 at the penalised coordinates, else 0
+    max_iter: int = 100,
+    tol=1e-4,
+    history: int = 10,
+    c1: float = 1e-4,
+    ls_max: int = 30,
+    ls_trials: int = 16,
+) -> LBFGSResult:
+    """The reference's scalar `lbfgs` (`spark_sklearn_tpu/ops/solvers.py:
+    67-163`) run on every lane of x0 (G, D) at once, as `jax.vmap` of it
+    runs: objective f(x) = data_loss(A x) + l2 ||pen x||^2 per lane.
+
+    Each lane keeps its own history of the last `history` pairs (a pair
+    stored only where s·y > 1e-10), its own iteration
+    count and stop (max|g| <= tol or `max_iter`); a lane that has stopped
+    is frozen while the others go on, and the loop ends when every lane
+    has stopped.  The line search is the reference's halving sequence
+    alpha_j = a0 2^-j, j = 0..ls_max, from a0 = min(1, 1/(max|g| + eps))
+    at the first iteration and 1 after, taking the first alpha that
+    passes Armijo (c1) and alpha_{ls_max} where none does.  Its trial
+    losses come from one read of (Z, Zp) in K4ℓ launches of up to
+    `ls_trials` trials: the first for every lane, the second (trials
+    ls_trials .. ls_max) only for the lanes that still lack an Armijo
+    point.  The trial penalty is the closed form l2 (ww + 2 a wp + a^2
+    pp) in the lane's ||pen x||^2, pen x·p and ||pen p||^2.  A step whose
+    loss is not finite is rejected (x, f, g kept); a descent direction
+    that is not one (g·p >= 0) falls back to -g.
+
+    Logits move linearly along p, so an iteration costs two bmm (Zp = A
+    p and the gradient's pull-back), one K2ℓ at the new point and one or
+    two K4ℓ, with two host syncs (the second launch's lanes and the
+    loop's test).  Returns x, f, max|g|, each lane's n_iter and
+    max|g| <= tol."""
+    m = history
+    G, D = x0.shape
+    dtype, dev = x0.dtype, x0.device
+    eps = torch.finfo(dtype).eps
+    tol = torch.as_tensor(tol, dtype=dtype, device=dev).expand(G)
+    pen = pen.to(dtype)
+
+    def penalty(x):
+        xp = x * pen
+        return l2 * (xp * xp).sum(dim=1)
+
+    def gnorm(g):
+        return g.abs().amax(dim=1)
+
+    x = x0
+    Z = Ax(x0)
+    loss, dZ = loss_grad(Z)
+    f = loss + penalty(x0)
+    g = AT(dZ) + (2.0 * l2)[:, None] * pen * x0
+    del dZ
+
+    # each lane's pairs newest first: position i holds its i-th most
+    # recent stored pair (the reference's ring slot (n_valid - 1 - i) % m,
+    # n_valid its count of stored pairs), so the two-loop reads views,
+    # never per-lane gathers
+    S = torch.zeros((G, m, D), dtype=dtype, device=dev)
+    Yh = torch.zeros((G, m, D), dtype=dtype, device=dev)
+    rho = torch.zeros((G, m), dtype=dtype, device=dev)
+    gamma = torch.ones(G, dtype=dtype, device=dev)
+    n_iter = torch.zeros(G, dtype=torch.int32, device=dev)
+    halvings = 0.5 ** torch.arange(ls_max + 1, dtype=dtype, device=dev)
+
+    it = 0
+    while it < max_iter:
+        active = gnorm(g) > tol
+        if not bool(active.any()):
+            break
+        # --- two-loop recursion over each lane's own pairs: newest first,
+        # then oldest first.  A lane's positions past its count of pairs
+        # hold zeros (s, y and rho), so they add exactly zero and every
+        # lane sees the reference's order without a mask
+        n_hist = min(it, m)
+        q = g
+        alpha_rec = [None] * n_hist
+        for i in range(n_hist):
+            a = rho[:, i, None] * _dot(S[:, i], q)
+            q = torch.addcmul(q, a, Yh[:, i], value=-1.0)
+            alpha_rec[i] = a
+        r = gamma[:, None] * q
+        for i in reversed(range(n_hist)):
+            b = rho[:, i, None] * _dot(Yh[:, i], r)
+            r = torch.addcmul(r, alpha_rec[i] - b, S[:, i])
+        p = -r
+
+        dginit = (g * p).sum(dim=1)
+        bad = dginit >= 0
+        p = torch.where(bad[:, None], -g, p)
+        dginit = torch.where(bad, -(g * g).sum(dim=1), dginit)
+        if it == 0:
+            a0 = torch.clamp_max(1.0 / (gnorm(g) + eps), 1.0)
+        else:
+            a0 = torch.ones(G, dtype=dtype, device=dev)
+
+        # --- line search: the halving sequence's trial losses, the
+        # penalty in closed form
+        Zp = Ax(p)
+        xp, pp_ = x * pen, p * pen
+        ww, wp, pp = ((xp * xp).sum(dim=1), (xp * p).sum(dim=1),
+                      (pp_ * pp_).sum(dim=1))
+        alphas = (halvings[:, None] * a0[None, :]).contiguous()  # (J, G)
+
+        def trial_f(al, data, idx=slice(None)):
+            return data + l2[idx] * (ww[idx] + 2.0 * al * wp[idx]
+                                     + al * al * pp[idx])
+
+        T1 = min(ls_trials, ls_max + 1)
+        f1 = trial_f(alphas[:T1], trial_loss(Z, Zp, alphas[:T1]))
+        ok1 = f1 <= f[None, :] + c1 * alphas[:T1] * dginit[None, :]
+        pick = torch.where(ok1.any(dim=0),
+                           torch.argmax(ok1.to(torch.uint8), dim=0),
+                           ls_max)
+        if T1 <= ls_max:
+            late = torch.nonzero(active & ~ok1.any(dim=0))[:, 0]
+            if late.numel():
+                rest = alphas[T1:, late].contiguous()
+                f2 = trial_f(rest, trial_loss(
+                    Z[late].contiguous(), Zp[late].contiguous(), rest,
+                    late), late)
+                ok2 = f2 <= f[late][None, :] + c1 * rest * \
+                    dginit[late][None, :]
+                pick[late] = torch.where(
+                    ok2.any(dim=0),
+                    T1 + torch.argmax(ok2.to(torch.uint8), dim=0), ls_max)
+        alpha = torch.gather(alphas, 0, pick[None])[0]
+        alpha = torch.where(active, alpha, 0.0)
+
+        # --- the step, at the new point's loss and gradient (K2ℓ)
+        x_new = x + alpha[:, None] * p
+        ab = alpha.view(G, *([1] * (Z.dim() - 1)))
+        Z_new = Z + ab * Zp
+        del Zp
+        loss, dZ = loss_grad(Z_new)
+        f_new = loss + penalty(x_new)
+        g_new = AT(dZ) + (2.0 * l2)[:, None] * pen * x_new
+        del dZ
+        ok = torch.isfinite(f_new) & active
+        x_new = torch.where(ok[:, None], x_new, x)
+        f_new = torch.where(ok, f_new, f)
+        g_new = torch.where(ok[:, None], g_new, g)
+        Z = torch.where(ok.view(G, *([1] * (Z.dim() - 1))), Z_new, Z)
+        del Z_new
+
+        s = x_new - x
+        yv = g_new - g
+        sy = (s * yv).sum(dim=1)
+        update = (sy > 1e-10) & active
+        # a stored pair shifts the lane's older pairs one position on
+        up3 = update[:, None, None]
+        S = torch.where(up3, torch.cat([s[:, None], S[:, :-1]], dim=1), S)
+        Yh = torch.where(up3, torch.cat([yv[:, None], Yh[:, :-1]], dim=1),
+                         Yh)
+        rho = torch.where(update[:, None], torch.cat(
+            [(1.0 / torch.where(update, sy, 1.0))[:, None], rho[:, :-1]],
+            dim=1), rho)
+        gamma = torch.where(update, sy / ((yv * yv).sum(dim=1) + eps),
+                            gamma)
+        n_iter = n_iter + active.to(torch.int32)
+        x, f, g = x_new, f_new, g_new
+        it += 1
+
+    gn = gnorm(g)
+    return LBFGSResult(x=x, fun=f, grad_norm=gn, n_iter=n_iter,
+                       converged=gn <= tol)

@@ -7,7 +7,9 @@ searches, the naive Bayes, LDA, KNN and KMeans searches with N1, C1 and
 B1, and the rest of the SVMs: P1 and P2 of probability=True, S2's SVR
 mode, and the SVC/NuSVC probability, SVR, NuSVR, LinearSVC and LinearSVR
 searches; SP1, the sparse X's products, and the searches under
-data_mode="sparse").  They skip where no card is visible.
+data_mode="sparse"; the keyed fleets' K2ℓ, K4ℓ and C1ℓ, TI1 of the
+converted tree ensembles, and the fleets on dicts of columns).  They
+skip where no card is visible.
 
 This file imports neither JAX nor sklearn, so it also runs on a machine
 that has only PyTorch:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -2107,3 +2109,314 @@ def test_sparse_search_on_cuda_matches_cpu(cuda_device, name):
     agree = np.mean(runs["cuda", "sparse"].predict(X)
                     == runs["cpu", "sparse"].predict(X))
     assert agree >= 0.99
+
+
+# --- the keyed fleets: K2ℓ, K4ℓ (lane-major GLM epilogues), C1ℓ (per-lane
+# --- X), TI1 (converted tree ensembles), the fleets on cuda -------------
+
+def _lane_inputs(k, G, L, device, per_lane=True, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (G, L) if k == 2 else (G, L, k)
+    Z = (3.0 * rng.standard_normal(shape)).astype(np.float32)
+    Zp = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.random((G, L)) < 0.8).astype(np.float32)
+    y = rng.integers(0, k, (G, L) if per_lane else L).astype(np.int32)
+    a0 = rng.uniform(0.05, 1.0, G).astype(np.float32)
+    alphas = (a0[None, :] * 0.5 ** np.arange(16, dtype=np.float32)[:, None])
+    return [torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (Z, Zp, w, y, alphas.astype(np.float32))]
+
+
+# (k, G, L): binary, small and wide k, a lone lane, a lone row, G not a
+# multiple of the block's 4 lanes, a bucket of 4096 rows
+LANE_SHAPES = [(2, 37, 64), (3, 37, 64), (4, 9, 4096), (10, 5, 300),
+               (17, 6, 33), (2, 1, 1), (4, 1, 16), (4, 1000, 16),
+               (2, 3, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_lane", [True, False])
+@pytest.mark.parametrize("k,G,L", LANE_SHAPES)
+def test_lane_kernels_match_plain(cuda_device, k, G, L, per_lane):
+    """K2ℓ and K4ℓ against their plain versions: loss rtol 1e-5, G atol
+    1e-6, trial losses rtol 1e-5 (row sums in another order); each
+    launch counted; two launches give the same bits."""
+    Z, Zp, w, y, alphas = _lane_inputs(k, G, L, cuda_device, per_lane)
+    n0 = dict(gk.LANE_LAUNCHES)
+    loss, G_ = gk.glm_loss_grad_lanes(Z, w, y)
+    loss2, G2 = gk.glm_loss_grad_lanes(Z, w, y)
+    out = gk.glm_trial_loss_lanes(Z, Zp, w, y, alphas)
+    out_t = gk.glm_trial_loss_lanes(Z, Zp, w, y, alphas[:15].contiguous())
+    assert gk.LANE_LAUNCHES["glm_loss_grad_lanes"] == \
+        n0["glm_loss_grad_lanes"] + 2
+    assert gk.LANE_LAUNCHES["glm_trial_loss_lanes"] == \
+        n0["glm_trial_loss_lanes"] + 2
+    assert torch.equal(loss, loss2) and torch.equal(G_, G2)
+    cpu = [t.cpu() for t in (Z, Zp, w, y, alphas)]
+    lp, Gp = gk.glm_loss_grad_lanes_plain(cpu[0], cpu[2], cpu[3])
+    op = gk.glm_trial_loss_lanes_plain(*cpu)
+    np.testing.assert_allclose(loss.cpu().numpy(), lp.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(G_.cpu().numpy(), Gp.numpy(), atol=1e-6)
+    np.testing.assert_allclose(out.cpu().numpy(), op.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(out_t.cpu().numpy(), op[:15].numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4])
+def test_lane_kernels_shared_labels_are_per_lane_labels(cuda_device, k):
+    """Label stride 0 (one row of labels) gives the bits of stride L with
+    that row repeated."""
+    Z, Zp, w, y, alphas = _lane_inputs(k, 7, 50, cuda_device, False)
+    yl = y.expand(7, 50).contiguous()
+    a = gk.glm_loss_grad_lanes(Z, w, y)
+    b = gk.glm_loss_grad_lanes(Z, w, yl)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(gk.glm_trial_loss_lanes(Z, Zp, w, y, alphas),
+                       gk.glm_trial_loss_lanes(Z, Zp, w, yl, alphas))
+
+
+@pytest.mark.cuda
+def test_lane_kernel_wrappers_raise(cuda_device):
+    Z, Zp, w, y, alphas = _lane_inputs(4, 5, 20, cuda_device)
+    with pytest.raises(TypeError):
+        gk.glm_loss_grad_lanes(Z, w, y.long())
+    with pytest.raises(ValueError):
+        gk.glm_loss_grad_lanes(Z, w[:, :10].contiguous(), y)
+    with pytest.raises(ValueError):
+        gk.glm_loss_grad_lanes(Z, w.cpu(), y)
+    with pytest.raises(ValueError):
+        gk.glm_loss_grad_lanes(Z.transpose(0, 1), w, y)
+    with pytest.raises(ValueError):
+        gk.glm_trial_loss_lanes(Z, Zp, w, y, torch.cat([alphas, alphas]))
+    with pytest.raises(ValueError):
+        gk.glm_trial_loss_lanes(Z, Zp[:, :10], w, y, alphas)
+
+
+# (G, L, d, k): the fleet's buckets, d not a multiple of 4, one lane
+ASSIGN_LANE_SHAPES = [(40, 16, 32, 8), (9, 4096, 32, 8), (3, 600, 7, 3),
+                      (1, 8, 5, 2), (130, 64, 6, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,L,d,k", ASSIGN_LANE_SHAPES)
+def test_kmeans_assign_lanes_matches_plain(cuda_device, G, L, d, k):
+    """C1ℓ: assign and min_d2 bit for bit the plain version's (dot in t
+    order, multiply and add apart), inertia rtol 1e-5; C1ℓ over every
+    lane's copy of one X gives C1's assign and min_d2 bits (stride 0 is
+    C1 itself)."""
+    rng = np.random.default_rng(G + L)
+    X = torch.as_tensor(rng.normal(size=(G, L, d)).astype(np.float32),
+                        device=cuda_device)
+    C = torch.as_tensor(rng.normal(size=(G, k, d)).astype(np.float32),
+                        device=cuda_device)
+    w = torch.as_tensor((rng.random((G, L)) < 0.7).astype(np.float32),
+                        device=cuda_device)
+    xx, cc = (X * X).sum(dim=2), (C * C).sum(dim=2)
+    n0 = kmk.LANE_LAUNCHES["kmeans_assign_lanes"]
+    a, m, s = kmk.kmeans_assign_lanes(X, C, xx, cc, w)
+    assert kmk.LANE_LAUNCHES["kmeans_assign_lanes"] == n0 + 1
+    ap, mp, sp_ = kmk.kmeans_assign_lanes_plain(X.cpu(), C.cpu(), xx.cpu(),
+                                                cc.cpu(), w.cpu())
+    assert torch.equal(a.cpu(), ap) and torch.equal(m.cpu(), mp)
+    np.testing.assert_allclose(s.cpu().numpy(), sp_.numpy(), rtol=1e-5)
+    X0 = X[0]
+    a1, m1, _ = kmk.kmeans_assign(X0, C, xx[0], cc, w)
+    a2, m2, _ = kmk.kmeans_assign_lanes(X0.expand(G, L, d).contiguous(), C,
+                                        xx[0].expand(G, L).contiguous(), cc,
+                                        w)
+    assert torch.equal(a1, a2) and torch.equal(m1, m2)
+    with pytest.raises(ValueError):
+        kmk.kmeans_assign_lanes(X, C, xx[:, :3].contiguous(), cc, w)
+    with pytest.raises(ValueError):
+        kmk.kmeans_assign_lanes(X[0], C, xx, cc, w)
+
+
+def _grown_tree(rng, X, y, depth, n_out, min_split=8):
+    """A tree in sklearn's node layout (depth first, left subtree first)
+    grown on rows of X: a random feature a node, the threshold one of
+    its rows' values; leaf values the rows' class shares (n_out > 1) or
+    a random value."""
+    feat, thr, left, right, val = [], [], [], [], []
+
+    def grow(rows, level):
+        i = len(feat)
+        feat.append(-2), thr.append(-2.0), left.append(-1)
+        right.append(-1)
+        if n_out > 1:
+            val.append(np.bincount(y[rows], minlength=n_out) / len(rows))
+        else:
+            val.append([rng.normal()])
+        if level < depth and len(rows) >= min_split:
+            f = int(rng.integers(X.shape[1]))
+            t = float(X[rows[rng.integers(len(rows))], f])
+            go = X[rows, f] <= t
+            if 0 < go.sum() < len(rows):
+                feat[i], thr[i] = f, t
+                left[i] = grow(rows[go], level + 1)
+                right[i] = grow(rows[~go], level + 1)
+        return i
+
+    grow(np.arange(len(X)), 0)
+    tree = type("Tree", (), {})()
+    tree.feature, tree.threshold = np.array(feat), np.array(thr)
+    tree.children_left, tree.children_right = np.array(left), np.array(right)
+    tree.value = np.asarray(val, np.float64)[:, None, :]
+    tree.node_count = len(feat)
+    depth_of = np.zeros(len(feat), int)
+    for v in range(len(feat)):
+        for c in (left[v], right[v]):
+            if c >= 0:
+                depth_of[c] = depth_of[v] + 1
+    tree.max_depth = int(depth_of.max())
+    return tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k,T", [("forest_proba", 2, 9),
+                                      ("forest_proba", 7, 12),
+                                      ("mean", 1, 10), ("boost", 1, 8),
+                                      ("boost", 4, 24)])
+def test_tree_ensemble_matches_plain(cuda_device, mode, k, T):
+    """TI1 against its plain version on the card and on CPU copies (rtol
+    1e-6): trees of different depths (one of 9 levels among shallower
+    ones) and a single-leaf tree among them; launches counted."""
+    from spark_sklearn_tpu_torch.convert import tree_infer as ti
+    from spark_sklearn_tpu_torch.ops import tree_infer_kernels as tik
+
+    rng = np.random.default_rng(T)
+    X = rng.normal(size=(3000, 11)).astype(np.float32)
+    y = rng.integers(0, max(k, 2), 3000)
+    n_out = k if mode == "forest_proba" else 1
+    trees = [_grown_tree(rng, X[rng.integers(0, 3000, 500)], y,
+                         9 if t == 1 else 4, n_out) for t in range(T)]
+    trees[2] = _grown_tree(rng, X[:5], y, 0, n_out)        # a single leaf
+    packed = ti.to_device(ti.pack_trees(trees), cuda_device)
+    K = k if mode == "boost" else 1
+    init = torch.linspace(-1, 1, K, device=cuda_device)
+    Xd = torch.as_tensor(X, device=cuda_device)
+    args = [packed[a] for a in ti.ARRAYS] + [packed["max_depth"], mode]
+    n0 = tik.LAUNCHES["tree_ensemble"]
+    got = tik.tree_ensemble(Xd, *args, K=K, init=init, lr=0.1)
+    assert tik.LAUNCHES["tree_ensemble"] == n0 + 1
+    want = tik.tree_ensemble_plain(Xd, *args, K=K, init=init, lr=0.1)
+    cpu = tik.tree_ensemble(Xd.cpu(), *[a.cpu() if torch.is_tensor(a) else a
+                                        for a in args], K=K,
+                            init=init.cpu(), lr=0.1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    assert torch.equal(got, tik.tree_ensemble(Xd, *args, K=K, init=init,
+                                              lr=0.1))
+
+
+@pytest.mark.cuda
+def test_tree_ensemble_wrapper_raises(cuda_device):
+    from spark_sklearn_tpu_torch.convert import tree_infer as ti
+    from spark_sklearn_tpu_torch.ops import tree_infer_kernels as tik
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(100, 4)).astype(np.float32)
+    trees = [_grown_tree(rng, X, rng.integers(0, 3, 100), 3, 3)
+             for _ in range(3)]
+    p = ti.to_device(ti.pack_trees(trees), cuda_device)
+    Xd = torch.as_tensor(X, device=cuda_device)
+    args = [p[a] for a in ti.ARRAYS] + [p["max_depth"]]
+    with pytest.raises(ValueError):
+        tik.tree_ensemble(Xd, *args, "median")
+    with pytest.raises(ValueError):
+        tik.tree_ensemble(Xd, *args, "boost", K=2, init=torch.zeros(
+            2, device=cuda_device))              # 3 trees, K = 2
+    with pytest.raises(TypeError):
+        tik.tree_ensemble(Xd, p["feature"].long(), *args[1:],
+                          "forest_proba")
+    with pytest.raises(ValueError):
+        tik.tree_ensemble(Xd.t(), *args,
+                          "forest_proba")
+
+
+def _fleet_table(seed=0, sizes=(12, 40, 100, 300, 33, 700)):
+    rng = np.random.default_rng(seed)
+    kid = np.concatenate([np.full(m, i) for i, m in enumerate(sizes)])
+    X = rng.normal(size=(len(kid), 6)).astype(np.float32)
+    W = rng.normal(size=(len(sizes), 6))
+    z = np.einsum("nd,nd->n", X, W[kid]) + 0.5 * rng.normal(size=len(kid))
+    return {"k": kid, "x": X, "yb": (z > 0).astype(int),
+            "ym": np.digitize(z, [-1.0, 1.0]), "yr": z}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["logreg_binary", "logreg_multinomial",
+                                   "ridge", "linreg", "kmeans", "scaler",
+                                   "pca"])
+def test_keyed_fleet_on_cuda_matches_cpu(cuda_device, label):
+    """The port's own estimators as keyed fleets on a dict of columns:
+    cuda against the CPU (labels and ids equal, outputs atol 1e-4, PCA up
+    to each key's component signs), the lane kernels launched on cuda."""
+    est, kw = {
+        "logreg_binary": (port.LogisticRegression(), {"yCol": "yb"}),
+        "logreg_multinomial": (port.LogisticRegression(), {"yCol": "ym"}),
+        "ridge": (port.Ridge(alpha=2.0), {"yCol": "yr"}),
+        "linreg": (port.LinearRegression(), {"yCol": "yr"}),
+        "kmeans": (port.KMeans(n_clusters=3, random_state=0),
+                   {"estimatorType": "clusterer"}),
+        "scaler": (port.StandardScaler(), {"estimatorType": "transformer"}),
+        "pca": (port.PCA(n_components=3), {"estimatorType": "transformer"}),
+    }[label]
+    table = _fleet_table()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        gk.reset_launches()
+        kmk.reset_launches()
+        km = port.KeyedEstimator(sklearnEstimator=est, keyCols=["k"],
+                                 xCol="x", config=port.TorchConfig(
+                                     device=dev), **kw).fit(table)
+        assert km.backend == "device"
+        outs[dev] = km.transform(table)["output"]
+        launched = sum(gk.LANE_LAUNCHES.values()) + sum(
+            kmk.LANE_LAUNCHES.values())
+        if label.startswith(("logreg", "kmeans")):
+            assert (launched > 0) == (dev == "cuda")
+    a, b = outs["cuda"], outs["cpu"]
+    if a.dtype == object:
+        a, b = np.stack(a), np.stack(b)
+        if label == "pca":
+            for key in np.unique(table["k"]):
+                m = table["k"] == key
+                a[m] *= np.sign((a[m] * b[m]).sum(axis=0, keepdims=True))
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    elif a.dtype.kind == "f":
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    else:
+        assert np.mean(a == b) >= 0.995
+
+
+@pytest.mark.cuda
+def test_compiled_group_function_on_cuda(cuda_device):
+    """`run_bucketed` with a compiled group function's vmap on cuda
+    against the CPU (the path gapply takes; gapply itself needs pandas)."""
+    from spark_sklearn_tpu_torch.keyed.gapply import (
+        compiled_group_func,
+        segment_launch,
+    )
+    from spark_sklearn_tpu_torch.keyed.keyed import run_bucketed
+
+    @compiled_group_func
+    def stats(X, w):
+        n = w.sum()
+        mean = (X * w[:, None]).sum(dim=0) / n
+        return torch.cat([mean, n[None]])
+
+    table = _fleet_table()
+    rows = [np.flatnonzero(table["k"] == i) for i in range(6)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        X = torch.as_tensor(table["x"], device=dev)
+        order, Y, buckets = run_bucketed(rows, X, segment_launch(stats))
+        out[dev] = Y.cpu().numpy()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-5)
+    assert [int(v) for v in out["cpu"][:, -1]] == [len(rows[i])
+                                                   for i in order]

@@ -270,6 +270,24 @@ def test_import_scan_walks_every_module():
         assert f"spark_sklearn_tpu_torch/{rel}" in names, rel
 
 
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_module_level_pandas(path):
+    """The card's machine has no pandas: the keyed fleets, gapply and
+    the Converter import it inside the functions that need it."""
+    for name, in_func in _imports(ast.parse(path.read_text())):
+        if _root(name) == "pandas":
+            assert in_func, f"{path}: module-level import of {name}"
+
+
+def test_import_scan_covers_the_keyed_and_convert_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for rel in ("keyed/__init__.py", "keyed/keyed.py", "keyed/gapply.py",
+                "convert/converter.py", "convert/tree_infer.py",
+                "convert/params.py", "ops/tree_infer_kernels.py"):
+        assert f"spark_sklearn_tpu_torch/{rel}" in names, rel
+
+
 def test_import_scan_catches_violations():
     bad = ast.parse("import jax\nfrom spark_sklearn_tpu.models import base\n"
                     "from sklearn.base import clone\n"
